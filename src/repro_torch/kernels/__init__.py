@@ -1,0 +1,7 @@
+"""Hand-written CUDA kernels for Hopper, each beside its plain PyTorch
+version: ``flash_attention`` (prefill) and ``decode_attention``.
+
+Importing this package or its modules needs neither ``nvcc`` nor
+``triton``: the kernels are built by :mod:`._build` at their first call
+with a CUDA tensor. A CPU tensor goes through the plain version.
+"""

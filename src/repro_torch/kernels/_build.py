@@ -1,0 +1,128 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface, loaded with ``ctypes``. The
+sources include no PyTorch header, so a build takes seconds; the
+``nvcc`` of each source starts at once and they run in parallel. The
+library lands under the repository's ``build/`` directory, keyed by a
+hash of the sources and flags, and is built at first use with a CUDA
+tensor — importing any module of the port never needs ``nvcc``.
+
+A failed build raises with ``nvcc``'s output; there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+__all__ = ["build", "load", "kernel_function", "check", "BuildInfo"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lib: ctypes.CDLL | None = None  # the process's loaded kernel library
+
+
+class BuildInfo:
+    """Where the library is, how long its build took (0 = cached), and
+    ``nvcc``'s output (register / shared-memory use per kernel)."""
+
+    def __init__(self, path: Path, seconds: float, log: str):
+        self.path, self.seconds, self.log = path, seconds, log
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and (Path(home) / "bin" / "nvcc").exists():
+            return str(Path(home) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.iterdir()):
+        if src.suffix in (".cu", ".cuh"):
+            h.update(src.name.encode())
+            h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> BuildInfo:
+    """Compile ``csrc/*.cu`` into ``libkernels.so`` unless this exact
+    source set is already built."""
+    out_dir = BUILD_ROOT / _digest()
+    lib_path = out_dir / "libkernels.so"
+    log_path = out_dir / "build.log"
+    if lib_path.exists():
+        return BuildInfo(lib_path, 0.0, log_path.read_text() if log_path.exists() else "")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        procs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = Path(tmp) / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", str(obj)]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            )))
+        logs, failed = [], []
+        for src, _, proc in procs:
+            out, _ = proc.communicate()
+            logs.append(f"== {src.name}\n{out}")
+            if proc.returncode != 0:
+                failed.append(src.name)
+        log = "\n".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        tmp_lib = Path(tmp) / "libkernels.so"
+        link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                "-o", str(tmp_lib), *(str(obj) for _, obj, _ in procs)]
+        res = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{res.stdout}\n{log}")
+        log_path.write_text(log)
+        os.replace(tmp_lib, lib_path)  # atomic: a concurrent build sees all or nothing
+    return BuildInfo(lib_path, time.perf_counter() - t0, log)
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first use and loaded once per process."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build().path))
+        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def kernel_function(name: str, argtypes: list) -> ctypes._CFuncPtr:
+    """A C entry of the library with its argument types declared
+    (``c_void_p`` for every pointer and the stream) and an int return:
+    the entry's ``cudaGetLastError()``."""
+    fn = getattr(load(), name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a kernel entry reported a CUDA error."""
+    if err != 0:
+        msg = load().repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err}: {msg}")

@@ -1,0 +1,47 @@
+// Helpers shared by the attention kernels: element conversion, strides,
+// warp reductions. Every kernel reads fp32 or bf16 elements and does its
+// arithmetic in fp32.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace repro {
+
+// Finite "minus infinity", as in the TPU kernels: a fully masked tile
+// then adds exp(NEG_INF - m) = 0 and never produces inf - inf = NaN.
+constexpr float NEG_INF = -1e30f;
+
+enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// Element strides of a [batch, seq, heads, head_dim] tensor whose last
+// dim is contiguous (the wrappers check it).
+struct Strides4 {
+  long long b, s, h;
+};
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+}  // namespace repro

@@ -1,0 +1,255 @@
+"""Decoder-only LM assembly for the uniform full-attention family.
+
+Entry points, as in the JAX package's ``models/transformer.py``:
+
+* :func:`prefill` — forward over a prompt, building a dense KV cache;
+* :func:`decode_step` — one token per lane against that cache.
+
+The JAX ``lax.scan`` over stacked layer params is a Python loop over the
+layer axis here. The cache is batched natively: ``{"len": [B] int32,
+"c0": {"k", "v": [n_layers, B, max_len, KV, Dh]}}`` with per-lane
+lengths, so a batch of serving slots is one call — :func:`prefill_into`
+and :func:`decode_step` take the ``lanes`` they write and update the
+cache in place.
+
+Sliding windows and ring caches, MoE, SSM/hybrid blocks, encoder–decoder
+models and modality frontends are not ported yet: they raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .attention import attention_block, attn_template
+from .common import ModelConfig, ParamSpec, tree_map
+from .layers import embed_template, gelu_mlp, mlp_template, rmsnorm, swiglu_mlp
+
+__all__ = [
+    "lm_template",
+    "prefill",
+    "prefill_into",
+    "decode_step",
+    "init_cache",
+    "init_cache_shapes",
+    "layer_plan",
+    "LayerPlan",
+    "check_supported",
+]
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for the architectures whose model code is not ported yet."""
+    missing = []
+    if cfg.block != "attn":
+        missing.append(f"{cfg.block} blocks (SSM / hybrid)")
+    if cfg.is_moe:
+        missing.append("MoE feed-forward")
+    if cfg.is_encdec:
+        missing.append("encoder-decoder")
+    if cfg.attn_window is not None:
+        missing.append("sliding-window ring caches")
+    if cfg.frontend is not None:
+        missing.append(f"{cfg.frontend} frontend")
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(missing)} not ported to PyTorch yet "
+            "(ROADMAP.md, Queue 1: the SSM and hybrid models and the rest of the zoo)"
+        )
+
+
+# ---------------------------------------------------------------------------
+# Layer plan
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ClassSpec:
+    window: int | None  # None = full attention
+    layer_ids: tuple[int, ...]
+
+    @property
+    def count(self) -> int:
+        return len(self.layer_ids)
+
+
+@dataclasses.dataclass(frozen=True)
+class RunSpec:
+    class_idx: int
+    offset: int
+    count: int
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerPlan:
+    classes: tuple[ClassSpec, ...]
+    runs: tuple[RunSpec, ...]
+
+
+def layer_plan(cfg: ModelConfig) -> LayerPlan:
+    """The uniform full-attention plan: one class ``c0`` holding every
+    layer, run in one pass (the JAX plan's single-class case)."""
+    check_supported(cfg)
+    n = cfg.n_layers
+    return LayerPlan((ClassSpec(None, tuple(range(n))),), (RunSpec(0, 0, n),))
+
+
+def lm_template(cfg: ModelConfig) -> dict:
+    """Full parameter template (the JAX package's, leaf for leaf)."""
+    cfg.validate()
+    n = layer_plan(cfg).classes[0].count
+    D = cfg.d_model
+    layers = {
+        "ln1": ParamSpec((n, D), ("layers", "embed"), init="ones"),
+        "attn": attn_template(cfg, n_layers=n),
+        "ln2": ParamSpec((n, D), ("layers", "embed"), init="ones"),
+        "mlp": mlp_template(cfg, n_layers=n),
+    }
+    t: dict = {"classes": {"c0": layers}}
+    emb = embed_template(cfg)
+    keep_emb: dict = {}
+    if cfg.stage_embed or (cfg.stage_unembed and cfg.tie_embeddings):
+        keep_emb["tok"] = emb["tok"]
+    if cfg.stage_unembed and not cfg.tie_embeddings:
+        keep_emb["lm_head"] = emb["lm_head"]
+    if keep_emb:
+        t["embed"] = keep_emb
+    if cfg.stage_unembed:
+        t["final_norm"] = ParamSpec((cfg.d_model,), ("embed",), init="ones")
+    return t
+
+
+# ---------------------------------------------------------------------------
+# Shared pieces
+# ---------------------------------------------------------------------------
+
+def _embed(params, x_in: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """First stage: token embedding; a middle stage passes the hidden
+    states through."""
+    dtype = cfg.compute_dtype
+    if not cfg.stage_embed:
+        return x_in.to(dtype)
+    return params["embed"]["tok"][x_in.long()].to(dtype)
+
+
+def _unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Last stage: logits; a middle stage returns raw hidden states."""
+    if not cfg.stage_unembed:
+        return x
+    dtype = cfg.compute_dtype
+    x = rmsnorm(x, params["final_norm"], cfg.rms_eps)
+    if cfg.tie_embeddings:
+        return x @ params["embed"]["tok"].to(dtype).T
+    return x @ params["embed"]["lm_head"].to(dtype)
+
+
+def _ffn(x, p_layer, cfg: ModelConfig):
+    if cfg.act == "swiglu":
+        return swiglu_mlp(x, p_layer["mlp"], cfg.compute_dtype)
+    return gelu_mlp(x, p_layer["mlp"], cfg.compute_dtype)
+
+
+def _layer_params(stack: dict, l: int) -> dict:
+    return tree_map(lambda a: a[l], stack)
+
+
+def _layer(x, p_layer, cfg: ModelConfig, *, positions, cache=None, lanes=None):
+    h = rmsnorm(x, p_layer["ln1"], cfg.rms_eps)
+    a, kv = attention_block(
+        h, p_layer["attn"], cfg, positions=positions, cache=cache, lanes=lanes
+    )
+    x = x + a
+    h2 = rmsnorm(x, p_layer["ln2"], cfg.rms_eps)
+    return x + _ffn(h2, p_layer, cfg), kv
+
+
+def _stage_input(batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    return batch["tokens"] if cfg.stage_embed else batch["hidden"]
+
+
+# ---------------------------------------------------------------------------
+# Cache
+# ---------------------------------------------------------------------------
+
+def init_cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    """Cache layout as (shape, dtype) leaves: per-lane lengths and the
+    stacked K/V of every layer."""
+    n = layer_plan(cfg).classes[0].count
+    kv = ((n, batch, max_len, cfg.n_kv_heads, cfg.head_dim), cfg.compute_dtype)
+    return {"len": ((batch,), torch.int32), "c0": {"k": kv, "v": kv}}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
+    """A zeroed cache on ``device``."""
+    return tree_map(
+        lambda sd: torch.zeros(sd[0], dtype=sd[1], device=device),
+        init_cache_shapes(cfg, batch, max_len),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Entry points
+# ---------------------------------------------------------------------------
+
+def prefill_into(params, batch: dict, cache: dict, lanes: torch.Tensor, cfg: ModelConfig):
+    """Prefill N same-length prompts into cache lanes ``lanes`` [N].
+
+    batch: {"tokens": [N, S]} (first stage) or {"hidden": [N, S, D]}.
+    Writes each layer's K/V rows ``[0, S)`` of the given lanes and sets
+    their lengths to S, in place; other lanes are untouched. Returns the
+    last position's logits [N, 1, V] (last stage) or the whole hidden
+    sequence [N, S, D] (a middle stage: the next stage prefills from it).
+    """
+    x_in = _stage_input(batch, cfg)
+    S = x_in.shape[1]
+    max_len = cache["c0"]["k"].shape[2]
+    if S > max_len:
+        raise ValueError(f"prompt of {S} tokens exceeds the cache's max_len {max_len}")
+    x = _embed(params, x_in, cfg)
+    positions = torch.arange(S, device=x.device)
+    stack = params["classes"]["c0"]
+    k_all, v_all = cache["c0"]["k"], cache["c0"]["v"]
+    for l in range(k_all.shape[0]):
+        x, (k, v) = _layer(x, _layer_params(stack, l), cfg, positions=positions)
+        k_all[l, lanes, :S] = k.to(k_all.dtype)
+        v_all[l, lanes, :S] = v.to(v_all.dtype)
+    cache["len"][lanes] = S
+    return _unembed(params, x[:, -1:] if cfg.stage_unembed else x, cfg)
+
+
+def prefill(params, batch: dict, cfg: ModelConfig, *, max_len: int):
+    """Forward over a batch of prompts, building a fresh cache of
+    ``max_len`` rows per lane. Returns (logits [B, 1, V] | hidden
+    [B, S, D], cache)."""
+    x_in = _stage_input(batch, cfg)
+    cache = init_cache(cfg, x_in.shape[0], max_len, x_in.device)
+    lanes = torch.arange(x_in.shape[0], device=x_in.device)
+    return prefill_into(params, batch, cache, lanes, cfg), cache
+
+
+def decode_step(params, token: torch.Tensor, cache: dict, cfg: ModelConfig,
+                lanes: torch.Tensor | None = None):
+    """One decode step for every lane of the cache.
+
+    token: [B, 1] ids (first stage) or hidden [B, 1, D]. Lane b's new
+    token sits at position ``cache["len"][b]``. Only the lanes in
+    ``lanes`` (default: all) get their K/V row written and their length
+    bumped — in place; the other lanes compute garbage the caller drops.
+    Returns (logits [B, 1, V] | hidden [B, 1, D], cache).
+    """
+    x = _embed(params, token, cfg)
+    lengths = cache["len"]
+    if lanes is None:
+        lanes = torch.arange(x.shape[0], device=x.device)
+    positions = lengths[:, None]
+    attn_len = lengths + 1
+    stack = params["classes"]["c0"]
+    k_all, v_all = cache["c0"]["k"], cache["c0"]["v"]
+    for l in range(k_all.shape[0]):
+        x, _ = _layer(
+            x, _layer_params(stack, l), cfg, positions=positions,
+            cache=(k_all[l], v_all[l], attn_len), lanes=lanes,
+        )
+    cache["len"][lanes] += 1
+    return _unembed(params, x, cfg), cache

@@ -1,0 +1,184 @@
+"""The port's attention kernels on the CPU: their plain PyTorch versions
+against the JAX package's Pallas kernels (interpret mode) and jnp
+oracles on the same numpy inputs; the wrappers' CPU path; and the
+port's import rules.
+
+Tolerance 1e-5 (abs and rel): both sides are fp32 with a different
+summation order (blocked online softmax vs one materialized softmax).
+"""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.decode_attention import decode_attention as jax_decode
+from repro.kernels.decode_attention import decode_attention_ref as jax_decode_ref
+from repro.kernels.decode_attention.decode_attention import decode_attention_bhsd
+from repro.kernels.flash_attention import flash_attention as jax_flash
+from repro.kernels.flash_attention import flash_attention_ref as jax_flash_ref
+from repro.kernels.flash_attention.flash_attention import flash_attention_bhsd
+from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
+from repro_torch.kernels.decode_attention.ops import split_chunks
+from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _rand(rng, shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _t(a):
+    return torch.from_numpy(a)
+
+
+FLASH_CASES = [
+    # B, S, H, KV, D, causal, window
+    (2, 64, 4, 4, 32, True, None),  # MHA
+    (2, 64, 4, 2, 32, True, None),  # GQA G=2
+    (1, 100, 8, 2, 16, True, None),  # GQA G=4, ragged tail (100 % 32 != 0)
+    (2, 64, 4, 2, 32, False, None),  # non-causal
+    (1, 128, 4, 1, 32, True, 48),  # MQA + sliding window
+    (1, 77, 4, 4, 64, True, 30),  # window + ragged tail
+]
+
+
+@pytest.mark.parametrize("B,S,H,KV,D,causal,window", FLASH_CASES)
+def test_flash_plain_matches_pallas(B, S, H, KV, D, causal, window):
+    rng = np.random.default_rng(B * 1000 + S + H)
+    q, k, v = _rand(rng, (B, S, H, D)), _rand(rng, (B, S, KV, D)), _rand(rng, (B, S, KV, D))
+    pallas = jax_flash(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal, window=window,
+        block_q=32, block_kv=32, interpret=True,
+    )
+    oracle = jax_flash_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           causal=causal, window=window)
+    got = flash_attention(_t(q), _t(k), _t(v), causal=causal, window=window).numpy()
+    np.testing.assert_allclose(got, np.asarray(pallas), **TOL)
+    np.testing.assert_allclose(got, np.asarray(oracle), **TOL)
+
+
+@pytest.mark.parametrize("H,KV,window", [(4, 4, None), (8, 2, 40)])
+def test_attention_ref_matches_bhsd_kernel(H, KV, window):
+    rng = np.random.default_rng(H)
+    B, S, D = 2, 96, 32
+    q, k, v = _rand(rng, (B, H, S, D)), _rand(rng, (B, KV, S, D)), _rand(rng, (B, KV, S, D))
+    pallas = flash_attention_bhsd(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), window=window,
+        block_q=32, block_kv=32, interpret=True,
+    )
+    got = attention_ref(_t(q), _t(k), _t(v), window=window).numpy()
+    np.testing.assert_allclose(got, np.asarray(pallas), **TOL)
+
+
+DECODE_CASES = [
+    # B, S, H, KV, D, lengths, window, chunk
+    (2, 256, 4, 4, 32, [256, 100], None, 64),  # MHA, full + partial cache
+    (2, 256, 4, 2, 32, [200, 37], 64, 64),  # GQA G=2 + sliding window
+    (4, 128, 8, 2, 32, [1, 37, 100, 128], None, 32),  # GQA G=4, ragged lengths
+    (1, 130, 2, 2, 16, [77], None, 64),  # ragged chunks (130 % 64 != 0)
+]
+
+
+@pytest.mark.parametrize("B,S,H,KV,D,lengths,window,chunk", DECODE_CASES)
+def test_decode_plain_matches_pallas(B, S, H, KV, D, lengths, window, chunk):
+    rng = np.random.default_rng(B * 1000 + S + H)
+    q = _rand(rng, (B, 1, H, D))
+    kc, vc = _rand(rng, (B, S, KV, D)), _rand(rng, (B, S, KV, D))
+    lens = np.asarray(lengths, np.int32)
+    pallas = jax_decode(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(lens),
+                        window=window, chunk=chunk, interpret=True)
+    oracle = jax_decode_ref(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+                            jnp.asarray(lens), window=window)
+    got = decode_attention(_t(q), _t(kc), _t(vc), _t(lens), window=window).numpy()
+    np.testing.assert_allclose(got, np.asarray(pallas), **TOL)
+    np.testing.assert_allclose(got, np.asarray(oracle), **TOL)
+
+
+def test_decode_ref_matches_bhsd_kernel():
+    rng = np.random.default_rng(5)
+    B, S, H, KV, D = 3, 200, 6, 3, 32
+    q = _rand(rng, (B, H, 1, D))
+    kc, vc = _rand(rng, (B, KV, S, D)), _rand(rng, (B, KV, S, D))
+    lens = np.asarray([5, 129, 200], np.int32)
+    pallas = decode_attention_bhsd(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+                                   jnp.asarray(lens), chunk=64, interpret=True)
+    got = decode_attention_ref(_t(q), _t(kc), _t(vc), _t(lens)).numpy()
+    np.testing.assert_allclose(got, np.asarray(pallas), **TOL)
+
+
+@pytest.mark.parametrize(
+    "blocks,S,want",
+    [
+        (4 * 32, 128, (64, 2)),  # serving shape: 4 lanes x 32 KV heads -> 256 blocks
+        (4 * 8, 4096, (464, 9)),  # long GQA cache: 9 chunks fill 264 blocks
+        (1, 100, (64, 2)),  # chunks never shorter than 64 rows
+        (10_000, 4096, (4096, 1)),  # enough blocks already: one chunk
+    ],
+)
+def test_decode_split_fills_the_sms(blocks, S, want):
+    chunk, n_chunks = split_chunks(blocks, S, n_sms=132)
+    assert (chunk, n_chunks) == want
+    assert chunk % 16 == 0 and chunk * n_chunks >= S > chunk * (n_chunks - 1)
+
+
+def test_cpu_wrappers_launch_no_kernel():
+    rng = np.random.default_rng(0)
+    q = _t(_rand(rng, (1, 16, 4, 64)))
+    kv = _t(_rand(rng, (1, 16, 4, 64)))
+    flash_before, decode_before = flash_attention.launches, decode_attention.launches
+    flash_attention(q, kv, kv)
+    decode_attention(q[:, :1], kv, kv, torch.tensor([16], dtype=torch.int32))
+    assert flash_attention.launches == flash_before
+    assert decode_attention.launches == decode_before
+
+
+def test_import_needs_neither_nvcc_nor_triton(tmp_path):
+    """Every module of the port imports with no nvcc on PATH, and loads
+    neither triton, jax nor the kernel library."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from repro_torch.kernels import _build\n"
+        "assert _build._lib is None\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('triton', 'jax', 'repro')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PATH=str(tmp_path), PYTHONPATH=str(REPO / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|,|$)|from\s+repro(\.|\s+import\b))",
+    re.M,
+)
+
+
+def test_port_imports_no_jax_and_nothing_of_repro():
+    files = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 10
+    offenders = [
+        f"{f.relative_to(REPO)}: {m.group(0).strip()}"
+        for f in files
+        for m in _FORBIDDEN.finditer(f.read_text())
+    ]
+    assert not offenders, offenders
+    # The pattern itself catches what it should.
+    assert _FORBIDDEN.search("import jax.numpy as jnp")
+    assert _FORBIDDEN.search("from repro.models import build_model")
+    assert _FORBIDDEN.search("from repro import serving")
+    assert not _FORBIDDEN.search("from repro_torch.models import build_model")
