@@ -9,23 +9,38 @@ Phases, in order; any failure exits non-zero:
 2. Build: every CUDA kernel of the port from the sources in this
    checkout (``repro_torch.kernels._build``), with the build time.
 3. Kernels: each kernel against its plain PyTorch version on the card at
-   the serving path's shapes plus one long case, fp32 (atol 2e-5) and
-   bf16 (against the plain version run in fp32 on the same bf16 inputs,
-   atol 2e-2); kernel, plain-version and ``scaled_dot_product_attention``
-   times (CUDA events, median of 20 runs, each queued behind a device
-   sleep so the events time the device and not the launch).
-4. Serve: full-width stablelm-1.6b (24 layers, d_model 2048, vocab
+   the serving path's shapes plus long cases, fp32 (atol 2e-5) and bf16
+   (against the plain version run in fp32 on the same bf16 inputs, atol
+   2e-2); the paged kernels also on int8 pages with fp32 and bf16 queries
+   (the same tolerances, against the plain version on the same int8 pages
+   and scales), all on shuffled block tables. Kernel, plain-version and
+   yardstick times (CUDA events, median of 20 runs, each queued behind a
+   device sleep so the events time the device and not the launch): one
+   ``scaled_dot_product_attention`` call for the dense kernels; for the
+   paged ones, which no single PyTorch call matches, the port's dense
+   decode kernel on the same rows laid out contiguously (what paging
+   costs) and ``gather_pages`` (K and V) + ``scaled_dot_product_attention``.
+4. Serve dense: full-width stablelm-1.6b (24 layers, d_model 2048, vocab
    100352, bf16, random weights from a seeded ``torch.Generator``) through
    ``PipelineServer`` at G=3 x R=3, max_batch 4, max_len 128, async depth
    2, seed 0: ``run(60, arrival_p=0.5)`` plus four 64..120-token prompts.
-   Both kernels' launch counters must grow and every parameter and cache
-   tensor must live on the card.
-5. Parity: the same weights in fp32. Every attention call of a
-   monolithic prefill and 15 decode steps runs the kernel and its plain
-   version on the same full-width inputs (within 1e-3 of the output's
-   scale); an fp32 server's first token equals the monolithic kernel
-   path's, and its 16 greedy tokens are compared with the plain path's.
-6. A JSON line of per-kernel results, then the device line last.
+   Both dense kernels' launch counters must grow and every parameter and
+   cache tensor must live on the card.
+5. Serve paged: the same weights, ``paged=True``, page 16, max_batch 8,
+   max_len 256, 32 pages per replica (below the dense 128), chunked
+   prefill of 32 tokens, async depth 2, seed 0: ``run(60,
+   arrival_p=0.5)`` plus four 64..200-token prompts, with compute-dtype
+   pages and then int8 pages. Both paged kernels' counters must grow,
+   every pool, scale and block table must live on the card, and every
+   manager's pages must be conserved.
+6. Parity: the same weights in fp32. Every attention call of a
+   monolithic prefill and 15 decode steps, and of a paged chunked prefill
+   and 15 paged decode steps, runs the kernel and its plain version on
+   the same full-width inputs (within 1e-3 of the output's scale); the
+   first tokens of an fp32 dense server and of an fp32 paged server equal
+   the monolithic kernel path's, and the dense server's 16 greedy tokens
+   are compared with the plain path's.
+7. A JSON line of per-kernel results, then the device line last.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -144,9 +159,133 @@ def decode_case(B, S, H, KV, D, lengths, dtype, gen):
     }
 
 
+def paged_operands(B, NB, page, KV, D, dtype, int8, gen):
+    """A shuffled pool of B * NB + 3 pages (lane b's block j is page
+    bt[b, j]; the rest hold garbage) in ``dtype``, or int8 with scales."""
+    from repro_torch.kernels.decode_attention import quantize_kv
+
+    P = B * NB + 3
+    k = torch.randn(P, page, KV, D, generator=gen, device="cuda")
+    v = torch.randn(P, page, KV, D, generator=gen, device="cuda")
+    bt = torch.randperm(P, generator=gen, device="cuda")[: B * NB].reshape(B, NB).int()
+    if int8:
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        return k, v, ks, vs, bt
+    return k.to(dtype), v.to(dtype), None, None, bt
+
+
+def paged_bytes(q, rows: int, KV: int, D: int, k, pages_read: int) -> float:
+    """Bytes a paged call must move: q read and the output written, each
+    visible K/V row once (plus its two fp32 scales for int8 pages), and
+    the block-table entries of the pages read."""
+    scale_bytes = 8 if k.dtype == torch.int8 else 0
+    return 2 * q.numel() * q.element_size() + rows * (2 * KV * D * k.element_size() + scale_bytes) \
+        + 4 * pages_read
+
+
+def _label(dtype, int8) -> str:
+    return str(dtype).removeprefix("torch.") + (" q, int8 pages" if int8 else "")
+
+
+def paged_decode_case(B, page, H, KV, D, lengths, dtype, int8, gen):
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, gather_pages, paged_decode_attention, paged_decode_attention_ref)
+
+    NB = -(-max(lengths) // page)
+    k, v, ks, vs, bt = paged_operands(B, NB, page, KV, D, dtype, int8, gen)
+    q = torch.randn(B, 1, H, D, generator=gen, device="cuda").to(dtype)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    run = lambda: paged_decode_attention(q, k, v, bt, lens, k_scales=ks, v_scales=vs)  # noqa: E731
+    out = run()
+    torch.cuda.synchronize()
+    want = paged_decode_attention_ref(q.float(), k if int8 else k.float(), v if int8 else v.float(),
+                                      bt, lens, k_scales=ks, v_scales=vs)
+    err = (out.float() - want).abs().max().item()
+    # Yardsticks: the same rows laid out contiguously for the dense kernel,
+    # and gather + SDPA (two gathers and one SDPA call).
+    kc, vc = gather_pages(k, bt, ks).to(dtype), gather_pages(v, bt, vs).to(dtype)
+    S = NB * page
+    mask = (torch.arange(S, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+
+    def gather_sdpa():
+        kt = gather_pages(k, bt, ks).to(dtype).transpose(1, 2)
+        vt = gather_pages(v, bt, vs).to(dtype).transpose(1, 2)
+        return F.scaled_dot_product_attention(q.transpose(1, 2), kt, vt, attn_mask=mask,
+                                              enable_gqa=H != KV)
+
+    rows = sum(min(n, S) for n in lengths)
+    pages_read = sum(-(-min(n, S) // page) for n in lengths)
+    b_ms, b_by = bound(paged_bytes(q, rows, KV, D, k, pages_read) + 4 * B,
+                       4 * H * D * rows, dtype)
+    return {
+        "shape": f"B={B} page={page} H={H} KV={KV} D={D} lengths={lengths}",
+        "dtype": _label(dtype, int8),
+        "max_abs_err": err,
+        "tol": TOL[dtype],
+        "ms": time_ms(run),
+        "plain_ms": time_ms(lambda: paged_decode_attention_ref(q, k, v, bt, lens,
+                                                               k_scales=ks, v_scales=vs)),
+        "library_ms": None,
+        "dense_decode_ms": time_ms(lambda: decode_attention(q, kc, vc, lens)),
+        "gather_sdpa_ms": time_ms(gather_sdpa),
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+    }
+
+
+def paged_prefill_case(B, C, page, H, KV, D, offsets, dtype, int8, gen):
+    from repro_torch.kernels.decode_attention import (
+        gather_pages, paged_prefill_attention, paged_prefill_attention_ref)
+
+    NB = -(-(max(offsets) + C) // page)
+    k, v, ks, vs, bt = paged_operands(B, NB, page, KV, D, dtype, int8, gen)
+    q = torch.randn(B, C, H, D, generator=gen, device="cuda").to(dtype)
+    offs = torch.tensor(offsets, dtype=torch.int32, device="cuda")
+    run = lambda: paged_prefill_attention(q, k, v, bt, offs, k_scales=ks, v_scales=vs)  # noqa: E731
+    out = run()
+    torch.cuda.synchronize()
+    want = paged_prefill_attention_ref(q.float(), k if int8 else k.float(),
+                                       v if int8 else v.float(), bt, offs,
+                                       k_scales=ks, v_scales=vs)
+    err = (out.float() - want).abs().max().item()
+    finite = bool(torch.isfinite(out.float()).all())
+    S = NB * page
+    q_pos = offs[:, None] + torch.arange(C, device="cuda")
+    mask = (torch.arange(S, device="cuda")[None, None, :] <= q_pos[:, :, None])[:, None]
+
+    def gather_sdpa():
+        kt = gather_pages(k, bt, ks).to(dtype).transpose(1, 2)
+        vt = gather_pages(v, bt, vs).to(dtype).transpose(1, 2)
+        return F.scaled_dot_product_attention(q.transpose(1, 2), kt, vt, attn_mask=mask,
+                                              enable_gqa=H != KV)
+
+    rows = sum(min(o + C, S) for o in offsets)
+    pairs = sum(min(o + i + 1, S) for o in offsets for i in range(C))
+    pages_read = sum(-(-min(o + C, S) // page) for o in offsets)
+    b_ms, b_by = bound(paged_bytes(q, rows, KV, D, k, pages_read) + 4 * B,
+                       4 * H * D * pairs, dtype)
+    return {
+        "shape": f"B={B} C={C} page={page} H={H} KV={KV} D={D} offsets={offsets}",
+        "dtype": _label(dtype, int8),
+        "max_abs_err": err if finite else float("inf"),
+        "tol": TOL[dtype],
+        "ms": time_ms(run),
+        "plain_ms": time_ms(lambda: paged_prefill_attention_ref(q, k, v, bt, offs,
+                                                                k_scales=ks, v_scales=vs)),
+        "library_ms": None,
+        "gather_sdpa_ms": time_ms(gather_sdpa),
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+    }
+
+
+SERVE_LENGTHS = [9, 40, 77, 128, 150, 200, 231, 256]  # 8 lanes, max_len 256
+PREFILL_OFFSETS = [0, 16, 32, 45, 64, 100, 150, 224]  # C=32 chunks, ragged
+
+
 def check_kernels() -> dict[str, list[dict]]:
     gen = torch.Generator(device="cuda").manual_seed(0)
-    flash, decode = [], []
+    flash, decode, pdec, ppre = [], [], [], []
     for dtype in (torch.bfloat16, torch.float32):
         for B in (1, 2, 3, 4):
             for S in (8, 128):
@@ -156,16 +295,29 @@ def check_kernels() -> dict[str, list[dict]]:
         decode.append(decode_case(4, 128, 32, 32, 64, [9, 40, 77, 128], dtype, gen))
         decode.append(decode_case(4, 4096, 32, 32, 64, [100, 1000, 2500, 4096], dtype, gen))
         decode.append(decode_case(4, 4096, 24, 8, 128, [100, 1000, 2500, 4096], dtype, gen))
-    for name, cases in (("flash_attention", flash), ("decode_attention", decode)):
+        for int8 in (False, True):
+            pdec.append(paged_decode_case(8, 16, 32, 32, 64, SERVE_LENGTHS, dtype, int8, gen))
+            pdec.append(paged_decode_case(4, 16, 24, 8, 128, [100, 1000, 2500, 4096],
+                                          dtype, int8, gen))
+            ppre.append(paged_prefill_case(8, 32, 16, 32, 32, 64, PREFILL_OFFSETS,
+                                           dtype, int8, gen))
+        # int8 whole-prompt prefill: one whole-length chunk at offset 0.
+        ppre.append(paged_prefill_case(2, 120, 16, 32, 32, 64, [0, 0], dtype, True, gen))
+    results = {"flash_attention": flash, "decode_attention": decode,
+               "paged_decode_attention": pdec, "paged_prefill_attention": ppre}
+    for name, cases in results.items():
         for c in cases:
+            yard = (f"sdpa {c['library_ms']:.4f} ms" if c["library_ms"] is not None else
+                    f"gather+sdpa {c['gather_sdpa_ms']:.4f} ms"
+                    + (f" dense decode {c['dense_decode_ms']:.4f} ms" if "dense_decode_ms" in c
+                       else ""))
             print(f"  {name} {c['dtype']} {c['shape']}: err {c['max_abs_err']:.3g} "
-                  f"kernel {c['ms']:.4f} ms plain {c['plain_ms']:.4f} ms "
-                  f"sdpa {c['library_ms']:.4f} ms bound {c['bound_ms']:.4f} ms")
-    bad = [(n, c) for n, cs in (("flash", flash), ("decode", decode))
-           for c in cs if not c["max_abs_err"] <= c["tol"]]
+                  f"kernel {c['ms']:.4f} ms plain {c['plain_ms']:.4f} ms {yard} "
+                  f"bound {c['bound_ms']:.4f} ms ({c['bound_by']})")
+    bad = [(n, c) for n, cs in results.items() for c in cs if not c["max_abs_err"] <= c["tol"]]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
-    return {"flash_attention": flash, "decode_attention": decode}
+    return results
 
 
 def on_device(tree, device: torch.device) -> bool:
@@ -208,6 +360,50 @@ def serve(params, model, device: torch.device) -> dict:
     return launches
 
 
+PAGED_KERNELS = ("paged_decode_attention", "paged_prefill_attention")
+
+
+def serve_paged(params, model, device: torch.device, kv_dtype) -> dict:
+    from repro_torch.kernels.decode_attention import (
+        paged_decode_attention, paged_prefill_attention)
+    from repro_torch.serving import PipelineServer
+
+    server = PipelineServer(model, params, n_groups=3, n_replicas=3, paged=True, page_size=16,
+                            max_pages=32, max_batch=8, max_len=256, prefill_chunk=32,
+                            kv_dtype=kv_dtype, async_depth=2, seed=0, device=device)
+    paged_decode_attention.launches = 0
+    paged_prefill_attention.launches = 0
+    rng = np.random.default_rng(1)
+    V = model.cfg.vocab_size
+    t0 = time.perf_counter()
+    direct = [server.submit(rng.integers(0, V, size=L), n_tokens=8) for L in (64, 112, 160, 200)]
+    stats = server.run(60, arrival_p=0.5)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"paged_decode_attention": paged_decode_attention.launches,
+                "paged_prefill_attention": paged_prefill_attention.launches}
+    print(f"  kv_dtype={kv_dtype or 'bf16'}: slots={stats.slots} submitted={stats.submitted} "
+          f"completed={stats.completed_jobs} queued={stats.queued_jobs} "
+          f"preempted_jobs={stats.preempted_jobs} tokens={stats.tokens_generated} "
+          f"chunk_prefill_calls={stats.chunk_prefill_calls} decode_calls={stats.decode_calls} "
+          f"downtime={stats.downtime_fraction:.4f} wall_s={wall:.3f} "
+          f"tokens_per_s={stats.tokens_generated / wall:.2f}")
+    print(f"  launches {launches}; direct prompts generated "
+          f"{[len(r.generated) if r is not None else None for r in direct]}")
+    assert stats.tokens_generated > 0, "no token generated"
+    assert all(0 <= t < V for r in direct if r is not None for t in r.generated)
+    assert all(n > 0 for n in launches.values()), f"a paged kernel never ran: {launches}"
+    tables = [mgr.device_block_table() for mgr in server.managers.values()]
+    assert all(on_device(c, device) for c in server._caches.values()), "a pool is off the card"
+    assert all(t.device.type == "cuda" and t.dtype == torch.int32 for t in tables), \
+        "a block table is off the card"
+    if kv_dtype == "int8":
+        assert all(c["k"].dtype == torch.int8 and "v_scale" in c for c in server._caches.values())
+    for mgr in server.managers.values():
+        mgr.check_conservation()
+    return launches
+
+
 # Kernel vs plain on the model's own full-width inputs, relative to the
 # output's scale. The random-init model's attention scores reach ~10^2
 # (the template's fan-in rule reads the head count, so wq/wk have std
@@ -227,29 +423,34 @@ def compared_attention(worst: dict[str, float]):
     on the same inputs, record the worst relative difference per kernel,
     and continue with the plain output, so the whole forward is the
     plain-attention reference and each comparison sees its exact inputs."""
-    from repro_torch.kernels.decode_attention import decode_attention_ref_model
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_ref_model, paged_decode_attention_ref, paged_prefill_attention_ref)
     from repro_torch.kernels.flash_attention import flash_attention_ref
     from repro_torch.models import attention
 
-    kernel_flash, kernel_decode = attention.flash_attention, attention.decode_attention
+    plain = {
+        "flash_attention": flash_attention_ref,
+        "decode_attention": decode_attention_ref_model,
+        "paged_decode_attention": paged_decode_attention_ref,
+        "paged_prefill_attention": paged_prefill_attention_ref,
+    }
+    kernels = {name: getattr(attention, name) for name in plain}
 
-    def flash(q, k, v, *, causal=True, window=None):
-        want = flash_attention_ref(q, k, v, causal=causal, window=window)
-        got = kernel_flash(q, k, v, causal=causal, window=window)
-        worst["flash_attention"] = max(worst["flash_attention"], _rel_err(got, want))
-        return want
+    def compared(name):
+        def call(*args, **kwargs):
+            want = plain[name](*args, **kwargs)
+            got = kernels[name](*args, **kwargs)
+            worst[name] = max(worst.get(name, 0.0), _rel_err(got, want))
+            return want
+        return call
 
-    def decode(q, k_cache, v_cache, lengths, *, window=None):
-        want = decode_attention_ref_model(q, k_cache, v_cache, lengths, window=window)
-        got = kernel_decode(q, k_cache, v_cache, lengths, window=window)
-        worst["decode_attention"] = max(worst["decode_attention"], _rel_err(got, want))
-        return want
-
-    attention.flash_attention, attention.decode_attention = flash, decode
+    for name in plain:
+        setattr(attention, name, compared(name))
     try:
         yield
     finally:
-        attention.flash_attention, attention.decode_attention = kernel_flash, kernel_decode
+        for name, fn in kernels.items():
+            setattr(attention, name, fn)
 
 
 def parity(params, cfg, device: torch.device) -> None:
@@ -262,7 +463,7 @@ def parity(params, cfg, device: torch.device) -> None:
     params32 = tree_map(lambda t: t.float(), params)
     prompt = np.random.default_rng(2).integers(0, cfg.vocab_size, size=64)
     batch = {"tokens": torch.from_numpy(prompt)[None].to(device)}
-    worst = {"flash_attention": 0.0, "decode_attention": 0.0}
+    worst: dict[str, float] = {}
     with torch.no_grad():
         logits_kernel, _ = model.prefill(params32, batch, 128)
         with compared_attention(worst):
@@ -275,6 +476,7 @@ def parity(params, cfg, device: torch.device) -> None:
     print("  every attention call of a 64-token prefill + 15 decode steps, kernel vs plain "
           "on the same inputs: max|kernel - plain| / max|plain| = "
           + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()) + f" (tol {MODEL_REL_TOL})")
+    assert set(worst) == {"flash_attention", "decode_attention"}, worst
     assert all(v <= MODEL_REL_TOL for v in worst.values()), worst
     end_to_end = (logits_kernel - logits_plain).abs().max().item()
     print(f"  first-token logits, kernel path vs plain path end to end: max diff "
@@ -294,6 +496,52 @@ def parity(params, cfg, device: torch.device) -> None:
     # The server's stage prefills run the monolithic kernel path's operations
     # on the same shapes, so its first token is that path's, exactly.
     assert req.generated[0] == int(logits_kernel[0, -1].argmax())
+    paged_parity(params32, model, prompt, device)
+    # A paged server without chunking prefills through the same flash
+    # kernel into a transient cache, so its first token is that path's too.
+    server = PipelineServer(model, params32, n_groups=3, n_replicas=3, max_batch=4,
+                            max_len=128, paged=True, async_depth=2, seed=0, device=device)
+    req = server.submit(prompt, n_tokens=16)
+    for _ in range(500):
+        if req.done:
+            break
+        server.step()
+    assert req.done, f"the fp32 paged server did not finish: {len(req.generated)} tokens"
+    print(f"  fp32 paged server: first token {req.generated[0]} "
+          f"(monolithic kernel path {int(logits_kernel[0, -1].argmax())})")
+    assert req.generated[0] == int(logits_kernel[0, -1].argmax())
+
+
+def paged_parity(params32, model, prompt, device: torch.device) -> None:
+    """Teacher-forced: every paged attention call of a chunked prefill of
+    the prompt (32-token chunks) and 15 paged decode steps, kernel vs
+    plain on the same inputs, on a shuffled block table."""
+    cfg = model.cfg
+    page, C = 16, 32
+    NB = -(-(len(prompt) + 16) // page)
+    P = NB + 3
+    shape = (cfg.n_layers, P + 1, page, cfg.n_kv_heads, cfg.head_dim)
+    pools = {"k": torch.zeros(shape, device=device), "v": torch.zeros(shape, device=device)}
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    bt = torch.randperm(P, generator=gen, device="cuda")[:NB][None].int()
+    worst: dict[str, float] = {}
+    ids = torch.from_numpy(prompt).to(device)
+    one = lambda x: torch.tensor([x], dtype=torch.int32, device=device)  # noqa: E731
+    with torch.no_grad(), compared_attention(worst):
+        for pos in range(0, len(prompt), C):
+            chunk = ids[pos : pos + C][None]
+            out = model.prefill_chunk_paged(params32, chunk, pools, one(pos),
+                                            one(chunk.shape[1]), bt)
+        tok = int(out[0, -1].argmax())
+        for L in range(len(prompt), len(prompt) + 15):
+            out = model.decode_paged(params32, torch.tensor([[tok]], device=device), pools,
+                                     one(L), bt)
+            tok = int(out[0, -1].argmax())
+    print("  every paged attention call of a chunked prefill + 15 paged decode steps, kernel "
+          "vs plain on the same inputs: max|kernel - plain| / max|plain| = "
+          + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()) + f" (tol {MODEL_REL_TOL})")
+    assert set(worst) == set(PAGED_KERNELS), worst
+    assert all(v <= MODEL_REL_TOL for v in worst.values()), worst
 
 
 def main() -> int:
@@ -336,27 +584,44 @@ def main() -> int:
     with torch.no_grad():
         launches = serve(params, model, cuda)
 
-    print("[5] parity at full width, fp32", flush=True)
+    print("[5] serve full-width stablelm-1.6b, paged, chunked prefill", flush=True)
+    by_run = {}
+    with torch.no_grad():
+        for kv_dtype in (None, "int8"):
+            by_run[kv_dtype or "bf16"] = serve_paged(params, model, cuda, kv_dtype)
+    for name in PAGED_KERNELS:
+        launches[name] = sum(run[name] for run in by_run.values())
+
+    print("[6] parity at full width, fp32", flush=True)
     parity(params, cfg, cuda)
 
     kernels = []
-    for name, source, replaces in (
+    for name, source, replaces, main_shape in (
         ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
-         "src/repro/kernels/flash_attention/flash_attention.py:113"),
+         "src/repro/kernels/flash_attention/flash_attention.py:113", "B=4 S=128"),
         ("decode_attention", "src/repro_torch/kernels/csrc/decode_attention.cu",
-         "src/repro/kernels/decode_attention/decode_attention.py:66"),
+         "src/repro/kernels/decode_attention/decode_attention.py:66", "B=4 S=128"),
+        ("paged_decode_attention", "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
+         "src/repro/kernels/decode_attention/paged.py:88", "B=8 page=16"),
+        ("paged_prefill_attention", "src/repro_torch/kernels/csrc/paged_prefill_attention.cu",
+         "src/repro/kernels/decode_attention/paged_prefill.py:95", "B=8 C=32"),
     ):
         cases = results[name]
         main_case = next(c for c in cases if c["dtype"] == "bfloat16"
-                         and c["shape"].startswith("B=4 S=128"))
-        kernels.append({
+                         and c["shape"].startswith(main_shape))
+        entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name],
             **{k: main_case[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},
             "main_case": f"{main_case['shape']} {main_case['dtype']}",
             "cases": cases,
-        })
+        }
+        if name in PAGED_KERNELS:
+            entry["launches_by_run"] = {run: counts[name] for run, counts in by_run.items()}
+            entry["library_note"] = ("no single PyTorch call reads a block table; "
+                                     "gather_sdpa_ms = gather_pages (K, V) + SDPA")
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -12,8 +12,8 @@
 // and each warp keeps its own online-softmax state (m, l, acc) in registers
 // for every query head of the group. The four warps merge through shared
 // memory and the block writes one partial (m, l, acc) per query head in fp32.
-// Pass 2 (decode_merge_kernel) merges the partials of the chunks by
-// log-sum-exp, one block per (query head, lane). Rows at or past the lane's
+// Pass 2 (lse_merge_kernel, common.cuh) merges the partials of the chunks
+// by log-sum-exp, one block per (query head, lane). Rows at or past the lane's
 // length, or before its window, are never read: a chunk wholly outside them
 // writes the empty partial (NEG_INF, 0, 0) without touching K/V.
 //
@@ -167,31 +167,6 @@ __global__ void __launch_bounds__(kThreads) decode_partial_kernel(
   }
 }
 
-// Log-sum-exp merge of the chunk partials (decode_attention.py:116-122).
-template <typename T>
-__global__ void decode_merge_kernel(const float* __restrict__ m_in,
-                                    const float* __restrict__ l_in,
-                                    const float* __restrict__ acc_in,
-                                    T* __restrict__ o, int KV, int G,
-                                    int n_chunks, int D, Strides4 os) {
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int kvh = h / G, g = h % G;
-  const long long base = (long long)(b * KV + kvh) * n_chunks * G + g;  // chunk 0
-  float mx = NEG_INF;
-  for (int c = 0; c < n_chunks; ++c) mx = fmaxf(mx, m_in[base + (long long)c * G]);
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    float denom = 0.f, numer = 0.f;
-    for (int c = 0; c < n_chunks; ++c) {
-      const long long idx = base + (long long)c * G;
-      const float w = expf(m_in[idx] - mx);
-      denom += w * l_in[idx];
-      numer += w * acc_in[idx * D + d];
-    }
-    o[b * os.b + h * os.h + d] = from_float<T>(numer / fmaxf(denom, 1e-30f));
-  }
-}
-
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* lengths,
                    float* m_part, float* l_part, float* acc_part, void* o, int B,
@@ -207,7 +182,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* lengt
       window, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  decode_merge_kernel<T><<<dim3(H, B), D, 0, stream>>>(
+  lse_merge_kernel<T><<<dim3(H, B), D, 0, stream>>>(
       m_part, l_part, acc_part, static_cast<T*>(o), KV, G, n_chunks, D, os);
   return cudaGetLastError();
 }

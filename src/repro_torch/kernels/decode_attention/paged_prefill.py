@@ -1,0 +1,78 @@
+"""Wrapper of the paged prefill-attention kernel (model layout).
+
+A CPU tensor goes through the plain version (:mod:`.ref`); a CUDA tensor
+launches ``csrc/paged_prefill_attention.cu`` or raises.
+``paged_prefill_attention.launches`` counts the kernel's launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+from .ops import _DTYPE_CODES
+from .paged import check_paged_operands
+from .ref import paged_prefill_attention_ref
+
+__all__ = ["paged_prefill_attention"]
+
+_ARGTYPES = (
+    [ctypes.c_void_p] * 8
+    + [ctypes.c_int] * 7
+    + [ctypes.c_longlong] * 15
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+)
+
+
+def paged_prefill_attention(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    block_tables: torch.Tensor,
+    offsets: torch.Tensor,
+    *,
+    k_scales: torch.Tensor | None = None,
+    v_scales: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """q: [B, C, H, D], C new tokens per lane (read through strides);
+    pools, scales and block tables as
+    :func:`.paged.paged_decode_attention`; offsets: [B] int32 absolute
+    position of ``q[:, 0]``. Query ``i`` of lane ``b`` attends positions
+    ``<= offsets[b] + i``. Returns [B, C, H, D] in q's dtype."""
+    if q.device.type == "cpu":
+        return paged_prefill_attention_ref(
+            q, k_pages, v_pages, block_tables, offsets, k_scales=k_scales, v_scales=v_scales
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_prefill_attention: unsupported device {q.device}")
+    B, C, H, D = q.shape
+    _, page, KV, _ = k_pages.shape
+    NB = block_tables.shape[1]
+    quant, (sc_p, sc_r) = check_paged_operands(
+        "paged_prefill_attention", q, k_pages, v_pages, block_tables, k_scales, v_scales
+    )
+    if (offsets.shape != (B,) or offsets.dtype != torch.int32 or not offsets.is_contiguous()
+            or offsets.device != q.device):
+        raise ValueError("paged_prefill_attention: offsets must be a contiguous [B] int32 tensor")
+    out = torch.empty((B, C, H, D), dtype=q.dtype, device=q.device)
+    fn = _build.kernel_function("repro_paged_prefill_attention_fwd", _ARGTYPES)
+    err = fn(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        k_scales.data_ptr() if quant else None, v_scales.data_ptr() if quant else None,
+        block_tables.data_ptr(), offsets.data_ptr(), out.data_ptr(),
+        B, C, NB, page, H, KV, D,
+        block_tables.stride(0), q.stride(0), q.stride(1), q.stride(2),
+        k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
+        v_pages.stride(0), v_pages.stride(1), v_pages.stride(2),
+        sc_p, sc_r, out.stride(0), out.stride(1), out.stride(2),
+        D**-0.5, _DTYPE_CODES[q.dtype], int(quant),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(err, "paged_prefill_attention")
+    paged_prefill_attention.launches += 1
+    return out
+
+
+paged_prefill_attention.launches = 0

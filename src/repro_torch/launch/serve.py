@@ -1,7 +1,8 @@
 """Serving CLI: the paper's decentralized inference system on PyTorch.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
-        --smoke --groups 3 --replicas 3 --policy adaptive --slots 60
+        --smoke --groups 3 --replicas 3 --policy adaptive --slots 60 \
+        [--paged --prefill-chunk 32 --kv-dtype int8]
 
 Hosts G pipeline groups x R replicas of the (partitioned) model on one
 device (CUDA unless ``--device`` says otherwise), routes requests with
@@ -36,6 +37,23 @@ def main(argv: list[str] | None = None) -> None:
                     help="continuous-batching slots per (group, replica)")
     ap.add_argument("--max-queue", type=int, default=None,
                     help="pending-queue bound (backpressure); None = unbounded")
+    ap.add_argument("--paged", action="store_true",
+                    help="paged KV cache: per-replica page pool + block tables "
+                         "instead of a dense max_batch x max_len reservation")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="KV entries per page (paged mode)")
+    ap.add_argument("--max-pages", type=int, default=None,
+                    help="pool pages per (group, replica); default matches the "
+                         "dense reservation (max_batch * ceil(max_len/page_size))")
+    ap.add_argument("--kv-dtype", choices=["compute", "int8"], default="compute",
+                    help="paged KV page dtype: 'compute' stores pages at the "
+                         "model compute dtype; 'int8' quantizes each row when "
+                         "it is written (per-row fp32 scales, dequantized inside "
+                         "the attention kernels)")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="chunked prefill (needs --paged): split joining prompts "
+                         "into N-token chunks launched beside the decode of the "
+                         "same step; None = whole-prompt prefill")
     ap.add_argument("--max-park-steps", type=int, default=32,
                     help="starvation-free aging: force-place (preempting the "
                          "youngest resident of a live sibling) any failover "
@@ -70,19 +88,29 @@ def main(argv: list[str] | None = None) -> None:
         max_len=128,
         max_batch=args.max_batch,
         max_queue=args.max_queue,
+        paged=args.paged,
+        page_size=args.page_size,
+        max_pages=args.max_pages,
+        kv_dtype=None if args.kv_dtype == "compute" else args.kv_dtype,
+        prefill_chunk=args.prefill_chunk,
         max_park_steps=args.max_park_steps if args.max_park_steps > 0 else None,
         async_depth=args.async_depth,
         seed=args.seed,
         device=device,
     )
     stats = server.run(args.slots, arrival_p=args.arrival_p)
+    paged_info = (
+        f" preempted={stats.preempted_jobs} peak_active={stats.peak_active}"
+        if args.paged
+        else ""
+    )
     print(
         f"policy={args.policy}: submitted={stats.submitted} "
         f"completed={stats.completed_jobs} dropped={stats.dropped_jobs} "
         f"queued={stats.queued_jobs} tokens={stats.tokens_generated} "
         f"decode_calls={stats.decode_calls} "
         f"downtime={stats.downtime_fraction:.3f} "
-        f"rerouted={stats.rerouted_stages}"
+        f"rerouted={stats.rerouted_stages}" + paged_info
     )
 
 

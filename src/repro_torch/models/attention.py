@@ -1,10 +1,15 @@
-"""Attention sub-block: GQA projections with RoPE, prefill through the
-flash-attention kernel, single-token decode through the flash-decode
-kernel against a dense KV cache.
+"""Attention sub-blocks: GQA projections with RoPE, then
 
-Both kernels take the model layout ([B, S, H, Dh] queries, [B, S, KV, Dh]
-keys and values) directly; on the CPU they run their plain PyTorch
-versions (:mod:`repro_torch.kernels`).
+* prefill through the flash-attention kernel and single-token decode
+  through the flash-decode kernel against a dense KV cache
+  (:func:`attention_block`);
+* single-token decode (:func:`paged_attention_block`) and chunked
+  prefill (:func:`paged_chunk_attention_block`) against a shared page
+  pool, through the paged-decode and paged-prefill kernels.
+
+The kernels take the model layout ([B, S, H, Dh] queries, [B, S, KV, Dh]
+keys and values, [P, page, KV, Dh] pools) directly; on the CPU they run
+their plain PyTorch versions (:mod:`repro_torch.kernels`).
 """
 
 from __future__ import annotations
@@ -12,11 +17,19 @@ from __future__ import annotations
 import torch
 
 from ..kernels.decode_attention.ops import decode_attention
+from ..kernels.decode_attention.paged import paged_decode_attention
+from ..kernels.decode_attention.paged_prefill import paged_prefill_attention
+from ..kernels.decode_attention.ref import quantize_kv
 from ..kernels.flash_attention.ops import flash_attention
 from .common import ModelConfig, ParamSpec
 from .layers import apply_rope, rmsnorm
 
-__all__ = ["attn_template", "attention_block"]
+__all__ = [
+    "attn_template",
+    "attention_block",
+    "paged_attention_block",
+    "paged_chunk_attention_block",
+]
 
 
 def attn_template(cfg: ModelConfig, n_layers: int | None = None) -> dict:
@@ -102,3 +115,89 @@ def attention_block(
     v_cache[lanes, idx] = v[lanes, 0].to(v_cache.dtype)
     out = decode_attention(q, k_cache, v_cache, attn_len)
     return _out_proj(out, p["wo"], dtype), (k_cache, v_cache)
+
+
+def _scatter_kv_pages(pages: dict, k, v, write_pages, write_offs) -> None:
+    """Write K/V rows into one layer's pool views at (write_pages,
+    write_offs), in place (the JAX version returns updated copies).
+
+    ``pages``: {"k", "v"} (+ {"k_scale", "v_scale"} for int8 pools: the
+    presence of scales is the quantization switch). k/v rows are
+    [..., KV, Dh] matching the coordinates' shape; int8 pools quantize
+    each row here (:func:`~repro_torch.kernels.decode_attention.quantize_kv`)
+    and store its fp32 scale beside it, so a row is quantized once.
+    Masked lanes' coordinates point at the scratch page.
+    """
+    if "k_scale" in pages:
+        qk, ks = quantize_kv(k)
+        qv, vs = quantize_kv(v)
+        pages["k"][write_pages, write_offs] = qk
+        pages["v"][write_pages, write_offs] = qv
+        pages["k_scale"][write_pages, write_offs] = ks
+        pages["v_scale"][write_pages, write_offs] = vs
+    else:
+        pages["k"][write_pages, write_offs] = k.to(pages["k"].dtype)
+        pages["v"][write_pages, write_offs] = v.to(pages["v"].dtype)
+
+
+def paged_attention_block(
+    x: torch.Tensor,
+    p: dict,
+    cfg: ModelConfig,
+    *,
+    positions: torch.Tensor,
+    pages: dict,
+    block_tables: torch.Tensor,
+    write_pages: torch.Tensor,
+    write_offs: torch.Tensor,
+):
+    """Single-token attention sub-block against a paged KV pool.
+
+    x [W, 1, D] over the engine's slot width; positions [W, 1] int32 per
+    lane absolute position (>= 0); pages: one layer's pool views
+    {"k", "v": [P+1, page, KV, Dh]} (+ int8 scales [P+1, page]);
+    block_tables [W, NB] int32; write_pages / write_offs [W], precomputed
+    by :func:`repro_torch.models.transformer.decode_step_paged`. The new
+    token's K/V are written in place, then every lane attends through
+    the paged-decode kernel. Returns out [W, 1, D].
+    """
+    dtype = cfg.compute_dtype
+    q, k, v = _project_qkv(x, p, cfg, positions)
+    _scatter_kv_pages(pages, k[:, 0], v[:, 0], write_pages, write_offs)
+    attn_len = positions[:, 0] + 1  # valid entries incl. the new token
+    out = paged_decode_attention(
+        q, pages["k"], pages["v"], block_tables, attn_len,
+        k_scales=pages.get("k_scale"), v_scales=pages.get("v_scale"),
+    )
+    return _out_proj(out, p["wo"], dtype)
+
+
+def paged_chunk_attention_block(
+    x: torch.Tensor,
+    p: dict,
+    cfg: ModelConfig,
+    *,
+    positions: torch.Tensor,
+    pages: dict,
+    block_tables: torch.Tensor,
+    write_pages: torch.Tensor,
+    write_offs: torch.Tensor,
+):
+    """Chunked-prefill sub-block against a paged KV pool.
+
+    x [W, C, D]; positions [W, C] int32 absolute position per chunk
+    token; write_pages / write_offs [W, C] (masked lanes and padding
+    positions point at the scratch page, precomputed by
+    :func:`repro_torch.models.transformer.prefill_chunk_paged`). The
+    chunk's K/V are written in place, then the chunk attends causally
+    over the paged prefix through the paged-prefill kernel. Returns
+    out [W, C, D].
+    """
+    dtype = cfg.compute_dtype
+    q, k, v = _project_qkv(x, p, cfg, positions)
+    _scatter_kv_pages(pages, k, v, write_pages, write_offs)
+    out = paged_prefill_attention(
+        q, pages["k"], pages["v"], block_tables, positions[:, 0].contiguous(),
+        k_scales=pages.get("k_scale"), v_scales=pages.get("v_scale"),
+    )
+    return _out_proj(out, p["wo"], dtype)

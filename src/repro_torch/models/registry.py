@@ -7,6 +7,9 @@ are the serving engine's batched entry points over a slot cache
 in JAX they ``vmap`` the single-request functions over stacked
 per-request caches; here the batch is written out — every call covers
 the cache's whole slot width W and updates the given lanes in place.
+``decode_paged`` / ``prefill_chunk_paged`` are the paged entry points
+(``supports_paged`` configs), natively batched over the slot width as
+in JAX, updating the shared page pool in place.
 """
 
 from __future__ import annotations
@@ -30,6 +33,10 @@ class Model:
     init_cache: Callable  # (batch, max_len, device) -> zeroed cache
     prefill_batch: Callable  # (params, batch [N,S(,D)], cache, lanes [N]) -> out
     decode_batch: Callable  # (params, token [W,1(,D)], cache, lanes [N]) -> out
+    decode_paged: Callable | None = None  # (params, token [W,1(,D)], pools,
+    #   lengths [W] (-1 = masked lane), block_tables [W,NB]) -> out
+    prefill_chunk_paged: Callable | None = None  # (params, chunk [W,C(,D)],
+    #   pools, offsets [W] (-1 = masked), valids [W], block_tables [W,NB]) -> out
 
     @property
     def name(self) -> str:
@@ -39,6 +46,14 @@ class Model:
 def build_model(cfg: ModelConfig) -> Model:
     cfg.validate()
     transformer.check_supported(cfg)
+    decode_paged = prefill_chunk_paged = None
+    if transformer.supports_paged(cfg):
+        decode_paged = lambda p, t, pools, lens, bt: transformer.decode_step_paged(
+            p, t, pools, lens, bt, cfg
+        )
+        prefill_chunk_paged = lambda p, ch, pools, offs, vals, bt: (
+            transformer.prefill_chunk_paged(p, ch, pools, offs, vals, bt, cfg)
+        )
     return Model(
         cfg=cfg,
         template=transformer.lm_template(cfg),
@@ -50,4 +65,6 @@ def build_model(cfg: ModelConfig) -> Model:
         ),
         prefill_batch=lambda p, b, c, lanes: transformer.prefill_into(p, b, c, lanes, cfg),
         decode_batch=lambda p, t, c, lanes: transformer.decode_step(p, t, c, cfg, lanes)[0],
+        decode_paged=decode_paged,
+        prefill_chunk_paged=prefill_chunk_paged,
     )

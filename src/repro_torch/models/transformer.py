@@ -3,7 +3,10 @@
 Entry points, as in the JAX package's ``models/transformer.py``:
 
 * :func:`prefill` — forward over a prompt, building a dense KV cache;
-* :func:`decode_step` — one token per lane against that cache.
+* :func:`decode_step` — one token per lane against that cache;
+* :func:`decode_step_paged` and :func:`prefill_chunk_paged` — one token,
+  or one prompt chunk, per lane against a shared page pool addressed by
+  block tables (the :func:`supports_paged` set).
 
 The JAX ``lax.scan`` over stacked layer params is a Python loop over the
 layer axis here. The cache is batched natively: ``{"len": [B] int32,
@@ -23,7 +26,12 @@ import dataclasses
 
 import torch
 
-from .attention import attention_block, attn_template
+from .attention import (
+    attention_block,
+    attn_template,
+    paged_attention_block,
+    paged_chunk_attention_block,
+)
 from .common import ModelConfig, ParamSpec, tree_map
 from .layers import embed_template, gelu_mlp, mlp_template, rmsnorm, swiglu_mlp
 
@@ -32,6 +40,9 @@ __all__ = [
     "prefill",
     "prefill_into",
     "decode_step",
+    "supports_paged",
+    "decode_step_paged",
+    "prefill_chunk_paged",
     "init_cache",
     "init_cache_shapes",
     "layer_plan",
@@ -253,3 +264,110 @@ def decode_step(params, token: torch.Tensor, cache: dict, cfg: ModelConfig,
         )
     cache["len"][lanes] += 1
     return _unembed(params, x, cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# Paged entry points
+# ---------------------------------------------------------------------------
+
+def supports_paged(cfg: ModelConfig) -> bool:
+    """Paged serving pages the unbounded full-attention KV: every
+    pure-attention architecture whose layers all attend globally, which
+    is every architecture the port has (``check_supported`` raises for
+    the rest). A pipeline stage without layers (more stages than layers,
+    as the two-layer smoke configs give at G=3) pages nothing and is
+    served all the same; the JAX layer plan has no class for it and
+    refuses it."""
+    if cfg.is_encdec or cfg.block != "attn":
+        return False
+    plan = layer_plan(cfg)
+    return len(plan.classes) == 1 and plan.classes[0].window is None
+
+
+def _paged_layers(x, params, cfg: ModelConfig, pools: dict, block, **kw):
+    """Run the layer stack over per-layer pool views (the JAX layer scan
+    as a Python loop); ``block`` is the paged attention sub-block."""
+    stack = params["classes"]["c0"]
+    for l in range(pools["k"].shape[0]):
+        p_layer = _layer_params(stack, l)
+        h = rmsnorm(x, p_layer["ln1"], cfg.rms_eps)
+        pages = {name: t[l] for name, t in pools.items()}
+        x = x + block(h, p_layer["attn"], cfg, pages=pages, **kw)
+        h2 = rmsnorm(x, p_layer["ln2"], cfg.rms_eps)
+        x = x + _ffn(h2, p_layer, cfg)
+    return _unembed(params, x, cfg)
+
+
+def decode_step_paged(params, token, pools: dict, lengths, block_tables, cfg: ModelConfig):
+    """One decode step for a whole slot batch against a shared page pool.
+
+    Natively batched: the W lanes share the replica's pool. Per-lane
+    state is ``lengths`` [W] int32 (tokens already in context; ``-1``
+    marks a masked lane, which writes only the scratch page) and
+    ``block_tables`` [W, NB] int32.
+
+    token: [W, 1] ids (first stage) or hidden [W, 1, D]; pools:
+    {"k", "v": [n_layers, P+1, page, KV, Dh]} (+ int8 pools'
+    {"k_scale", "v_scale": [n_layers, P+1, page]} fp32 scales), updated
+    in place. Returns logits / hidden [W, 1, V|D].
+    """
+    if not supports_paged(cfg):
+        raise ValueError(f"{cfg.name}: paged decode needs uniform full attention")
+    x = _embed(params, token, cfg)
+    lengths = lengths.to(torch.int32)
+    active = lengths >= 0
+    pos = lengths.clamp(min=0)
+    # Write coordinates are layer-invariant: derive them once. Masked
+    # lanes go to the scratch page.
+    W = pos.shape[0]
+    page = pools["k"].shape[2]
+    scratch = pools["k"].shape[1] - 1
+    lanes = torch.arange(W, device=pos.device)
+    blk = (pos // page).long()
+    write_pages = torch.where(active, block_tables[lanes, blk].long(), scratch)
+    write_offs = (pos % page).long()
+    return _paged_layers(
+        x, params, cfg, pools, paged_attention_block,
+        positions=pos[:, None], block_tables=block_tables,
+        write_pages=write_pages, write_offs=write_offs,
+    )
+
+
+def prefill_chunk_paged(params, chunk, pools: dict, offsets, valids, block_tables,
+                        cfg: ModelConfig):
+    """Advance a whole slot batch's paged caches by one prompt chunk.
+
+    Each lane's chunk K/V are written into its reserved pages (write
+    coordinates from the block table; masked lanes, ``offsets == -1``,
+    and padding positions, ``>= valids``, land on the scratch page), then
+    the chunk attends causally over the paged prefix.
+
+    chunk: [W, C] ids (first stage) or [W, C, D] hidden; offsets [W]
+    int32 (tokens already in context; -1 = masked lane); valids [W]
+    int32; pools and block tables as :func:`decode_step_paged`. Returns
+    per-position outputs [W, C, V|D].
+    """
+    if not supports_paged(cfg):
+        raise ValueError(f"{cfg.name}: chunked prefill needs uniform full attention")
+    x = _embed(params, chunk, cfg)
+    offsets = offsets.to(torch.int32)
+    valids = valids.to(torch.int32)
+    active = offsets >= 0
+    pos0 = offsets.clamp(min=0)
+    W, C = x.shape[:2]
+    steps = torch.arange(C, dtype=torch.int32, device=x.device)
+    positions = pos0[:, None] + steps  # [W, C]
+    # Write coordinates once for every layer: only real chunk tokens of
+    # active lanes touch reserved pages.
+    page = pools["k"].shape[2]
+    scratch = pools["k"].shape[1] - 1
+    writable = active[:, None] & (steps[None, :] < valids[:, None])
+    rows = torch.arange(W, device=x.device)[:, None]
+    blk = (positions // page).clamp(max=block_tables.shape[1] - 1).long()
+    write_pages = torch.where(writable, block_tables[rows, blk].long(), scratch)
+    write_offs = (positions % page).long()
+    return _paged_layers(
+        x, params, cfg, pools, paged_chunk_attention_block,
+        positions=positions, block_tables=block_tables,
+        write_pages=write_pages, write_offs=write_offs,
+    )

@@ -5,14 +5,16 @@ model (:mod:`.partition`). Time advances in slots (the paper's delta);
 per slot every replica harvests budget, resident requests run real
 decode compute on their designated replicas, and the control plane
 decides everything else. It is the port of the JAX package's
-``serving/engine.py`` for the dense path — a dense slot cache per
-(group, replica) and whole-prompt prefill — split three ways as there:
+``serving/engine.py``, split three ways as there:
 
-* :mod:`.cache` — ``KVCacheManager``: slot accounting;
+* :mod:`.cache` — ``KVCacheManager``: slot + memory accounting, one
+  abstraction over the dense slot cache (``DenseSlotCache``) and the
+  paged pool (``PagedKVCache``);
 * :mod:`.scheduler` — ``StepScheduler``: admission (Alg. 1 routing),
   FIFO backpressure, failover re-placement, aging, energy gating;
 * this module — assembling batched inputs, launching the stage calls,
-  committing their results.
+  committing their results, through one execution backend per stage:
+  ``_DenseExec`` or ``_PagedExec``.
 
 Continuous batching. Each (group, replica) owns one dense cache
 ``{"len": [W], "c0": {"k", "v": [n_layers, W, max_len, KV, Dh]}}`` of
@@ -24,6 +26,27 @@ JAX engine decodes all W slots and merges the whole cache back with a
 select (a full cache copy per step); here the decode writes K/V rows and
 bumps lengths only for member slots, in place, and prefill writes the
 joining slots' rows ``[0, S)``.
+
+Paged KV cache (``paged=True``). Each (group, replica) owns a shared pool
+``{"k", "v": [n_layers, P+1, page, KV, Dh]}`` of ``max_pages`` pages
+(page P is the scratch page masked lanes write to); a request holds
+``ceil(context / page_size)`` pages named by its block-table row, decode
+reads the scattered cache through the paged-decode kernel, the router
+weighs replicas by free pages, and page exhaustion preempts the youngest
+resident back to the queue (loss-free: prompt + generated re-prefill).
+Whole-prompt prefill runs the dense flash prefill into a transient cache
+and scatters its rows into the request's pages. ``kv_dtype="int8"`` pools
+store int8 rows with one fp32 scale per page row (``k_scale``,
+``v_scale``: [n_layers, P+1, page], ones at start), quantized when a row
+is written and dequantized inside the attention kernels; their
+whole-prompt prefill runs as one whole-length chunk, so its first token
+comes from the same quantized pages every later read sees.
+
+Chunked prefill (``prefill_chunk=N``, paged only in this port). Each
+joining prompt is split into N-token chunks that ride one fixed call
+shape beside the decode of the same step; each chunk's K/V go into the
+request's pages and the chunk attends over the paged prefix through the
+paged-prefill kernel.
 
 Async ring (``async_depth=K``). Each (group, replica) keeps up to K
 calls in flight. CUDA launches are asynchronous already, so the ring is
@@ -42,7 +65,7 @@ Seeding. ``np.random.SeedSequence(seed).spawn(2)`` and the order of every
 draw follow the JAX engine, so harvests, arrivals and routing decisions
 match the reference draw for draw.
 
-Not in this slice: the paged cache, int8 KV, chunked prefill,
+Not in this slice: dense chunked prefill (ROADMAP Queue 1 item 2),
 speculative decoding, mesh and multi-process serving.
 """
 
@@ -60,7 +83,7 @@ from ..device import resolve_device
 from ..models.common import tree_map
 from ..models.registry import Model
 from .budget import ReplicaBudget
-from .cache import DenseSlotCache, KVCacheManager
+from .cache import DenseSlotCache, KVCacheManager, PagedKVCache
 from .partition import partition_model
 from .router import Router
 from .scheduler import Request, StepScheduler
@@ -84,8 +107,12 @@ class HostReadback:
 class _StageCall:
     """One in-flight batched stage execution on a (group, replica).
 
-    ``outputs[i]`` is ``("token", t, 0)`` (final stage) or ``("hidden",
-    h, 0)`` (handoff to the next stage) per member. Token entries are
+    ``outputs[i]`` is a ``(kind, value, advance)`` tuple per member:
+    ``("token", t, 0)`` (final stage), ``("hidden", h, 0)`` (handoff to
+    the next stage), ``("chunk_part", h | None, n)`` (``n`` more prompt
+    tokens consumed, prefill continues next step) or ``("chunk_done",
+    t | h, n)`` (the chunk that completed the stage's prefill). Token
+    entries are
     *deferred*: at dispatch they hold ``None`` and ``readbacks`` carries
     ``(device_argmax, finalize)`` pairs; the committer drains them
     through :class:`HostReadback` when the call completes. An aborted
@@ -113,10 +140,11 @@ class ServerStats:
     tokens_generated: int = 0
     stage_executions: int = 0  # per-request stage work units
     prefill_calls: int = 0  # batched whole-prompt prefill launches
+    chunk_prefill_calls: int = 0  # batched chunked-prefill launches
     decode_calls: int = 0  # batched decode launches
     energy_charged: float = 0.0  # total CE(PM)/kappa charged across calls
     rerouted_stages: int = 0
-    preempted_jobs: int = 0  # evicted by aging force-placement, requeued
+    preempted_jobs: int = 0  # evicted (page exhaustion or aging), requeued
     aged_placements: int = 0  # parked > max_park_steps: force-placed
     peak_active: int = 0  # max concurrently resident requests
     inflight_peak: int = 0  # max calls in one replica's in-flight ring
@@ -131,97 +159,297 @@ class ServerStats:
         return self.downtime_replica_slots / max(denom, 1)
 
 
+def _pad_tail(x: torch.Tensor, C: int) -> torch.Tensor:
+    """Zero-pad a [1, c, ...] chunk slice to width ``C`` along dim 1."""
+    c = x.shape[1]
+    if c == C:
+        return x
+    return torch.cat([x, x.new_zeros((x.shape[0], C - c, *x.shape[2:]))], dim=1)
+
+
+def _seq_len(seq) -> int:
+    """Length of a stage input: [1, S] token ids or [1, S, D] hidden."""
+    return int(seq.shape[1])
+
+
 def _group_by_len(jobs) -> dict[int, list]:
     """Whole-prompt prefill pays one launch per distinct input length."""
     by_len: dict[int, list] = {}
     for i, m, inp in jobs:
-        by_len.setdefault(int(inp.shape[1]), []).append((i, m, inp))
+        by_len.setdefault(_seq_len(inp), []).append((i, m, inp))
     return by_len
 
 
-class _DenseExec:
-    """Dense execution backend for one stage: the slot cache of each
-    replica and the batched prefill / masked decode launches."""
+def _stack_inputs(server, g: int, inps) -> torch.Tensor:
+    """Stage inputs of one launch: [N, S] token ids (numpy, first stage)
+    or [N, S, D] hidden from [1, S(, D)] each."""
+    if g == 0:
+        return torch.from_numpy(np.concatenate(inps)).to(server.device)
+    return torch.cat(inps)
+
+
+def _emit_whole_outputs(server, g, grp, out, outputs, mgr, length, readbacks):
+    """Whole-prefill tail shared by both backends: record the host length
+    mirror and emit one deferred token readback (batched argmax) or a
+    [1, S, D] hidden handoff per member of a same-length launch. ``out``
+    is [N, 1, V] (last stage) or [N, S, D]."""
+    for _, m, _ in grp:
+        mgr.lengths[m.slot_ids[g]] = length
+    if g == server.G - 1:
+        idxs = [i for i, _, _ in grp]
+
+        def fin(toks, idxs=idxs):
+            for j, i in enumerate(idxs):
+                outputs[i] = ("token", int(toks[j]), 0)
+
+        readbacks.append((out[:, -1].argmax(dim=-1), fin))
+    else:
+        for j, (i, _, _) in enumerate(grp):
+            outputs[i] = ("hidden", out[j : j + 1], 0)
+
+
+def _emit_chunk_outputs(server, g, jobs, outputs, mgr, argmax, hidden_at, readbacks):
+    """Chunk-job tail: advance the host length mirror, decide per-lane
+    completion, and emit ``chunk_part`` / ``chunk_done`` results.
+    ``argmax`` is the batched [W, C] argmax (last stage only; its
+    readback is deferred to commit); ``hidden_at(slot, valid)`` slices a
+    lane's [1, valid, D] hidden from the launch output (mid stages)."""
+    last = g == server.G - 1
+    finals: list[tuple[int, int, int]] = []
+    for i, m, seq, pos, valid in jobs:
+        slot = m.slot_ids[g]
+        mgr.lengths[slot] = pos + valid
+        done = pos + valid == _seq_len(seq)
+        if last:
+            if done:
+                finals.append((i, slot, valid))
+            outputs[i] = ("chunk_done" if done else "chunk_part", None, valid)
+        else:
+            outputs[i] = ("chunk_done" if done else "chunk_part", hidden_at(slot, valid), valid)
+    if last:
+        # One deferred readback per chunk launch, even when no lane
+        # completed (the JAX engine's sync count).
+        def fin(toks, finals=finals):
+            for i, slot, valid in finals:
+                outputs[i] = ("chunk_done", int(toks[slot, valid - 1]), valid)
+
+        readbacks.append((argmax, fin))
+
+
+def _decode_input(server, g: int, jobs, lanes: torch.Tensor):
+    """The [W, 1] token ids (first stage) or [W, 1, D] hidden of one
+    decode launch over the full slot width; non-member lanes are 0."""
+    W = server.max_batch
+    if g == 0:
+        buf = np.zeros((W, 1), np.int64)
+        for _, m in jobs:
+            buf[m.slot_ids[g], 0] = m.generated[-1]
+        return torch.from_numpy(buf).to(server.device)
+    # After an upstream re-prefill the handoff carries the whole prefix;
+    # a caching stage only consumes the newest position.
+    hs = torch.cat([m.hidden[:, -1:] for _, m in jobs])  # [N, 1, D]
+    inp = torch.zeros((W, 1, server.cfg.d_model), dtype=hs.dtype, device=server.device)
+    inp[lanes] = hs
+    return inp
+
+
+def _emit_decode_outputs(server, g, jobs, out, outputs, mgr, readbacks):
+    """Decode tail shared by both backends: bump the host length mirror
+    and emit a deferred token readback or [1, 1, D] handoffs. ``out`` is
+    [W, 1, V|D] over the slot width."""
+    for _, m in jobs:
+        mgr.lengths[m.slot_ids[g]] += 1
+    if g == server.G - 1:
+        # Capture concrete slot ints now: by commit time a member's
+        # slot_ids could be rewritten by a later placement.
+        pairs = [(i, m.slot_ids[g]) for i, m in jobs]
+
+        def fin(toks, pairs=pairs):
+            for i, slot in pairs:
+                outputs[i] = ("token", int(toks[slot]), 0)
+
+        readbacks.append((out[:, -1].argmax(dim=-1), fin))
+    else:
+        for i, m in jobs:
+            slot = m.slot_ids[g]
+            outputs[i] = ("hidden", out[slot : slot + 1], 0)
+
+
+class _StageExec:
+    """What both execution backends hold: the server, the stage index and
+    the stage's model and parameters."""
 
     def __init__(self, server: "PipelineServer", g: int):
         self.server = server
         self.g = g
         self.model_g, self.params_g = server.stages[g]
 
+    def _lanes(self, slots: list[int]) -> torch.Tensor:
+        return torch.tensor(slots, dtype=torch.long, device=self.server.device)
+
+
+class _DenseExec(_StageExec):
+    """Dense execution backend for one stage: the slot cache of each
+    replica and the batched prefill / masked decode launches."""
+
     def init_cache(self) -> dict:
         s = self.server
         return self.model_g.init_cache(s.max_batch, s.max_len, s.device)
-
-    def _lanes(self, slots: list[int]) -> torch.Tensor:
-        return torch.tensor(slots, dtype=torch.long, device=self.server.device)
 
     def run_prefill_whole(self, r, jobs, outputs, mgr: KVCacheManager, readbacks):
         """jobs: [(out_idx, member, inp)], inp [1, S] token ids (numpy)
         or [1, S, D] hidden — one prefill launch per distinct length."""
         s, g = self.server, self.g
         cache = s._caches[(g, r)]
-        last = g == s.G - 1
+        key = "tokens" if g == 0 else "hidden"
         for length, grp in sorted(_group_by_len(jobs).items()):
-            if g == 0:
-                ids = np.concatenate([inp for _, _, inp in grp])  # [N, S]
-                batch = {"tokens": torch.from_numpy(ids).to(s.device)}
-            else:
-                batch = {"hidden": torch.cat([inp for _, _, inp in grp])}  # [N, S, D]
+            batch = {key: _stack_inputs(s, g, [inp for _, _, inp in grp])}
             lanes = self._lanes([m.slot_ids[g] for _, m, _ in grp])
             out = self.model_g.prefill_batch(self.params_g, batch, cache, lanes)
             s.stats.prefill_calls += 1
-            for _, m, _ in grp:
-                mgr.lengths[m.slot_ids[g]] = length
-            if last:
-                idxs = [i for i, _, _ in grp]
-
-                def fin(toks, idxs=idxs):
-                    for j, i in enumerate(idxs):
-                        outputs[i] = ("token", int(toks[j]), 0)
-
-                readbacks.append((out[:, -1].argmax(dim=-1), fin))
-            else:
-                for j, (i, _, _) in enumerate(grp):
-                    outputs[i] = ("hidden", out[j : j + 1], 0)  # [1, S, D]
+            _emit_whole_outputs(s, g, grp, out, outputs, mgr, length, readbacks)
 
     def run_decode(self, r, jobs, outputs, mgr: KVCacheManager, readbacks):
         """jobs: [(out_idx, member)] — one masked launch over the full
         static slot width; only member slots are written."""
         s, g = self.server, self.g
-        cache = s._caches[(g, r)]
-        last = g == s.G - 1
-        W = s.max_batch
-        slots = [m.slot_ids[g] for _, m in jobs]
-        lanes = self._lanes(slots)
+        lanes = self._lanes([m.slot_ids[g] for _, m in jobs])
+        inp = _decode_input(s, g, jobs, lanes)
+        out = self.model_g.decode_batch(self.params_g, inp, s._caches[(g, r)], lanes)
+        s.stats.decode_calls += 1
+        _emit_decode_outputs(s, g, jobs, out, outputs, mgr, readbacks)
+
+
+class _PagedExec(_StageExec):
+    """Paged execution backend for one stage: the shared page pool of
+    each replica, block tables from its manager, natively batched
+    decode / chunk launches through the paged kernels."""
+
+    def init_cache(self) -> dict:
+        """Shared page pool: [n_layers, P+1, page, KV, Dh] (page P is the
+        scratch page of masked lanes). int8 pools add one fp32 scale per
+        page row, ones at start so untouched rows dequantize to 0."""
+        s = self.server
+        c = self.model_g.cfg
+        shape = (c.n_layers, s.max_pages + 1, s.page_size, c.n_kv_heads, c.head_dim)
+        pools = {
+            "k": torch.zeros(shape, dtype=s.kv_dtype, device=s.device),
+            "v": torch.zeros(shape, dtype=s.kv_dtype, device=s.device),
+        }
+        if s.kv_dtype == torch.int8:
+            pools["k_scale"] = torch.ones(shape[:3], dtype=torch.float32, device=s.device)
+            pools["v_scale"] = torch.ones(shape[:3], dtype=torch.float32, device=s.device)
+        return pools
+
+    def _page_ids(self, mgr: PagedKVCache, grp, nbs: int) -> torch.Tensor:
+        """[N, nbs] int32 leading pages of each member, on the device."""
+        ids = np.asarray([mgr.pages[m.rid][:nbs] for _, m, _ in grp], np.int32)
+        return torch.from_numpy(ids).to(self.server.device)
+
+    def run_prefill_whole(self, r, jobs, outputs, mgr: PagedKVCache, readbacks):
+        """Compute-dtype pools: the dense flash prefill of each same-length
+        group into a transient cache of ``nbs * page`` rows per lane, then
+        one scatter of those rows into the members' first ``nbs`` pages."""
+        s, g = self.server, self.g
+        pools = s._caches[(g, r)]
+        if "k_scale" in pools:
+            return self._run_prefill_whole_quant(r, jobs, outputs, mgr, readbacks)
+        key = "tokens" if g == 0 else "hidden"
+        ps = s.page_size
+        for length, grp in sorted(_group_by_len(jobs).items()):
+            batch = {key: _stack_inputs(s, g, [inp for _, _, inp in grp])}
+            nbs = mgr.pool.blocks_for(length)
+            flat = self._page_ids(mgr, grp, nbs).reshape(-1).long()
+            out, cache = self.model_g.prefill(self.params_g, batch, nbs * ps)
+            for name in ("k", "v"):
+                rows = cache["c0"][name]  # [n_layers, N, nbs*ps, KV, Dh]
+                n_layers, N = rows.shape[:2]
+                pools[name][:, flat] = rows.reshape(n_layers, N * nbs, ps, *rows.shape[3:]).to(
+                    pools[name].dtype
+                )
+            s.stats.prefill_calls += 1
+            _emit_whole_outputs(s, g, grp, out, outputs, mgr, length, readbacks)
+
+    def _run_prefill_whole_quant(self, r, jobs, outputs, mgr: PagedKVCache, readbacks):
+        """int8 pools: one whole-length chunk launch per distinct prompt
+        length over only the joining lanes, with a compact [N, nbs] block
+        table, so the first token comes from the quantized pages that
+        every later read sees (chunked and whole prefill stay
+        token-exact)."""
+        s, g = self.server, self.g
+        pools = s._caches[(g, r)]
+        for length, grp in sorted(_group_by_len(jobs).items()):
+            N = len(grp)
+            page_ids = self._page_ids(mgr, grp, mgr.pool.blocks_for(length))
+            offs = torch.zeros((N,), dtype=torch.int32, device=s.device)
+            valids = torch.full((N,), length, dtype=torch.int32, device=s.device)
+            inp = _stack_inputs(s, g, [inp for _, _, inp in grp])
+            out = self.model_g.prefill_chunk_paged(self.params_g, inp, pools, offs, valids, page_ids)
+            s.stats.prefill_calls += 1
+            # The launch's last position is the prompt's: _emit_whole_outputs
+            # reads out[:, -1] (logits) or the whole [N, S, D] hidden.
+            _emit_whole_outputs(s, g, grp, out, outputs, mgr, length, readbacks)
+
+    def run_chunks(self, r, jobs, outputs, mgr: PagedKVCache, readbacks):
+        """jobs: [(out_idx, member, seq, pos, valid)] — one fixed-shape
+        launch over the slot width advances every joining prompt by at
+        most C tokens; lanes outside the call are masked (offset -1)."""
+        s, g = self.server, self.g
+        C, W = s.prefill_chunk, s.max_batch
+        offs = np.full((W,), -1, np.int32)
+        valids = np.zeros((W,), np.int32)
+        for _, m, _, pos, valid in jobs:
+            offs[m.slot_ids[g]] = pos
+            valids[m.slot_ids[g]] = valid
         if g == 0:
-            buf = np.zeros((W, 1), np.int64)
-            for _, m in jobs:
-                buf[m.slot_ids[g], 0] = m.generated[-1]
+            buf = np.zeros((W, C), np.int64)
+            for _, m, seq, pos, valid in jobs:
+                buf[m.slot_ids[g], :valid] = seq[0, pos : pos + valid]
             inp = torch.from_numpy(buf).to(s.device)
         else:
-            # After an upstream re-prefill the handoff carries the whole
-            # prefix; a caching stage only consumes the newest position.
-            hs = torch.cat([m.hidden[:, -1:] for _, m in jobs])  # [N, 1, D]
-            inp = torch.zeros((W, 1, s.cfg.d_model), dtype=hs.dtype, device=s.device)
+            lanes = self._lanes([m.slot_ids[g] for _, m, _, _, _ in jobs])
+            hs = torch.cat([_pad_tail(seq[:, pos : pos + valid], C)
+                            for _, _, seq, pos, valid in jobs])  # [N, C, D]
+            inp = torch.zeros((W, C, s.cfg.d_model), dtype=hs.dtype, device=s.device)
             inp[lanes] = hs
-        out = self.model_g.decode_batch(self.params_g, inp, cache, lanes)
+        out = self.model_g.prefill_chunk_paged(
+            self.params_g, inp, s._caches[(g, r)],
+            torch.from_numpy(offs).to(s.device), torch.from_numpy(valids).to(s.device),
+            mgr.device_block_table(),
+        )
+        s.stats.chunk_prefill_calls += 1
+        argmax = out.argmax(dim=-1) if g == s.G - 1 else None
+        _emit_chunk_outputs(
+            s, g, jobs, outputs, mgr, argmax,
+            lambda slot, valid: out[slot : slot + 1, :valid],  # [1, valid, D]
+            readbacks,
+        )
+
+    def run_decode(self, r, jobs, outputs, mgr: PagedKVCache, readbacks):
+        """One natively batched paged launch over the slot width. Lanes
+        outside the call get length -1: they write the scratch page and
+        attend one masked position; their outputs are never read."""
+        s, g = self.server, self.g
+        lens = np.full((s.max_batch,), -1, np.int32)
+        for _, m in jobs:
+            lens[m.slot_ids[g]] = mgr.lengths[m.slot_ids[g]]
+        inp = _decode_input(s, g, jobs, self._lanes([m.slot_ids[g] for _, m in jobs]))
+        out = self.model_g.decode_paged(
+            self.params_g, inp, s._caches[(g, r)],
+            torch.from_numpy(lens).to(s.device), mgr.device_block_table(),
+        )
         s.stats.decode_calls += 1
-        for slot in slots:
-            mgr.lengths[slot] += 1
-        if last:
-            # Capture concrete slot ints now: by commit time a member's
-            # slot_ids could be rewritten by a later placement.
-            pairs = [(i, m.slot_ids[g]) for i, m in jobs]
+        _emit_decode_outputs(s, g, jobs, out, outputs, mgr, readbacks)
 
-            def fin(toks, pairs=pairs):
-                for i, slot in pairs:
-                    outputs[i] = ("token", int(toks[slot]), 0)
 
-            readbacks.append((out[:, -1].argmax(dim=-1), fin))
-        else:
-            for i, m in jobs:
-                slot = m.slot_ids[g]
-                outputs[i] = ("hidden", out[slot : slot + 1], 0)  # [1, 1, D]
+def _resolve_kv_dtype(kv_dtype: str | None, compute: torch.dtype) -> torch.dtype:
+    """Page dtype: None keeps the compute dtype; "int8" quantizes."""
+    if kv_dtype is None:
+        return compute
+    dtype = getattr(torch, kv_dtype, None)
+    if dtype not in (compute, torch.int8):
+        raise ValueError(f"kv_dtype must be the compute dtype or int8, got {kv_dtype}")
+    return dtype
 
 
 class PipelineServer:
@@ -239,13 +467,25 @@ class PipelineServer:
         max_len: int = 256,
         max_batch: int = 4,
         max_queue: int | None = None,
+        paged: bool = False,
+        page_size: int = 16,
+        max_pages: int | None = None,
+        kv_dtype: str | None = None,
+        prefill_chunk: int | None = None,
         max_park_steps: int | None = 32,
         async_depth: int = 2,
         seed: int = 0,
         device: str | torch.device | None = None,
     ):
         """``device``: where the weights, caches and compute live (CUDA
-        unless the caller asks otherwise); ``params`` are moved there."""
+        unless the caller asks otherwise); ``params`` are moved there.
+
+        ``paged``: a page pool per (group, replica) instead of dense slot
+        caches; ``page_size`` entries per page; ``max_pages`` pool pages
+        (default: the dense reservation, ``max_batch * ceil(max_len /
+        page_size)``); ``kv_dtype``: None (the compute dtype) or "int8";
+        ``prefill_chunk``: split joining prompts into chunks of this many
+        tokens (paged only in this port)."""
         self.device = resolve_device(device)
         self.cfg = model.cfg
         params = tree_map(lambda t: t.to(self.device), params)
@@ -253,6 +493,28 @@ class PipelineServer:
         self.G, self.R = n_groups, n_replicas
         self.max_len = max_len
         self.max_batch = max_batch
+        self.paged = paged
+        self.page_size = page_size
+        self.prefill_chunk = prefill_chunk
+        if kv_dtype is not None and not paged:
+            raise ValueError("kv_dtype applies to the paged KV cache only")
+        self.kv_dtype = _resolve_kv_dtype(kv_dtype, model.cfg.compute_dtype)
+        # Default pool = dense capacity (max_batch full-length contexts);
+        # paging pays off with max_pages below it.
+        nb_max = -(-max_len // page_size)
+        self.max_pages = max_pages if max_pages is not None else max_batch * nb_max
+        if paged and any(m.decode_paged is None for m, _ in self.stages):
+            raise ValueError(f"{model.cfg.name}: paged serving needs uniform full attention")
+        if prefill_chunk is not None:
+            if prefill_chunk <= 0:
+                raise ValueError("prefill_chunk must be a positive token count")
+            if not paged:
+                raise NotImplementedError(
+                    "chunked prefill over the dense cache is not ported yet "
+                    "(ROADMAP.md, Queue 1 item 2); use paged=True"
+                )
+            if any(m.prefill_chunk_paged is None for m, _ in self.stages):
+                raise ValueError(f"{model.cfg.name}: chunked prefill needs uniform full attention")
         if async_depth < 0:
             raise ValueError("async_depth must be >= 0 (0 = synchronous)")
         self.async_depth = async_depth
@@ -276,11 +538,25 @@ class PipelineServer:
         self.router = Router(policy=policy, long_term_rates=long_term_rates, seed=router_seq)
         self.stats = ServerStats(n_groups=n_groups, n_replicas=n_replicas)
         self._next_rid = 0
-        self.managers: dict[tuple[int, int], KVCacheManager] = {
-            (g, r): DenseSlotCache(max_batch, max_len)
-            for g in range(n_groups)
-            for r in range(n_replicas)
-        }
+        if paged:
+            self.managers: dict[tuple[int, int], KVCacheManager] = {
+                (g, r): PagedKVCache(
+                    max_batch, max_len, page_size, self.max_pages,
+                    kv_dtype=str(self.kv_dtype).removeprefix("torch."),
+                    # One snapshot per possible in-flight call plus the one
+                    # being built.
+                    table_buffers=self._depth + 1,
+                    device=self.device,
+                )
+                for g in range(n_groups)
+                for r in range(n_replicas)
+            }
+        else:
+            self.managers = {
+                (g, r): DenseSlotCache(max_batch, max_len)
+                for g in range(n_groups)
+                for r in range(n_replicas)
+            }
         self.scheduler = StepScheduler(
             budgets=self.budgets,
             managers=self.managers,
@@ -289,7 +565,7 @@ class PipelineServer:
             max_queue=max_queue,
             max_park_steps=max_park_steps,
         )
-        self._exec = [_DenseExec(self, g) for g in range(n_groups)]
+        self._exec = [(_PagedExec if paged else _DenseExec)(self, g) for g in range(n_groups)]
         self._caches = {
             (g, r): self._exec[g].init_cache()
             for g in range(n_groups)
@@ -339,21 +615,36 @@ class PipelineServer:
         return req.hidden
 
     def _start_call(self, g: int, r: int, members: list[Request]) -> _StageCall | None:
-        """Launch the batched work for every member and open the call:
-        whole-prompt prefills (one per distinct length) and one masked
-        decode."""
+        """Launch the batched work for every member and open the call.
+
+        Members secure memory oldest-first (the scheduler preempts the
+        youngest resident on page exhaustion; members that cannot get
+        memory this slot are deferred), then at most three kinds of
+        launches run: whole-prompt prefills (one per distinct length),
+        one chunked-prefill launch, and one decode — so prefill chunks
+        and decode tokens share the step."""
         mgr = self.managers[(g, r)]
         sched = self.scheduler
-        plan: dict[int, object] = {}
+        chunk = self.prefill_chunk
+        plan: dict[int, tuple] = {}
         need: dict[int, int] = {}
         for m in members:
             if m.cache_ready[g]:
-                plan[m.rid] = None  # decode
+                plan[m.rid] = ("decode",)
                 need[m.rid] = int(mgr.lengths[m.slot_ids[g]]) + 1
+            elif chunk is not None:
+                # Keep the assembled stage input across chunk steps (reset
+                # on failover and preemption through chunk_seq).
+                if m.chunk_seq is None:
+                    m.chunk_seq = self._stage_input(m, g)
+                seq, pos = m.chunk_seq, m.chunk_pos
+                valid = min(chunk, _seq_len(seq) - pos)
+                plan[m.rid] = ("chunk", seq, pos, valid)
+                need[m.rid] = pos + valid
             else:
                 inp = self._stage_input(m, g)
-                plan[m.rid] = inp
-                need[m.rid] = int(inp.shape[1])
+                plan[m.rid] = ("whole", inp)
+                need[m.rid] = _seq_len(inp)
         served: list[Request] = []
         protected: set[int] = set()
         for m in sorted(members, key=lambda q: q.rid):
@@ -366,17 +657,22 @@ class PipelineServer:
             return None
 
         outputs: list[tuple] = [None] * len(served)
-        whole_jobs, decode_jobs = [], []
+        whole_jobs, chunk_jobs, decode_jobs = [], [], []
         for i, m in enumerate(served):
-            if plan[m.rid] is None:
+            item = plan[m.rid]
+            if item[0] == "decode":
                 decode_jobs.append((i, m))
+            elif item[0] == "chunk":
+                chunk_jobs.append((i, m, *item[1:]))
             else:
-                whole_jobs.append((i, m, plan[m.rid]))
+                whole_jobs.append((i, m, item[1]))
 
         readbacks: list[tuple] = []
         ex = self._exec[g]
         if whole_jobs:
             ex.run_prefill_whole(r, whole_jobs, outputs, mgr, readbacks)
+        if chunk_jobs:
+            ex.run_chunks(r, chunk_jobs, outputs, mgr, readbacks)
         if decode_jobs:
             ex.run_decode(r, decode_jobs, outputs, mgr, readbacks)
 
@@ -423,7 +719,26 @@ class PipelineServer:
     def _commit(self, req: Request, out: tuple, g: int, t_ready=None, ready_slot=None) -> None:
         """Apply a completed stage call's result to the request."""
         req.in_call = False
-        kind, value, _ = out
+        kind, value, advance = out
+        if kind == "chunk_part":
+            # Prefill continues at this stage next step; mid-pipeline
+            # chunks accumulate for the downstream handoff.
+            req.chunk_pos += advance
+            if value is not None:
+                req.chunk_outs.append(value)
+            return
+        if kind == "chunk_done":
+            req.chunk_pos = 0
+            req.chunk_seq = None
+            req.cache_ready[g] = True
+            if g == self.G - 1:
+                self._emit_token(req, value, t_ready, ready_slot)
+            else:
+                parts = req.chunk_outs + [value]
+                req.hidden = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+            req.chunk_outs = []
+            self._advance(req)
+            return
         req.cache_ready[g] = True
         if kind == "token":
             self._emit_token(req, value, t_ready, ready_slot)

@@ -63,6 +63,9 @@ class Request:
     cache_ready: list[bool] | None = None  # per-group: slot cache prefilled
     generated: list[int] = dataclasses.field(default_factory=list)
     hidden: Any = None  # inter-stage activation
+    chunk_pos: int = 0  # chunked prefill: tokens consumed at the current stage
+    chunk_outs: list = dataclasses.field(default_factory=list)  # per-chunk hidden
+    chunk_seq: Any = None  # cached stage input for the in-progress prefill
     in_call: bool = False  # member of the current stage call
     park_steps: int = 0  # consecutive slots parked slotless (aging)
     queued: bool = False  # waiting for admission (backpressure)
@@ -216,6 +219,8 @@ class StepScheduler:
         req.replicas = replicas
         req.slot_ids = [m.reserve(req.rid, ctx) for m in mgrs]
         req.cache_ready = [False] * self.G
+        req.chunk_pos = 0
+        req.chunk_outs = []
         req.park_steps = 0
         req.queued = False
         self.active.append(req)
@@ -282,6 +287,9 @@ class StepScheduler:
         self.managers[(g, req.replicas[g])].release(req.rid, req.slot_ids[g])
         req.slot_ids[g] = None
         req.cache_ready[g] = False
+        req.chunk_pos = 0
+        req.chunk_outs = []
+        req.chunk_seq = None
         if not any(b.alive for b in self.budgets[g]):
             # The whole group is gone: nothing to fail over to.
             self.drop_resident(req)
@@ -388,6 +396,9 @@ class StepScheduler:
         victim.cache_ready = None
         victim.stage = 0
         victim.hidden = None
+        victim.chunk_pos = 0
+        victim.chunk_outs = []
+        victim.chunk_seq = None
         victim.park_steps = 0
         victim.queued = True
         self.pending.append(victim)

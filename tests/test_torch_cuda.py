@@ -8,7 +8,9 @@ This module imports neither jax nor the JAX package, and
 ``--noconftest`` skips ``tests/conftest.py`` (which imports jax), so it
 runs where only PyTorch is installed. Tolerances: fp32 kernel vs fp32 plain version
 2e-5 (summation order); bf16 kernel vs the plain version in fp32 on the
-same bf16 inputs 2e-2 (bf16 output rounding).
+same bf16 inputs 2e-2 (bf16 output rounding); the paged kernels on int8
+pages against the plain version on the same int8 pages and scales, with
+the tolerance of the query dtype.
 """
 
 import dataclasses
@@ -18,7 +20,15 @@ import pytest
 import torch
 
 from repro_torch.configs import get_smoke_config
-from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref_model
+from repro_torch.kernels.decode_attention import (
+    decode_attention,
+    decode_attention_ref_model,
+    paged_decode_attention,
+    paged_decode_attention_ref,
+    paged_prefill_attention,
+    paged_prefill_attention_ref,
+    quantize_kv,
+)
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
 from repro_torch.models import build_model, init_from_template
 from repro_torch.serving import PipelineServer
@@ -100,3 +110,88 @@ def test_server_runs_through_the_kernels(gen):
     assert flash_attention.launches > flash_before
     assert decode_attention.launches > decode_before
     assert server.host_readback.counts["dispatch"] == 0
+
+
+def _paged(gen, B, NB, page, KV, D, dtype, int8):
+    """A shuffled pool and block table; int8 pools come with scales."""
+    P = B * NB + 3
+    k = torch.randn(P, page, KV, D, generator=gen, device="cuda")
+    v = torch.randn(P, page, KV, D, generator=gen, device="cuda")
+    bt = torch.randperm(P, generator=gen, device="cuda")[: B * NB].reshape(B, NB).int()
+    if int8:
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        return k, v, ks, vs, bt
+    return k.to(dtype), v.to(dtype), None, None, bt
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,page,H,KV,D,lengths,window",
+    [
+        (8, 16, 32, 32, 64, [9, 40, 77, 128, 150, 200, 231, 256], None),  # stablelm serving
+        (3, 16, 24, 8, 128, [1, 2500, 4096], None),  # long GQA context
+        (3, 12, 8, 2, 64, [50, 7, 33], 20),  # page of 12 rows, window
+    ],
+)
+def test_paged_decode_kernel_matches_plain(gen, dtype, int8, B, page, H, KV, D, lengths, window):
+    NB = -(-max(lengths) // page)
+    k, v, ks, vs, bt = _paged(gen, B, NB, page, KV, D, dtype, int8)
+    q = torch.randn(B, 1, H, D, generator=gen, device="cuda").to(dtype)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    before = paged_decode_attention.launches
+    out = paged_decode_attention(q, k, v, bt, lens, window=window, k_scales=ks, v_scales=vs)
+    torch.cuda.synchronize()
+    assert paged_decode_attention.launches == before + 1
+    want = paged_decode_attention_ref(q.float(), k if int8 else k.float(), v if int8 else v.float(),
+                                      bt, lens, window=window, k_scales=ks, v_scales=vs)
+    torch.testing.assert_close(out.float(), want, atol=TOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,C,page,H,KV,D,offsets",
+    [
+        (8, 32, 16, 32, 32, 64, [0, 16, 32, 45, 64, 100, 150, 224]),  # serving chunk
+        (2, 120, 16, 32, 32, 64, [0, 0]),  # int8 whole prompt
+        (3, 7, 12, 24, 8, 128, [0, 13, 50]),  # GQA, page of 12 rows
+    ],
+)
+def test_paged_prefill_kernel_matches_plain(gen, dtype, int8, B, C, page, H, KV, D, offsets):
+    NB = -(-(max(offsets) + C) // page)
+    k, v, ks, vs, bt = _paged(gen, B, NB, page, KV, D, dtype, int8)
+    q = torch.randn(B, C, H, D, generator=gen, device="cuda").to(dtype)
+    offs = torch.tensor(offsets, dtype=torch.int32, device="cuda")
+    before = paged_prefill_attention.launches
+    out = paged_prefill_attention(q, k, v, bt, offs, k_scales=ks, v_scales=vs)
+    torch.cuda.synchronize()
+    assert paged_prefill_attention.launches == before + 1
+    want = paged_prefill_attention_ref(q.float(), k if int8 else k.float(),
+                                       v if int8 else v.float(), bt, offs,
+                                       k_scales=ks, v_scales=vs)
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), want, atol=TOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_paged_server_runs_through_the_kernels(gen, kv_dtype):
+    cfg = dataclasses.replace(get_smoke_config("stablelm-1.6b"), d_model=256, n_heads=4,
+                              n_kv_heads=4, dtype="float32", param_dtype="float32")
+    model = build_model(cfg)
+    params = init_from_template(model.template, gen, cfg.param_dtype, device="cuda")
+    server = PipelineServer(model, params, n_groups=2, max_len=128, paged=True, page_size=16,
+                            max_pages=8, prefill_chunk=8, kv_dtype=kv_dtype, device="cuda")
+    before = paged_decode_attention.launches, paged_prefill_attention.launches
+    reqs = [server.submit(np.arange(n) % cfg.vocab_size, n_tokens=6) for n in (12, 40)]
+    for _ in range(300):
+        if all(r.done for r in reqs):
+            break
+        server.step()
+    assert all(r.done and len(r.generated) == 6 for r in reqs)
+    assert paged_decode_attention.launches > before[0]
+    assert paged_prefill_attention.launches > before[1]
+    assert server.host_readback.counts["dispatch"] == 0
+    for mgr in server.managers.values():
+        mgr.check_conservation()
+        assert mgr.device_block_table().device.type == "cuda"
