@@ -9,7 +9,13 @@ Phases, in order; any failure exits non-zero:
 2. Build: every CUDA kernel of the port from the sources in this
    checkout (``repro_torch.kernels._build``), with the build time.
 3. Kernels: each kernel against its plain PyTorch version on the card at
-   the serving path's shapes plus long cases, fp32 (atol 2e-5) and bf16
+   the serving path's shapes plus long cases (the selective scan at the
+   falcon-mamba serving shape, a ragged hymba-width case with a given
+   initial state and a 4096-step case, fp32 only; rmsnorm on
+   [512, 4096], [512, 2048] and a ragged row count), fp32 (atol 2e-5;
+   for the selective scan, whose y reaches ~10^2 at 4096 steps, where
+   2e-5 is below one fp32 ulp, y and h_final each within 2e-5 of
+   max(1, the plain value's magnitude)) and bf16
    (against the plain version run in fp32 on the same bf16 inputs, atol
    2e-2); the paged kernels also on int8 pages with fp32 and bf16 queries
    (the same tolerances, against the plain version on the same int8 pages
@@ -19,7 +25,10 @@ Phases, in order; any failure exits non-zero:
    ``scaled_dot_product_attention`` call for the dense kernels; for the
    paged ones, which no single PyTorch call matches, the port's dense
    decode kernel on the same rows laid out contiguously (what paging
-   costs) and ``gather_pages`` (K and V) + ``scaled_dot_product_attention``.
+   costs) and ``gather_pages`` (K and V) + ``scaled_dot_product_attention``;
+   ``torch.nn.functional.rms_norm`` for rmsnorm; none for the selective
+   scan (no PyTorch call computes the recurrence), whose bound counts its
+   exponentials on the special-function units.
 4. Serve dense: full-width stablelm-1.6b (24 layers, d_model 2048, vocab
    100352, bf16, random weights from a seeded ``torch.Generator``) through
    ``PipelineServer`` at G=3 x R=3, max_batch 4, max_len 128, async depth
@@ -39,8 +48,28 @@ Phases, in order; any failure exits non-zero:
    the same full-width inputs (within 1e-3 of the output's scale); the
    first tokens of an fp32 dense server and of an fp32 paged server equal
    the monolithic kernel path's, and the dense server's 16 greedy tokens
-   are compared with the plain path's.
-7. A JSON line of per-kernel results, then the device line last.
+   are compared with the plain path's. The stablelm weights are freed.
+7. Serve SSM: full-width falcon-mamba-7b (64 layers, d_model 4096,
+   d_inner 8192, state 16, vocab 65024, tied embeddings, 7.006 B params,
+   bf16, random weights from a seeded ``torch.Generator``) through the
+   dense ``PipelineServer`` at G=3 x R=3, max_batch 4, max_len 128, async
+   depth 2, seed 0: ``run(60, arrival_p=0.5)`` plus four 64..120-token
+   prompts. The selective-scan counter must grow, every parameter and
+   every conv / SSM state tensor must live on the card, and the logits
+   and states must be finite.
+8. SSM parity: the same weights in fp32. Every selective-scan call of a
+   monolithic 64-token prefill runs the kernel and its plain version on
+   the model's own inputs (y and h_final within 1e-4 of the plain
+   version's scale); the prefill's logits through the kernel agree with
+   those through the plain version within 1e-4 of their scale and within
+   1e-2 of how far zeroing every scan's y moves them (the random-init
+   model's argmax echoes its last input token, whatever the Mamba layers
+   return); the first token of an fp32 falcon-mamba server equals the
+   monolithic kernel path's, and its 16 greedy tokens are compared with
+   the plain path's.
+9. A JSON line of per-kernel results (all six kernels; rmsnorm's counter
+   is read over phases 4-7 and must stay 0: no served path launches it),
+   then the device line last.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -65,6 +94,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense; fp32 without tensor cores
+# Special-function-unit rate for exp2: 16 results per clock per SM on
+# compute capability 9.0 (CUDA C++ Programming Guide, arithmetic
+# instruction throughput) against 128 fp32 FMA lanes of 2 flops each.
+SFU_PER_S = PEAK_FLOPS[torch.float32] * 16 / 256
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 N_TIMED = 20
 
@@ -279,13 +312,89 @@ def paged_prefill_case(B, C, page, H, KV, D, offsets, dtype, int8, gen):
     }
 
 
+def scan_operands(B, S, Din, N, with_h0, gen):
+    """fp32 operands as ``mamba_block`` forms them: dt a softplus
+    (positive), A = -exp(.) (negative)."""
+    rand = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")  # noqa: E731
+    x, dt = rand(B, S, Din), F.softplus(rand(B, S, Din))
+    Bm, Cm = rand(B, S, N), rand(B, S, N)
+    A = -torch.exp(0.5 * rand(Din, N))
+    h0 = rand(B, Din, N) if with_h0 else None
+    return x, dt, Bm, Cm, A, h0
+
+
+def scan_case(B, S, Din, N, with_h0, gen):
+    from repro_torch.kernels.selective_scan import selective_scan, selective_scan_ref
+
+    ops = scan_operands(B, S, Din, N, with_h0, gen)
+    y, h = selective_scan(*ops)
+    torch.cuda.synchronize()
+    want_y, want_h = selective_scan_ref(*ops)
+    errs = [(got - want).abs().max().item() for got, want in ((y, want_y), (h, want_h))]
+    scales = [want.abs().max().item() for want in (want_y, want_h)]
+    finite = bool(torch.isfinite(y).all() and torch.isfinite(h).all())
+    # Bytes: x, dt, B, C, A (and h0) read once, y and h_final written once.
+    # Operations per (b, t, d, n): one exp on the SFUs; dt * A, a * h, + b,
+    # (dt x) * B, h * C and the sum over n on the fp32 lanes; plus dt * x
+    # per (b, t, d).
+    n_state = B * Din * N
+    scan_bytes = 4 * (3 * B * S * Din + 2 * B * S * N + Din * N + (2 if with_h0 else 1) * n_state)
+    bytes_ms = scan_bytes / HBM_BYTES_PER_S * 1e3
+    fp32_ms = B * S * Din * (6 * N + 1) / PEAK_FLOPS[torch.float32] * 1e3
+    sfu_ms = B * S * Din * N / SFU_PER_S * 1e3
+    b_ms, b_by = max((bytes_ms, "bytes"), (max(fp32_ms, sfu_ms), "operations"))
+    return {
+        "out_scale": scales[0],
+        "bytes_ms": bytes_ms,
+        "fp32_ms": fp32_ms,
+        "sfu_ms": sfu_ms,
+        "shape": f"B={B} S={S} Din={Din} N={N} h0={'given' if with_h0 else 'zero'}",
+        "dtype": "float32",
+        "max_abs_err": max(errs) if finite else float("inf"),
+        # y and h_final each within TOL of max(1, its plain value's magnitude).
+        "max_rel_err": max(e / max(1.0, m) for e, m in zip(errs, scales)) if finite
+        else float("inf"),
+        "tol": TOL[torch.float32],
+        "ms": time_ms(lambda: selective_scan(*ops)),
+        "plain_ms": time_ms(lambda: selective_scan_ref(*ops)),
+        "library_ms": None,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+    }
+
+
+def rmsnorm_case(R, D, dtype, gen):
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
+
+    x = (2.0 * torch.randn(R, D, generator=gen, device="cuda")).to(dtype)
+    w = (1.0 + 0.1 * torch.randn(D, generator=gen, device="cuda")).to(dtype)
+    out = rmsnorm(x, w)
+    torch.cuda.synchronize()
+    err = (out.float() - rmsnorm_ref(x.float(), w.float())).abs().max().item()
+    rms_norm = getattr(F, "rms_norm", None)
+    item = x.element_size()
+    b_ms, b_by = bound(2 * x.numel() * item + D * w.element_size(), 4 * R * D, dtype)
+    return {
+        "shape": f"R={R} D={D}",
+        "dtype": str(dtype).removeprefix("torch."),
+        "max_abs_err": err,
+        "tol": TOL[dtype],
+        "ms": time_ms(lambda: rmsnorm(x, w)),
+        "plain_ms": time_ms(lambda: rmsnorm_ref(x, w)),
+        "library_ms": time_ms(lambda: rms_norm(x, (D,), w, 1e-6)) if rms_norm else None,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+    }
+
+
 SERVE_LENGTHS = [9, 40, 77, 128, 150, 200, 231, 256]  # 8 lanes, max_len 256
+SCAN_LONG_S = 4096
 PREFILL_OFFSETS = [0, 16, 32, 45, 64, 100, 150, 224]  # C=32 chunks, ragged
 
 
 def check_kernels() -> dict[str, list[dict]]:
     gen = torch.Generator(device="cuda").manual_seed(0)
-    flash, decode, pdec, ppre = [], [], [], []
+    flash, decode, pdec, ppre, norm = [], [], [], [], []
     for dtype in (torch.bfloat16, torch.float32):
         for B in (1, 2, 3, 4):
             for S in (8, 128):
@@ -303,18 +412,33 @@ def check_kernels() -> dict[str, list[dict]]:
                                            dtype, int8, gen))
         # int8 whole-prompt prefill: one whole-length chunk at offset 0.
         ppre.append(paged_prefill_case(2, 120, 16, 32, 32, 64, [0, 0], dtype, True, gen))
+        for R, D in ((4 * 128, 4096), (4 * 128, 2048), (77, 4096)):
+            norm.append(rmsnorm_case(R, D, dtype, gen))
+    # falcon-mamba's serving prefill; hymba's width, ragged, with a state; long.
+    scan = [scan_case(4, 128, 8192, 16, False, gen), scan_case(3, 77, 3200, 16, True, gen),
+            scan_case(1, SCAN_LONG_S, 8192, 16, False, gen)]
     results = {"flash_attention": flash, "decode_attention": decode,
-               "paged_decode_attention": pdec, "paged_prefill_attention": ppre}
+               "paged_decode_attention": pdec, "paged_prefill_attention": ppre,
+               "selective_scan": scan, "rmsnorm": norm}
     for name, cases in results.items():
         for c in cases:
-            yard = (f"sdpa {c['library_ms']:.4f} ms" if c["library_ms"] is not None else
-                    f"gather+sdpa {c['gather_sdpa_ms']:.4f} ms"
-                    + (f" dense decode {c['dense_decode_ms']:.4f} ms" if "dense_decode_ms" in c
-                       else ""))
+            if "gather_sdpa_ms" in c:
+                yard = f"gather+sdpa {c['gather_sdpa_ms']:.4f} ms" + (
+                    f" dense decode {c['dense_decode_ms']:.4f} ms" if "dense_decode_ms" in c
+                    else "")
+            elif c["library_ms"] is not None:
+                yard = f"library {c['library_ms']:.4f} ms"
+            else:
+                yard = "library none"
+            if "bytes_ms" in c:
+                yard += (f" (bytes {c['bytes_ms']:.4f} ms, fp32 {c['fp32_ms']:.4f} ms, exp on "
+                         f"the SFUs {c['sfu_ms']:.4f} ms; max|y| {c['out_scale']:.4g}, "
+                         f"err / max(1, scale) {c['max_rel_err']:.3g})")
             print(f"  {name} {c['dtype']} {c['shape']}: err {c['max_abs_err']:.3g} "
                   f"kernel {c['ms']:.4f} ms plain {c['plain_ms']:.4f} ms {yard} "
                   f"bound {c['bound_ms']:.4f} ms ({c['bound_by']})")
-    bad = [(n, c) for n, cs in results.items() for c in cs if not c["max_abs_err"] <= c["tol"]]
+    bad = [(n, c) for n, cs in results.items() for c in cs
+           if not c.get("max_rel_err", c["max_abs_err"]) <= c["tol"]]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
     return results
@@ -544,13 +668,151 @@ def paged_parity(params32, model, prompt, device: torch.device) -> None:
     assert all(v <= MODEL_REL_TOL for v in worst.values()), worst
 
 
+def serve_ssm(params, model, device: torch.device) -> dict:
+    from repro_torch.kernels.selective_scan import selective_scan
+    from repro_torch.serving import PipelineServer
+
+    server = PipelineServer(model, params, n_groups=3, n_replicas=3, max_batch=4,
+                            max_len=128, async_depth=2, seed=0, device=device)
+    selective_scan.launches = 0
+    rng = np.random.default_rng(1)
+    V = model.cfg.vocab_size
+    t0 = time.perf_counter()
+    direct = [server.submit(rng.integers(0, V, size=L), n_tokens=8) for L in (64, 88, 104, 120)]
+    stats = server.run(60, arrival_p=0.5)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"selective_scan": selective_scan.launches}
+    print(f"  slots={stats.slots} submitted={stats.submitted} completed={stats.completed_jobs} "
+          f"tokens={stats.tokens_generated} prefill_calls={stats.prefill_calls} "
+          f"decode_calls={stats.decode_calls} downtime={stats.downtime_fraction:.4f} "
+          f"wall_s={wall:.3f} tokens_per_s={stats.tokens_generated / wall:.2f}")
+    print(f"  launches {launches}; direct prompts generated "
+          f"{[len(r.generated) if r is not None else None for r in direct]}")
+    assert stats.completed_jobs >= 1, "no request completed"
+    assert stats.tokens_generated > 0, "no token generated"
+    assert all(0 <= t < V for r in direct if r is not None for t in r.generated)
+    if device.type == "cuda":
+        assert launches["selective_scan"] > 0, f"the selective scan never ran: {launches}"
+    assert all(on_device(p, device) for _, p in server.stages), "a parameter is off the card"
+    states = [c["c0"][name] for c in server._caches.values() for name in ("conv", "ssm")]
+    assert all(t.device.type == device.type for t in states), "a conv / SSM state is off the card"
+    assert all(bool(torch.isfinite(t.float()).all()) for t in states), "a state is not finite"
+    # One more prefill of a direct prompt on the whole model, outside the
+    # counted run: its logits must be finite.
+    prompt = torch.from_numpy(rng.integers(0, V, size=(1, 64))).to(device)
+    logits, _ = model.prefill(params, {"tokens": prompt}, 64)
+    assert bool(torch.isfinite(logits.float()).all()), "falcon-mamba logits are not finite"
+    return launches
+
+
+# Kernel vs plain selective scan on the model's own full-width inputs,
+# relative to the plain output's scale. The two differ in rounding only
+# (fused multiply-adds, the order of the sum over states); 1e-4 leaves
+# room for that and none for a wrong result.
+SCAN_REL_TOL = 1e-4
+# The random-init model echoes its last input token (its tied embedding's
+# own logit dominates), so its argmax does not depend on the Mamba layers.
+# The end-to-end check therefore holds the logits of the kernel path to
+# the plain path's and asks that their difference be at most this share
+# of what the scans contribute (the logits moved by zeroing every scan's y).
+SSM_EFFECT_SHARE = 1e-2
+
+
+@contextlib.contextmanager
+def scan_replaced(fn):
+    """Route every selective-scan call of the SSM blocks through
+    ``fn(kernel, *args)`` for the duration of the block."""
+    from repro_torch.models import ssm
+
+    kernel = ssm.selective_scan
+    ssm.selective_scan = lambda *args: fn(kernel, *args)
+    try:
+        yield
+    finally:
+        ssm.selective_scan = kernel
+
+
+def ssm_parity(params32, model, device: torch.device) -> dict:
+    from repro_torch.kernels.selective_scan import selective_scan_ref
+    from repro_torch.serving import PipelineServer
+
+    cfg = model.cfg
+    prompt = np.random.default_rng(2).integers(0, cfg.vocab_size, size=64)
+    batch = {"tokens": torch.from_numpy(prompt)[None].to(device)}
+    worst = {"y": 0.0, "h_final": 0.0, "calls": 0}
+
+    def compared(kernel, *args):
+        """Kernel and plain version on the same inputs; go on with the plain."""
+        want_y, want_h = selective_scan_ref(*args)
+        got_y, got_h = kernel(*args)
+        worst["y"] = max(worst["y"], _rel_err(got_y, want_y))
+        worst["h_final"] = max(worst["h_final"], _rel_err(got_h, want_h))
+        worst["calls"] += 1
+        return want_y, want_h
+
+    def zero_y(kernel, *args):
+        y, h = kernel(*args)
+        return torch.zeros_like(y), h
+
+    with torch.no_grad():
+        logits_kernel, _ = model.prefill(params32, batch, 128)
+        with scan_replaced(compared):
+            logits_plain, cache = model.prefill(params32, batch, 128)
+        with scan_replaced(zero_y):
+            logits_zero_y, _ = model.prefill(params32, batch, 128)
+        # Decode runs no kernel (the O(1) step is plain tensor ops), so the
+        # plain path's greedy tokens continue from its own cache.
+        ref_tokens = [int(logits_plain[0, -1].argmax())]
+        for _ in range(15):
+            tok = torch.tensor([[ref_tokens[-1]]], device=device)
+            logits, cache = model.decode_step(params32, tok, cache)
+            ref_tokens.append(int(logits[0, -1].argmax()))
+    print(f"  every selective-scan call of a 64-token prefill ({worst['calls']} calls), kernel "
+          f"vs plain on the same inputs: max|kernel - plain| / max|plain| = y {worst['y']:.3g}, "
+          f"h_final {worst['h_final']:.3g} (tol {SCAN_REL_TOL})")
+    assert worst["calls"] == cfg.n_layers, worst
+    assert worst["y"] <= SCAN_REL_TOL and worst["h_final"] <= SCAN_REL_TOL, worst
+    scale = logits_plain.abs().max().item()
+    end_to_end = (logits_kernel - logits_plain).abs().max().item()
+    ssm_effect = (logits_kernel - logits_zero_y).abs().max().item()
+    print(f"  first-token logits end to end: max|kernel path - plain path| {end_to_end:.6g}, "
+          f"max|kernel path - path with every scan's y zeroed| {ssm_effect:.6g}, scale "
+          f"{scale:.6g} (tol {SCAN_REL_TOL} of the scale and {SSM_EFFECT_SHARE} of the "
+          f"scans' effect)")
+    assert end_to_end <= SCAN_REL_TOL * scale, (end_to_end, scale)
+    assert end_to_end <= SSM_EFFECT_SHARE * ssm_effect, (end_to_end, ssm_effect)
+    server = PipelineServer(model, params32, n_groups=3, n_replicas=3, max_batch=4,
+                            max_len=128, async_depth=2, seed=0, device=device)
+    req = server.submit(prompt, n_tokens=16)
+    for _ in range(500):
+        if req.done:
+            break
+        server.step()
+    assert req.done, f"the fp32 falcon-mamba server did not finish: {len(req.generated)} tokens"
+    agree = sum(a == b for a, b in zip(req.generated, ref_tokens))
+    print(f"  fp32 falcon-mamba server vs plain monolithic greedy: {agree}/16 tokens agree "
+          f"(server {req.generated}, plain {ref_tokens}; last prompt token {int(prompt[-1])}, "
+          f"argmax with every scan's y zeroed {int(logits_zero_y[0, -1].argmax())})")
+    # The server's stage prefills run the monolithic kernel path's operations
+    # on the same shapes, so its first token is that path's, exactly.
+    assert req.generated[0] == int(logits_kernel[0, -1].argmax())
+    return {"scan_rel_err": {k: worst[k] for k in ("y", "h_final")},
+            "logits_end_to_end": end_to_end, "logits_scans_effect": ssm_effect,
+            "logits_scale": scale, "greedy_agree": agree}
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
+    from repro_torch.kernels.rmsnorm import rmsnorm
     from repro_torch.models import build_model, count_params, init_from_template
+    from repro_torch.models.common import tree_map
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -570,6 +832,7 @@ def main() -> int:
 
     print("[3] kernels vs plain versions", flush=True)
     results = check_kernels()
+    rmsnorm.launches = 0  # no served path below may launch it
 
     print("[4] serve full-width stablelm-1.6b", flush=True)
     cfg = get_config("stablelm-1.6b")
@@ -594,6 +857,32 @@ def main() -> int:
 
     print("[6] parity at full width, fp32", flush=True)
     parity(params, cfg, cuda)
+    del params, model
+    torch.cuda.empty_cache()
+
+    print("[7] serve full-width falcon-mamba-7b", flush=True)
+    cfg = get_config("falcon-mamba-7b")
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params = init_from_template(model.template, gen, cfg.param_dtype, device="cuda")
+    torch.cuda.synchronize()
+    print(f"  weights: {count_params(model.template) / 1e9:.3f} B params "
+          f"({cfg.param_dtype}) in {time.perf_counter() - t0:.2f} s")
+    with torch.no_grad():
+        launches.update(serve_ssm(params, model, cuda))
+    # The models call their plain rmsnorm (models/layers.py), as the JAX models do.
+    launches["rmsnorm"] = rmsnorm.launches
+    assert launches["rmsnorm"] == 0, f"a served path launched rmsnorm: {launches}"
+
+    print("[8] SSM parity at full width, fp32", flush=True)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    params32 = tree_map(lambda t: t.float(), params)
+    del params
+    torch.cuda.empty_cache()
+    ssm_checks = ssm_parity(params32, build_model(cfg32), cuda)
+    del params32
+    torch.cuda.empty_cache()
 
     kernels = []
     for name, source, replaces, main_shape in (
@@ -605,9 +894,14 @@ def main() -> int:
          "src/repro/kernels/decode_attention/paged.py:88", "B=8 page=16"),
         ("paged_prefill_attention", "src/repro_torch/kernels/csrc/paged_prefill_attention.cu",
          "src/repro/kernels/decode_attention/paged_prefill.py:95", "B=8 C=32"),
+        ("selective_scan", "src/repro_torch/kernels/csrc/selective_scan.cu",
+         "src/repro/kernels/selective_scan/selective_scan.py:69", "B=4 S=128"),
+        ("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
+         "src/repro/kernels/rmsnorm/rmsnorm.py:25", "R=512 D=4096"),
     ):
         cases = results[name]
-        main_case = next(c for c in cases if c["dtype"] == "bfloat16"
+        main_dtype = "float32" if name == "selective_scan" else "bfloat16"  # the scan takes fp32
+        main_case = next(c for c in cases if c["dtype"] == main_dtype
                          and c["shape"].startswith(main_shape))
         entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -621,7 +915,15 @@ def main() -> int:
             entry["launches_by_run"] = {run: counts[name] for run, counts in by_run.items()}
             entry["library_note"] = ("no single PyTorch call reads a block table; "
                                      "gather_sdpa_ms = gather_pages (K, V) + SDPA")
+        if name == "selective_scan":
+            entry["library_note"] = "no PyTorch call computes the recurrence"
+            entry["model_parity"] = ssm_checks
+        if name == "rmsnorm":
+            entry["library_note"] = "torch.nn.functional.rms_norm"
+            entry["launches_note"] = ("no served path launches it: the models call their plain "
+                                      "rmsnorm (models/layers.py), as the JAX models do")
         kernels.append(entry)
+    print(f"[9] all phases passed in {time.perf_counter() - t_start:.1f} s, build included")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

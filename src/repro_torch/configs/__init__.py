@@ -3,9 +3,9 @@
 ``get_config(name)`` returns the exact published config and
 ``get_smoke_config(name)`` its reduced same-family variant for CPU
 tests — the same ``CONFIG`` / ``smoke()`` pair as the JAX package, for
-the four dense full-attention decoders. The other architectures of the
-JAX package raise until their slice of the port lands (ROADMAP.md,
-Queue 1).
+the four dense full-attention decoders and the pure-Mamba falcon-mamba.
+The other architectures of the JAX package raise until their slice of
+the port lands (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ _MODULES = {
     "phi4-mini-3.8b": "phi4_mini_3_8b",
     "qwen2.5-14b": "qwen2_5_14b",
     "granite-20b": "granite_20b",
+    "falcon-mamba-7b": "falcon_mamba_7b",
 }
 
 ARCH_NAMES = tuple(_MODULES)
@@ -31,7 +32,6 @@ _NOT_PORTED = (
     "qwen3-moe-30b-a3b",
     "granite-moe-1b-a400m",
     "hymba-1.5b",
-    "falcon-mamba-7b",
     "internvl2-76b",
     "paper-block",
 )
@@ -40,9 +40,9 @@ _NOT_PORTED = (
 def _module(name: str):
     if name in _NOT_PORTED:
         raise NotImplementedError(
-            f"{name} is not ported to PyTorch yet: the port serves the dense "
-            f"full-attention decoders {sorted(_MODULES)} "
-            "(ROADMAP.md, Queue 1 ports the rest of the zoo after the paged path)"
+            f"{name} is not ported to PyTorch yet: the port serves "
+            f"{sorted(_MODULES)} "
+            "(ROADMAP.md, Queue 1 ports the rest of the zoo, hymba first)"
         )
     if name not in _MODULES:
         raise KeyError(f"unknown architecture {name!r}; known: {sorted(_MODULES)}")

@@ -1,8 +1,9 @@
 """Weights and caches carried across from the JAX package as numpy.
 
 The port keeps the JAX parameter layout leaf for leaf (layer-stacked
-``[L, D, H, Dh]`` projections, ``embed.tok``, ``embed.lm_head``,
-``final_norm``), so conversion is a dtype/device move per leaf. Tests
+``[L, D, H, Dh]`` projections, the Mamba ``ssm`` leaves, ``embed.tok``,
+``embed.lm_head``, ``final_norm``), so conversion is a dtype/device move
+per leaf. Tests
 build weights once with the JAX package and hand both packages the same
 numbers through :func:`params_from_numpy`.
 """
@@ -35,35 +36,43 @@ def params_from_numpy(tree, *, device, dtype: str | torch.dtype | None = None):
     return tree_map(lambda a: _tensor(a, device, dt), tree)
 
 
+# Rank of each cache leaf in the model layout ([n_layers, B, ...]); the JAX
+# serving engine's slot-stacked layout has one more axis ([W, n_layers, 1, ...]).
+_LEAF_RANK = {"k": 5, "v": 5, "conv": 4, "ssm": 4}
+
+
 def cache_from_numpy(cache, *, device, dtype: str | torch.dtype | None = None) -> dict:
-    """A JAX dense cache -> the port's ``{"len": [B] int32, "c0": {"k",
-    "v": [n_layers, B, max_len, KV, Dh]}}``.
+    """A JAX dense cache -> the port's ``{"len": [B] int32, "c0": {...}}``
+    with K/V ``[n_layers, B, max_len, KV, Dh]`` (attention) or ``conv``
+    ``[n_layers, B, K-1, Din]`` and ``ssm`` ``[n_layers, B, Din, N]``
+    (Mamba).
 
     Takes either JAX layout: a model-level cache (``len`` a scalar or
-    [B], K/V ``[n_layers, B, max_len, KV, Dh]``) or the serving engine's
-    slot-stacked cache (``len`` [W], K/V ``[W, n_layers, 1, max_len, KV,
-    Dh]``).
+    [B], leaves ``[n_layers, B, ...]``) or the serving engine's
+    slot-stacked cache (``len`` [W], leaves ``[W, n_layers, 1, ...]``).
+    ``dtype`` casts every leaf but the fp32 SSM state.
     """
     device = resolve_device(device)
     dt = torch_dtype(dtype) if dtype is not None else None
-    k, v = np.asarray(cache["c0"]["k"]), np.asarray(cache["c0"]["v"])
-    if k.ndim == 6:  # slot-stacked: [W, n, 1, L, KV, Dh] -> [n, W, L, KV, Dh]
-        k, v = k[:, :, 0].swapaxes(0, 1), v[:, :, 0].swapaxes(0, 1)
-    lengths = np.broadcast_to(np.asarray(cache["len"], np.int32), (k.shape[1],))
-    return {
-        "len": torch.from_numpy(lengths.copy()).to(device),
-        "c0": {"k": _tensor(k, device, dt), "v": _tensor(v, device, dt)},
-    }
+    c0 = {}
+    for name, leaf in cache["c0"].items():
+        a = np.asarray(leaf)
+        if a.ndim == _LEAF_RANK[name] + 1:  # slot-stacked: [W, n, 1, ...] -> [n, W, ...]
+            a = a[:, :, 0].swapaxes(0, 1)
+        c0[name] = _tensor(a, device, None if name == "ssm" else dt)
+    W = next(iter(c0.values())).shape[1]
+    lengths = np.broadcast_to(np.asarray(cache["len"], np.int32), (W,))
+    return {"len": torch.from_numpy(lengths.copy()).to(device), "c0": c0}
 
 
 def cache_to_numpy(cache: dict) -> dict:
     """The port's cache -> the JAX serving engine's slot-stacked layout:
-    ``len`` [W] and K/V ``[W, n_layers, 1, max_len, KV, Dh]``."""
+    ``len`` [W] and leaves ``[W, n_layers, 1, ...]`` (fp32)."""
 
-    def kv(t: torch.Tensor) -> np.ndarray:
+    def slot_stacked(t: torch.Tensor) -> np.ndarray:
         return t.detach().float().cpu().numpy().swapaxes(0, 1)[:, :, None]
 
     return {
         "len": cache["len"].cpu().numpy(),
-        "c0": {"k": kv(cache["c0"]["k"]), "v": kv(cache["c0"]["v"])},
+        "c0": {name: slot_stacked(t) for name, t in cache["c0"].items()},
     }

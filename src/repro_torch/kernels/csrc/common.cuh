@@ -1,6 +1,6 @@
-// Helpers shared by the attention kernels: element conversion, strides,
-// warp reductions, the split-KV log-sum-exp merge. Every kernel reads
-// fp32, bf16 or int8 elements and does its arithmetic in fp32.
+// Helpers shared by the kernels: element conversion, strides, warp
+// reductions, the split-KV log-sum-exp merge. Every kernel reads fp32,
+// bf16 or int8 elements and does its arithmetic in fp32.
 #pragma once
 
 #include <cstdint>

@@ -3,6 +3,7 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
         --smoke --groups 3 --replicas 3 --policy adaptive --slots 60 \
         [--paged --prefill-chunk 32 --kv-dtype int8]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b --smoke
 
 Hosts G pipeline groups x R replicas of the (partitioned) model on one
 device (CUDA unless ``--device`` says otherwise), routes requests with

@@ -52,7 +52,8 @@ class ModelConfig:
     ``attn_impl``, ``decode_mulsum`` and ``attn_kv_stream`` select
     between JAX code paths and are kept only for that parity: the port
     does not read them. On CUDA it always runs its hand-written attention
-    kernels; on the CPU the kernels' plain PyTorch versions.
+    and selective-scan kernels; on the CPU the kernels' plain PyTorch
+    versions.
     """
 
     name: str
@@ -115,6 +116,10 @@ class ModelConfig:
     @property
     def d_inner(self) -> int:
         return self.ssm_expand * self.d_model
+
+    @property
+    def dt_rank_actual(self) -> int:
+        return self.dt_rank if self.dt_rank is not None else max(1, self.d_model // 16)
 
     @property
     def is_encdec(self) -> bool:

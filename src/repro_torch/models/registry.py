@@ -3,13 +3,15 @@
 ``Model`` bundles the entry points so the serving engine and the
 launcher never branch on family. ``prefill_batch`` / ``decode_batch``
 are the serving engine's batched entry points over a slot cache
-(``{"len": [W], "c0": {"k", "v": [n_layers, W, max_len, KV, Dh]}}``):
-in JAX they ``vmap`` the single-request functions over stacked
-per-request caches; here the batch is written out — every call covers
-the cache's whole slot width W and updates the given lanes in place.
-``decode_paged`` / ``prefill_chunk_paged`` are the paged entry points
-(``supports_paged`` configs), natively batched over the slot width as
-in JAX, updating the shared page pool in place.
+(``{"len": [W], "c0": {...}}``: K/V rows for attention models, conv
+tails and SSM states for Mamba models): in JAX they ``vmap`` the
+single-request functions over stacked per-request caches; here the batch
+is written out — every call covers the cache's whole slot width W and
+updates the given lanes in place. ``decode_paged`` /
+``prefill_chunk_paged`` are the paged entry points (``supports_paged``
+configs), natively batched over the slot width as in JAX, updating the
+shared page pool in place; ``None`` for Mamba models, which serve from
+the dense slot cache.
 """
 
 from __future__ import annotations

@@ -1,23 +1,29 @@
-"""Decoder-only LM assembly for the uniform full-attention family.
+"""Decoder-only LM assembly for the uniform full-attention decoders and
+the pure-Mamba SSM family.
 
 Entry points, as in the JAX package's ``models/transformer.py``:
 
-* :func:`prefill` — forward over a prompt, building a dense KV cache;
+* :func:`prefill` — forward over a prompt, building a dense cache;
 * :func:`decode_step` — one token per lane against that cache;
 * :func:`decode_step_paged` and :func:`prefill_chunk_paged` — one token,
   or one prompt chunk, per lane against a shared page pool addressed by
   block tables (the :func:`supports_paged` set).
 
 The JAX ``lax.scan`` over stacked layer params is a Python loop over the
-layer axis here. The cache is batched natively: ``{"len": [B] int32,
-"c0": {"k", "v": [n_layers, B, max_len, KV, Dh]}}`` with per-lane
-lengths, so a batch of serving slots is one call — :func:`prefill_into`
-and :func:`decode_step` take the ``lanes`` they write and update the
-cache in place.
+layer axis here. The cache is batched natively, with per-lane lengths:
+``{"len": [B] int32, "c0": {...}}`` where ``c0`` holds ``"k", "v":
+[n_layers, B, max_len, KV, Dh]`` for attention layers and ``"conv":
+[n_layers, B, K-1, Din]`` (compute dtype) and ``"ssm": [n_layers, B, Din,
+N]`` (fp32) for Mamba layers, so a batch of serving slots is one call —
+:func:`prefill_into` and :func:`decode_step` take the ``lanes`` they
+write and update the cache in place.
 
-Sliding windows and ring caches, MoE, SSM/hybrid blocks, encoder–decoder
-models and modality frontends are not ported yet: they raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+A Mamba layer is ``x + mamba(rmsnorm(x))`` with no feed-forward, as the
+JAX ``_layer_body`` for ``block == "mamba"``.
+
+Sliding windows and ring caches, hybrid (hymba) blocks, MoE,
+encoder–decoder models and modality frontends are not ported yet: they
+raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from .attention import (
 )
 from .common import ModelConfig, ParamSpec, tree_map
 from .layers import embed_template, gelu_mlp, mlp_template, rmsnorm, swiglu_mlp
+from .ssm import mamba_block, mamba_decode_step, ssm_template
 
 __all__ = [
     "lm_template",
@@ -54,8 +61,8 @@ __all__ = [
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the architectures whose model code is not ported yet."""
     missing = []
-    if cfg.block != "attn":
-        missing.append(f"{cfg.block} blocks (SSM / hybrid)")
+    if cfg.block not in ("attn", "mamba"):
+        missing.append(f"{cfg.block} blocks (hybrid attention + SSM)")
     if cfg.is_moe:
         missing.append("MoE feed-forward")
     if cfg.is_encdec:
@@ -67,7 +74,7 @@ def check_supported(cfg: ModelConfig) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported to PyTorch yet "
-            "(ROADMAP.md, Queue 1: the SSM and hybrid models and the rest of the zoo)"
+            "(ROADMAP.md, Queue 1: the hybrid models and the rest of the zoo)"
         )
 
 
@@ -99,8 +106,9 @@ class LayerPlan:
 
 
 def layer_plan(cfg: ModelConfig) -> LayerPlan:
-    """The uniform full-attention plan: one class ``c0`` holding every
-    layer, run in one pass (the JAX plan's single-class case)."""
+    """The uniform plan: one class ``c0`` holding every layer, run in one
+    pass (the JAX plan's single-class case: full attention, or Mamba
+    layers, whose window is None)."""
     check_supported(cfg)
     n = cfg.n_layers
     return LayerPlan((ClassSpec(None, tuple(range(n))),), (RunSpec(0, 0, n),))
@@ -111,12 +119,13 @@ def lm_template(cfg: ModelConfig) -> dict:
     cfg.validate()
     n = layer_plan(cfg).classes[0].count
     D = cfg.d_model
-    layers = {
-        "ln1": ParamSpec((n, D), ("layers", "embed"), init="ones"),
-        "attn": attn_template(cfg, n_layers=n),
-        "ln2": ParamSpec((n, D), ("layers", "embed"), init="ones"),
-        "mlp": mlp_template(cfg, n_layers=n),
-    }
+    layers: dict = {"ln1": ParamSpec((n, D), ("layers", "embed"), init="ones")}
+    if cfg.block == "mamba":
+        layers["ssm"] = ssm_template(cfg, n_layers=n)
+    else:
+        layers["attn"] = attn_template(cfg, n_layers=n)
+        layers["ln2"] = ParamSpec((n, D), ("layers", "embed"), init="ones")
+        layers["mlp"] = mlp_template(cfg, n_layers=n)
     t: dict = {"classes": {"c0": layers}}
     emb = embed_template(cfg)
     keep_emb: dict = {}
@@ -166,6 +175,7 @@ def _layer_params(stack: dict, l: int) -> dict:
 
 
 def _layer(x, p_layer, cfg: ModelConfig, *, positions, cache=None, lanes=None):
+    """One attention layer (attention + FFN); returns (x, (k, v))."""
     h = rmsnorm(x, p_layer["ln1"], cfg.rms_eps)
     a, kv = attention_block(
         h, p_layer["attn"], cfg, positions=positions, cache=cache, lanes=lanes
@@ -173,6 +183,17 @@ def _layer(x, p_layer, cfg: ModelConfig, *, positions, cache=None, lanes=None):
     x = x + a
     h2 = rmsnorm(x, p_layer["ln2"], cfg.rms_eps)
     return x + _ffn(h2, p_layer, cfg), kv
+
+
+def _mamba_layer(x, p_layer, cfg: ModelConfig, state=None):
+    """One Mamba layer, no FFN: prefill (``state`` None) or one decode step
+    against ``state = (conv, ssm)``; returns (x, (conv, ssm))."""
+    h = rmsnorm(x, p_layer["ln1"], cfg.rms_eps)
+    if state is None:
+        m, state = mamba_block(h, p_layer["ssm"], cfg)
+    else:
+        m, state = mamba_decode_step(h, p_layer["ssm"], cfg, state)
+    return x + m, state
 
 
 def _stage_input(batch: dict, cfg: ModelConfig) -> torch.Tensor:
@@ -185,10 +206,18 @@ def _stage_input(batch: dict, cfg: ModelConfig) -> torch.Tensor:
 
 def init_cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     """Cache layout as (shape, dtype) leaves: per-lane lengths and the
-    stacked K/V of every layer."""
+    stacked K/V of every attention layer, or the conv tail and SSM state
+    of every Mamba layer (O(1) in the context, so ``max_len`` is unused)."""
     n = layer_plan(cfg).classes[0].count
-    kv = ((n, batch, max_len, cfg.n_kv_heads, cfg.head_dim), cfg.compute_dtype)
-    return {"len": ((batch,), torch.int32), "c0": {"k": kv, "v": kv}}
+    if cfg.block == "mamba":
+        c0 = {
+            "conv": ((n, batch, cfg.ssm_conv - 1, cfg.d_inner), cfg.compute_dtype),
+            "ssm": ((n, batch, cfg.d_inner, cfg.ssm_state), torch.float32),
+        }
+    else:
+        kv = ((n, batch, max_len, cfg.n_kv_heads, cfg.head_dim), cfg.compute_dtype)
+        c0 = {"k": kv, "v": kv}
+    return {"len": ((batch,), torch.int32), "c0": c0}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
@@ -207,24 +236,32 @@ def prefill_into(params, batch: dict, cache: dict, lanes: torch.Tensor, cfg: Mod
     """Prefill N same-length prompts into cache lanes ``lanes`` [N].
 
     batch: {"tokens": [N, S]} (first stage) or {"hidden": [N, S, D]}.
-    Writes each layer's K/V rows ``[0, S)`` of the given lanes and sets
-    their lengths to S, in place; other lanes are untouched. Returns the
-    last position's logits [N, 1, V] (last stage) or the whole hidden
-    sequence [N, S, D] (a middle stage: the next stage prefills from it).
+    Writes each layer's K/V rows ``[0, S)`` (attention) or its conv tail
+    and final SSM state (Mamba) into the given lanes and sets their
+    lengths to S, in place; other lanes are untouched. Returns the last
+    position's logits [N, 1, V] (last stage) or the whole hidden sequence
+    [N, S, D] (a middle stage: the next stage prefills from it).
     """
     x_in = _stage_input(batch, cfg)
     S = x_in.shape[1]
-    max_len = cache["c0"]["k"].shape[2]
-    if S > max_len:
-        raise ValueError(f"prompt of {S} tokens exceeds the cache's max_len {max_len}")
     x = _embed(params, x_in, cfg)
-    positions = torch.arange(S, device=x.device)
     stack = params["classes"]["c0"]
-    k_all, v_all = cache["c0"]["k"], cache["c0"]["v"]
-    for l in range(k_all.shape[0]):
-        x, (k, v) = _layer(x, _layer_params(stack, l), cfg, positions=positions)
-        k_all[l, lanes, :S] = k.to(k_all.dtype)
-        v_all[l, lanes, :S] = v.to(v_all.dtype)
+    c0 = cache["c0"]
+    if cfg.block == "mamba":
+        for l in range(c0["conv"].shape[0]):
+            x, (conv, ssm) = _mamba_layer(x, _layer_params(stack, l), cfg)
+            c0["conv"][l, lanes] = conv.to(c0["conv"].dtype)
+            c0["ssm"][l, lanes] = ssm
+    else:
+        max_len = c0["k"].shape[2]
+        if S > max_len:
+            raise ValueError(f"prompt of {S} tokens exceeds the cache's max_len {max_len}")
+        positions = torch.arange(S, device=x.device)
+        k_all, v_all = c0["k"], c0["v"]
+        for l in range(k_all.shape[0]):
+            x, (k, v) = _layer(x, _layer_params(stack, l), cfg, positions=positions)
+            k_all[l, lanes, :S] = k.to(k_all.dtype)
+            v_all[l, lanes, :S] = v.to(v_all.dtype)
     cache["len"][lanes] = S
     return _unembed(params, x[:, -1:] if cfg.stage_unembed else x, cfg)
 
@@ -234,6 +271,8 @@ def prefill(params, batch: dict, cfg: ModelConfig, *, max_len: int):
     ``max_len`` rows per lane. Returns (logits [B, 1, V] | hidden
     [B, S, D], cache)."""
     x_in = _stage_input(batch, cfg)
+    if max_len < x_in.shape[1]:
+        raise ValueError("max_len must cover the prompt")
     cache = init_cache(cfg, x_in.shape[0], max_len, x_in.device)
     lanes = torch.arange(x_in.shape[0], device=x_in.device)
     return prefill_into(params, batch, cache, lanes, cfg), cache
@@ -245,17 +284,28 @@ def decode_step(params, token: torch.Tensor, cache: dict, cfg: ModelConfig,
 
     token: [B, 1] ids (first stage) or hidden [B, 1, D]. Lane b's new
     token sits at position ``cache["len"][b]``. Only the lanes in
-    ``lanes`` (default: all) get their K/V row written and their length
-    bumped — in place; the other lanes compute garbage the caller drops.
+    ``lanes`` (default: all) get their K/V row (or conv / SSM state)
+    written and their length bumped — in place; the other lanes compute
+    garbage the caller drops (the JAX engine's masked merge).
     Returns (logits [B, 1, V] | hidden [B, 1, D], cache).
     """
     x = _embed(params, token, cfg)
     lengths = cache["len"]
     if lanes is None:
         lanes = torch.arange(x.shape[0], device=x.device)
+    stack = params["classes"]["c0"]
+    if cfg.block == "mamba":
+        conv_all, ssm_all = cache["c0"]["conv"], cache["c0"]["ssm"]
+        for l in range(conv_all.shape[0]):
+            x, (conv, ssm) = _mamba_layer(
+                x, _layer_params(stack, l), cfg, state=(conv_all[l], ssm_all[l])
+            )
+            conv_all[l, lanes] = conv[lanes].to(conv_all.dtype)
+            ssm_all[l, lanes] = ssm[lanes]
+        cache["len"][lanes] += 1
+        return _unembed(params, x, cfg), cache
     positions = lengths[:, None]
     attn_len = lengths + 1
-    stack = params["classes"]["c0"]
     k_all, v_all = cache["c0"]["k"], cache["c0"]["v"]
     for l in range(k_all.shape[0]):
         x, _ = _layer(
@@ -273,11 +323,12 @@ def decode_step(params, token: torch.Tensor, cache: dict, cfg: ModelConfig,
 def supports_paged(cfg: ModelConfig) -> bool:
     """Paged serving pages the unbounded full-attention KV: every
     pure-attention architecture whose layers all attend globally, which
-    is every architecture the port has (``check_supported`` raises for
-    the rest). A pipeline stage without layers (more stages than layers,
-    as the two-layer smoke configs give at G=3) pages nothing and is
-    served all the same; the JAX layer plan has no class for it and
-    refuses it."""
+    is every attention architecture the port has (``check_supported``
+    raises for the rest). Mamba layers keep O(1) state per lane and serve
+    from the dense slot cache, as in JAX. A pipeline stage without layers
+    (more stages than layers, as the two-layer smoke configs give at G=3)
+    pages nothing and is served all the same; the JAX layer plan has no
+    class for it and refuses it."""
     if cfg.is_encdec or cfg.block != "attn":
         return False
     plan = layer_plan(cfg)

@@ -17,15 +17,17 @@ decides everything else. It is the port of the JAX package's
   ``_DenseExec`` or ``_PagedExec``.
 
 Continuous batching. Each (group, replica) owns one dense cache
-``{"len": [W], "c0": {"k", "v": [n_layers, W, max_len, KV, Dh]}}`` of
-``W = max_batch`` slots. Per simulation slot a replica issues one
-batched stage call for every resident request at that stage: a decode
-over the full slot width plus one prefill per distinct length of the
-joining prompts, and charges ``CE(PM)/kappa`` per slot per call. The
-JAX engine decodes all W slots and merges the whole cache back with a
-select (a full cache copy per step); here the decode writes K/V rows and
-bumps lengths only for member slots, in place, and prefill writes the
-joining slots' rows ``[0, S)``.
+``{"len": [W], "c0": {...}}`` of ``W = max_batch`` slots: K/V
+``[n_layers, W, max_len, KV, Dh]`` for attention models, the conv tail
+``[n_layers, W, K-1, Din]`` and SSM state ``[n_layers, W, Din, N]`` for
+Mamba models. Per simulation slot a replica launches one batched stage
+call for every resident request at that stage: a decode over the full
+slot width plus one prefill per distinct length of the joining prompts,
+and charges ``CE(PM)/kappa`` per slot per call. The JAX engine decodes
+all W slots and merges the whole cache back with a select (a full cache
+copy per step); here the decode writes K/V rows (or conv / SSM state)
+and bumps lengths only for member slots, in place, and prefill writes
+the joining slots' rows ``[0, S)`` (or their whole state).
 
 Paged KV cache (``paged=True``). Each (group, replica) owns a shared pool
 ``{"k", "v": [n_layers, P+1, page, KV, Dh]}`` of ``max_pages`` pages
@@ -508,13 +510,15 @@ class PipelineServer:
         if prefill_chunk is not None:
             if prefill_chunk <= 0:
                 raise ValueError("prefill_chunk must be a positive token count")
+            # A model that cannot chunk at all fails as in JAX, before the
+            # dense layout that the port lacks.
+            if any(m.prefill_chunk_paged is None for m, _ in self.stages):
+                raise ValueError(f"{model.cfg.name}: chunked prefill needs uniform full attention")
             if not paged:
                 raise NotImplementedError(
                     "chunked prefill over the dense cache is not ported yet "
                     "(ROADMAP.md, Queue 1 item 2); use paged=True"
                 )
-            if any(m.prefill_chunk_paged is None for m, _ in self.stages):
-                raise ValueError(f"{model.cfg.name}: chunked prefill needs uniform full attention")
         if async_depth < 0:
             raise ValueError("async_depth must be >= 0 (0 = synchronous)")
         self.async_depth = async_depth

@@ -10,7 +10,12 @@ runs where only PyTorch is installed. Tolerances: fp32 kernel vs fp32 plain vers
 2e-5 (summation order); bf16 kernel vs the plain version in fp32 on the
 same bf16 inputs 2e-2 (bf16 output rounding); the paged kernels on int8
 pages against the plain version on the same int8 pages and scales, with
-the tolerance of the query dtype.
+the tolerance of the query dtype. The selective scan takes fp32 only:
+y and h_final each within 2e-5 of max(1, the plain value's magnitude),
+since 2e-5 is below one fp32 ulp of a y of ~10^2 (long scans). The smoke
+falcon-mamba's prefill logits through the kernel agree with those through
+the plain version within 1e-4 of their scale and within 1e-2 of how far
+zeroing every scan's y moves them.
 """
 
 import dataclasses
@@ -30,7 +35,9 @@ from repro_torch.kernels.decode_attention import (
     quantize_kv,
 )
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
-from repro_torch.models import build_model, init_from_template
+from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
+from repro_torch.kernels.selective_scan import selective_scan, selective_scan_ref
+from repro_torch.models import build_model, init_from_template, ssm
 from repro_torch.serving import PipelineServer
 
 pytestmark = pytest.mark.cuda
@@ -195,3 +202,111 @@ def test_paged_server_runs_through_the_kernels(gen, kv_dtype):
     for mgr in server.managers.values():
         mgr.check_conservation()
         assert mgr.device_block_table().device.type == "cuda"
+
+
+def _scan_operands(gen, B, S, Din, N, with_h0):
+    """As ``mamba_block`` forms them: dt a softplus, A = -exp(.)."""
+    rand = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")  # noqa: E731
+    x, dt = rand(B, S, Din), torch.nn.functional.softplus(rand(B, S, Din))
+    Bm, Cm = rand(B, S, N), rand(B, S, N)
+    A = -torch.exp(0.5 * rand(Din, N))
+    return x, dt, Bm, Cm, A, rand(B, Din, N) if with_h0 else None
+
+
+@pytest.mark.parametrize(
+    "B,S,Din,N,with_h0",
+    [
+        (4, 128, 8192, 16, False),  # falcon-mamba serving prefill
+        (3, 77, 3200, 16, True),  # hymba width, ragged S, given state
+        (1, 300, 520, 16, True),  # B=1, Din not a multiple of 16 channels
+        (2, 65, 100, 8, False),  # smoke state size, one step past a tile
+        (1, 1, 16, 16, True),  # one step
+    ],
+)
+def test_selective_scan_kernel_matches_plain(gen, B, S, Din, N, with_h0):
+    ops = _scan_operands(gen, B, S, Din, N, with_h0)
+    before = selective_scan.launches
+    y, h = selective_scan(*ops)
+    torch.cuda.synchronize()
+    assert selective_scan.launches == before + 1
+    want_y, want_h = selective_scan_ref(*ops)
+    for got, want in ((y, want_y), (h, want_h)):
+        atol = TOL[torch.float32] * max(1.0, want.abs().max().item())
+        torch.testing.assert_close(got, want, atol=atol, rtol=0)
+
+
+def test_selective_scan_kernel_refuses_what_it_cannot_take(gen):
+    x, dt, Bm, Cm, A, h0 = _scan_operands(gen, 2, 8, 32, 16, True)
+    with pytest.raises(ValueError, match="fp32"):
+        selective_scan(x.bfloat16(), dt, Bm, Cm, A)
+    strided = x.transpose(0, 1).contiguous().transpose(0, 1)  # same shape, other strides
+    with pytest.raises(ValueError, match="contiguous"):
+        selective_scan(strided, dt, Bm, Cm, A)
+    big = _scan_operands(gen, 1, 8, 32, 17, False)
+    with pytest.raises(ValueError, match="state size"):
+        selective_scan(*big[:5])
+    with pytest.raises(ValueError, match="shape"):
+        selective_scan(x, dt, Bm, Cm, A, h0[:, :16])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(512, 4096), (512, 2048), (77, 4096), (3, 5, 1000)])
+def test_rmsnorm_kernel_matches_plain(gen, dtype, shape):
+    x = (2.0 * torch.randn(*shape, generator=gen, device="cuda")).to(dtype)
+    w = (1.0 + 0.1 * torch.randn(shape[-1], generator=gen, device="cuda")).to(dtype)
+    before = rmsnorm.launches
+    out = rmsnorm(x, w)
+    torch.cuda.synchronize()
+    assert rmsnorm.launches == before + 1
+    assert out.dtype == dtype and out.shape == x.shape
+    torch.testing.assert_close(out.float(), rmsnorm_ref(x.float(), w.float()),
+                               atol=TOL[dtype], rtol=0)
+
+
+def test_rmsnorm_kernel_refuses_what_it_cannot_take(gen):
+    x = torch.randn(8, 64, generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        rmsnorm(x.T, torch.ones(8, device="cuda"))
+    with pytest.raises(ValueError, match="shape"):
+        rmsnorm(x, torch.ones(32, device="cuda"))
+    with pytest.raises(ValueError, match="dtypes"):
+        rmsnorm(x.half(), torch.ones(64, device="cuda"))
+
+
+def test_mamba_server_runs_through_the_scan_kernel(gen, monkeypatch):
+    cfg = dataclasses.replace(get_smoke_config("falcon-mamba-7b"), d_model=256, ssm_state=16,
+                              dtype="float32", param_dtype="float32")
+    model = build_model(cfg)
+    params = init_from_template(model.template, gen, cfg.param_dtype, device="cuda")
+    server = PipelineServer(model, params, max_len=128, device="cuda")
+    before = selective_scan.launches
+    prompt = np.arange(12) % cfg.vocab_size
+    req = server.submit(prompt, n_tokens=6)
+    for _ in range(200):
+        if req.done:
+            break
+        server.step()
+    assert req.done and len(req.generated) == 6
+    assert selective_scan.launches > before
+    assert server.host_readback.counts["dispatch"] == 0
+    for cache in server._caches.values():
+        for t in cache["c0"].values():
+            assert t.device.type == "cuda" and bool(torch.isfinite(t.float()).all())
+    # The server's first token is the monolithic kernel path's.
+    batch = {"tokens": torch.from_numpy(prompt)[None].cuda()}
+    logits, _ = model.prefill(params, batch, 32)
+    assert req.generated[0] == int(logits[0, -1].argmax())
+    # That token echoes the prompt's last whatever the scans return, so the
+    # logits are held to the plain path's and to the scans' effect on them.
+    monkeypatch.setattr(ssm, "selective_scan", selective_scan_ref)
+    plain, _ = model.prefill(params, batch, 32)
+
+    def scan_zero_y(*args):
+        y, h = selective_scan_ref(*args)
+        return torch.zeros_like(y), h
+
+    monkeypatch.setattr(ssm, "selective_scan", scan_zero_y)
+    zero_y, _ = model.prefill(params, batch, 32)
+    diff = (logits - plain).abs().max().item()
+    assert diff <= 1e-4 * plain.abs().max().item()
+    assert diff <= 1e-2 * (plain - zero_y).abs().max().item()
