@@ -7,9 +7,21 @@ Phases, in order; any failure exits non-zero:
 
 1. Card: name and power limit from nvidia-smi.
 2. Build: every CUDA kernel of the port from the sources in this
-   checkout (``repro_torch.kernels._build``), with the build time.
+   checkout (``repro_torch.kernels._build``), with the build time; per
+   kernel instantiation, ptxas' registers, spills and static shared
+   memory, and the tensor-core instructions (``HGMMA``, ``HMMA``) in its
+   SASS (``cuobjdump -sass`` of the built library). The bf16
+   instantiations of the two prefill-attention kernels must hold
+   ``HGMMA``.
 3. Kernels: each kernel against its plain PyTorch version on the card at
-   the serving path's shapes plus long cases (the selective scan at the
+   the serving path's shapes plus long cases (bf16 flash attention also
+   at S = 1, 63, 64, 65 and 129 around the 64-row tile edges, and with
+   the GQA / MQA row packings of qwen2.5, G=5, and granite, G=48; bf16
+   paged prefill also over a long prefix, B=4, C=128, offsets up to
+   3968, on bf16 and int8 pages, whose lanes at offset >= 1000 are also
+   held within 2^-7 of their largest plain value, a limit that a planted
+   fault, one page of the deepest lane swapped, must exceed); the
+   selective scan at the
    falcon-mamba serving shape, a ragged hymba-width case with a given
    initial state and a 4096-step case, fp32 only; rmsnorm on
    [512, 4096], [512, 2048] and a ragged row count), fp32 (atol 2e-5;
@@ -33,8 +45,9 @@ Phases, in order; any failure exits non-zero:
    100352, bf16, random weights from a seeded ``torch.Generator``) through
    ``PipelineServer`` at G=3 x R=3, max_batch 4, max_len 128, async depth
    2, seed 0: ``run(60, arrival_p=0.5)`` plus four 64..120-token prompts.
-   Both dense kernels' launch counters must grow and every parameter and
-   cache tensor must live on the card.
+   Both dense kernels' launch counters must grow (bf16: the flash
+   kernel's tensor-core instantiation) and every parameter and cache
+   tensor must live on the card.
 5. Serve paged: the same weights, ``paged=True``, page 16, max_batch 8,
    max_len 256, 32 pages per replica (below the dense 128), chunked
    prefill of 32 tokens, async depth 2, seed 0: ``run(60,
@@ -80,6 +93,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -282,6 +296,8 @@ def paged_prefill_case(B, C, page, H, KV, D, offsets, dtype, int8, gen):
                                        k_scales=ks, v_scales=vs)
     err = (out.float() - want).abs().max().item()
     finite = bool(torch.isfinite(out.float()).all())
+    deep = deep_lane_check(q, k, v, ks, vs, bt, offs, out, want) \
+        if max(offsets) >= DEEP_OFFSET else {}
     S = NB * page
     q_pos = offs[:, None] + torch.arange(C, device="cuda")
     mask = (torch.arange(S, device="cuda")[None, None, :] <= q_pos[:, :, None])[:, None]
@@ -309,7 +325,39 @@ def paged_prefill_case(B, C, page, H, KV, D, offsets, dtype, int8, gen):
         "gather_sdpa_ms": time_ms(gather_sdpa),
         "bound_ms": b_ms,
         "bound_by": b_by,
+        **deep,
     }
+
+
+# Lanes this deep average over 1000+ keys, so their outputs are ~0.03 in
+# size and the absolute bf16 limit (2e-2) cannot see a fault confined to
+# their pages. They are held at their own limit, relative to their largest
+# plain value: 2^-7 of it, twice the bf16 output rounding (at most 2^-8 of a
+# value, 7 stored mantissa bits), leaving room for the bf16 P. A planted
+# fault (one visible page of the deepest lane swapped for a page outside
+# every table) must read above that limit.
+DEEP_OFFSET = 1000
+DEEP_TOL = 2.0**-7
+
+
+def deep_lane_check(q, k, v, ks, vs, bt, offs, out, want) -> dict:
+    from repro_torch.kernels.decode_attention import paged_prefill_attention
+
+    lanes = offs >= DEEP_OFFSET
+    scale = want[lanes].abs().max().item()
+    rel = lambda got: (got[lanes].float() - want[lanes]).abs().max().item() / scale  # noqa: E731
+    spare = torch.ones(k.shape[0], dtype=torch.bool, device="cuda")
+    spare[bt.flatten().long()] = False
+    lane = int(offs.argmax())
+    bad = bt.clone()
+    bad[lane, int(offs[lane]) // k.shape[1] // 2] = spare.nonzero()[0, 0].int()
+    fault = rel(paged_prefill_attention(q, k, v, bad, offs, k_scales=ks, v_scales=vs))
+    sound = rel(out)
+    if not (sound <= DEEP_TOL < fault):
+        raise AssertionError(f"deep lanes (offset >= {DEEP_OFFSET}): error {sound:.3g} and "
+                             f"planted-fault error {fault:.3g} of their scale {scale:.3g}, "
+                             f"limit {DEEP_TOL:.3g} between them expected")
+    return {"deep_rel_err": sound, "deep_fault_rel_err": fault, "deep_scale": scale}
 
 
 def scan_operands(B, S, Din, N, with_h0, gen):
@@ -390,6 +438,7 @@ def rmsnorm_case(R, D, dtype, gen):
 SERVE_LENGTHS = [9, 40, 77, 128, 150, 200, 231, 256]  # 8 lanes, max_len 256
 SCAN_LONG_S = 4096
 PREFILL_OFFSETS = [0, 16, 32, 45, 64, 100, 150, 224]  # C=32 chunks, ragged
+LONG_PREFIX_OFFSETS = [0, 1000, 2500, 3968]  # C=128 chunks over prefixes up to 4096
 
 
 def check_kernels() -> dict[str, list[dict]]:
@@ -414,6 +463,15 @@ def check_kernels() -> dict[str, list[dict]]:
         ppre.append(paged_prefill_case(2, 120, 16, 32, 32, 64, [0, 0], dtype, True, gen))
         for R, D in ((4 * 128, 4096), (4 * 128, 2048), (77, 4096)):
             norm.append(rmsnorm_case(R, D, dtype, gen))
+    # bf16 on the tensor cores: the 64-row tile edges, the GQA / MQA row
+    # packings (qwen2.5 G=5, granite G=48) and a long paged prefix.
+    for S in (1, 63, 64, 65, 129):
+        flash.append(flash_case(2, S, 32, 32, 64, torch.bfloat16, gen))
+    flash.append(flash_case(2, 1000, 40, 8, 128, torch.bfloat16, gen))
+    flash.append(flash_case(1, 512, 48, 1, 128, torch.bfloat16, gen))
+    for int8 in (False, True):
+        ppre.append(paged_prefill_case(4, 128, 16, 24, 8, 128, LONG_PREFIX_OFFSETS,
+                                       torch.bfloat16, int8, gen))
     # falcon-mamba's serving prefill; hymba's width, ragged, with a state; long.
     scan = [scan_case(4, 128, 8192, 16, False, gen), scan_case(3, 77, 3200, 16, True, gen),
             scan_case(1, SCAN_LONG_S, 8192, 16, False, gen)]
@@ -434,6 +492,10 @@ def check_kernels() -> dict[str, list[dict]]:
                 yard += (f" (bytes {c['bytes_ms']:.4f} ms, fp32 {c['fp32_ms']:.4f} ms, exp on "
                          f"the SFUs {c['sfu_ms']:.4f} ms; max|y| {c['out_scale']:.4g}, "
                          f"err / max(1, scale) {c['max_rel_err']:.3g})")
+            if "deep_rel_err" in c:
+                yard += (f" (deep lanes: err {c['deep_rel_err']:.3g}, planted page fault "
+                         f"{c['deep_fault_rel_err']:.3g} of their scale {c['deep_scale']:.3g}; "
+                         f"limit {DEEP_TOL:.3g})")
             print(f"  {name} {c['dtype']} {c['shape']}: err {c['max_abs_err']:.3g} "
                   f"kernel {c['ms']:.4f} ms plain {c['plain_ms']:.4f} ms {yard} "
                   f"bound {c['bound_ms']:.4f} ms ({c['bound_by']})")
@@ -442,6 +504,36 @@ def check_kernels() -> dict[str, list[dict]]:
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
     return results
+
+
+def kernel_report(info) -> dict[str, dict]:
+    """Per kernel instantiation, by readable name: ptxas' registers, spill
+    bytes and static shared memory (from the build log), and the HGMMA
+    (wgmma) and HMMA (mma.sync) instructions in its SASS."""
+    from repro_torch.kernels import _build
+
+    bin_dir = Path(_build._nvcc()).parent
+    report: dict[str, dict] = {}
+    fn = None
+    for line in info.log.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            fn = m.group(1)
+            report[fn] = {}
+        elif fn and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            report[fn]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        elif fn and (m := re.search(r"Used (\d+) registers", line)):
+            smem = re.search(r"(\d+) bytes smem", line)
+            report[fn].update(registers=int(m.group(1)),
+                              static_smem=int(smem.group(1)) if smem else 0)
+    for name, counts in _build.sass_mma_counts(info.path).items():
+        report.setdefault(name, {}).update(counts)
+    names = sorted(report)
+    readable = subprocess.run([str(bin_dir / "cu++filt")], input="\n".join(names),
+                              capture_output=True, text=True, check=True,
+                              timeout=60).stdout.splitlines()
+    assert len(readable) == len(names), (len(readable), len(names))
+    short = [re.search(r"(\w+(?:<[^<>]*>)?)\(", r) for r in readable]
+    return {(m.group(1) if m else r): report[n] for n, r, m in zip(names, readable, short)}
 
 
 def on_device(tree, device: torch.device) -> bool:
@@ -826,9 +918,11 @@ def main() -> int:
     info = _build.build()
     _build.load()
     print(f"[2] build: {info.seconds:.2f} s -> {info.path}")
-    for line in info.log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
-            print(f"    {line.strip()}")
+    report = kernel_report(info)
+    for name, r in sorted(report.items()):
+        print(f"    {name}: {r.get('registers')} registers, {r.get('spill_bytes')} spill bytes, "
+              f"{r.get('static_smem')} B static smem, HGMMA {r.get('hgmma')}, HMMA {r.get('hmma')}")
+    tensor_core = _build.tensor_core_check(report)
 
     print("[3] kernels vs plain versions", flush=True)
     results = check_kernels()
@@ -844,6 +938,9 @@ def main() -> int:
     print(f"  weights: {count_params(model.template) / 1e9:.3f} B params "
           f"({cfg.param_dtype}) in {time.perf_counter() - t0:.2f} s")
     cuda = torch.device("cuda")
+    # bf16 queries: the served attention calls launch the tensor-core
+    # instantiations of the prefill kernels (phases 4 and 5).
+    assert cfg.compute_dtype == torch.bfloat16, cfg.dtype
     with torch.no_grad():
         launches = serve(params, model, cuda)
 
@@ -911,6 +1008,10 @@ def main() -> int:
             "main_case": f"{main_case['shape']} {main_case['dtype']}",
             "cases": cases,
         }
+        if name == "flash_attention":
+            entry["tensor_core_sass"] = tensor_core["flash_fwd_tc_kernel"]
+        if name == "paged_prefill_attention":
+            entry["tensor_core_sass"] = tensor_core["paged_prefill_tc_kernel"]
         if name in PAGED_KERNELS:
             entry["launches_by_run"] = {run: counts[name] for run, counts in by_run.items()}
             entry["library_note"] = ("no single PyTorch call reads a block table; "

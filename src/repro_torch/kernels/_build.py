@@ -22,7 +22,8 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["build", "load", "kernel_function", "check", "BuildInfo"]
+__all__ = ["build", "load", "kernel_function", "check", "BuildInfo", "sass_mma_counts",
+           "tensor_core_check", "TENSOR_CORE_KERNELS"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -30,6 +31,11 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+# The bf16 instantiations of the prefill-attention kernels, which run on
+# the tensor cores (csrc/attention_tc.cuh): kernel name -> instantiations
+# (head width 64 / 128; paged also bf16 / int8 pools).
+TENSOR_CORE_KERNELS = {"flash_fwd_tc_kernel": 2, "paged_prefill_tc_kernel": 4}
 
 _lib: ctypes.CDLL | None = None  # the process's loaded kernel library
 
@@ -126,3 +132,29 @@ def check(err: int, name: str) -> None:
     if err != 0:
         msg = load().repro_cuda_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
+
+
+def sass_mma_counts(lib: Path) -> dict[str, dict[str, int]]:
+    """Per kernel function of the library, by mangled name, its wgmma
+    (``hgmma``) and mma.sync (``hmma``) instructions in ``cuobjdump -sass``."""
+    cuobjdump = Path(_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts = {}
+    for block in sass.split("Function : ")[1:]:
+        name, body = block.split(None, 1)
+        counts[name] = {"hgmma": body.count("HGMMA"), "hmma": body.count("HMMA")}
+    return counts
+
+
+def tensor_core_check(counts: dict[str, dict[str, int]]) -> dict[str, dict[str, int]]:
+    """The HGMMA count of every instantiation of ``TENSOR_CORE_KERNELS``
+    in ``counts`` (keyed by mangled or readable name); raises unless each
+    kernel has all its instantiations and each holds HGMMA."""
+    found = {}
+    for kernel, n in TENSOR_CORE_KERNELS.items():
+        hgmma = {name: c["hgmma"] for name, c in counts.items() if kernel in name}
+        if len(hgmma) != n or not all(hgmma.values()):
+            raise RuntimeError(f"{kernel}: {n} instantiations with HGMMA expected, SASS has {hgmma}")
+        found[kernel] = hgmma
+    return found

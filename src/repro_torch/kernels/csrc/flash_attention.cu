@@ -5,26 +5,37 @@
 // causal masking, a static sliding window that trims the KV tile range, GQA
 // (query head h reads KV head h / G) and ragged tails.
 //
-// Design. One thread block per (q tile of BQ rows, query head, batch). On the
-// TPU the KV tiles are the sequential innermost grid axis carrying (m, l, acc)
-// in VMEM scratch; here blocks run in parallel in no order, so a loop inside
-// the block walks the KV tiles [j_first, j_last] and the running state lives in
-// registers, in fp32. Each of the four warps owns BQ/4 query rows; a lane owns
-// two score columns of the current KV tile and D/32 output columns. Q, the
-// K/V tile and the tile's probabilities are staged in shared memory as fp32
-// (K padded by one column so a warp reading 32 different K rows hits 32
-// banks). Q/K/V are read in the model layout [B, S, H, D] through strides, so
-// the caller never transposes to BHSD; ragged tails are masked in-kernel
-// instead of padding the inputs.
+// On the TPU the KV tiles are the sequential innermost grid axis carrying
+// (m, l, acc) in VMEM scratch; here blocks run in parallel in no order, so a
+// loop inside the block walks the KV tiles [j_first, j_last] and the running
+// state lives in registers, in fp32. Q/K/V are read in the model layout
+// [B, S, H, D] through strides, so the caller never transposes to BHSD;
+// ragged tails are masked in-kernel instead of padding the inputs. The
+// dispatch at the bottom picks one of two designs by dtype.
 //
-// Bound on the H100. At the serving shapes (prompts of 8..128 tokens) the
-// work is a few MFLOP per head and the inputs a few MB, so the bound is bytes:
-// Q, K, V read once and O written once. Inside a block each K/V tile is read
-// from device memory once and reused by all BQ query rows from shared memory.
-// The arithmetic runs on the CUDA cores in fp32 (no wgmma / tensor cores
-// yet), which is what limits long prompts: at S=4096 this kernel is
-// compute-bound far below the tensor-core rate. Tensor cores, TMA and warp
-// specialisation are later work.
+// bf16: the tensor cores (attention_tc.cuh). One warpgroup per (64 rows,
+// KV head, batch), where a row is one (query position, query head of the KV
+// head's group) pair, position-major, so the G heads of a group share each
+// K/V tile and read it from device memory once. Q and the K/V tiles arrive
+// by 16-byte cp.async into 128-byte-swizzled shared memory, K/V in a 2-stage
+// ring (tile j + 1 in flight while tile j computes); rows past Skv are
+// zero-filled and masked. Shared memory: 41 KB at D = 64 and 81 KB at
+// D = 128, so 4 and 2 blocks share an SM (registers allow as many). Bound
+// on the H100: bytes at the serving shapes (prompts of 8..128 tokens: a few
+// MFLOP per head against a few MB), where the time is the latency of a
+// block's first loads; operations at long prompts, where the tensor cores
+// and the exponentials on the special-function units take about equal
+// time at D = 64.
+//
+// fp32: the CUDA cores, the parity path (fp32 on the tensor cores would be
+// TF32, ~3 decimal digits). One block per (64 query rows, query head,
+// batch); each of the four warps owns 16 rows; a lane owns two score
+// columns of the current KV tile and D/32 output columns. Q, the K/V tile
+// and the tile's probabilities are staged in shared memory as fp32 (K
+// padded by one column so a warp reading 32 different K rows hits 32
+// banks). Bound: bytes at the serving shapes; at long prompts the fp32 FMAs
+// (67 TFLOP/s), which this design reaches only in part.
+#include "attention_tc.cuh"
 #include "common.cuh"
 
 namespace repro {
@@ -41,10 +52,10 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (kBQ * D + kBKV * (D + 1) + kBKV * D + kBQ * kBKV);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, int Sq, int Skv, int G, Strides4 qs, Strides4 ks,
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    float* __restrict__ o, int Sq, int Skv, int G, Strides4 qs, Strides4 ks,
     Strides4 vs, Strides4 os, int causal, int window, float scale) {
   constexpr int NC = D / 32;  // output columns per lane
   extern __shared__ float smem[];
@@ -62,14 +73,14 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   const int lane = tid % 32;
   const int row0 = warp * kRows;  // first tile row owned by this warp
 
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + kvh * ks.h;
-  const T* vb = v + b * vs.b + kvh * vs.h;
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * ks.b + kvh * ks.h;
+  const float* vb = v + b * vs.b + kvh * vs.h;
 
   for (int i = tid; i < kBQ * D; i += kThreads) {
     const int r = i / D, d = i % D;
     const int qp = q0 + r;
-    sQ[i] = qp < Sq ? to_float(qb[qp * qs.s + d]) * scale : 0.f;
+    sQ[i] = qp < Sq ? qb[qp * qs.s + d] * scale : 0.f;
   }
 
   // KV tile range this q tile can see (flash_attention.py:50-58).
@@ -96,8 +107,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
       const int kp = kv0 + r;
       float kx = 0.f, vx = 0.f;
       if (kp < Skv) {
-        kx = to_float(kb[kp * ks.s + d]);
-        vx = to_float(vb[kp * vs.s + d]);
+        kx = kb[kp * ks.s + d];
+        vx = vb[kp * vs.s + d];
       }
       sK[r * (D + 1) + d] = kx;
       sV[i] = vx;
@@ -157,30 +168,143 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     }
   }
 
-  T* ob = o + b * os.b + h * os.h;
+  float* ob = o + b * os.b + h * os.h;
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int qp = q0 + row0 + r;
     if (qp >= Sq) continue;
     const float denom = fmaxf(l[r], 1e-30f);
 #pragma unroll
-    for (int i = 0; i < NC; ++i) ob[qp * os.s + lane + 32 * i] = from_float<T>(acc[r][i] / denom);
+    for (int i = 0; i < NC; ++i) ob[qp * os.s + lane + 32 * i] = acc[r][i] / denom;
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
                    int Sq, int Skv, int H, int KV, Strides4 qs, Strides4 ks,
                    Strides4 vs, Strides4 os, int causal, int window, float scale,
                    cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Skv, H / KV, qs, ks, vs, os, causal, window, scale);
+  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), Sq, Skv, H / KV, qs, ks, vs, os, causal, window, scale);
+  return cudaGetLastError();
+}
+
+// ---- bf16: tensor cores (attention_tc.cuh) ----------------------------------
+
+// Alignment slack, Q, and two stages of K and V.
+template <int D>
+constexpr size_t tc_smem_bytes() {
+  return 1024 + 5 * tc::tile_bytes<D>();
+}
+
+// One block (one warpgroup) per (tile of 64 rows, KV head, batch), where a
+// row is one (query position, query head of the KV head's group) pair,
+// position-major: the G heads of a group share every K/V tile, which is read
+// from device memory once per group.
+template <int D>
+__global__ void __launch_bounds__(tc::kThreads) flash_fwd_tc_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int Sq, int Skv,
+    int G, Strides4 qs, Strides4 ks, Strides4 vs, Strides4 os, int causal, int window,
+    float scale) {
+  constexpr uint32_t kTile = tc::tile_bytes<D>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t sQ = (tc::smem_addr(smem_raw) + 1023) & ~1023u;
+  auto sK = [&](int st) { return sQ + kTile * (1 + 2 * st); };
+  auto sV = [&](int st) { return sQ + kTile * (2 + 2 * st); };
+
+  // The last row tiles see the most K/V tiles under a causal mask: start them first.
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * tc::kRows;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int n_rows = Sq * G;
+  const int q_first = r0 / G;
+  const int q_last = (min(r0 + tc::kRows, n_rows) - 1) / G;
+
+  // KV tile range these rows can see (flash_attention.py:50-58).
+  const int n_kv = (Skv + tc::kCols - 1) / tc::kCols;
+  int j_last = n_kv - 1;
+  if (causal) j_last = min(q_last / tc::kCols, j_last);
+  int j_first = 0;
+  if (window > 0) j_first = max(q_first - window + 1, 0) / tc::kCols;
+
+  // This thread's two rows: query position and output row pointer.
+  int qp[2];
+  __nv_bfloat16* orow[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + tc::frag_row(h);
+    qp[h] = r / G;
+    orow[h] = r < n_rows ? o + b * os.b + qp[h] * os.s + (kvh * G + r % G) * os.h : nullptr;
+  }
+
+  const __nv_bfloat16* kb = k + b * ks.b + kvh * ks.h;
+  const __nv_bfloat16* vb = v + b * vs.b + kvh * vs.h;
+  auto load_kv = [&](int j, int st) {
+    const int kv0 = j * tc::kCols;
+    tc::load_tiles_async<D>(sK(st), sV(st), [&](int row) {
+      const int kp = kv0 + row;
+      return kp < Skv ? tc::RowPair{kb + kp * ks.s, vb + kp * vs.s} : tc::RowPair{nullptr, nullptr};
+    });
+    tc::cp_async_commit();
+  };
+
+  tc::Softmax<D> sm;
+  sm.init();
+  const float scale_log2 = scale * tc::kLog2e;
+  if (j_first <= j_last) {
+    tc::load_tile_async<D>(sQ, [&](int row) {
+      const int r = r0 + row;
+      return r < n_rows ? q + b * qs.b + (r / G) * qs.s + (kvh * G + r % G) * qs.h : nullptr;
+    });
+    load_kv(j_first, 0);
+  }
+  for (int j = j_first; j <= j_last; ++j) {
+    const int st = (j - j_first) & 1;
+    tc::cp_async_wait_all();  // tile j (and Q) landed
+    tc::fence_async_smem();
+    __syncthreads();  // ... for every thread; and tile j - 1's stage is free
+    if (j < j_last) load_kv(j + 1, st ^ 1);  // in flight while tile j computes
+    const int kv0 = j * tc::kCols;
+    const bool need_mask = kv0 + tc::kCols > Skv ||
+                           (causal && kv0 + tc::kCols - 1 > q_first) ||
+                           (window > 0 && q_last - kv0 >= window);
+    tc::tile_step<D, false>(
+        sm, sQ, sK(st), sV(st), scale_log2, need_mask,
+        [&](int h, int col) {
+          const int kp = kv0 + col;
+          bool ok = kp < Skv;
+          if (causal) ok = ok && qp[h] >= kp;
+          if (window > 0) ok = ok && qp[h] - kp < window;
+          return ok;
+        },
+        nullptr, nullptr);
+  }
+  tc::epilogue<D>(sm, [&](int h, int col, float x0, float x1) {
+    if (orow[h]) *reinterpret_cast<__nv_bfloat162*>(orow[h] + col) = __floats2bfloat162_rn(x0, x1);
+  });
+}
+
+template <int D>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, int B, int Sq,
+                      int Skv, int H, int KV, Strides4 qs, Strides4 ks, Strides4 vs,
+                      Strides4 os, int causal, int window, float scale, cudaStream_t stream) {
+  constexpr size_t smem = tc_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int G = H / KV;
+  dim3 grid((Sq * G + tc::kRows - 1) / tc::kRows, KV, B);
+  flash_fwd_tc_kernel<D><<<grid, tc::kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq, Skv, G, qs,
+      ks, vs, os, causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -201,12 +325,12 @@ extern "C" int repro_flash_attention_fwd(
       os{o_sb, o_ss, o_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32 && D == 64)
-    return launch<float, 64>(q, k, v, o, B, Sq, Skv, H, KV, qs, ks, vs, os, causal, window, scale, st);
+    return launch<64>(q, k, v, o, B, Sq, Skv, H, KV, qs, ks, vs, os, causal, window, scale, st);
   if (dtype == kFloat32 && D == 128)
-    return launch<float, 128>(q, k, v, o, B, Sq, Skv, H, KV, qs, ks, vs, os, causal, window, scale, st);
+    return launch<128>(q, k, v, o, B, Sq, Skv, H, KV, qs, ks, vs, os, causal, window, scale, st);
   if (dtype == kBFloat16 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, o, B, Sq, Skv, H, KV, qs, ks, vs, os, causal, window, scale, st);
+    return launch_tc<64>(q, k, v, o, B, Sq, Skv, H, KV, qs, ks, vs, os, causal, window, scale, st);
   if (dtype == kBFloat16 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, o, B, Sq, Skv, H, KV, qs, ks, vs, os, causal, window, scale, st);
+    return launch_tc<128>(q, k, v, o, B, Sq, Skv, H, KV, qs, ks, vs, os, causal, window, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

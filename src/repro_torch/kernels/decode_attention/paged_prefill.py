@@ -2,7 +2,9 @@
 
 A CPU tensor goes through the plain version (:mod:`.ref`); a CUDA tensor
 launches ``csrc/paged_prefill_attention.cu`` or raises.
-``paged_prefill_attention.launches`` counts the kernel's launches.
+``paged_prefill_attention.launches`` counts the kernel's launches. bf16
+queries run on the tensor cores, which copy rows in 16-byte chunks and
+keep the lane's block-table row in shared memory.
 """
 
 from __future__ import annotations
@@ -12,11 +14,15 @@ import ctypes
 import torch
 
 from .. import _build
+from ..flash_attention.ops import check_rows_16b_aligned
 from .ops import _DTYPE_CODES
 from .paged import check_paged_operands
 from .ref import paged_prefill_attention_ref
 
-__all__ = ["paged_prefill_attention"]
+__all__ = ["paged_prefill_attention", "MAX_TABLE_PAGES"]
+
+# Block-table entries the bf16 kernel holds in shared memory (4 bytes each).
+MAX_TABLE_PAGES = 16384
 
 _ARGTYPES = (
     [ctypes.c_void_p] * 8
@@ -40,7 +46,9 @@ def paged_prefill_attention(
     pools, scales and block tables as
     :func:`.paged.paged_decode_attention`; offsets: [B] int32 absolute
     position of ``q[:, 0]``. Query ``i`` of lane ``b`` attends positions
-    ``<= offsets[b] + i``. Returns [B, C, H, D] in q's dtype."""
+    ``<= offsets[b] + i``. Returns [B, C, H, D] in q's dtype. With bf16
+    queries, q's and the pools' rows must start on 16-byte boundaries and
+    a block-table row may hold at most ``MAX_TABLE_PAGES`` pages."""
     if q.device.type == "cpu":
         return paged_prefill_attention_ref(
             q, k_pages, v_pages, block_tables, offsets, k_scales=k_scales, v_scales=v_scales
@@ -56,6 +64,11 @@ def paged_prefill_attention(
     if (offsets.shape != (B,) or offsets.dtype != torch.int32 or not offsets.is_contiguous()
             or offsets.device != q.device):
         raise ValueError("paged_prefill_attention: offsets must be a contiguous [B] int32 tensor")
+    if q.dtype == torch.bfloat16:
+        check_rows_16b_aligned("paged_prefill_attention", q=q, k_pages=k_pages, v_pages=v_pages)
+        if NB > MAX_TABLE_PAGES:
+            raise ValueError(f"paged_prefill_attention: block tables of {NB} pages; the bf16 "
+                             f"kernel holds at most {MAX_TABLE_PAGES}")
     out = torch.empty((B, C, H, D), dtype=q.dtype, device=q.device)
     fn = _build.kernel_function("repro_paged_prefill_attention_fwd", _ARGTYPES)
     err = fn(

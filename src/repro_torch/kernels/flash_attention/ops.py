@@ -2,7 +2,9 @@
 
 A CPU tensor goes through the plain version (:mod:`.ref`); a CUDA tensor
 launches ``csrc/flash_attention.cu`` or raises. ``flash_attention.launches``
-counts the kernel's launches.
+counts the kernel's launches. bf16 runs on the tensor cores, which move
+rows in 16-byte chunks: :func:`check_rows_16b_aligned` says what that asks
+of the operands.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import torch
 from .. import _build
 from .ref import flash_attention_ref
 
-__all__ = ["flash_attention"]
+__all__ = ["flash_attention", "check_rows_16b_aligned"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = (
@@ -23,6 +25,19 @@ _ARGTYPES = (
     + [ctypes.c_longlong] * 12
     + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 )
+
+
+def check_rows_16b_aligned(name: str, **tensors: torch.Tensor) -> None:
+    """Raise unless every tensor's data pointer, and its stride along every
+    dim longer than 1 but the last (which is contiguous), fall on 16 bytes:
+    the bf16 tensor-core kernels copy rows in 16-byte chunks (``cp.async``,
+    vector loads)."""
+    for what, t in tensors.items():
+        item = t.element_size()
+        strides = [st for st, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1]
+        if t.data_ptr() % 16 or any(st * item % 16 for st in strides):
+            raise ValueError(f"{name}: {what} rows must start on 16-byte boundaries "
+                             f"(strides {t.stride()}, {t.dtype})")
 
 
 def flash_attention(
@@ -36,7 +51,8 @@ def flash_attention(
     """q: [B, Sq, H, D]; k, v: [B, Skv, KV, D] -> [B, Sq, H, D] in q's dtype.
 
     The CUDA kernel reads all three through their strides (last dim
-    contiguous) and takes head_dim 64 or 128, fp32 or bf16.
+    contiguous) and takes head_dim 64 or 128, fp32 or bf16; bf16 rows
+    must start on 16-byte boundaries.
     """
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)
@@ -58,6 +74,8 @@ def flash_attention(
         raise ValueError("flash_attention: head_dim must be contiguous")
     if window is not None and window < 1:
         raise ValueError("flash_attention: window must be >= 1")
+    if q.dtype == torch.bfloat16:
+        check_rows_16b_aligned("flash_attention", q=q, k=k, v=v)
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     fn = _build.kernel_function("repro_flash_attention_fwd", _ARGTYPES)
     err = fn(

@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_smoke_config
+from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import (
     decode_attention,
     decode_attention_ref_model,
@@ -59,6 +60,14 @@ def gen():
         (2, 200, 24, 8, 128, True, None),  # phi4-mini GQA, ragged tail
         (1, 300, 8, 2, 64, True, 70),  # sliding window
         (2, 77, 4, 4, 64, False, None),  # non-causal
+        (2, 1, 32, 32, 64, True, None),  # one query: a single row per tile
+        (2, 63, 32, 32, 64, True, None),  # one row short of a 64-row tile
+        (2, 64, 32, 32, 64, True, None),  # exactly one tile
+        (2, 65, 32, 32, 64, True, None),  # one row into a second tile
+        (2, 129, 32, 32, 64, True, None),  # one row into a third tile
+        (1, 300, 8, 2, 64, True, 64),  # window edge on a tile boundary
+        (2, 1000, 40, 8, 128, True, None),  # qwen2.5: G=5 rows per position
+        (1, 512, 48, 1, 128, True, None),  # granite MQA: G=48
     ],
 )
 def test_flash_kernel_matches_plain(gen, dtype, B, S, H, KV, D, causal, window):
@@ -98,6 +107,36 @@ def test_kernel_refuses_unsupported_head_dim(gen):
     q = torch.randn(1, 8, 4, 32, generator=gen, device="cuda")
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention(q, q, q)
+
+
+def test_bf16_kernels_refuse_rows_off_16_bytes(gen):
+    # Rows 66 elements apart: bf16 rows then start on 4-byte boundaries.
+    wide = torch.randn(1, 8, 4, 66, generator=gen, device="cuda")
+    q = wide.bfloat16()[..., :64]
+    before = flash_attention.launches, paged_prefill_attention.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(q, q, q)
+    k, v, _, _, bt = _paged(gen, 1, 1, 16, 4, 64, torch.bfloat16, False)
+    offs = torch.zeros(1, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="16-byte"):
+        paged_prefill_attention(q, k, v, bt, offs)
+    pool = torch.randn(k.shape[0], 16, 4, 66, generator=gen, device="cuda").bfloat16()
+    with pytest.raises(ValueError, match="16-byte"):
+        paged_prefill_attention(q.contiguous(), pool[..., :64], v, bt, offs)
+    assert (flash_attention.launches, paged_prefill_attention.launches) == before
+    # fp32 runs on the CUDA cores and takes such rows.
+    q32 = wide[..., :64]
+    out = flash_attention(q32, q32, q32)
+    torch.testing.assert_close(out, flash_attention_ref(q32, q32, q32),
+                               atol=TOL[torch.float32], rtol=0)
+
+
+@pytest.mark.parametrize("kernel", sorted(_build.TENSOR_CORE_KERNELS))
+def test_bf16_instantiations_run_on_the_tensor_cores(gen, kernel):
+    """The SASS of each bf16 instantiation (D 64 / 128, and bf16 or int8
+    pages) holds wgmma instructions (HGMMA)."""
+    found = _build.tensor_core_check(_build.sass_mma_counts(_build.build().path))[kernel]
+    assert len(found) == _build.TENSOR_CORE_KERNELS[kernel]
 
 
 def test_server_runs_through_the_kernels(gen):
@@ -163,6 +202,8 @@ def test_paged_decode_kernel_matches_plain(gen, dtype, int8, B, page, H, KV, D, 
         (8, 32, 16, 32, 32, 64, [0, 16, 32, 45, 64, 100, 150, 224]),  # serving chunk
         (2, 120, 16, 32, 32, 64, [0, 0]),  # int8 whole prompt
         (3, 7, 12, 24, 8, 128, [0, 13, 50]),  # GQA, page of 12 rows
+        (2, 37, 16, 8, 2, 64, [5, 59]),  # chunks straddling page and 64-row tile edges
+        (4, 128, 16, 24, 8, 128, [0, 1000, 2500, 3968]),  # long prefix
     ],
 )
 def test_paged_prefill_kernel_matches_plain(gen, dtype, int8, B, C, page, H, KV, D, offsets):
@@ -179,6 +220,13 @@ def test_paged_prefill_kernel_matches_plain(gen, dtype, int8, B, C, page, H, KV,
                                        k_scales=ks, v_scales=vs)
     assert torch.isfinite(out.float()).all()
     torch.testing.assert_close(out.float(), want, atol=TOL[dtype], rtol=0)
+    # Lanes 1000+ positions deep have outputs of ~0.03, below the absolute
+    # limit: hold them within 2^-7 of their largest value, twice the bf16
+    # output rounding (at most 2^-8 of a value).
+    deep = offs >= 1000
+    if deep.any():
+        err = (out[deep].float() - want[deep]).abs().max()
+        assert err <= 2.0**-7 * want[deep].abs().max()
 
 
 @pytest.mark.parametrize("kv_dtype", [None, "int8"])

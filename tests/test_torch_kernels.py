@@ -1,12 +1,15 @@
 """The port's attention kernels on the CPU: their plain PyTorch versions
 against the JAX package's Pallas kernels (interpret mode) and jnp
-oracles on the same numpy inputs; the wrappers' CPU path; and the
-port's import rules.
+oracles on the same numpy inputs; the wrappers' CPU path; the 16-byte
+row alignment the bf16 tensor-core kernels ask of their operands, on the
+served path's own tensors; and the port's import rules.
 
 Tolerance 1e-5 (abs and rel): both sides are fp32 with a different
 summation order (blocked online softmax vs one materialized softmax).
 """
 
+import dataclasses
+import functools
 import os
 import re
 import subprocess
@@ -24,9 +27,13 @@ from repro.kernels.decode_attention.decode_attention import decode_attention_bhs
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.kernels.flash_attention import flash_attention_ref as jax_flash_ref
 from repro.kernels.flash_attention.flash_attention import flash_attention_bhsd
+from repro_torch.configs import get_config
 from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
 from repro_torch.kernels.decode_attention.ops import split_chunks
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+from repro_torch.kernels.flash_attention.ops import check_rows_16b_aligned
+from repro_torch.models import attention, build_model, init_from_template
+from repro_torch.serving import PipelineServer
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 REPO = Path(__file__).resolve().parents[1]
@@ -48,6 +55,12 @@ FLASH_CASES = [
     (2, 64, 4, 2, 32, False, None),  # non-causal
     (1, 128, 4, 1, 32, True, 48),  # MQA + sliding window
     (1, 77, 4, 4, 64, True, 30),  # window + ragged tail
+    # The bf16 kernel's 64-row tile edges (its oracle is this plain version).
+    (2, 1, 4, 4, 64, True, None),  # one query
+    (1, 63, 4, 2, 64, True, None),  # one row short of a tile
+    (1, 64, 4, 2, 64, True, None),  # exactly one tile
+    (1, 65, 5, 1, 64, True, None),  # one row into a second tile, G=5
+    (1, 129, 4, 1, 64, True, 64),  # a third tile, window edge on a tile boundary
 ]
 
 
@@ -182,3 +195,69 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     assert _FORBIDDEN.search("from repro.models import build_model")
     assert _FORBIDDEN.search("from repro import serving")
     assert not _FORBIDDEN.search("from repro_torch.models import build_model")
+
+
+def test_alignment_check_refuses_rows_off_16_bytes():
+    base = torch.zeros(2, 8, 4, 66, dtype=torch.bfloat16)
+    check_rows_16b_aligned("t", q=base[..., :64].contiguous(), k=base[:, :1, :, :64].contiguous())
+    with pytest.raises(ValueError, match="t: q rows must start on 16-byte boundaries"):
+        check_rows_16b_aligned("t", q=base[..., :64])  # rows 132 bytes apart
+    with pytest.raises(ValueError, match="16-byte"):
+        check_rows_16b_aligned("t", q=base.flatten()[1:1 + 2 * 8 * 4 * 64].view(2, 8, 4, 64))
+    # Strides of dims of length 1 are never used: they may be anything.
+    one = torch.zeros(1, 1, 1, 64, dtype=torch.bfloat16).as_strided((1, 1, 1, 64), (3, 3, 3, 1))
+    check_rows_16b_aligned("t", q=one)
+    # int8 pools: 16 bytes are 16 elements.
+    check_rows_16b_aligned("t", k=torch.zeros(3, 16, 2, 64, dtype=torch.int8))
+    with pytest.raises(ValueError, match="16-byte"):
+        check_rows_16b_aligned("t", k=torch.zeros(3, 16, 2, 72, dtype=torch.int8)[..., :64])
+
+
+@functools.lru_cache(maxsize=None)
+def _one_layer(arch):
+    """The architecture at its full attention width (d_model, heads,
+    head_dim) in bf16, cut to one layer, d_ff 64 and a 256-token vocabulary."""
+    cfg = dataclasses.replace(get_config(arch), n_layers=1, d_ff=64, vocab_size=256)
+    model = build_model(cfg)
+    params = init_from_template(model.template, torch.Generator().manual_seed(0),
+                                cfg.param_dtype, device="cpu")
+    return model, params
+
+
+@pytest.mark.parametrize("mode", ["dense", "paged", "paged-int8"])
+@pytest.mark.parametrize(
+    "arch", ["stablelm-1.6b", "phi4-mini-3.8b", "qwen2.5-14b", "granite-20b"]
+)
+def test_served_attention_operands_pass_the_bf16_alignment_checks(arch, mode, monkeypatch):
+    """Every prefill-attention call of a served request hands the kernels
+    q / k / v (models/attention.py) and page pools whose rows start on
+    16-byte boundaries, as the bf16 tensor-core kernels ask."""
+    model, params = _one_layer(arch)
+    seen = []
+
+    def checked(name, fn, operands):
+        def call(*args, **kwargs):
+            assert args[0].dtype == torch.bfloat16
+            check_rows_16b_aligned(name, **dict(zip(operands, args)))
+            seen.append(name)
+            return fn(*args, **kwargs)
+        return call
+
+    monkeypatch.setattr(attention, "flash_attention",
+                        checked("flash_attention", attention.flash_attention, ("q", "k", "v")))
+    monkeypatch.setattr(attention, "paged_prefill_attention",
+                        checked("paged_prefill_attention", attention.paged_prefill_attention,
+                                ("q", "k_pages", "v_pages")))
+    kw = {} if mode == "dense" else dict(
+        paged=True, page_size=16, max_pages=8, prefill_chunk=8,
+        kv_dtype="int8" if mode == "paged-int8" else None)
+    server = PipelineServer(model, params, n_groups=1, n_replicas=1, max_batch=2, max_len=64,
+                            seed=0, device="cpu", **kw)
+    req = server.submit(np.arange(20) % 256, n_tokens=2)
+    for _ in range(200):
+        if req.done:
+            break
+        server.step()
+    assert req.done
+    want = "flash_attention" if mode == "dense" else "paged_prefill_attention"
+    assert seen and set(seen) == {want}, seen

@@ -132,6 +132,9 @@ PREFILL_CASES = [
     (2, 1, 4, 4, 4, 16, [0, 9], False),  # one-token chunk
     (2, 4, 8, 4, 1, 8, [0, 5], True),  # MQA, int8 pages
     (1, 20, 4, 4, 2, 16, [0], True),  # int8 whole prompt (offset 0)
+    # Chunks straddling page edges and the bf16 kernel's 64-row tile edge.
+    (2, 37, 16, 4, 2, 16, [5, 59], False),
+    (2, 37, 16, 4, 2, 16, [5, 59], True),
 ]
 
 
