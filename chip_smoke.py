@@ -9,10 +9,10 @@ Phases, in order; any failure exits non-zero:
 2. Build: every CUDA kernel of the port from the sources in this
    checkout (``repro_torch.kernels._build``), with the build time; per
    kernel instantiation, ptxas' registers, spills and static shared
-   memory, and the tensor-core instructions (``HGMMA``, ``HMMA``) in its
-   SASS (``cuobjdump -sass`` of the built library). The bf16
-   instantiations of the two prefill-attention kernels must hold
-   ``HGMMA``.
+   memory, and the tensor-core instructions (``HGMMA``, ``HMMA``) and
+   special-function-unit exponentials (``MUFU.EX2``) in its SASS
+   (``cuobjdump -sass`` of the built library). The bf16 instantiations of
+   the two prefill-attention kernels must hold ``HGMMA``.
 3. Kernels: each kernel against its plain PyTorch version on the card at
    the serving path's shapes plus long cases (bf16 flash attention also
    at S = 1, 63, 64, 65 and 129 around the 64-row tile edges, and with
@@ -20,10 +20,12 @@ Phases, in order; any failure exits non-zero:
    paged prefill also over a long prefix, B=4, C=128, offsets up to
    3968, on bf16 and int8 pages, whose lanes at offset >= 1000 are also
    held within 2^-7 of their largest plain value, a limit that a planted
-   fault, one page of the deepest lane swapped, must exceed); the
-   selective scan at the
-   falcon-mamba serving shape, a ragged hymba-width case with a given
-   initial state and a 4096-step case, fp32 only; rmsnorm on
+   fault, one page of the deepest lane swapped, must exceed; the long
+   paged-decode case, lengths 100 / 1000 / 2500 / 4096, holds its lanes of
+   length >= 1000 the same way); the selective scan at the falcon-mamba
+   serving shape, at the served short prefills (B = 1..4, S = 8) and a
+   120-token prompt, a ragged hymba-width case with a given initial state
+   and a 4096-step case, fp32 only; rmsnorm on
    [512, 4096], [512, 2048] and a ragged row count), fp32 (atol 2e-5;
    for the selective scan, whose y reaches ~10^2 at 4096 steps, where
    2e-5 is below one fp32 ulp, y and h_final each within 2e-5 of
@@ -54,7 +56,11 @@ Phases, in order; any failure exits non-zero:
    arrival_p=0.5)`` plus four 64..200-token prompts, with compute-dtype
    pages and then int8 pages. Both paged kernels' counters must grow,
    every pool, scale and block table must live on the card, and every
-   manager's pages must be conserved.
+   manager's pages must be conserved. The served paged-decode calls are
+   printed as a histogram by (lanes, longest length in pages), and the
+   kernel is re-timed warm (``time_ms``) at each served call's lengths
+   and the times summed over the calls: an estimate of its share of the
+   run, not a trace of it.
 6. Parity: the same weights in fp32. Every attention call of a
    monolithic prefill and 15 decode steps, and of a paged chunked prefill
    and 15 paged decode steps, runs the kernel and its plain version on
@@ -69,7 +75,9 @@ Phases, in order; any failure exits non-zero:
    depth 2, seed 0: ``run(60, arrival_p=0.5)`` plus four 64..120-token
    prompts. The selective-scan counter must grow, every parameter and
    every conv / SSM state tensor must live on the card, and the logits
-   and states must be finite.
+   and states must be finite. The served scan calls are printed as a
+   histogram by (B, S), and the kernel is re-timed warm (``time_ms``) at
+   each served shape and the times summed over the calls, as in phase 5.
 8. SSM parity: the same weights in fp32. Every selective-scan call of a
    monolithic 64-token prefill runs the kernel and its plain version on
    the model's own inputs (y and h_final within 1e-4 of the plain
@@ -90,6 +98,7 @@ checkout of the repository.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -264,6 +273,9 @@ def paged_decode_case(B, page, H, KV, D, lengths, dtype, int8, gen):
     pages_read = sum(-(-min(n, S) // page) for n in lengths)
     b_ms, b_by = bound(paged_bytes(q, rows, KV, D, k, pages_read) + 4 * B,
                        4 * H * D * rows, dtype)
+    rerun = lambda bad: paged_decode_attention(q, k, v, bad, lens, k_scales=ks, v_scales=vs)  # noqa: E731
+    deep = deep_lane_check(lens, bt, k.shape[0], page, out, want, rerun) \
+        if max(lengths) >= DEEP_OFFSET else {}
     return {
         "shape": f"B={B} page={page} H={H} KV={KV} D={D} lengths={lengths}",
         "dtype": _label(dtype, int8),
@@ -277,6 +289,7 @@ def paged_decode_case(B, page, H, KV, D, lengths, dtype, int8, gen):
         "gather_sdpa_ms": time_ms(gather_sdpa),
         "bound_ms": b_ms,
         "bound_by": b_by,
+        **deep,
     }
 
 
@@ -296,7 +309,8 @@ def paged_prefill_case(B, C, page, H, KV, D, offsets, dtype, int8, gen):
                                        k_scales=ks, v_scales=vs)
     err = (out.float() - want).abs().max().item()
     finite = bool(torch.isfinite(out.float()).all())
-    deep = deep_lane_check(q, k, v, ks, vs, bt, offs, out, want) \
+    rerun = lambda bad: paged_prefill_attention(q, k, v, bad, offs, k_scales=ks, v_scales=vs)  # noqa: E731
+    deep = deep_lane_check(offs, bt, k.shape[0], page, out, want, rerun) \
         if max(offsets) >= DEEP_OFFSET else {}
     S = NB * page
     q_pos = offs[:, None] + torch.arange(C, device="cuda")
@@ -329,32 +343,33 @@ def paged_prefill_case(B, C, page, H, KV, D, offsets, dtype, int8, gen):
     }
 
 
-# Lanes this deep average over 1000+ keys, so their outputs are ~0.03 in
-# size and the absolute bf16 limit (2e-2) cannot see a fault confined to
-# their pages. They are held at their own limit, relative to their largest
-# plain value: 2^-7 of it, twice the bf16 output rounding (at most 2^-8 of a
-# value, 7 stored mantissa bits), leaving room for the bf16 P. A planted
-# fault (one visible page of the deepest lane swapped for a page outside
-# every table) must read above that limit.
+# Lanes this deep (a prefill chunk's offset, a decode lane's length)
+# average over 1000+ keys, so their outputs are ~0.03 in size and the
+# absolute bf16 limit (2e-2) cannot see a fault confined to their pages.
+# They are held at their own limit, relative to their largest plain value:
+# 2^-7 of it, twice the bf16 output rounding (at most 2^-8 of a value, 7
+# stored mantissa bits), leaving room for the bf16 P. A planted fault (one
+# visible page of the deepest lane swapped for a page outside every table)
+# must read above that limit.
 DEEP_OFFSET = 1000
 DEEP_TOL = 2.0**-7
 
 
-def deep_lane_check(q, k, v, ks, vs, bt, offs, out, want) -> dict:
-    from repro_torch.kernels.decode_attention import paged_prefill_attention
-
-    lanes = offs >= DEEP_OFFSET
+def deep_lane_check(depth, bt, n_pool_pages, page, out, want, rerun) -> dict:
+    """``depth`` [B]: each lane's offset (prefill) or length (decode);
+    ``rerun(block_tables)`` runs the kernel again on the same operands."""
+    lanes = depth >= DEEP_OFFSET
     scale = want[lanes].abs().max().item()
     rel = lambda got: (got[lanes].float() - want[lanes]).abs().max().item() / scale  # noqa: E731
-    spare = torch.ones(k.shape[0], dtype=torch.bool, device="cuda")
+    spare = torch.ones(n_pool_pages, dtype=torch.bool, device="cuda")
     spare[bt.flatten().long()] = False
-    lane = int(offs.argmax())
+    lane = int(depth.argmax())
     bad = bt.clone()
-    bad[lane, int(offs[lane]) // k.shape[1] // 2] = spare.nonzero()[0, 0].int()
-    fault = rel(paged_prefill_attention(q, k, v, bad, offs, k_scales=ks, v_scales=vs))
+    bad[lane, int(depth[lane]) // page // 2] = spare.nonzero()[0, 0].int()
+    fault = rel(rerun(bad))
     sound = rel(out)
     if not (sound <= DEEP_TOL < fault):
-        raise AssertionError(f"deep lanes (offset >= {DEEP_OFFSET}): error {sound:.3g} and "
+        raise AssertionError(f"deep lanes (depth >= {DEEP_OFFSET}): error {sound:.3g} and "
                              f"planted-fault error {fault:.3g} of their scale {scale:.3g}, "
                              f"limit {DEEP_TOL:.3g} between them expected")
     return {"deep_rel_err": sound, "deep_fault_rel_err": fault, "deep_scale": scale}
@@ -371,6 +386,21 @@ def scan_operands(B, S, Din, N, with_h0, gen):
     return x, dt, Bm, Cm, A, h0
 
 
+def scan_bound(B, S, Din, N, with_h0):
+    """(bound ms, what bounds it, bytes ms, fp32 ms, SFU ms) of one scan.
+    Bytes: x, dt, B, C, A (and h0) read once, y and h_final written once.
+    Operations per (b, t, d, n): one exp on the SFUs; dt * A, a * h, + b,
+    (dt x) * B, h * C and the sum over n on the fp32 lanes; plus dt * x
+    per (b, t, d)."""
+    n_state = B * Din * N
+    scan_bytes = 4 * (3 * B * S * Din + 2 * B * S * N + Din * N + (2 if with_h0 else 1) * n_state)
+    bytes_ms = scan_bytes / HBM_BYTES_PER_S * 1e3
+    fp32_ms = B * S * Din * (6 * N + 1) / PEAK_FLOPS[torch.float32] * 1e3
+    sfu_ms = B * S * Din * N / SFU_PER_S * 1e3
+    b_ms, b_by = max((bytes_ms, "bytes"), (max(fp32_ms, sfu_ms), "operations"))
+    return b_ms, b_by, bytes_ms, fp32_ms, sfu_ms
+
+
 def scan_case(B, S, Din, N, with_h0, gen):
     from repro_torch.kernels.selective_scan import selective_scan, selective_scan_ref
 
@@ -381,16 +411,7 @@ def scan_case(B, S, Din, N, with_h0, gen):
     errs = [(got - want).abs().max().item() for got, want in ((y, want_y), (h, want_h))]
     scales = [want.abs().max().item() for want in (want_y, want_h)]
     finite = bool(torch.isfinite(y).all() and torch.isfinite(h).all())
-    # Bytes: x, dt, B, C, A (and h0) read once, y and h_final written once.
-    # Operations per (b, t, d, n): one exp on the SFUs; dt * A, a * h, + b,
-    # (dt x) * B, h * C and the sum over n on the fp32 lanes; plus dt * x
-    # per (b, t, d).
-    n_state = B * Din * N
-    scan_bytes = 4 * (3 * B * S * Din + 2 * B * S * N + Din * N + (2 if with_h0 else 1) * n_state)
-    bytes_ms = scan_bytes / HBM_BYTES_PER_S * 1e3
-    fp32_ms = B * S * Din * (6 * N + 1) / PEAK_FLOPS[torch.float32] * 1e3
-    sfu_ms = B * S * Din * N / SFU_PER_S * 1e3
-    b_ms, b_by = max((bytes_ms, "bytes"), (max(fp32_ms, sfu_ms), "operations"))
+    b_ms, b_by, bytes_ms, fp32_ms, sfu_ms = scan_bound(B, S, Din, N, with_h0)
     return {
         "out_scale": scales[0],
         "bytes_ms": bytes_ms,
@@ -472,9 +493,13 @@ def check_kernels() -> dict[str, list[dict]]:
     for int8 in (False, True):
         ppre.append(paged_prefill_case(4, 128, 16, 24, 8, 128, LONG_PREFIX_OFFSETS,
                                        torch.bfloat16, int8, gen))
-    # falcon-mamba's serving prefill; hymba's width, ragged, with a state; long.
-    scan = [scan_case(4, 128, 8192, 16, False, gen), scan_case(3, 77, 3200, 16, True, gen),
-            scan_case(1, SCAN_LONG_S, 8192, 16, False, gen)]
+    # falcon-mamba's serving prefill; its served short prefills (8-token
+    # arrivals, B = 1..4 lanes) and a 120-token prompt; hymba's width,
+    # ragged, with a state; long.
+    scan = [scan_case(4, 128, 8192, 16, False, gen)]
+    scan += [scan_case(B, 8, 8192, 16, False, gen) for B in (1, 2, 3, 4)]
+    scan += [scan_case(1, 120, 8192, 16, False, gen), scan_case(3, 77, 3200, 16, True, gen),
+             scan_case(1, SCAN_LONG_S, 8192, 16, False, gen)]
     results = {"flash_attention": flash, "decode_attention": decode,
                "paged_decode_attention": pdec, "paged_prefill_attention": ppre,
                "selective_scan": scan, "rmsnorm": norm}
@@ -509,7 +534,7 @@ def check_kernels() -> dict[str, list[dict]]:
 def kernel_report(info) -> dict[str, dict]:
     """Per kernel instantiation, by readable name: ptxas' registers, spill
     bytes and static shared memory (from the build log), and the HGMMA
-    (wgmma) and HMMA (mma.sync) instructions in its SASS."""
+    (wgmma), HMMA (mma.sync) and MUFU.EX2 instructions in its SASS."""
     from repro_torch.kernels import _build
 
     bin_dir = Path(_build._nvcc()).parent
@@ -579,9 +604,10 @@ def serve(params, model, device: torch.device) -> dict:
 PAGED_KERNELS = ("paged_decode_attention", "paged_prefill_attention")
 
 
-def serve_paged(params, model, device: torch.device, kv_dtype) -> dict:
+def serve_paged(params, model, device: torch.device, kv_dtype) -> tuple[dict, dict]:
     from repro_torch.kernels.decode_attention import (
         paged_decode_attention, paged_prefill_attention)
+    from repro_torch.models import attention
     from repro_torch.serving import PipelineServer
 
     server = PipelineServer(model, params, n_groups=3, n_replicas=3, paged=True, page_size=16,
@@ -592,12 +618,23 @@ def serve_paged(params, model, device: torch.device, kv_dtype) -> dict:
     rng = np.random.default_rng(1)
     V = model.cfg.vocab_size
     t0 = time.perf_counter()
-    direct = [server.submit(rng.integers(0, V, size=L), n_tokens=8) for L in (64, 112, 160, 200)]
-    stats = server.run(60, arrival_p=0.5)
-    torch.cuda.synchronize()
+    # Each served decode call's shapes and lengths (a copy on the card; read
+    # after the run, so the run itself waits on nothing more).
+    key = lambda q, k, v, bt, lens: (tuple(q.shape), tuple(k.shape), bt.shape[1], lens.clone())  # noqa: E731
+    with calls_recorded(attention, "paged_decode_attention", key) as calls:
+        direct = [server.submit(rng.integers(0, V, size=L), n_tokens=8)
+                  for L in (64, 112, 160, 200)]
+        stats = server.run(60, arrival_p=0.5)
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"paged_decode_attention": paged_decode_attention.launches,
                 "paged_prefill_attention": paged_prefill_attention.launches}
+    served = collections.Counter((q, k, nb, tuple(lens.tolist())) for q, k, nb, lens in calls)
+    hist = collections.Counter()
+    for (q, k, _, lens), n in served.items():
+        hist[q[0], -(-max(lens) // k[1])] += n
+    print("  paged_decode_attention calls by (lanes, longest length in pages): "
+          + ", ".join(f"({B}, {pg}): {n}" for (B, pg), n in sorted(hist.items())))
     print(f"  kv_dtype={kv_dtype or 'bf16'}: slots={stats.slots} submitted={stats.submitted} "
           f"completed={stats.completed_jobs} queued={stats.queued_jobs} "
           f"preempted_jobs={stats.preempted_jobs} tokens={stats.tokens_generated} "
@@ -617,7 +654,57 @@ def serve_paged(params, model, device: torch.device, kv_dtype) -> dict:
         assert all(c["k"].dtype == torch.int8 and "v_scale" in c for c in server._caches.values())
     for mgr in server.managers.values():
         mgr.check_conservation()
-    return launches
+    return launches, {"served_calls_by_lanes_and_pages": {
+        f"{B},{pg}": n for (B, pg), n in sorted(hist.items())},
+        **served_paged_times(served, model.cfg.compute_dtype, kv_dtype == "int8")}
+
+
+def served_paged_times(served: collections.Counter, dtype, int8: bool) -> dict:
+    """The paged-decode kernel timed at each served call's shapes and
+    lengths (random pools and queries, a shuffled block table), and the
+    sums over the served calls of its time and of its bound."""
+    from repro_torch.kernels.decode_attention import paged_decode_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    total = total_bound = 0.0
+    operands = {}
+    for (q_shape, k_shape, NB, lengths), n in sorted(served.items()):
+        B, _, H, D = q_shape
+        _, page, KV, _ = k_shape
+        if (q_shape, k_shape, NB) not in operands:
+            operands[q_shape, k_shape, NB] = (
+                paged_operands(B, NB, page, KV, D, dtype, int8, gen),
+                torch.randn(B, 1, H, D, generator=gen, device="cuda").to(dtype))
+        (k, v, ks, vs, bt), q = operands[q_shape, k_shape, NB]
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        total += n * time_ms(lambda: paged_decode_attention(q, k, v, bt, lens, k_scales=ks,
+                                                            v_scales=vs))
+        rows = sum(min(max(x, 0), NB * page) for x in lengths)
+        pages_read = sum(-(-min(max(x, 0), NB * page) // page) for x in lengths)
+        total_bound += n * bound(paged_bytes(q, rows, KV, D, k, pages_read) + 4 * B,
+                                 4 * H * D * rows, dtype)[0]
+    n_calls = sum(served.values())
+    print(f"  paged_decode_attention at the served lengths: {total:.3f} ms over {n_calls} calls "
+          f"({len(served)} distinct), bound {total_bound:.3f} ms")
+    return {"served_ms": total, "served_bound_ms": total_bound, "served_calls": n_calls}
+
+
+@contextlib.contextmanager
+def calls_recorded(module, name: str, key):
+    """Record ``key(*args)`` of every call of ``module.name`` (the wrapper
+    still runs and counts its launches) for the duration of the block."""
+    fn = getattr(module, name)
+    calls = []
+
+    def recorded(*args, **kwargs):
+        calls.append(key(*args))
+        return fn(*args, **kwargs)
+
+    setattr(module, name, recorded)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
 
 
 # Kernel vs plain on the model's own full-width inputs, relative to the
@@ -760,8 +847,9 @@ def paged_parity(params32, model, prompt, device: torch.device) -> None:
     assert all(v <= MODEL_REL_TOL for v in worst.values()), worst
 
 
-def serve_ssm(params, model, device: torch.device) -> dict:
+def serve_ssm(params, model, device: torch.device) -> tuple[dict, dict]:
     from repro_torch.kernels.selective_scan import selective_scan
+    from repro_torch.models import ssm
     from repro_torch.serving import PipelineServer
 
     server = PipelineServer(model, params, n_groups=3, n_replicas=3, max_batch=4,
@@ -770,12 +858,18 @@ def serve_ssm(params, model, device: torch.device) -> dict:
     rng = np.random.default_rng(1)
     V = model.cfg.vocab_size
     t0 = time.perf_counter()
-    direct = [server.submit(rng.integers(0, V, size=L), n_tokens=8) for L in (64, 88, 104, 120)]
-    stats = server.run(60, arrival_p=0.5)
-    if device.type == "cuda":
-        torch.cuda.synchronize()
+    key = lambda x, dt, Bm, Cm, A: (*x.shape, A.shape[1])  # noqa: E731  (B, S, Din, N)
+    with calls_recorded(ssm, "selective_scan", key) as recorded:
+        direct = [server.submit(rng.integers(0, V, size=L), n_tokens=8)
+                  for L in (64, 88, 104, 120)]
+        stats = server.run(60, arrival_p=0.5)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"selective_scan": selective_scan.launches}
+    calls = collections.Counter(recorded)
+    print("  selective_scan calls by (B, S): " + ", ".join(
+        f"({B}, {S}): {n}" for (B, S, _, _), n in sorted(calls.items(), key=lambda kv: -kv[1])))
     print(f"  slots={stats.slots} submitted={stats.submitted} completed={stats.completed_jobs} "
           f"tokens={stats.tokens_generated} prefill_calls={stats.prefill_calls} "
           f"decode_calls={stats.decode_calls} downtime={stats.downtime_fraction:.4f} "
@@ -796,7 +890,27 @@ def serve_ssm(params, model, device: torch.device) -> dict:
     prompt = torch.from_numpy(rng.integers(0, V, size=(1, 64))).to(device)
     logits, _ = model.prefill(params, {"tokens": prompt}, 64)
     assert bool(torch.isfinite(logits.float()).all()), "falcon-mamba logits are not finite"
-    return launches
+    return launches, served_scan_times(calls)
+
+
+def served_scan_times(calls: collections.Counter) -> dict:
+    """The scan kernel timed at each served shape, and the sums over the
+    served calls of its time and of its bound."""
+    from repro_torch.kernels.selective_scan import selective_scan
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    shapes, total, total_bound = [], 0.0, 0.0
+    for (B, S, Din, N), n in sorted(calls.items()):
+        args = scan_operands(B, S, Din, N, False, gen)
+        ms = time_ms(lambda: selective_scan(*args))
+        b_ms = scan_bound(B, S, Din, N, False)[0]
+        shapes.append({"B": B, "S": S, "Din": Din, "N": N, "calls": n, "ms": ms, "bound_ms": b_ms})
+        total += n * ms
+        total_bound += n * b_ms
+    print(f"  selective_scan at the served shapes: {total:.3f} ms over {sum(calls.values())} "
+          f"calls (bound {total_bound:.3f} ms); " + ", ".join(
+              f"({r['B']}, {r['S']}) x{r['calls']} {r['ms']:.4f} ms" for r in shapes))
+    return {"served_shapes": shapes, "served_ms": total, "served_bound_ms": total_bound}
 
 
 # Kernel vs plain selective scan on the model's own full-width inputs,
@@ -921,7 +1035,8 @@ def main() -> int:
     report = kernel_report(info)
     for name, r in sorted(report.items()):
         print(f"    {name}: {r.get('registers')} registers, {r.get('spill_bytes')} spill bytes, "
-              f"{r.get('static_smem')} B static smem, HGMMA {r.get('hgmma')}, HMMA {r.get('hmma')}")
+              f"{r.get('static_smem')} B static smem, HGMMA {r.get('hgmma')}, HMMA {r.get('hmma')}, "
+              f"MUFU.EX2 {r.get('mufu_ex2')}")
     tensor_core = _build.tensor_core_check(report)
 
     print("[3] kernels vs plain versions", flush=True)
@@ -945,10 +1060,11 @@ def main() -> int:
         launches = serve(params, model, cuda)
 
     print("[5] serve full-width stablelm-1.6b, paged, chunked prefill", flush=True)
-    by_run = {}
+    by_run, paged_served = {}, {}
     with torch.no_grad():
         for kv_dtype in (None, "int8"):
-            by_run[kv_dtype or "bf16"] = serve_paged(params, model, cuda, kv_dtype)
+            run = kv_dtype or "bf16"
+            by_run[run], paged_served[run] = serve_paged(params, model, cuda, kv_dtype)
     for name in PAGED_KERNELS:
         launches[name] = sum(run[name] for run in by_run.values())
 
@@ -967,7 +1083,8 @@ def main() -> int:
     print(f"  weights: {count_params(model.template) / 1e9:.3f} B params "
           f"({cfg.param_dtype}) in {time.perf_counter() - t0:.2f} s")
     with torch.no_grad():
-        launches.update(serve_ssm(params, model, cuda))
+        ssm_launches, scan_served = serve_ssm(params, model, cuda)
+    launches.update(ssm_launches)
     # The models call their plain rmsnorm (models/layers.py), as the JAX models do.
     launches["rmsnorm"] = rmsnorm.launches
     assert launches["rmsnorm"] == 0, f"a served path launched rmsnorm: {launches}"
@@ -1014,11 +1131,14 @@ def main() -> int:
             entry["tensor_core_sass"] = tensor_core["paged_prefill_tc_kernel"]
         if name in PAGED_KERNELS:
             entry["launches_by_run"] = {run: counts[name] for run, counts in by_run.items()}
+        if name == "paged_decode_attention":
+            entry["served"] = paged_served
             entry["library_note"] = ("no single PyTorch call reads a block table; "
                                      "gather_sdpa_ms = gather_pages (K, V) + SDPA")
         if name == "selective_scan":
             entry["library_note"] = "no PyTorch call computes the recurrence"
             entry["model_parity"] = ssm_checks
+            entry.update(scan_served)
         if name == "rmsnorm":
             entry["library_note"] = "torch.nn.functional.rms_norm"
             entry["launches_note"] = ("no served path launches it: the models call their plain "

@@ -1,0 +1,105 @@
+#!/usr/bin/env python3
+"""Time the port's selective-scan and paged-decode CUDA kernels at the
+served and main-path shapes, for the ``repro_torch`` under a given tree.
+
+    python3 scripts/torch_kernel_times.py [--src TREE] [--label NAME] [--out FILE]
+
+``--src`` names the root of a checkout (default: this one); its kernels
+are built there (under TREE/build) and timed with ``chip_smoke.py``'s
+``time_ms`` (CUDA events, median of 20 runs behind a device sleep). To
+compare two commits on one card, unpack the other into a directory that
+``.gitignore`` lists and run the script on both in one call, in turns
+(A, B, B, A). Prints one JSON object per line, and appends them to
+``--out`` if given. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402  (its case helpers; imports repro_torch lazily)
+
+SCAN_SHAPES = [  # (B, S): served prefill calls and phase 3's cases, Din 8192, N 16
+    (1, 8), (2, 8), (3, 8), (4, 8), (1, 64), (1, 88), (1, 104), (1, 120), (4, 128), (1, 4096),
+]
+PAGED_CASES = [  # (B, page, H, KV, D, lengths)
+    (8, 16, 32, 32, 64, chip_smoke.SERVE_LENGTHS),
+    # The serving shape with nothing to read, and with one row a lane: the
+    # call's fixed cost.
+    (8, 16, 32, 32, 64, [0] * 8),
+    (8, 16, 32, 32, 64, [1] * 8),
+    (4, 16, 24, 8, 128, [100, 1000, 2500, 4096]),
+]
+
+
+def scan_times() -> list[dict]:
+    from repro_torch.kernels.selective_scan import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for B, S in SCAN_SHAPES:
+        args = chip_smoke.scan_operands(B, S, 8192, 16, False, gen)
+        rows.append({"kernel": "selective_scan", "B": B, "S": S, "Din": 8192, "N": 16,
+                     "ms": chip_smoke.time_ms(lambda: ops.selective_scan(*args))})
+    return rows
+
+
+def paged_times() -> list[dict]:
+    from repro_torch.kernels.decode_attention import paged_decode_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for B, page, H, KV, D, lengths in PAGED_CASES:
+        NB = max(16, -(-max(lengths) // page))
+        for int8 in (False, True):
+            k, v, ks, vs, bt = chip_smoke.paged_operands(B, NB, page, KV, D, torch.bfloat16,
+                                                         int8, gen)
+            q = torch.randn(B, 1, H, D, generator=gen, device="cuda").bfloat16()
+            lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+            run = lambda: paged_decode_attention(q, k, v, bt, lens, k_scales=ks, v_scales=vs)  # noqa: E731
+            rows.append({"kernel": "paged_decode_attention", "B": B, "H": H, "KV": KV, "D": D,
+                         "lengths": lengths, "pages": "int8" if int8 else "bf16",
+                         "ms": chip_smoke.time_ms(run)})
+    return rows
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--src", default=str(ROOT), help="root of the checkout whose kernels to time")
+    ap.add_argument("--label", default="this tree")
+    ap.add_argument("--out", help="a file to append the JSON lines to")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_kernel_times: no CUDA device available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(args.src).resolve() / "src"))
+    import repro_torch
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    with torch.no_grad():
+        # What time_ms reads for a kernel that does nothing: the floor of
+        # every time below (launch and the two events).
+        rows = [{"kernel": "empty (torch.cuda._sleep(0))",
+                 "ms": chip_smoke.time_ms(lambda: torch.cuda._sleep(0))}]
+        rows += scan_times() + paged_times()
+    lines = [json.dumps({"label": args.label, "package": repro_torch.__file__, "card": card,
+                         **row}) for row in rows]
+    print("\n".join(lines))
+    if args.out:
+        with open(args.out, "a") as f:
+            f.write("".join(line + "\n" for line in lines))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -136,14 +136,16 @@ def check(err: int, name: str) -> None:
 
 def sass_mma_counts(lib: Path) -> dict[str, dict[str, int]]:
     """Per kernel function of the library, by mangled name, its wgmma
-    (``hgmma``) and mma.sync (``hmma``) instructions in ``cuobjdump -sass``."""
+    (``hgmma``) and mma.sync (``hmma``) instructions in ``cuobjdump -sass``,
+    and its ``MUFU.EX2`` (exp2 on the special-function units)."""
     cuobjdump = Path(_nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
                           check=True, timeout=300).stdout
     counts = {}
     for block in sass.split("Function : ")[1:]:
         name, body = block.split(None, 1)
-        counts[name] = {"hgmma": body.count("HGMMA"), "hmma": body.count("HMMA")}
+        counts[name] = {"hgmma": body.count("HGMMA"), "hmma": body.count("HMMA"),
+                        "mufu_ex2": body.count("MUFU.EX2")}
     return counts
 
 

@@ -2,7 +2,8 @@
 
 A CPU tensor goes through the plain version (:mod:`.ref`); a CUDA tensor
 launches ``csrc/selective_scan.cu`` or raises. ``selective_scan.launches``
-counts the kernel's launches.
+counts the kernel's launches; :func:`states_per_thread` picks how many of a
+channel's state slots each kernel thread carries.
 """
 
 from __future__ import annotations
@@ -12,12 +13,30 @@ import ctypes
 import torch
 
 from .. import _build
+from ..decode_attention.ops import _sm_count
 from .ref import selective_scan_ref
 
-__all__ = ["selective_scan"]
+__all__ = ["selective_scan", "states_per_thread"]
 
-MAX_STATE = 16  # state lanes per channel in the kernel
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+MAX_STATE = 16  # state slots per channel in the kernel
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# Threads the grid needs per SM before a thread may carry more slots of
+# its channel: two warps. Measured on the H100 at Din 8192, N 16: one lane
+# runs best at 8 slots per thread (16 384 threads), 2-4 lanes at 16.
+_THREADS_PER_SM = 64
+
+
+def states_per_thread(B: int, Din: int, n_sms: int) -> int:
+    """State slots per kernel thread (16, 8 or 4): the most that still
+    gives the grid ``_THREADS_PER_SM`` threads per SM. A thread carries K
+    slots of one channel, so the grid has B * Din * 16 / K threads; fewer
+    slots per thread mean more threads (and shuffles to sum y) for the
+    same exponentials, which pays only while the card has too few warps
+    to hide each step's latencies."""
+    for K in (16, 8):
+        if B * Din * (MAX_STATE // K) >= _THREADS_PER_SM * n_sms:
+            return K
+    return 4
 
 
 def selective_scan(
@@ -67,7 +86,8 @@ def selective_scan(
     err = fn(
         x.data_ptr(), dt.data_ptr(), Bmat.data_ptr(), Cmat.data_ptr(), A.data_ptr(),
         None if h0 is None else h0.data_ptr(), y.data_ptr(), h_final.data_ptr(),
-        B, S, Din, N, torch.cuda.current_stream(x.device).cuda_stream,
+        B, S, Din, N, states_per_thread(B, Din, _sm_count(x.device.index or 0)),
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "selective_scan")
     selective_scan.launches += 1

@@ -35,8 +35,10 @@ from repro_torch.kernels.decode_attention import (
     paged_prefill_attention_ref,
     quantize_kv,
 )
+from repro_torch.kernels.decode_attention import paged as paged_mod
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
+from repro_torch.kernels.selective_scan import ops as scan_ops
 from repro_torch.kernels.selective_scan import selective_scan, selective_scan_ref
 from repro_torch.models import build_model, init_from_template, ssm
 from repro_torch.serving import PipelineServer
@@ -178,6 +180,10 @@ def _paged(gen, B, NB, page, KV, D, dtype, int8):
         (8, 16, 32, 32, 64, [9, 40, 77, 128, 150, 200, 231, 256], None),  # stablelm serving
         (3, 16, 24, 8, 128, [1, 2500, 4096], None),  # long GQA context
         (3, 12, 8, 2, 64, [50, 7, 33], 20),  # page of 12 rows, window
+        (3, 16, 40, 8, 128, [300, 17, 1000], None),  # qwen2.5: G=5
+        (2, 16, 48, 1, 128, [700, 33], None),  # granite MQA: G=48
+        (2, 16, 32, 32, 64, [5, 4096], None),  # a one-page lane beside a 4096-row lane
+        (4, 16, 24, 8, 128, [100, 1000, 2500, 4096], None),  # phase 3's long case
     ],
 )
 def test_paged_decode_kernel_matches_plain(gen, dtype, int8, B, page, H, KV, D, lengths, window):
@@ -192,6 +198,62 @@ def test_paged_decode_kernel_matches_plain(gen, dtype, int8, B, page, H, KV, D, 
     want = paged_decode_attention_ref(q.float(), k if int8 else k.float(), v if int8 else v.float(),
                                       bt, lens, window=window, k_scales=ks, v_scales=vs)
     torch.testing.assert_close(out.float(), want, atol=TOL[dtype], rtol=0)
+    # Lanes of 1000+ rows average over so many keys that their outputs sit
+    # below the absolute limit: hold them within 2^-7 of their largest value.
+    deep = lens >= 1000
+    if deep.any():
+        err = (out[deep].float() - want[deep]).abs().max()
+        assert err <= 2.0**-7 * want[deep].abs().max()
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_kernel_edge_lengths_and_wide_tables(gen, dtype, int8):
+    """Length 0 (reads nothing, output 0) beside a length past NB * page
+    (clamped to the table), over a block table sliced from a wider one
+    (row stride > NB), at D=128."""
+    B, page, H, KV, D, NB = 3, 16, 8, 2, 128, 5
+    k, v, ks, vs, wide = _paged(gen, B, 2 * NB, page, KV, D, dtype, int8)
+    bt = wide[:, 3 : 3 + NB]
+    assert bt.stride(0) == 2 * NB
+    q = torch.randn(B, 1, H, D, generator=gen, device="cuda").to(dtype)
+    lens = torch.tensor([0, NB * page + 40, 37], dtype=torch.int32, device="cuda")
+    out = paged_decode_attention(q, k, v, bt, lens, k_scales=ks, v_scales=vs)
+    torch.cuda.synchronize()
+    assert bool((out[0] == 0).all())
+    want = paged_decode_attention_ref(q.float(), k if int8 else k.float(), v if int8 else v.float(),
+                                      bt.contiguous(), lens, k_scales=ks, v_scales=vs)
+    torch.testing.assert_close(out[1:].float(), want[1:], atol=TOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,G", [(64, 1), (128, 1), (64, 3), (128, 48)])
+def test_paged_decode_launch_shape_from_the_build(gen, dtype, int8, D, G):
+    """The launch shape the wrapper splits rows by comes from the C entry:
+    a resident instantiation, one query head per block under MHA and a
+    group under GQA, and a split of the longest table the kernel takes."""
+    shape = paged_mod._launch_shape(D, G, 1 if dtype == torch.bfloat16 else 0, int8)
+    assert shape.blocks_per_sm >= 1 and shape.warps >= 1 and shape.max_chunks >= 1
+    assert (shape.heads_per_block == 1) == (G == 1)
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_chunk, n_chunks = paged_mod.split_pages(
+        1, 16384, n_sms * shape.blocks_per_sm, warps=shape.warps, max_chunks=shape.max_chunks)
+    assert 1 < n_chunks <= shape.max_chunks and per_chunk * n_chunks >= 16384
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_kernel_refuses_pool_rows_off_16_bytes(gen, dtype):
+    """The kernel loads pool rows 16 bytes at a time: rows 66 elements
+    apart are refused, whatever the dtype, and nothing is launched."""
+    k, v, _, _, bt = _paged(gen, 1, 2, 16, 4, 64, dtype, False)
+    q = torch.randn(1, 1, 4, 64, generator=gen, device="cuda").to(dtype)
+    lens = torch.tensor([20], dtype=torch.int32, device="cuda")
+    pool = torch.randn(k.shape[0], 16, 4, 66, generator=gen, device="cuda").to(dtype)
+    before = paged_decode_attention.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        paged_decode_attention(q, pool[..., :64], v, bt, lens)
+    assert paged_decode_attention.launches == before
 
 
 @pytest.mark.parametrize("int8", [False, True])
@@ -269,9 +331,17 @@ def _scan_operands(gen, B, S, Din, N, with_h0):
         (1, 300, 520, 16, True),  # B=1, Din not a multiple of 16 channels
         (2, 65, 100, 8, False),  # smoke state size, one step past a tile
         (1, 1, 16, 16, True),  # one step
+        (1, 8, 8192, 16, False),  # served short prefill (falcon-mamba), one lane
+        (4, 8, 8192, 16, False),  # served short prefill, four lanes
+        (1, 4096, 8192, 16, False),  # long prompt, one lane
+        *[(2, 33, Din, N, True) for Din in (1, 100, 3200) for N in (1, 5, 16)],
     ],
 )
 def test_selective_scan_kernel_matches_plain(gen, B, S, Din, N, with_h0):
+    _check_scan(gen, B, S, Din, N, with_h0)
+
+
+def _check_scan(gen, B, S, Din, N, with_h0):
     ops = _scan_operands(gen, B, S, Din, N, with_h0)
     before = selective_scan.launches
     y, h = selective_scan(*ops)
@@ -281,6 +351,16 @@ def test_selective_scan_kernel_matches_plain(gen, B, S, Din, N, with_h0):
     for got, want in ((y, want_y), (h, want_h)):
         atol = TOL[torch.float32] * max(1.0, want.abs().max().item())
         torch.testing.assert_close(got, want, atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("K", [16, 8, 4])
+def test_selective_scan_kernel_each_states_per_thread_branch(gen, K):
+    """A shape for which the wrapper picks K state slots per thread on
+    this card, with a ragged N and a given state."""
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    Din = next(d for d in (37, 520, 3203, 8197, 16389, 32771, 65539)
+               if scan_ops.states_per_thread(1, d, n_sms) == K)
+    _check_scan(gen, 1, 70, Din, 13, True)
 
 
 def test_selective_scan_kernel_refuses_what_it_cannot_take(gen):

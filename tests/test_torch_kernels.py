@@ -1,8 +1,9 @@
 """The port's attention kernels on the CPU: their plain PyTorch versions
 against the JAX package's Pallas kernels (interpret mode) and jnp
 oracles on the same numpy inputs; the wrappers' CPU path; the 16-byte
-row alignment the bf16 tensor-core kernels ask of their operands, on the
-served path's own tensors; and the port's import rules.
+row alignment the bf16 tensor-core kernels and the paged-decode kernel ask
+of their operands, on the served path's own tensors; how the scan and
+paged-decode wrappers shape their grids; and the port's import rules.
 
 Tolerance 1e-5 (abs and rel): both sides are fp32 with a different
 summation order (blocked online softmax vs one materialized softmax).
@@ -32,6 +33,7 @@ from repro_torch.kernels.decode_attention import decode_attention, decode_attent
 from repro_torch.kernels.decode_attention.ops import split_chunks
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 from repro_torch.kernels.flash_attention.ops import check_rows_16b_aligned
+from repro_torch.kernels.selective_scan.ops import states_per_thread
 from repro_torch.models import attention, build_model, init_from_template
 from repro_torch.serving import PipelineServer
 
@@ -143,6 +145,26 @@ def test_decode_split_fills_the_sms(blocks, S, want):
     assert chunk % 16 == 0 and chunk * n_chunks >= S > chunk * (n_chunks - 1)
 
 
+@pytest.mark.parametrize(
+    "B,Din,want",
+    [
+        (4, 8192, 16),  # falcon-mamba serving prefill: 32768 threads, one per channel
+        (1, 8192, 8),  # one lane: two threads per channel
+        (2, 8192, 16),
+        (3, 3200, 16),  # hymba's width
+        (1, 3200, 4),
+        (1, 1, 4),
+        (64, 8192, 16),
+    ],
+)
+def test_scan_states_per_thread_fills_the_sms(B, Din, want):
+    K = states_per_thread(B, Din, n_sms=132)
+    assert K == want
+    # The most slots per thread that still gives each SM two warps.
+    assert K == 4 or B * Din * 16 // K >= 64 * 132
+    assert K == 16 or B * Din * 16 // (2 * K) < 64 * 132
+
+
 def test_cpu_wrappers_launch_no_kernel():
     rng = np.random.default_rng(0)
     q = _t(_rand(rng, (1, 16, 4, 64)))
@@ -229,9 +251,10 @@ def _one_layer(arch):
     "arch", ["stablelm-1.6b", "phi4-mini-3.8b", "qwen2.5-14b", "granite-20b"]
 )
 def test_served_attention_operands_pass_the_bf16_alignment_checks(arch, mode, monkeypatch):
-    """Every prefill-attention call of a served request hands the kernels
-    q / k / v (models/attention.py) and page pools whose rows start on
-    16-byte boundaries, as the bf16 tensor-core kernels ask."""
+    """Every prefill-attention and paged-decode call of a served request
+    hands the kernels q / k / v (models/attention.py) and page pools whose
+    rows start on 16-byte boundaries, as the bf16 tensor-core kernels and
+    the paged-decode kernel's 16-byte loads ask."""
     model, params = _one_layer(arch)
     seen = []
 
@@ -248,6 +271,9 @@ def test_served_attention_operands_pass_the_bf16_alignment_checks(arch, mode, mo
     monkeypatch.setattr(attention, "paged_prefill_attention",
                         checked("paged_prefill_attention", attention.paged_prefill_attention,
                                 ("q", "k_pages", "v_pages")))
+    monkeypatch.setattr(attention, "paged_decode_attention",
+                        checked("paged_decode_attention", attention.paged_decode_attention,
+                                ("q", "k_pages", "v_pages")))
     kw = {} if mode == "dense" else dict(
         paged=True, page_size=16, max_pages=8, prefill_chunk=8,
         kv_dtype="int8" if mode == "paged-int8" else None)
@@ -259,5 +285,6 @@ def test_served_attention_operands_pass_the_bf16_alignment_checks(arch, mode, mo
             break
         server.step()
     assert req.done
-    want = "flash_attention" if mode == "dense" else "paged_prefill_attention"
-    assert seen and set(seen) == {want}, seen
+    want = {"flash_attention"} if mode == "dense" else {"paged_prefill_attention",
+                                                        "paged_decode_attention"}
+    assert set(seen) == want, seen

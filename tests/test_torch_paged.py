@@ -56,6 +56,7 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     paged_prefill_attention,
     quantize_kv,
 )
+from repro_torch.kernels.decode_attention import paged as paged_mod  # noqa: E402
 from repro_torch.kernels.decode_attention.paged import split_pages  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
@@ -176,11 +177,50 @@ def test_quantize_kv_matches_reference(shape):
     assert (gs.numpy()[0] == 1.0).all()
 
 
+# The launch shape's constants as csrc/paged_decode_attention.cu exports
+# them (kWarps, kMaxChunks); the GPU tests read them from the build.
+SHAPE = dict(warps=8, max_chunks=8)
+
+
 def test_split_pages_chunks_whole_pages():
-    assert split_pages(8 * 32, 16, 16, n_sms=132) == (8, 2)  # serving shape: 2 chunks
-    per_chunk, n_chunks = split_pages(4 * 8, 256, 16, n_sms=132)
-    assert per_chunk * (n_chunks - 1) < 256 <= per_chunk * n_chunks
-    assert split_pages(1, 3, 5, n_sms=132)[0] * 5 >= 15
+    # Serving shape (8 lanes x 32 KV heads, 16 pages): one chunk, two pages
+    # for each of a block's warps.
+    assert split_pages(8 * 32, 16, resident=2 * 132, **SHAPE) == (16, 1)
+    # The long GQA case (4 lanes x 8 KV heads, 256 pages): a full cluster of
+    # 8 chunks where the card holds them, 4 where it holds one block per SM.
+    assert split_pages(4 * 8, 256, resident=8 * 132, **SHAPE) == (32, 8)
+    assert split_pages(4 * 8, 256, resident=132, **SHAPE) == (64, 4)
+    assert split_pages(1, 3, resident=132, **SHAPE) == (3, 1)
+    # Four-warp blocks split a 16-page row in two; a cluster cap of 2 stops
+    # the long case at two chunks.
+    assert split_pages(8 * 32, 16, resident=8 * 132, warps=4, max_chunks=8) == (8, 2)
+    assert split_pages(4 * 8, 256, resident=8 * 132, warps=8, max_chunks=2) == (128, 2)
+
+
+@pytest.mark.parametrize(
+    "blocks,NB,resident",
+    [
+        (256, 16, 4 * 132),  # stablelm paged serving: 8 lanes x 32 KV heads, 16 pages
+        (32, 256, 2 * 132),  # the long GQA case: 4 lanes x 8 KV heads, 4096 rows
+        (1, 16384, 132),  # one lane at the widest table the prefill kernel takes
+        (8192, 16, 8 * 132),  # more lanes x heads than the card holds: one chunk
+        (300, 17, 8 * 132),  # a ragged row under the cap
+        (1, 20, 132),  # fewer pages than two chunks of two pages per warp
+        (1, 0, 132),  # an empty table
+        (64, 64, 1),  # one resident block
+    ],
+)
+def test_split_pages_covers_the_row_within_its_limits(blocks, NB, resident):
+    """Whole pages that cover the widest row, at most one cluster of
+    chunks, no split that leaves a warp fewer than MIN_PAGES_PER_WARP
+    pages, and no more chunks than keep the grid resident at once."""
+    per_chunk, n_chunks = split_pages(blocks, NB, resident, **SHAPE)
+    assert isinstance(per_chunk, int) and isinstance(n_chunks, int)
+    assert per_chunk >= 1 and 1 <= n_chunks <= SHAPE["max_chunks"]
+    assert per_chunk * n_chunks >= NB
+    assert per_chunk * (n_chunks - 1) < max(NB, 1)  # no chunk is wholly empty
+    assert n_chunks == 1 or per_chunk >= SHAPE["warps"] * paged_mod.MIN_PAGES_PER_WARP
+    assert n_chunks == 1 or blocks * n_chunks <= resident
 
 
 def test_kv_page_bytes_matches_reference():
