@@ -22,11 +22,18 @@ Phases, in order; any failure exits non-zero:
    held within 2^-7 of their largest plain value, a limit that a planted
    fault, one page of the deepest lane swapped, must exceed; the long
    paged-decode case, lengths 100 / 1000 / 2500 / 4096, holds its lanes of
-   length >= 1000 the same way); the selective scan at the falcon-mamba
+   length >= 1000 the same way); dense decode at the serving shape, with
+   every length 0 (the call's fixed cost; such a lane outputs 0, as the TPU
+   kernel gives), and over a 4096-row cache, lengths 100 / 1000 / 2500 /
+   4096, with the head packings of stablelm (MHA), phi4-mini (G=3), qwen2.5
+   (G=5) and granite (G=48), whose deep lanes are held the same way (the
+   planted fault: one 16-row tile of the deepest lane overwritten with
+   another lane's rows); the selective scan at the falcon-mamba
    serving shape, at the served short prefills (B = 1..4, S = 8) and a
    120-token prompt, a ragged hymba-width case with a given initial state
    and a 4096-step case, fp32 only; rmsnorm on
-   [512, 4096], [512, 2048] and a ragged row count), fp32 (atol 2e-5;
+   [512, 4096], [512, 2048], a ragged row count and [4096, 4096], one
+   4096-token falcon-mamba prompt), fp32 (atol 2e-5;
    for the selective scan, whose y reaches ~10^2 at 4096 steps, where
    2e-5 is below one fp32 ulp, y and h_final each within 2e-5 of
    max(1, the plain value's magnitude)) and bf16
@@ -49,7 +56,10 @@ Phases, in order; any failure exits non-zero:
    2, seed 0: ``run(60, arrival_p=0.5)`` plus four 64..120-token prompts.
    Both dense kernels' launch counters must grow (bf16: the flash
    kernel's tensor-core instantiation) and every parameter and cache
-   tensor must live on the card.
+   tensor must live on the card. The served dense-decode calls are
+   printed as a histogram by (lanes, longest length), and the kernel is
+   re-timed warm (``time_ms``) at each served call's lengths and the
+   times summed over the calls, as in phase 5.
 5. Serve paged: the same weights, ``paged=True``, page 16, max_batch 8,
    max_len 256, 32 pages per replica (below the dense 128), chunked
    prefill of 32 tokens, async depth 2, seed 0: ``run(60,
@@ -181,6 +191,15 @@ def flash_case(B, S, H, KV, D, dtype, gen):
     }
 
 
+def decode_bound(q, rows: int, KV: int, D: int) -> tuple[float, str]:
+    """Bound of a dense decode call over ``rows`` visible rows in all: q
+    read and the output written, each visible K/V row once, the lengths."""
+    B, _, H, _ = q.shape
+    item = q.element_size()
+    return bound(2 * q.numel() * item + 2 * rows * KV * D * item + 4 * B, 4 * H * D * rows,
+                 q.dtype)
+
+
 def decode_case(B, S, H, KV, D, lengths, dtype, gen):
     from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref_model
 
@@ -191,16 +210,16 @@ def decode_case(B, S, H, KV, D, lengths, dtype, gen):
     out = decode_attention(q, kc, vc, lens)
     torch.cuda.synchronize()
     want = decode_attention_ref_model(q.float(), kc.float(), vc.float(), lens)
+    # A lane of length 0 sees no key: the TPU kernel (and this one) output 0
+    # there, where the plain version averages V over the masked rows.
+    want = torch.where((lens > 0)[:, None, None, None], want, 0.0)
     err = (out.float() - want).abs().max().item()
     mask = (torch.arange(S, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
     qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
-    item = q.element_size()
-    rows = sum(min(n, S) for n in lengths)
-    b_ms, b_by = bound(
-        2 * q.numel() * item + 2 * rows * KV * D * item + 4 * B,
-        4 * H * D * rows,
-        dtype,
-    )
+    b_ms, b_by = decode_bound(q, sum(min(n, S) for n in lengths), KV, D)
+    deep = deep_lane_check(lens, out, want, decode_attention(q, *tile_overwritten(kc, vc, lens),
+                                                             lens)) \
+        if max(lengths) >= DEEP_OFFSET else {}
     return {
         "shape": f"B={B} S={S} H={H} KV={KV} D={D} lengths={lengths}",
         "dtype": str(dtype).removeprefix("torch."),
@@ -212,7 +231,33 @@ def decode_case(B, S, H, KV, D, lengths, dtype, gen):
             qt, kt, vt, attn_mask=mask, enable_gqa=H != KV)),
         "bound_ms": b_ms,
         "bound_by": b_by,
+        **deep,
     }
+
+
+def tile_overwritten(kc, vc, lens):
+    """Copies of a dense cache whose deepest lane has one visible 16-row
+    tile, half way into its rows, overwritten with the rows of another lane
+    at the same positions: the planted fault of the deep-lane check."""
+    lane = int(lens.argmax())
+    other = (lane + 1) % kc.shape[0]
+    t0 = int(lens[lane]) // 2 // 16 * 16
+    bad_k, bad_v = kc.clone(), vc.clone()
+    bad_k[lane, t0:t0 + 16] = kc[other, t0:t0 + 16]
+    bad_v[lane, t0:t0 + 16] = vc[other, t0:t0 + 16]
+    return bad_k, bad_v
+
+
+def page_swapped(depth, bt, n_pool_pages, page):
+    """A copy of a block table whose deepest lane has one visible page, half
+    way into its rows, swapped for a page outside every table: the planted
+    fault of the paged deep-lane checks."""
+    spare = torch.ones(n_pool_pages, dtype=torch.bool, device="cuda")
+    spare[bt.flatten().long()] = False
+    lane = int(depth.argmax())
+    bad = bt.clone()
+    bad[lane, int(depth[lane]) // page // 2] = spare.nonzero()[0, 0].int()
+    return bad
 
 
 def paged_operands(B, NB, page, KV, D, dtype, int8, gen):
@@ -273,8 +318,8 @@ def paged_decode_case(B, page, H, KV, D, lengths, dtype, int8, gen):
     pages_read = sum(-(-min(n, S) // page) for n in lengths)
     b_ms, b_by = bound(paged_bytes(q, rows, KV, D, k, pages_read) + 4 * B,
                        4 * H * D * rows, dtype)
-    rerun = lambda bad: paged_decode_attention(q, k, v, bad, lens, k_scales=ks, v_scales=vs)  # noqa: E731
-    deep = deep_lane_check(lens, bt, k.shape[0], page, out, want, rerun) \
+    deep = deep_lane_check(lens, out, want, paged_decode_attention(
+        q, k, v, page_swapped(lens, bt, k.shape[0], page), lens, k_scales=ks, v_scales=vs)) \
         if max(lengths) >= DEEP_OFFSET else {}
     return {
         "shape": f"B={B} page={page} H={H} KV={KV} D={D} lengths={lengths}",
@@ -309,8 +354,8 @@ def paged_prefill_case(B, C, page, H, KV, D, offsets, dtype, int8, gen):
                                        k_scales=ks, v_scales=vs)
     err = (out.float() - want).abs().max().item()
     finite = bool(torch.isfinite(out.float()).all())
-    rerun = lambda bad: paged_prefill_attention(q, k, v, bad, offs, k_scales=ks, v_scales=vs)  # noqa: E731
-    deep = deep_lane_check(offs, bt, k.shape[0], page, out, want, rerun) \
+    deep = deep_lane_check(offs, out, want, paged_prefill_attention(
+        q, k, v, page_swapped(offs, bt, k.shape[0], page), offs, k_scales=ks, v_scales=vs)) \
         if max(offsets) >= DEEP_OFFSET else {}
     S = NB * page
     q_pos = offs[:, None] + torch.arange(C, device="cuda")
@@ -349,24 +394,21 @@ def paged_prefill_case(B, C, page, H, KV, D, offsets, dtype, int8, gen):
 # They are held at their own limit, relative to their largest plain value:
 # 2^-7 of it, twice the bf16 output rounding (at most 2^-8 of a value, 7
 # stored mantissa bits), leaving room for the bf16 P. A planted fault (one
-# visible page of the deepest lane swapped for a page outside every table)
-# must read above that limit.
+# visible page of the deepest lane swapped for a page outside every table;
+# for a dense cache one 16-row tile of it overwritten with another lane's
+# rows) must read above that limit.
 DEEP_OFFSET = 1000
 DEEP_TOL = 2.0**-7
 
 
-def deep_lane_check(depth, bt, n_pool_pages, page, out, want, rerun) -> dict:
+def deep_lane_check(depth, out, want, faulted) -> dict:
     """``depth`` [B]: each lane's offset (prefill) or length (decode);
-    ``rerun(block_tables)`` runs the kernel again on the same operands."""
+    ``faulted``: the kernel's output on the same operands with the planted
+    fault (``page_swapped``, ``tile_overwritten``)."""
     lanes = depth >= DEEP_OFFSET
     scale = want[lanes].abs().max().item()
     rel = lambda got: (got[lanes].float() - want[lanes]).abs().max().item() / scale  # noqa: E731
-    spare = torch.ones(n_pool_pages, dtype=torch.bool, device="cuda")
-    spare[bt.flatten().long()] = False
-    lane = int(depth.argmax())
-    bad = bt.clone()
-    bad[lane, int(depth[lane]) // page // 2] = spare.nonzero()[0, 0].int()
-    fault = rel(rerun(bad))
+    fault = rel(faulted)
     sound = rel(out)
     if not (sound <= DEEP_TOL < fault):
         raise AssertionError(f"deep lanes (depth >= {DEEP_OFFSET}): error {sound:.3g} and "
@@ -457,6 +499,13 @@ def rmsnorm_case(R, D, dtype, gen):
 
 
 SERVE_LENGTHS = [9, 40, 77, 128, 150, 200, 231, 256]  # 8 lanes, max_len 256
+LONG_LENGTHS = [100, 1000, 2500, 4096]  # a long cache's lanes, B=4, S=4096
+# (H, KV, D) of the long dense-decode cases: stablelm (MHA), phi4-mini's
+# packing (G=3), qwen2.5 (G=5) and granite (MQA, G=48).
+LONG_DECODE_HEADS = [(32, 32, 64), (24, 8, 128), (40, 8, 128), (48, 1, 128)]
+# rmsnorm: 4 x 128 rows of stablelm / falcon-mamba widths, a ragged row
+# count, and one 4096-token falcon-mamba prompt (d_model 4096).
+RMSNORM_SHAPES = [(4 * 128, 4096), (4 * 128, 2048), (77, 4096), (4096, 4096)]
 SCAN_LONG_S = 4096
 PREFILL_OFFSETS = [0, 16, 32, 45, 64, 100, 150, 224]  # C=32 chunks, ragged
 LONG_PREFIX_OFFSETS = [0, 1000, 2500, 3968]  # C=128 chunks over prefixes up to 4096
@@ -472,17 +521,16 @@ def check_kernels() -> dict[str, list[dict]]:
         flash.append(flash_case(1, 4096, 32, 32, 64, dtype, gen))
         flash.append(flash_case(1, 4096, 24, 8, 128, dtype, gen))
         decode.append(decode_case(4, 128, 32, 32, 64, [9, 40, 77, 128], dtype, gen))
-        decode.append(decode_case(4, 4096, 32, 32, 64, [100, 1000, 2500, 4096], dtype, gen))
-        decode.append(decode_case(4, 4096, 24, 8, 128, [100, 1000, 2500, 4096], dtype, gen))
+        for H, KV, D in LONG_DECODE_HEADS[:2]:
+            decode.append(decode_case(4, 4096, H, KV, D, LONG_LENGTHS, dtype, gen))
         for int8 in (False, True):
             pdec.append(paged_decode_case(8, 16, 32, 32, 64, SERVE_LENGTHS, dtype, int8, gen))
-            pdec.append(paged_decode_case(4, 16, 24, 8, 128, [100, 1000, 2500, 4096],
-                                          dtype, int8, gen))
+            pdec.append(paged_decode_case(4, 16, 24, 8, 128, LONG_LENGTHS, dtype, int8, gen))
             ppre.append(paged_prefill_case(8, 32, 16, 32, 32, 64, PREFILL_OFFSETS,
                                            dtype, int8, gen))
         # int8 whole-prompt prefill: one whole-length chunk at offset 0.
         ppre.append(paged_prefill_case(2, 120, 16, 32, 32, 64, [0, 0], dtype, True, gen))
-        for R, D in ((4 * 128, 4096), (4 * 128, 2048), (77, 4096)):
+        for R, D in RMSNORM_SHAPES:
             norm.append(rmsnorm_case(R, D, dtype, gen))
     # bf16 on the tensor cores: the 64-row tile edges, the GQA / MQA row
     # packings (qwen2.5 G=5, granite G=48) and a long paged prefix.
@@ -490,6 +538,11 @@ def check_kernels() -> dict[str, list[dict]]:
         flash.append(flash_case(2, S, 32, 32, 64, torch.bfloat16, gen))
     flash.append(flash_case(2, 1000, 40, 8, 128, torch.bfloat16, gen))
     flash.append(flash_case(1, 512, 48, 1, 128, torch.bfloat16, gen))
+    # Dense decode: the same packings over a long cache, and the serving
+    # shape with nothing to read (the call's fixed cost).
+    for H, KV, D in LONG_DECODE_HEADS[2:]:
+        decode.append(decode_case(4, 4096, H, KV, D, LONG_LENGTHS, torch.bfloat16, gen))
+    decode.append(decode_case(4, 128, 32, 32, 64, [0] * 4, torch.bfloat16, gen))
     for int8 in (False, True):
         ppre.append(paged_prefill_case(4, 128, 16, 24, 8, 128, LONG_PREFIX_OFFSETS,
                                        torch.bfloat16, int8, gen))
@@ -518,7 +571,7 @@ def check_kernels() -> dict[str, list[dict]]:
                          f"the SFUs {c['sfu_ms']:.4f} ms; max|y| {c['out_scale']:.4g}, "
                          f"err / max(1, scale) {c['max_rel_err']:.3g})")
             if "deep_rel_err" in c:
-                yard += (f" (deep lanes: err {c['deep_rel_err']:.3g}, planted page fault "
+                yard += (f" (deep lanes: err {c['deep_rel_err']:.3g}, planted fault "
                          f"{c['deep_fault_rel_err']:.3g} of their scale {c['deep_scale']:.3g}; "
                          f"limit {DEEP_TOL:.3g})")
             print(f"  {name} {c['dtype']} {c['shape']}: err {c['max_abs_err']:.3g} "
@@ -565,9 +618,10 @@ def on_device(tree, device: torch.device) -> bool:
     return all(t.device.type == device.type for t in _leaves(tree))
 
 
-def serve(params, model, device: torch.device) -> dict:
+def serve(params, model, device: torch.device) -> tuple[dict, dict]:
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import attention
     from repro_torch.serving import PipelineServer
 
     server = PipelineServer(model, params, n_groups=3, n_replicas=3, max_batch=4,
@@ -577,13 +631,24 @@ def serve(params, model, device: torch.device) -> dict:
     rng = np.random.default_rng(1)
     V = model.cfg.vocab_size
     t0 = time.perf_counter()
-    direct = [server.submit(rng.integers(0, V, size=L), n_tokens=8) for L in (64, 88, 104, 120)]
-    stats = server.run(60, arrival_p=0.5)
-    if device.type == "cuda":
+    # Each served decode call's shapes and its lengths tensor, which a decode
+    # step makes anew and never writes again (models/transformer.py); read
+    # after the run, so recording adds no work on the card.
+    key = lambda q, k, v, lens: (tuple(q.shape), tuple(k.shape), lens)  # noqa: E731
+    with calls_recorded(attention, "decode_attention", key) as calls:
+        direct = [server.submit(rng.integers(0, V, size=L), n_tokens=8)
+                  for L in (64, 88, 104, 120)]
+        stats = server.run(60, arrival_p=0.5)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"flash_attention": flash_attention.launches,
                 "decode_attention": decode_attention.launches}
+    served = collections.Counter((q, k, tuple(lens.tolist())) for q, k, lens in calls)
+    hist = collections.Counter()
+    for (q, _, lens), n in served.items():
+        hist[q[0], max(lens)] += n
+    print("  decode_attention calls by (lanes, longest length): "
+          + ", ".join(f"({B}, {L}): {n}" for (B, L), n in sorted(hist.items())))
     print(f"  slots={stats.slots} submitted={stats.submitted} completed={stats.completed_jobs} "
           f"tokens={stats.tokens_generated} prefill_calls={stats.prefill_calls} "
           f"decode_calls={stats.decode_calls} downtime={stats.downtime_fraction:.4f} "
@@ -598,7 +663,35 @@ def serve(params, model, device: torch.device) -> dict:
     assert all(on_device(p, device) for _, p in server.stages), "a parameter is off the card"
     assert all(on_device(c, device) for c in server._caches.values()), \
         "a cache tensor is off the card"
-    return launches
+    return launches, {"served_calls_by_lanes_and_length": {
+        f"{B},{L}": n for (B, L), n in sorted(hist.items())},
+        **served_decode_times(served, model.cfg.compute_dtype)}
+
+
+def served_decode_times(served: collections.Counter, dtype) -> dict:
+    """The dense-decode kernel timed at each served call's shapes and
+    lengths (random caches and queries), and the sums over the served calls
+    of its time and of its bound."""
+    from repro_torch.kernels.decode_attention import decode_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    total = total_bound = 0.0
+    operands = {}
+    for (q_shape, k_shape, lengths), n in sorted(served.items()):
+        B, _, H, D = q_shape
+        _, S, KV, _ = k_shape
+        if (q_shape, k_shape) not in operands:
+            operands[q_shape, k_shape] = [
+                torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+                for shape in (q_shape, k_shape, k_shape)]
+        q, kc, vc = operands[q_shape, k_shape]
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        total += n * time_ms(lambda: decode_attention(q, kc, vc, lens))
+        total_bound += n * decode_bound(q, sum(min(max(x, 0), S) for x in lengths), KV, D)[0]
+    n_calls = sum(served.values())
+    print(f"  decode_attention at the served lengths: {total:.3f} ms over {n_calls} calls "
+          f"({len(served)} distinct), bound {total_bound:.3f} ms")
+    return {"served_ms": total, "served_bound_ms": total_bound, "served_calls": n_calls}
 
 
 PAGED_KERNELS = ("paged_decode_attention", "paged_prefill_attention")
@@ -618,9 +711,10 @@ def serve_paged(params, model, device: torch.device, kv_dtype) -> tuple[dict, di
     rng = np.random.default_rng(1)
     V = model.cfg.vocab_size
     t0 = time.perf_counter()
-    # Each served decode call's shapes and lengths (a copy on the card; read
-    # after the run, so the run itself waits on nothing more).
-    key = lambda q, k, v, bt, lens: (tuple(q.shape), tuple(k.shape), bt.shape[1], lens.clone())  # noqa: E731
+    # Each served decode call's shapes and its lengths tensor, which a decode
+    # step makes anew and never writes again (models/attention.py); read
+    # after the run, so recording adds no work on the card.
+    key = lambda q, k, v, bt, lens: (tuple(q.shape), tuple(k.shape), bt.shape[1], lens)  # noqa: E731
     with calls_recorded(attention, "paged_decode_attention", key) as calls:
         direct = [server.submit(rng.integers(0, V, size=L), n_tokens=8)
                   for L in (64, 112, 160, 200)]
@@ -1057,7 +1151,7 @@ def main() -> int:
     # instantiations of the prefill kernels (phases 4 and 5).
     assert cfg.compute_dtype == torch.bfloat16, cfg.dtype
     with torch.no_grad():
-        launches = serve(params, model, cuda)
+        launches, decode_served = serve(params, model, cuda)
 
     print("[5] serve full-width stablelm-1.6b, paged, chunked prefill", flush=True)
     by_run, paged_served = {}, {}
@@ -1131,6 +1225,8 @@ def main() -> int:
             entry["tensor_core_sass"] = tensor_core["paged_prefill_tc_kernel"]
         if name in PAGED_KERNELS:
             entry["launches_by_run"] = {run: counts[name] for run, counts in by_run.items()}
+        if name == "decode_attention":
+            entry["served"] = decode_served
         if name == "paged_decode_attention":
             entry["served"] = paged_served
             entry["library_note"] = ("no single PyTorch call reads a block table; "

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the port's selective-scan and paged-decode CUDA kernels at the
-served and main-path shapes, for the ``repro_torch`` under a given tree.
+"""Time the port's selective-scan, paged-decode, dense-decode and rmsnorm
+CUDA kernels at the served and main-path shapes, for the ``repro_torch``
+under a given tree.
 
     python3 scripts/torch_kernel_times.py [--src TREE] [--label NAME] [--out FILE]
 
@@ -37,7 +38,12 @@ PAGED_CASES = [  # (B, page, H, KV, D, lengths)
     # call's fixed cost.
     (8, 16, 32, 32, 64, [0] * 8),
     (8, 16, 32, 32, 64, [1] * 8),
-    (4, 16, 24, 8, 128, [100, 1000, 2500, 4096]),
+    (4, 16, 24, 8, 128, chip_smoke.LONG_LENGTHS),
+]
+DENSE_CASES = [  # (B, S, H, KV, D, lengths)
+    (4, 128, 32, 32, 64, [9, 40, 77, 128]),  # stablelm serving shape
+    (4, 128, 32, 32, 64, [0] * 4),  # nothing to read: the call's fixed cost
+    *[(4, 4096, H, KV, D, chip_smoke.LONG_LENGTHS) for H, KV, D in chip_smoke.LONG_DECODE_HEADS],
 ]
 
 
@@ -72,6 +78,38 @@ def paged_times() -> list[dict]:
     return rows
 
 
+def dense_times() -> list[dict]:
+    from repro_torch.kernels.decode_attention import decode_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for B, S, H, KV, D, lengths in DENSE_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn(B, 1, H, D, generator=gen, device="cuda").to(dtype)
+            kc, vc = (torch.randn(B, S, KV, D, generator=gen, device="cuda").to(dtype)
+                      for _ in range(2))
+            lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+            rows.append({"kernel": "decode_attention", "B": B, "S": S, "H": H, "KV": KV, "D": D,
+                         "lengths": lengths, "dtype": str(dtype).removeprefix("torch."),
+                         "ms": chip_smoke.time_ms(lambda: decode_attention(q, kc, vc, lens))})
+    return rows
+
+
+def rmsnorm_times() -> list[dict]:
+    from repro_torch.kernels.rmsnorm import rmsnorm
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for R, D in chip_smoke.RMSNORM_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(R, D, generator=gen, device="cuda").to(dtype)
+            w = torch.randn(D, generator=gen, device="cuda").to(dtype)
+            rows.append({"kernel": "rmsnorm", "R": R, "D": D,
+                         "dtype": str(dtype).removeprefix("torch."),
+                         "ms": chip_smoke.time_ms(lambda: rmsnorm(x, w))})
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(ROOT), help="root of the checkout whose kernels to time")
@@ -91,7 +129,7 @@ def main() -> int:
         # every time below (launch and the two events).
         rows = [{"kernel": "empty (torch.cuda._sleep(0))",
                  "ms": chip_smoke.time_ms(lambda: torch.cuda._sleep(0))}]
-        rows += scan_times() + paged_times()
+        rows += scan_times() + paged_times() + dense_times() + rmsnorm_times()
     lines = [json.dumps({"label": args.label, "package": repro_torch.__file__, "card": card,
                          **row}) for row in rows]
     print("\n".join(lines))

@@ -4,24 +4,24 @@ A CPU tensor goes through the plain version (:mod:`.ref`); a CUDA tensor
 launches ``csrc/paged_decode_attention.cu`` or raises.
 ``paged_decode_attention.launches`` counts the wrapper's launches; each is
 one kernel launch, whose thread-block clusters merge their chunks' partials
-themselves. :func:`split_pages` chooses the chunks; :func:`check_paged_operands`
-is shared with the paged prefill wrapper.
+themselves. :func:`.ops.split_tiles` (shared with dense decode) chooses the
+chunks; :func:`check_paged_operands` is shared with the paged
+prefill wrapper.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
 
 import torch
 
 from .. import _build
 from ..flash_attention.ops import check_rows_16b_aligned
-from .ops import _DTYPE_CODES, _sm_count
+from .ops import _DTYPE_CODES, LaunchShape, _sm_count, launch_shape, split_tiles
 from .ref import paged_decode_attention_ref
 
-__all__ = ["paged_decode_attention", "split_pages", "LaunchShape", "check_paged_operands"]
+__all__ = ["paged_decode_attention", "check_paged_operands"]
 
 _ARGTYPES = (
     [ctypes.c_void_p] * 8
@@ -29,55 +29,11 @@ _ARGTYPES = (
     + [ctypes.c_longlong] * 13
     + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 )
-# Pages each warp walks before a row is split over a cluster: a cluster
-# launch and its merge cost more than a warp's second page (H100, serving
-# shape with nothing to read, four-warp blocks: 0.0083 ms as 2-block
-# clusters, 0.0069 ms as plain blocks; scripts/torch_kernel_times.py).
-MIN_PAGES_PER_WARP = 2
-
-
-class LaunchShape(NamedTuple):
-    """What the kernel's C entry launches for one set of operands: blocks of
-    its instantiation per SM, warps per block (each owning whole pages), the
-    most chunks of one block-table row (the blocks of one cluster), and
-    query heads per block."""
-
-    blocks_per_sm: int
-    warps: int
-    max_chunks: int
-    heads_per_block: int
-
-
-def split_pages(blocks_per_chunk: int, NB: int, resident: int, *, warps: int,
-                max_chunks: int) -> tuple[int, int]:
-    """(pages per chunk, n_chunks) for block-table rows of NB pages, where
-    each chunk index adds ``blocks_per_chunk`` blocks (lanes x KV heads x
-    query-head groups) to the grid and the card holds ``resident`` blocks
-    at once.
-
-    The split is sized for latency: a lane's pages are shared out over as
-    many blocks as one cluster takes (``max_chunks``), but a row is split
-    only where each of a block's ``warps`` warps keeps
-    MIN_PAGES_PER_WARP pages, and the grid stays within what the card holds
-    at once: a second wave would wait for the first, while a warp with a
-    few pages overlaps their loads. Chunks are whole pages and together
-    cover the row."""
-    n_chunks = max(1, min(max_chunks, NB // (warps * MIN_PAGES_PER_WARP)))
-    while n_chunks > 1 and blocks_per_chunk * n_chunks > resident:
-        n_chunks -= 1
-    per_chunk = max(1, -(-NB // n_chunks))
-    return per_chunk, max(1, -(-NB // per_chunk))
 
 
 @functools.lru_cache(maxsize=None)
 def _launch_shape(D: int, G: int, dtype_code: int, int8: bool) -> LaunchShape:
-    """The C entry's launch shape for these operands (its occupancy from
-    the CUDA runtime, its constants from the source)."""
-    fn = _build.kernel_function("repro_paged_decode_attention_launch_shape",
-                                [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    out = (ctypes.c_int * 4)()
-    _build.check(fn(D, G, dtype_code, int(int8), out), "paged_decode_attention launch shape")
-    return LaunchShape(*out)
+    return launch_shape("repro_paged_decode_attention_launch_shape", D, G, dtype_code, int(int8))[0]
 
 
 def check_paged_operands(name: str, q, k_pages, v_pages, block_tables, k_scales, v_scales):
@@ -158,7 +114,7 @@ def paged_decode_attention(
     shape = _launch_shape(D, G, _DTYPE_CODES[q.dtype], quant)
     n_gblk = -(-G // shape.heads_per_block)
     resident = _sm_count(q.device.index or 0) * shape.blocks_per_sm
-    per_chunk, n_chunks = split_pages(B * KV * n_gblk, NB, resident, warps=shape.warps,
+    per_chunk, n_chunks = split_tiles(B * KV * n_gblk, NB, resident, warps=shape.warps,
                                       max_chunks=shape.max_chunks)
     out = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
     fn = _build.kernel_function("repro_paged_decode_attention_fwd", _ARGTYPES)

@@ -28,7 +28,8 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
     """x: [..., D]; w: [D] -> [..., D] in x's dtype, fp32 accumulation.
 
     The CUDA kernel takes contiguous fp32 or bf16 x and w (each its own
-    dtype).
+    dtype), at any alignment: it moves 16-byte vectors where x, w and every
+    row start on 16 bytes, and single elements otherwise.
     """
     if x.device.type == "cpu":
         return rmsnorm_ref(x, w, eps)

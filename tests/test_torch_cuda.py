@@ -35,6 +35,7 @@ from repro_torch.kernels.decode_attention import (
     paged_prefill_attention_ref,
     quantize_kv,
 )
+from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.decode_attention import paged as paged_mod
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
@@ -92,6 +93,9 @@ def test_flash_kernel_matches_plain(gen, dtype, B, S, H, KV, D, causal, window):
         (3, 4096, 24, 8, 128, [1, 2500, 4096], None),  # long GQA cache
         (2, 300, 48, 1, 128, [300, 17], None),  # MQA, 48 query heads
         (2, 256, 8, 2, 64, [200, 256], 50),  # sliding window
+        (4, 4096, 32, 32, 64, [100, 1000, 2500, 4096], None),  # phase 3's long MHA case
+        (4, 4096, 40, 8, 128, [100, 1000, 2500, 4096], None),  # qwen2.5: G=5
+        (4, 4096, 48, 1, 128, [100, 1000, 2500, 4096], None),  # granite MQA: G=48
     ],
 )
 def test_decode_kernel_matches_plain(gen, dtype, B, S, H, KV, D, lengths, window):
@@ -99,10 +103,74 @@ def test_decode_kernel_matches_plain(gen, dtype, B, S, H, KV, D, lengths, window
     kc = torch.randn(B, S, KV, D, generator=gen, device="cuda").to(dtype)
     vc = torch.randn(B, S, KV, D, generator=gen, device="cuda").to(dtype)
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    before = decode_attention.launches
     out = decode_attention(q, kc, vc, lens, window=window)
     torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
     want = decode_attention_ref_model(q.float(), kc.float(), vc.float(), lens, window=window)
     torch.testing.assert_close(out.float(), want, atol=TOL[dtype], rtol=0)
+    # Lanes of 1000+ rows: within 2^-7 of their largest value (as paged decode).
+    deep = lens >= 1000
+    if deep.any():
+        err = (out[deep].float() - want[deep]).abs().max()
+        assert err <= 2.0**-7 * want[deep].abs().max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 20])
+def test_decode_kernel_edge_lengths(gen, dtype, window):
+    """Length 0 (reads nothing, output 0, as the TPU kernel gives), 1, S
+    and past S, over a cache sliced from a wider one (lane and position
+    strides of a [.., 2 KV, ..] buffer), at D=128 and a ragged S (not a
+    multiple of the 16-row tile). Past S the window still counts back from
+    the length, as the TPU kernel and the plain version mask it: under a
+    window of 20, S + 12 sees the last 8 rows and S + 40 none (output 0)."""
+    B, S, H, KV, D = 5, 77, 8, 2, 128
+    wide = torch.randn(2, B, S, KV, D, generator=gen, device="cuda").to(dtype)
+    kc, vc = wide[0], wide[1]
+    q = torch.randn(B, 1, H, D, generator=gen, device="cuda").to(dtype)
+    lengths = [0, 1, S, S + 12, S + 40]
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    out = decode_attention(q, kc, vc, lens, window=window)
+    torch.cuda.synchronize()
+    empty = torch.tensor([n <= 0 or (window is not None and n - window >= S) for n in lengths],
+                         device="cuda")
+    assert bool((out[empty] == 0).all())
+    want = decode_attention_ref_model(q.float(), kc.float(), vc.float(), lens, window=window)
+    torch.testing.assert_close(out[~empty].float(), want[~empty], atol=TOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,G", [(64, 1), (128, 1), (128, 3), (128, 5), (128, 48)])
+def test_decode_launch_shape_from_the_build(gen, dtype, D, G):
+    """The launch shape the dense wrapper splits a lane's rows by comes from
+    the C entry: a resident instantiation, one query head per block under
+    MHA and a group under GQA, tiles of whole rows, and a split of a long
+    cache within one cluster."""
+    shape, tile_rows = decode_ops._launch_shape(D, G, 1 if dtype == torch.bfloat16 else 0)
+    assert shape.blocks_per_sm >= 1 and shape.warps >= 1 and shape.max_chunks >= 1
+    assert (shape.heads_per_block == 1) == (G == 1) and tile_rows >= 1
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_chunk, n_chunks = decode_ops.split_tiles(
+        1, -(-65536 // tile_rows), n_sms * shape.blocks_per_sm, warps=shape.warps,
+        max_chunks=shape.max_chunks)
+    assert 1 < n_chunks <= shape.max_chunks and per_chunk * n_chunks * tile_rows >= 65536
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_refuses_cache_rows_off_16_bytes(gen, dtype):
+    """The kernel loads cache rows 16 bytes at a time: rows 66 elements
+    apart are refused, whatever the dtype, and nothing is launched."""
+    q = torch.randn(2, 1, 4, 64, generator=gen, device="cuda").to(dtype)
+    kc = torch.randn(2, 32, 4, 64, generator=gen, device="cuda").to(dtype)
+    bad = torch.randn(2, 32, 4, 66, generator=gen, device="cuda").to(dtype)[..., :64]
+    lens = torch.tensor([20, 32], dtype=torch.int32, device="cuda")
+    before = decode_attention.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        decode_attention(q, bad, kc, lens)
+    with pytest.raises(ValueError, match="16-byte"):
+        decode_attention(q, kc, bad, lens)
+    assert decode_attention.launches == before
 
 
 def test_kernel_refuses_unsupported_head_dim(gen):
@@ -208,22 +276,29 @@ def test_paged_decode_kernel_matches_plain(gen, dtype, int8, B, page, H, KV, D, 
 
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_paged_decode_kernel_edge_lengths_and_wide_tables(gen, dtype, int8):
-    """Length 0 (reads nothing, output 0) beside a length past NB * page
-    (clamped to the table), over a block table sliced from a wider one
-    (row stride > NB), at D=128."""
-    B, page, H, KV, D, NB = 3, 16, 8, 2, 128, 5
+@pytest.mark.parametrize("window", [None, 20])
+def test_paged_decode_kernel_edge_lengths_and_wide_tables(gen, dtype, int8, window):
+    """Length 0 (reads nothing, output 0) beside lengths past NB * page,
+    over a block table sliced from a wider one (row stride > NB), at D=128.
+    Past NB * page the window still counts back from the length, as the TPU
+    kernel and the plain version mask it: under a window of 20, NB * page +
+    12 sees the last 8 rows and NB * page + 40 none (output 0)."""
+    B, page, H, KV, D, NB = 4, 16, 8, 2, 128, 5
     k, v, ks, vs, wide = _paged(gen, B, 2 * NB, page, KV, D, dtype, int8)
     bt = wide[:, 3 : 3 + NB]
     assert bt.stride(0) == 2 * NB
     q = torch.randn(B, 1, H, D, generator=gen, device="cuda").to(dtype)
-    lens = torch.tensor([0, NB * page + 40, 37], dtype=torch.int32, device="cuda")
-    out = paged_decode_attention(q, k, v, bt, lens, k_scales=ks, v_scales=vs)
+    lengths = [0, NB * page + 40, 37, NB * page + 12]
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    out = paged_decode_attention(q, k, v, bt, lens, window=window, k_scales=ks, v_scales=vs)
     torch.cuda.synchronize()
-    assert bool((out[0] == 0).all())
+    empty = torch.tensor([n <= 0 or (window is not None and n - window >= NB * page)
+                          for n in lengths], device="cuda")
+    assert bool((out[empty] == 0).all())
     want = paged_decode_attention_ref(q.float(), k if int8 else k.float(), v if int8 else v.float(),
-                                      bt.contiguous(), lens, k_scales=ks, v_scales=vs)
-    torch.testing.assert_close(out[1:].float(), want[1:], atol=TOL[dtype], rtol=0)
+                                      bt.contiguous(), lens, window=window, k_scales=ks,
+                                      v_scales=vs)
+    torch.testing.assert_close(out[~empty].float(), want[~empty], atol=TOL[dtype], rtol=0)
 
 
 @pytest.mark.parametrize("int8", [False, True])
@@ -237,7 +312,7 @@ def test_paged_decode_launch_shape_from_the_build(gen, dtype, int8, D, G):
     assert shape.blocks_per_sm >= 1 and shape.warps >= 1 and shape.max_chunks >= 1
     assert (shape.heads_per_block == 1) == (G == 1)
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
-    per_chunk, n_chunks = paged_mod.split_pages(
+    per_chunk, n_chunks = decode_ops.split_tiles(
         1, 16384, n_sms * shape.blocks_per_sm, warps=shape.warps, max_chunks=shape.max_chunks)
     assert 1 < n_chunks <= shape.max_chunks and per_chunk * n_chunks >= 16384
 
@@ -378,7 +453,17 @@ def test_selective_scan_kernel_refuses_what_it_cannot_take(gen):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(512, 4096), (512, 2048), (77, 4096), (3, 5, 1000)])
+@pytest.mark.parametrize(
+    "shape",
+    [
+        (512, 4096), (512, 2048), (77, 4096), (3, 5, 1000),
+        (4096, 4096),  # one 4096-token falcon-mamba prompt
+        (3, 6144),  # four (bf16) and eight (fp32) vectors a thread, 192 threads a row
+        (3, 12000),  # eight vectors a thread (bf16); longer than fp32 rows hold: walked twice
+        (2, 40000),  # a row longer than the registers hold: walked twice
+        (5, 3, 64),  # short rows, several to a block
+    ],
+)
 def test_rmsnorm_kernel_matches_plain(gen, dtype, shape):
     x = (2.0 * torch.randn(*shape, generator=gen, device="cuda")).to(dtype)
     w = (1.0 + 0.1 * torch.randn(shape[-1], generator=gen, device="cuda")).to(dtype)
@@ -387,6 +472,25 @@ def test_rmsnorm_kernel_matches_plain(gen, dtype, shape):
     torch.cuda.synchronize()
     assert rmsnorm.launches == before + 1
     assert out.dtype == dtype and out.shape == x.shape
+    torch.testing.assert_close(out.float(), rmsnorm_ref(x.float(), w.float()),
+                               atol=TOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("what", ["x", "w", "D"])
+def test_rmsnorm_kernel_rows_off_16_bytes(gen, dtype, what):
+    """x or w starting off 16 bytes, or rows of D = 1001 (so rows start off
+    16 bytes): taken, element by element, and equal to the plain version."""
+    R, D = 77, 1001 if what == "D" else 1000
+    flat = (2.0 * torch.randn(R * D + 1, generator=gen, device="cuda")).to(dtype)
+    x = flat[1:].view(R, D) if what == "x" else flat[: R * D].view(R, D)
+    w_flat = (1.0 + 0.1 * torch.randn(D + 1, generator=gen, device="cuda")).to(dtype)
+    w = w_flat[1:] if what == "w" else w_flat[:D]
+    assert (x.data_ptr() % 16 != 0) == (what == "x") and (w.data_ptr() % 16 != 0) == (what == "w")
+    before = rmsnorm.launches
+    out = rmsnorm(x, w)
+    torch.cuda.synchronize()
+    assert rmsnorm.launches == before + 1
     torch.testing.assert_close(out.float(), rmsnorm_ref(x.float(), w.float()),
                                atol=TOL[dtype], rtol=0)
 

@@ -1,9 +1,9 @@
 """The port's attention kernels on the CPU: their plain PyTorch versions
 against the JAX package's Pallas kernels (interpret mode) and jnp
 oracles on the same numpy inputs; the wrappers' CPU path; the 16-byte
-row alignment the bf16 tensor-core kernels and the paged-decode kernel ask
-of their operands, on the served path's own tensors; how the scan and
-paged-decode wrappers shape their grids; and the port's import rules.
+row alignment the bf16 tensor-core kernels and the decode kernels ask of
+their operands, on the served path's own tensors; how the scan and
+dense-decode wrappers shape their grids; and the port's import rules.
 
 Tolerance 1e-5 (abs and rel): both sides are fp32 with a different
 summation order (blocked online softmax vs one materialized softmax).
@@ -30,7 +30,7 @@ from repro.kernels.flash_attention import flash_attention_ref as jax_flash_ref
 from repro.kernels.flash_attention.flash_attention import flash_attention_bhsd
 from repro_torch.configs import get_config
 from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
-from repro_torch.kernels.decode_attention.ops import split_chunks
+from repro_torch.kernels.decode_attention.ops import split_tiles
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 from repro_torch.kernels.flash_attention.ops import check_rows_16b_aligned
 from repro_torch.kernels.selective_scan.ops import states_per_thread
@@ -100,6 +100,8 @@ DECODE_CASES = [
     (2, 256, 4, 2, 32, [200, 37], 64, 64),  # GQA G=2 + sliding window
     (4, 128, 8, 2, 32, [1, 37, 100, 128], None, 32),  # GQA G=4, ragged lengths
     (1, 130, 2, 2, 16, [77], None, 64),  # ragged chunks (130 % 64 != 0)
+    (2, 96, 10, 2, 32, [96, 41], None, 32),  # qwen2.5's packing, G=5
+    (2, 64, 48, 1, 16, [64, 17], 24, 32),  # granite's MQA packing, G=48, window
 ]
 
 
@@ -130,19 +132,39 @@ def test_decode_ref_matches_bhsd_kernel():
     np.testing.assert_allclose(got, np.asarray(pallas), **TOL)
 
 
+# The dense-decode launch shape's constants as csrc/decode_attention.cu
+# exports them (kWarps, kMaxChunks of csrc/split_decode.cuh) and its tile
+# (kDenseTile rows); the GPU tests read them from the build.
+DENSE_SHAPE = dict(warps=8, max_chunks=8)
+DENSE_TILE = 16
+
+
 @pytest.mark.parametrize(
-    "blocks,S,want",
+    "blocks,S,resident,want",
     [
-        (4 * 32, 128, (64, 2)),  # serving shape: 4 lanes x 32 KV heads -> 256 blocks
-        (4 * 8, 4096, (464, 9)),  # long GQA cache: 9 chunks fill 264 blocks
-        (1, 100, (64, 2)),  # chunks never shorter than 64 rows
-        (10_000, 4096, (4096, 1)),  # enough blocks already: one chunk
+        # Serving shape, 4 lanes x 32 KV heads, max_len 128: 8 tiles, one a warp.
+        (4 * 32, 128, 2 * 132, (8, 1)),
+        # Long MHA cache: 256 tiles; the grid stays within the 264 resident blocks.
+        (4 * 32, 4096, 2 * 132, (128, 2)),
+        # Long GQA cache (24 / 8 heads, one 4-head group), one block per SM.
+        (4 * 8, 4096, 132, (64, 4)),
+        # granite (48 / 1 heads: 12 groups) and qwen2.5 (40 / 8: 2 groups).
+        (4 * 1 * 12, 4096, 132, (128, 2)),
+        (4 * 8 * 2, 4096, 132, (128, 2)),
+        # A ragged cache of 63 tiles: three chunks of 21, each warp >= 2 tiles.
+        (1, 1000, 132, (21, 3)),
+        # A cache of one row, and one of none: one chunk.
+        (1, 1, 132, (1, 1)),
+        (1, 0, 132, (1, 1)),
     ],
 )
-def test_decode_split_fills_the_sms(blocks, S, want):
-    chunk, n_chunks = split_chunks(blocks, S, n_sms=132)
-    assert (chunk, n_chunks) == want
-    assert chunk % 16 == 0 and chunk * n_chunks >= S > chunk * (n_chunks - 1)
+def test_decode_split_rows(blocks, S, resident, want):
+    """The dense wrapper's split: a lane's S rows as ceil(S / 16) tiles."""
+    per_chunk, n_chunks = split_tiles(blocks, -(-S // DENSE_TILE), resident, **DENSE_SHAPE)
+    assert (per_chunk, n_chunks) == want
+    rows = per_chunk * DENSE_TILE
+    assert rows * n_chunks >= S and (n_chunks == 1 or rows * (n_chunks - 1) < S)
+    assert n_chunks == 1 or blocks * n_chunks <= resident
 
 
 @pytest.mark.parametrize(
@@ -251,23 +273,26 @@ def _one_layer(arch):
     "arch", ["stablelm-1.6b", "phi4-mini-3.8b", "qwen2.5-14b", "granite-20b"]
 )
 def test_served_attention_operands_pass_the_bf16_alignment_checks(arch, mode, monkeypatch):
-    """Every prefill-attention and paged-decode call of a served request
-    hands the kernels q / k / v (models/attention.py) and page pools whose
-    rows start on 16-byte boundaries, as the bf16 tensor-core kernels and
-    the paged-decode kernel's 16-byte loads ask."""
+    """Every prefill-attention and decode call of a served request hands
+    the kernels q / k / v (models/attention.py), dense caches and page
+    pools whose rows start on 16-byte boundaries, as the bf16 tensor-core
+    kernels and the decode kernels' 16-byte loads ask."""
     model, params = _one_layer(arch)
     seen = []
 
     def checked(name, fn, operands):
         def call(*args, **kwargs):
             assert args[0].dtype == torch.bfloat16
-            check_rows_16b_aligned(name, **dict(zip(operands, args)))
+            check_rows_16b_aligned(name, **{k: a for k, a in zip(operands, args) if k})
             seen.append(name)
             return fn(*args, **kwargs)
         return call
 
     monkeypatch.setattr(attention, "flash_attention",
                         checked("flash_attention", attention.flash_attention, ("q", "k", "v")))
+    monkeypatch.setattr(attention, "decode_attention",
+                        checked("decode_attention", attention.decode_attention,
+                                (None, "k_cache", "v_cache")))
     monkeypatch.setattr(attention, "paged_prefill_attention",
                         checked("paged_prefill_attention", attention.paged_prefill_attention,
                                 ("q", "k_pages", "v_pages")))
@@ -285,6 +310,6 @@ def test_served_attention_operands_pass_the_bf16_alignment_checks(arch, mode, mo
             break
         server.step()
     assert req.done
-    want = {"flash_attention"} if mode == "dense" else {"paged_prefill_attention",
-                                                        "paged_decode_attention"}
+    want = {"flash_attention", "decode_attention"} if mode == "dense" else {
+        "paged_prefill_attention", "paged_decode_attention"}
     assert set(seen) == want, seen

@@ -56,8 +56,7 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     paged_prefill_attention,
     quantize_kv,
 )
-from repro_torch.kernels.decode_attention import paged as paged_mod  # noqa: E402
-from repro_torch.kernels.decode_attention.paged import split_pages  # noqa: E402
+from repro_torch.kernels.decode_attention.ops import MIN_TILES_PER_WARP, split_tiles  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serving import PipelineServer  # noqa: E402
@@ -178,23 +177,24 @@ def test_quantize_kv_matches_reference(shape):
 
 
 # The launch shape's constants as csrc/paged_decode_attention.cu exports
-# them (kWarps, kMaxChunks); the GPU tests read them from the build.
+# them (kWarps, kMaxChunks of csrc/split_decode.cuh); the GPU tests read
+# them from the build.
 SHAPE = dict(warps=8, max_chunks=8)
 
 
 def test_split_pages_chunks_whole_pages():
     # Serving shape (8 lanes x 32 KV heads, 16 pages): one chunk, two pages
     # for each of a block's warps.
-    assert split_pages(8 * 32, 16, resident=2 * 132, **SHAPE) == (16, 1)
+    assert split_tiles(8 * 32, 16, resident=2 * 132, **SHAPE) == (16, 1)
     # The long GQA case (4 lanes x 8 KV heads, 256 pages): a full cluster of
     # 8 chunks where the card holds them, 4 where it holds one block per SM.
-    assert split_pages(4 * 8, 256, resident=8 * 132, **SHAPE) == (32, 8)
-    assert split_pages(4 * 8, 256, resident=132, **SHAPE) == (64, 4)
-    assert split_pages(1, 3, resident=132, **SHAPE) == (3, 1)
+    assert split_tiles(4 * 8, 256, resident=8 * 132, **SHAPE) == (32, 8)
+    assert split_tiles(4 * 8, 256, resident=132, **SHAPE) == (64, 4)
+    assert split_tiles(1, 3, resident=132, **SHAPE) == (3, 1)
     # Four-warp blocks split a 16-page row in two; a cluster cap of 2 stops
     # the long case at two chunks.
-    assert split_pages(8 * 32, 16, resident=8 * 132, warps=4, max_chunks=8) == (8, 2)
-    assert split_pages(4 * 8, 256, resident=8 * 132, warps=8, max_chunks=2) == (128, 2)
+    assert split_tiles(8 * 32, 16, resident=8 * 132, warps=4, max_chunks=8) == (8, 2)
+    assert split_tiles(4 * 8, 256, resident=8 * 132, warps=8, max_chunks=2) == (128, 2)
 
 
 @pytest.mark.parametrize(
@@ -212,14 +212,14 @@ def test_split_pages_chunks_whole_pages():
 )
 def test_split_pages_covers_the_row_within_its_limits(blocks, NB, resident):
     """Whole pages that cover the widest row, at most one cluster of
-    chunks, no split that leaves a warp fewer than MIN_PAGES_PER_WARP
+    chunks, no split that leaves a warp fewer than MIN_TILES_PER_WARP
     pages, and no more chunks than keep the grid resident at once."""
-    per_chunk, n_chunks = split_pages(blocks, NB, resident, **SHAPE)
+    per_chunk, n_chunks = split_tiles(blocks, NB, resident, **SHAPE)
     assert isinstance(per_chunk, int) and isinstance(n_chunks, int)
     assert per_chunk >= 1 and 1 <= n_chunks <= SHAPE["max_chunks"]
     assert per_chunk * n_chunks >= NB
     assert per_chunk * (n_chunks - 1) < max(NB, 1)  # no chunk is wholly empty
-    assert n_chunks == 1 or per_chunk >= SHAPE["warps"] * paged_mod.MIN_PAGES_PER_WARP
+    assert n_chunks == 1 or per_chunk >= SHAPE["warps"] * MIN_TILES_PER_WARP
     assert n_chunks == 1 or blocks * n_chunks <= resident
 
 
