@@ -3,12 +3,16 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
         --smoke --groups 3 --replicas 3 --policy adaptive --slots 60 \
         [--paged --prefill-chunk 32 --kv-dtype int8]
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --prefill-chunk 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b --smoke \
+        --paged --spec-draft auto --spec-k 4
     PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b --smoke
 
 Hosts G pipeline groups x R replicas of the (partitioned) model on one
 device (CUDA unless ``--device`` says otherwise), routes requests with
 the energy-aware scheduler, and prints throughput and downtime. Like the
-JAX CLI it serves in float32 with random weights drawn from seed 0.
+JAX CLI it serves in float32 with random weights drawn from seed 0 (a
+speculative draft's from seed 1).
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import torch
 from ..configs import ARCH_NAMES, get_config, get_smoke_config
 from ..device import resolve_device
 from ..models import build_model, init_from_template
+from ..models.registry import default_draft_for
 from ..serving import PipelineServer
 
 
@@ -52,9 +57,16 @@ def main(argv: list[str] | None = None) -> None:
                          "it is written (per-row fp32 scales, dequantized inside "
                          "the attention kernels)")
     ap.add_argument("--prefill-chunk", type=int, default=None,
-                    help="chunked prefill (needs --paged): split joining prompts "
-                         "into N-token chunks launched beside the decode of the "
-                         "same step; None = whole-prompt prefill")
+                    help="chunked prefill, dense or --paged: split joining "
+                         "prompts into N-token chunks launched beside the decode "
+                         "of the same step; None = whole-prompt prefill")
+    ap.add_argument("--spec-draft", choices=ARCH_NAMES + ("auto",), default=None,
+                    help="speculative decoding (needs --paged): the draft "
+                         "architecture that proposes --spec-k tokens per round, "
+                         "verified in one paged chunk call; 'auto' takes the "
+                         "registry's pairing for --arch (SPEC_DRAFT_PAIRS)")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="draft tokens proposed per speculative round")
     ap.add_argument("--max-park-steps", type=int, default=32,
                     help="starvation-free aging: force-place (preempting the "
                          "youngest resident of a live sibling) any failover "
@@ -79,6 +91,15 @@ def main(argv: list[str] | None = None) -> None:
     model = build_model(cfg)
     gen = torch.Generator(device=device).manual_seed(0)
     params = init_from_template(model.template, gen, cfg.param_dtype, device=device)
+    spec_draft = None
+    if args.spec_draft is not None:
+        name = default_draft_for(args.arch) if args.spec_draft == "auto" else args.spec_draft
+        dcfg = get_smoke_config(name) if args.smoke else get_config(name)
+        dcfg = dataclasses.replace(dcfg, dtype="float32", param_dtype="float32")
+        draft = build_model(dcfg)
+        dgen = torch.Generator(device=device).manual_seed(1)
+        spec_draft = (draft, init_from_template(draft.template, dgen, dcfg.param_dtype,
+                                                device=device))
     server = PipelineServer(
         model,
         params,
@@ -96,6 +117,8 @@ def main(argv: list[str] | None = None) -> None:
         prefill_chunk=args.prefill_chunk,
         max_park_steps=args.max_park_steps if args.max_park_steps > 0 else None,
         async_depth=args.async_depth,
+        spec_draft=spec_draft,
+        spec_k=args.spec_k,
         seed=args.seed,
         device=device,
     )
@@ -105,6 +128,12 @@ def main(argv: list[str] | None = None) -> None:
         if args.paged
         else ""
     )
+    if spec_draft is not None:
+        paged_info += (
+            f" spec_rounds={stats.spec_rounds}"
+            f" acceptance={stats.acceptance_rate:.3f}"
+            f" accepted_tokens={stats.accepted_tokens}"
+        )
     print(
         f"policy={args.policy}: submitted={stats.submitted} "
         f"completed={stats.completed_jobs} dropped={stats.dropped_jobs} "

@@ -3,6 +3,9 @@
 * prefill through the flash-attention kernel and single-token decode
   through the flash-decode kernel against a dense KV cache
   (:func:`attention_block`);
+* chunked prefill against a dense KV cache (:func:`chunk_attention_block`)
+  through the paged-prefill kernel, the cache read as a pool of one page
+  per lane;
 * single-token decode (:func:`paged_attention_block`) and chunked
   prefill (:func:`paged_chunk_attention_block`) against a shared page
   pool, through the paged-decode and paged-prefill kernels.
@@ -29,6 +32,7 @@ __all__ = [
     "attention_block",
     "paged_attention_block",
     "paged_chunk_attention_block",
+    "chunk_attention_block",
 ]
 
 
@@ -200,4 +204,44 @@ def paged_chunk_attention_block(
         q, pages["k"], pages["v"], block_tables, positions[:, 0].contiguous(),
         k_scales=pages.get("k_scale"), v_scales=pages.get("v_scale"),
     )
+    return _out_proj(out, p["wo"], dtype)
+
+
+def chunk_attention_block(
+    x: torch.Tensor,
+    p: dict,
+    cfg: ModelConfig,
+    *,
+    positions: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    lane_table: torch.Tensor,
+    lanes: torch.Tensor,
+    write_src: torch.Tensor,
+    write_pos: torch.Tensor,
+):
+    """Chunked-prefill sub-block against a dense KV cache.
+
+    x [W, C, D]; positions [W, C] int32 absolute position per chunk token;
+    one layer's cache ``[W, L, KV, Dh]``. The chunk's K/V rows of the
+    lanes in ``lanes`` [N] are written in place at their positions, those
+    at or past L dropped (the JAX version scatters with ``mode="drop"``
+    into an updated copy). The write coordinates are layer-invariant and
+    precomputed by :func:`repro_torch.models.transformer.prefill_chunk`:
+    lane ``lanes[i]`` writes chunk column ``write_src[i, j]`` to row
+    ``write_pos[i, j]``; a dropped column repeats a kept one (same row,
+    same value), so no index leaves the cache and no step waits on the
+    host; a chunk starts below L, so its first position is always kept.
+    Then every lane attends causally over its rows through the
+    paged-prefill kernel, the cache read as a pool of W pages of L rows
+    with ``lane_table`` [W, 1] = ``arange(W)`` as block table: a view,
+    not a copy. Outputs of lanes outside
+    ``lanes`` are garbage the caller discards. Returns out [W, C, D].
+    """
+    dtype = cfg.compute_dtype
+    q, k, v = _project_qkv(x, p, cfg, positions)
+    rows = lanes[:, None]
+    for cache, new in ((k_cache, k), (v_cache, v)):
+        cache[rows, write_pos] = new[rows, write_src].to(cache.dtype)  # [N, C, KV, Dh]
+    out = paged_prefill_attention(q, k_cache, v_cache, lane_table, positions[:, 0].contiguous())
     return _out_proj(out, p["wo"], dtype)

@@ -181,6 +181,9 @@ def _leaves(tree: Any) -> list:
     return [tree]
 
 
+MAX_DRAW = 2**32  # elements of one fp32 draw in init_from_template
+
+
 def init_from_template(
     template,
     generator: torch.Generator,
@@ -194,6 +197,11 @@ def init_from_template(
     ``jax.random`` differ. Tests that compare the two packages build the
     weights once with the JAX package and convert them
     (:mod:`repro_torch.convert`). ``generator`` must live on ``device``.
+
+    A leaf of more than ``MAX_DRAW`` elements is drawn a slice of its
+    leading axis at a time: granite-20b's MLP leaf (7.85e9 elements) in
+    one fp32 draw would need 31 GB beside its 40 GB of bf16 weights on an
+    80 GB card. Smaller leaves draw in one call.
     """
     device = resolve_device(device)
     dtype = torch_dtype(param_dtype)
@@ -203,10 +211,14 @@ def init_from_template(
             return torch.zeros(spec.shape, dtype=dtype, device=device)
         if spec.init == "ones":
             return torch.ones(spec.shape, dtype=dtype, device=device)
-        x = torch.randn(
-            spec.shape, generator=generator, dtype=torch.float32, device=device
-        )
-        return x.mul_(spec.initializer_std()).to(dtype)
+        std = spec.initializer_std()
+        out = torch.empty(spec.shape, dtype=dtype, device=device)
+        step = max(1, MAX_DRAW * spec.shape[0] // max(out.numel(), 1))
+        for i in range(0, spec.shape[0], step):
+            part = out[i : i + step]
+            part.copy_(torch.randn(part.shape, generator=generator, dtype=torch.float32,
+                                   device=device).mul_(std))
+        return out
 
     return tree_map(one, template)
 

@@ -5,9 +5,13 @@ Entry points, as in the JAX package's ``models/transformer.py``:
 
 * :func:`prefill` — forward over a prompt, building a dense cache;
 * :func:`decode_step` — one token per lane against that cache;
+* :func:`prefill_chunk` — one prompt chunk per lane against the dense
+  cache (chunked prefill, and the speculative draft's ingest);
 * :func:`decode_step_paged` and :func:`prefill_chunk_paged` — one token,
   or one prompt chunk, per lane against a shared page pool addressed by
-  block tables (the :func:`supports_paged` set).
+  block tables (the :func:`supports_paged` set), and
+  :func:`verify_step_paged`, a speculative round's verify, which is the
+  paged chunk call.
 
 The JAX ``lax.scan`` over stacked layer params is a Python loop over the
 layer axis here. The cache is batched natively, with per-lane lengths:
@@ -35,6 +39,7 @@ import torch
 from .attention import (
     attention_block,
     attn_template,
+    chunk_attention_block,
     paged_attention_block,
     paged_chunk_attention_block,
 )
@@ -47,9 +52,11 @@ __all__ = [
     "prefill",
     "prefill_into",
     "decode_step",
+    "prefill_chunk",
     "supports_paged",
     "decode_step_paged",
     "prefill_chunk_paged",
+    "verify_step_paged",
     "init_cache",
     "init_cache_shapes",
     "layer_plan",
@@ -146,11 +153,14 @@ def lm_template(cfg: ModelConfig) -> dict:
 
 def _embed(params, x_in: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """First stage: token embedding; a middle stage passes the hidden
-    states through."""
+    states through. An id past the vocabulary reads the last row, as the
+    JAX gather clamps it: a speculative draft with a smaller vocabulary
+    than its target ingests every token the target commits."""
     dtype = cfg.compute_dtype
     if not cfg.stage_embed:
         return x_in.to(dtype)
-    return params["embed"]["tok"][x_in.long()].to(dtype)
+    tok = params["embed"]["tok"]
+    return tok[x_in.long().clamp(0, tok.shape[0] - 1)].to(dtype)
 
 
 def _unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -316,6 +326,58 @@ def decode_step(params, token: torch.Tensor, cache: dict, cfg: ModelConfig,
     return _unembed(params, x, cfg), cache
 
 
+def prefill_chunk(params, chunk, cache: dict, offsets, valids, cfg: ModelConfig,
+                  lanes: torch.Tensor | None = None):
+    """Advance a dense cache by one prompt chunk per lane.
+
+    chunk: [W, C] ids (first stage) or [W, C, D] hidden over the cache's
+    slot width; offsets / valids: [W] int32 (or scalars, for every lane).
+    Lane b's C tokens sit at absolute positions ``offsets[b] ..
+    offsets[b] + C - 1`` and ``valids[b] <= C`` of them are real; the
+    offset of a lane in ``lanes`` lies below the cache's ``max_len``. For
+    the lanes in ``lanes`` (default: all) every layer writes the chunk's
+    K/V rows, the padding tail's too (garbage the next chunk or decode
+    overwrites before anything reads it), positions at or past the cache's
+    ``max_len`` dropped, and sets ``len = offsets + valids``, in place; the
+    other lanes' rows and lengths stay as they are (the JAX engine's
+    masked merge) and their outputs are garbage the caller drops. The
+    chunk attends causally over each lane's cache through the paged-prefill
+    kernel (:func:`~.attention.chunk_attention_block`). Returns (outputs
+    [W, C, V|D] per position, cache). The JAX ``prefill_chunk`` is one
+    request's step; its engine ``vmap``s it over the slots.
+    """
+    if not supports_paged(cfg):
+        raise ValueError(f"{cfg.name}: chunked prefill needs uniform full attention")
+    x = _embed(params, chunk, cfg)
+    W, C = x.shape[:2]
+    dev = x.device
+    offsets = torch.as_tensor(offsets, dtype=torch.int32, device=dev).expand(W)
+    valids = torch.as_tensor(valids, dtype=torch.int32, device=dev).expand(W)
+    if lanes is None:
+        lanes = torch.arange(W, device=dev)
+    k_all, v_all = cache["c0"]["k"], cache["c0"]["v"]
+    L = k_all.shape[2]
+    steps = torch.arange(C, dtype=torch.int32, device=dev)
+    positions = offsets[:, None] + steps  # [W, C]
+    # Write coordinates once for every layer (chunk_attention_block).
+    pos = positions[lanes]  # [N, C]
+    write_src = torch.where(pos < L, steps, 0).long()
+    write_pos = (pos[:, :1] + write_src).clamp(max=L - 1).long()
+    lane_table = torch.arange(W, dtype=torch.int32, device=dev)[:, None]
+    stack = params["classes"]["c0"]
+    for l in range(k_all.shape[0]):
+        p_layer = _layer_params(stack, l)
+        h = rmsnorm(x, p_layer["ln1"], cfg.rms_eps)
+        x = x + chunk_attention_block(
+            h, p_layer["attn"], cfg, positions=positions, k_cache=k_all[l], v_cache=v_all[l],
+            lane_table=lane_table, lanes=lanes, write_src=write_src, write_pos=write_pos,
+        )
+        h2 = rmsnorm(x, p_layer["ln2"], cfg.rms_eps)
+        x = x + _ffn(h2, p_layer, cfg)
+    cache["len"][lanes] = (offsets + valids)[lanes].to(cache["len"].dtype)
+    return _unembed(params, x, cfg), cache
+
+
 # ---------------------------------------------------------------------------
 # Paged entry points
 # ---------------------------------------------------------------------------
@@ -422,3 +484,17 @@ def prefill_chunk_paged(params, chunk, pools: dict, offsets, valids, block_table
         positions=positions, block_tables=block_tables,
         write_pages=write_pages, write_offs=write_offs,
     )
+
+
+def verify_step_paged(params, chunk, pools: dict, offsets, valids, block_tables,
+                      cfg: ModelConfig):
+    """Verify ``k + 1`` speculative positions in one paged chunk call.
+
+    The target's step of a draft-verify round: lane ``w`` carries
+    ``[last committed token, d_1 .. d_k]`` at absolute positions
+    ``offsets[w] ..``, and row ``j`` of the output is the logits plain
+    decode would produce after consuming the first ``j + 1`` of them, so
+    the engine accepts the longest prefix with ``d_j == argmax(row j-1)``.
+    It is :func:`prefill_chunk_paged`; same signature and coverage.
+    """
+    return prefill_chunk_paged(params, chunk, pools, offsets, valids, block_tables, cfg)

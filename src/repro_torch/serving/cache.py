@@ -180,6 +180,16 @@ class KVCacheManager:
         of memory right now (the scheduler then preempts)."""
         raise NotImplementedError
 
+    def rollback(self, rid: int, slot: int, n: int) -> None:
+        """Un-write the last ``n`` entries of ``rid``'s context (the
+        rejected draft rows of a speculative round). Host accounting only:
+        the device rows stay written but lie past the length mirror, which
+        every consumer reads positions from, and the next call re-writes
+        them before anything attends them. Dense: a length decrement;
+        paged: that plus freeing the tail pages the shorter context no
+        longer touches."""
+        raise NotImplementedError
+
     def release(self, rid: int, slot: int | None) -> None:
         """Return the slot and every entry owned by ``rid``."""
         raise NotImplementedError
@@ -199,6 +209,14 @@ class KVCacheManager:
         self.slots[idx] = rid
         self.lengths[idx] = 0
         return idx
+
+    def _check_rollback(self, rid: int, slot: int, n: int) -> None:
+        if self.slots[slot] != rid:
+            raise PageError(f"rollback of slot {slot} not owned by rid {rid}")
+        if n < 0 or n > self.lengths[slot]:
+            raise PageError(
+                f"rid {rid}: rollback of {n} entries from a {self.lengths[slot]}-entry context"
+            )
 
     def _drop_slot(self, rid: int, slot: int | None) -> None:
         if slot is not None and self.slots[slot] == rid:
@@ -239,6 +257,10 @@ class DenseSlotCache(KVCacheManager):
                 "(submit should have rejected this request)"
             )
         return True
+
+    def rollback(self, rid: int, slot: int, n: int) -> None:
+        self._check_rollback(rid, slot, n)
+        self.lengths[slot] -= n
 
     def release(self, rid: int, slot: int | None) -> None:
         self._drop_slot(rid, slot)
@@ -340,16 +362,7 @@ class PagedKVCache(KVCacheManager):
         return True
 
     def rollback(self, rid: int, slot: int, n: int) -> None:
-        """Un-write the last ``n`` entries of ``rid``'s context: a length
-        decrement plus freeing the tail pages the shorter context no
-        longer touches. The device rows stay written but lie past the
-        length mirror, which every consumer reads positions from."""
-        if self.slots[slot] != rid:
-            raise PageError(f"rollback of slot {slot} not owned by rid {rid}")
-        if n < 0 or n > self.lengths[slot]:
-            raise PageError(
-                f"rid {rid}: rollback of {n} entries from a {self.lengths[slot]}-entry context"
-            )
+        self._check_rollback(rid, slot, n)
         new_len = int(self.lengths[slot]) - n
         self.lengths[slot] = new_len
         if n == 0:

@@ -44,11 +44,12 @@ is written and dequantized inside the attention kernels; their
 whole-prompt prefill runs as one whole-length chunk, so its first token
 comes from the same quantized pages every later read sees.
 
-Chunked prefill (``prefill_chunk=N``, paged only in this port). Each
-joining prompt is split into N-token chunks that ride one fixed call
-shape beside the decode of the same step; each chunk's K/V go into the
-request's pages and the chunk attends over the paged prefix through the
-paged-prefill kernel.
+Chunked prefill (``prefill_chunk=N``). Each joining prompt is split into
+N-token chunks that ride one fixed call shape beside the decode of the
+same step, and every chunk attends over its lane's prefix through the
+paged-prefill kernel. Paged, each chunk's K/V go into the request's
+pages; dense, into the joining lanes' rows of the slot cache, which the
+kernel reads as a pool of one page per lane.
 
 Async ring (``async_depth=K``). Each (group, replica) keeps up to K
 calls in flight. CUDA launches are asynchronous already, so the ring is
@@ -63,12 +64,27 @@ loss-free, so token streams are identical at every depth.
 ``host_readback`` is the engine's only device-to-host copy; it counts
 its calls per engine phase (``dispatch`` / ``commit``).
 
+Speculative draft-verify decoding (``spec_draft=(model, params)``, paged
+only, as in JAX). Each decode round at stage 0 (1) catches the draft
+model's dense slot cache up to the committed stream and runs ``spec_k``
+greedy draft steps, the argmax chained on the device, then (2) verifies
+all ``spec_k + 1`` positions in one ``verify_step_paged`` chunk call per
+stage. The draft tokens stay on the device from the draft call into the
+verify input; their host copies ride the call's deferred readbacks. The
+accept rule is greedy prefix match on the verify argmaxes, so a round
+commits 1 to ``spec_k + 1`` tokens; rejected rows are rewound through
+``KVCacheManager.rollback``, and a round broken by failover or
+preemption by ``StepScheduler.rewind_spec``. Energy is charged per call.
+The draft's vocabulary may differ from the target's: a target id past it
+reads the draft's last embedding row, as the JAX gather does (the JAX
+engine refuses such a pair; the registry pairs qwen2.5-14b, vocabulary
+152064, with stablelm-1.6b, 100352).
+
 Seeding. ``np.random.SeedSequence(seed).spawn(2)`` and the order of every
 draw follow the JAX engine, so harvests, arrivals and routing decisions
 match the reference draw for draw.
 
-Not in this slice: dense chunked prefill (ROADMAP Queue 1 item 2),
-speculative decoding, mesh and multi-process serving.
+Not in this slice: mesh and multi-process serving.
 """
 
 from __future__ import annotations
@@ -112,9 +128,11 @@ class _StageCall:
     ``outputs[i]`` is a ``(kind, value, advance)`` tuple per member:
     ``("token", t, 0)`` (final stage), ``("hidden", h, 0)`` (handoff to
     the next stage), ``("chunk_part", h | None, n)`` (``n`` more prompt
-    tokens consumed, prefill continues next step) or ``("chunk_done",
-    t | h, n)`` (the chunk that completed the stage's prefill). Token
-    entries are
+    tokens consumed, prefill continues next step), ``("chunk_done",
+    t | h, n)`` (the chunk that completed the stage's prefill),
+    ``("spec_hidden", h, v)`` (a mid stage's verify of ``v`` positions)
+    or ``("spec_done", tokens, v)`` (the final verify's accepted prefix
+    plus its bonus token). Token entries are
     *deferred*: at dispatch they hold ``None`` and ``readbacks`` carries
     ``(device_argmax, finalize)`` pairs; the committer drains them
     through :class:`HostReadback` when the call completes. An aborted
@@ -140,10 +158,16 @@ class ServerStats:
     dropped_jobs: int = 0
     queued_jobs: int = 0  # submissions that waited in the pending queue
     tokens_generated: int = 0
+    accepted_tokens: int = 0  # committed tokens (= tokens_generated, as in JAX)
     stage_executions: int = 0  # per-request stage work units
     prefill_calls: int = 0  # batched whole-prompt prefill launches
     chunk_prefill_calls: int = 0  # batched chunked-prefill launches
     decode_calls: int = 0  # batched decode launches
+    draft_calls: int = 0  # speculative: draft-model calls (catch-up ingests + rounds)
+    verify_calls: int = 0  # speculative: target verify chunk calls
+    spec_rounds: int = 0  # speculative rounds committed
+    spec_proposed: int = 0  # draft tokens proposed to verification
+    spec_accepted: int = 0  # draft tokens accepted (bonus tokens excluded)
     energy_charged: float = 0.0  # total CE(PM)/kappa charged across calls
     rerouted_stages: int = 0
     preempted_jobs: int = 0  # evicted (page exhaustion or aging), requeued
@@ -159,6 +183,11 @@ class ServerStats:
     def downtime_fraction(self) -> float:
         denom = self.slots * self.n_groups * self.n_replicas
         return self.downtime_replica_slots / max(denom, 1)
+
+    @property
+    def acceptance_rate(self) -> float:
+        """Fraction of proposed draft tokens the target accepted."""
+        return self.spec_accepted / max(self.spec_proposed, 1)
 
 
 def _pad_tail(x: torch.Tensor, C: int) -> torch.Tensor:
@@ -238,6 +267,23 @@ def _emit_chunk_outputs(server, g, jobs, outputs, mgr, argmax, hidden_at, readba
         readbacks.append((argmax, fin))
 
 
+def _chunk_input(server, g: int, jobs, C: int, lanes: torch.Tensor) -> torch.Tensor:
+    """The [W, C] token ids (first stage) or [W, C, D] hidden of one chunk
+    launch over the slot width: each job's ``valid`` tokens from ``pos``,
+    zero-padded; lanes outside the call are 0."""
+    W = server.max_batch
+    if g == 0:
+        buf = np.zeros((W, C), np.int64)
+        for _, m, seq, pos, valid in jobs:
+            buf[m.slot_ids[g], :valid] = seq[0, pos : pos + valid]
+        return torch.from_numpy(buf).to(server.device)
+    hs = torch.cat([_pad_tail(seq[:, pos : pos + valid], C)
+                    for _, _, seq, pos, valid in jobs])  # [N, C, D]
+    inp = torch.zeros((W, C, server.cfg.d_model), dtype=hs.dtype, device=server.device)
+    inp[lanes] = hs
+    return inp
+
+
 def _decode_input(server, g: int, jobs, lanes: torch.Tensor):
     """The [W, 1] token ids (first stage) or [W, 1, D] hidden of one
     decode launch over the full slot width; non-member lanes are 0."""
@@ -310,6 +356,32 @@ class _DenseExec(_StageExec):
             out = self.model_g.prefill_batch(self.params_g, batch, cache, lanes)
             s.stats.prefill_calls += 1
             _emit_whole_outputs(s, g, grp, out, outputs, mgr, length, readbacks)
+
+    def run_chunks(self, r, jobs, outputs, mgr: KVCacheManager, readbacks):
+        """jobs: [(out_idx, member, seq, pos, valid)] — one fixed-shape
+        launch over the slot width advances every joining prompt by at
+        most C tokens; only the members' lanes are written. Lanes outside
+        the call compute at offset 0, as in JAX, and are dropped."""
+        s, g = self.server, self.g
+        C, W = s.prefill_chunk, s.max_batch
+        offs = np.zeros((W,), np.int32)
+        valids = np.zeros((W,), np.int32)
+        for _, m, _, pos, valid in jobs:
+            offs[m.slot_ids[g]] = pos
+            valids[m.slot_ids[g]] = valid
+        assert offs.max() < s.max_len, "a dense chunk must start inside the cache"
+        lanes = self._lanes([m.slot_ids[g] for _, m, _, _, _ in jobs])
+        out = self.model_g.prefill_chunk_batch(
+            self.params_g, _chunk_input(s, g, jobs, C, lanes), s._caches[(g, r)],
+            torch.from_numpy(offs).to(s.device), torch.from_numpy(valids).to(s.device), lanes,
+        )
+        s.stats.chunk_prefill_calls += 1
+        argmax = out.argmax(dim=-1) if g == s.G - 1 else None
+        _emit_chunk_outputs(
+            s, g, jobs, outputs, mgr, argmax,
+            lambda slot, valid: out[slot : slot + 1, :valid],  # [1, valid, D]
+            readbacks,
+        )
 
     def run_decode(self, r, jobs, outputs, mgr: KVCacheManager, readbacks):
         """jobs: [(out_idx, member)] — one masked launch over the full
@@ -403,17 +475,7 @@ class _PagedExec(_StageExec):
         for _, m, _, pos, valid in jobs:
             offs[m.slot_ids[g]] = pos
             valids[m.slot_ids[g]] = valid
-        if g == 0:
-            buf = np.zeros((W, C), np.int64)
-            for _, m, seq, pos, valid in jobs:
-                buf[m.slot_ids[g], :valid] = seq[0, pos : pos + valid]
-            inp = torch.from_numpy(buf).to(s.device)
-        else:
-            lanes = self._lanes([m.slot_ids[g] for _, m, _, _, _ in jobs])
-            hs = torch.cat([_pad_tail(seq[:, pos : pos + valid], C)
-                            for _, _, seq, pos, valid in jobs])  # [N, C, D]
-            inp = torch.zeros((W, C, s.cfg.d_model), dtype=hs.dtype, device=s.device)
-            inp[lanes] = hs
+        inp = _chunk_input(s, g, jobs, C, self._lanes([m.slot_ids[g] for _, m, _, _, _ in jobs]))
         out = self.model_g.prefill_chunk_paged(
             self.params_g, inp, s._caches[(g, r)],
             torch.from_numpy(offs).to(s.device), torch.from_numpy(valids).to(s.device),
@@ -442,6 +504,116 @@ class _PagedExec(_StageExec):
         )
         s.stats.decode_calls += 1
         _emit_decode_outputs(s, g, jobs, out, outputs, mgr, readbacks)
+
+    def run_verify(self, r, jobs, outputs, mgr: PagedKVCache, readbacks, tok_dev):
+        """jobs: [(out_idx, member, seq, pos, valid)] — one fixed-shape
+        verify chunk covers every speculating lane's ``valid`` = k+1 (or
+        fewer, near completion) positions. Stage 0 takes ``tok_dev``, the
+        [W, k+1] tokens the draft runner assembled on the device; a mid
+        stage takes the upstream verify hidden. The host length mirror
+        advances by ``valid`` at once; the accept finalizer (or an abort's
+        ``rewind_spec``) rolls the rejected tail back."""
+        s, g = self.server, self.g
+        C, W = s._spec.k + 1, s.max_batch
+        offs = np.full((W,), -1, np.int32)  # -1 = masked lane
+        valids = np.zeros((W,), np.int32)
+        for _, m, _, pos, valid in jobs:
+            offs[m.slot_ids[g]] = pos
+            valids[m.slot_ids[g]] = valid
+        # A mid stage's seq is the upstream verify hidden, [1, valid, D].
+        inp = tok_dev if g == 0 else _chunk_input(
+            s, g, [(i, m, seq, 0, valid) for i, m, seq, _, valid in jobs], C,
+            self._lanes([m.slot_ids[g] for _, m, _, _, _ in jobs]))
+        out = self.model_g.verify_step_paged(
+            self.params_g, inp, s._caches[(g, r)],
+            torch.from_numpy(offs).to(s.device), torch.from_numpy(valids).to(s.device),
+            mgr.device_block_table(),
+        )
+        s.stats.verify_calls += 1
+        for _, m, _, pos, valid in jobs:
+            mgr.lengths[m.slot_ids[g]] = pos + valid
+            if m.spec_adv is None:
+                m.spec_adv = [0] * s.G
+            m.spec_adv[g] = valid
+        if g == s.G - 1:
+            entries = [(i, m, m.slot_ids[g], valid) for i, m, _, _, valid in jobs]
+
+            def fin(toks, entries=entries):
+                for i, m, slot, v in entries:
+                    # Greedy accept: row j predicts the token after input
+                    # j, so drafts[a] is accepted while it matches row a's
+                    # argmax; row a then gives the bonus token.
+                    tgt = [int(t) for t in toks[slot, :v]]
+                    drafts = m.spec_drafts or []
+                    a = 0
+                    while a < v - 1 and drafts[a] == tgt[a]:
+                        a += 1
+                    outputs[i] = ("spec_done", tgt[: a + 1], v)
+
+            readbacks.append((out.argmax(dim=-1), fin))
+        else:
+            for i, m, _, _, valid in jobs:
+                slot = m.slot_ids[g]
+                outputs[i] = ("spec_hidden", out[slot : slot + 1, :valid], valid)
+
+
+class _SpecState:
+    """Speculative decoding's draft side: the draft model, one dense slot
+    cache per stage-0 replica, and the host mirrors ``rid`` (which request
+    owns each draft lane) and ``lens`` (how many rows of its committed
+    stream the lane holds). The draft runs unpartitioned on the stage-0
+    replica, its lanes keyed by the replica's stage-0 slots. A lane whose
+    ``rid`` differs from its member's (lane reuse, failover) is rebuilt
+    from position 0 by fixed-width catch-up ingests, so draft state needs
+    no abort protocol: it only proposes, and every committed token comes
+    from the target's verify."""
+
+    def __init__(self, server: "PipelineServer", draft: Model, draft_params, k: int):
+        self.model = draft
+        self.params = tree_map(lambda t: t.to(server.device), draft_params)
+        self.k = k
+        W = server.max_batch
+        # Rows past the target's max_len are never read (requests complete
+        # within it), but a catch-up ingest and the k draft steps write up
+        # to k rows past the committed context: JAX's headroom, kept.
+        self.rows = server.max_len + k + 1
+        self.caches = {r: draft.init_cache(W, self.rows, server.device) for r in range(server.R)}
+        self.rid = {r: np.full((W,), -1, np.int64) for r in range(server.R)}
+        self.lens = {r: np.zeros((W,), np.int64) for r in range(server.R)}
+        self.device = server.device
+
+    def _tensors(self, *arrays):
+        return [torch.from_numpy(np.asarray(a)).to(self.device) for a in arrays]
+
+    def ingest(self, r: int, buf, offs, valids, lanes) -> None:
+        """One catch-up chunk launch: lanes ``lanes`` ingest ``valids``
+        tokens of ``buf`` [W, C] at ``offs``; the other lanes keep their
+        cache."""
+        assert offs.max() < self.rows, "a draft ingest must start inside the cache"
+        buf_t, offs_t, valids_t, lanes_t = self._tensors(buf, offs, valids, lanes)
+        self.model.prefill_chunk_batch(self.params, buf_t, self.caches[r], offs_t, valids_t,
+                                       lanes_t)
+
+    def round(self, r: int, buf, offs, valids, tok0: torch.Tensor, lanes) -> torch.Tensor:
+        """One round's draft work: ingest the tokens the draft has not
+        seen yet (usually the previous round's accepted tail), then k
+        greedy decode steps from ``tok0`` [W], the argmax chained on the
+        device. Returns the [W, k] draft tokens, on the device."""
+        self.ingest(r, buf, offs, valids, lanes)
+        (lanes_t,) = self._tensors(lanes)
+        cache = self.caches[r]
+        tok, drafts = tok0, []
+        for _ in range(self.k):
+            logits = self.model.decode_batch(self.params, tok[:, None], cache, lanes_t)
+            tok = logits[:, -1].argmax(dim=-1)
+            drafts.append(tok)
+        return torch.stack(drafts, dim=1)
+
+
+def _draft_buffers(W: int, C: int):
+    """Zeroed host offsets [W], valid counts [W] and tokens [W, C] of one
+    draft ingest."""
+    return np.zeros((W,), np.int32), np.zeros((W,), np.int32), np.zeros((W, C), np.int64)
 
 
 def _resolve_kv_dtype(kv_dtype: str | None, compute: torch.dtype) -> torch.dtype:
@@ -476,6 +648,8 @@ class PipelineServer:
         prefill_chunk: int | None = None,
         max_park_steps: int | None = 32,
         async_depth: int = 2,
+        spec_draft: tuple[Model, object] | None = None,
+        spec_k: int = 4,
         seed: int = 0,
         device: str | torch.device | None = None,
     ):
@@ -487,7 +661,12 @@ class PipelineServer:
         (default: the dense reservation, ``max_batch * ceil(max_len /
         page_size)``); ``kv_dtype``: None (the compute dtype) or "int8";
         ``prefill_chunk``: split joining prompts into chunks of this many
-        tokens (paged only in this port)."""
+        tokens, paged or dense.
+
+        ``spec_draft``: a (draft ``Model``, draft params) pair turns every
+        decode round into ``spec_k`` draft steps plus one ``spec_k + 1``
+        wide verify call per stage (paged only); the draft's params are
+        moved to ``device`` too."""
         self.device = resolve_device(device)
         self.cfg = model.cfg
         params = tree_map(lambda t: t.to(self.device), params)
@@ -510,14 +689,25 @@ class PipelineServer:
         if prefill_chunk is not None:
             if prefill_chunk <= 0:
                 raise ValueError("prefill_chunk must be a positive token count")
-            # A model that cannot chunk at all fails as in JAX, before the
-            # dense layout that the port lacks.
-            if any(m.prefill_chunk_paged is None for m, _ in self.stages):
+            if any(m.prefill_chunk_batch is None for m, _ in self.stages):
                 raise ValueError(f"{model.cfg.name}: chunked prefill needs uniform full attention")
+        self._spec = None
+        if spec_draft is not None:
+            # Paged only, as in JAX: the paged chunk and decode paths share
+            # one attention reduction order there.
             if not paged:
-                raise NotImplementedError(
-                    "chunked prefill over the dense cache is not ported yet "
-                    "(ROADMAP.md, Queue 1 item 2); use paged=True"
+                raise ValueError("speculative decoding runs on the paged KV cache only")
+            if spec_k < 1:
+                raise ValueError("spec_k must be >= 1")
+            draft_model = spec_draft[0]
+            if any(m.verify_step_paged is None for m, _ in self.stages):
+                raise ValueError(
+                    f"{model.cfg.name}: speculative verify needs uniform full attention"
+                )
+            if draft_model.prefill_chunk_batch is None:
+                raise ValueError(
+                    f"{draft_model.cfg.name}: a draft model needs chunked prefill and "
+                    "batched decode (uniform full attention)"
                 )
         if async_depth < 0:
             raise ValueError("async_depth must be >= 0 (0 = synchronous)")
@@ -569,6 +759,8 @@ class PipelineServer:
             max_queue=max_queue,
             max_park_steps=max_park_steps,
         )
+        if spec_draft is not None:
+            self._spec = _SpecState(self, spec_draft[0], spec_draft[1], spec_k)
         self._exec = [(_PagedExec if paged else _DenseExec)(self, g) for g in range(n_groups)]
         self._caches = {
             (g, r): self._exec[g].init_cache()
@@ -618,6 +810,73 @@ class PipelineServer:
             return ids[None, :]
         return req.hidden
 
+    def _run_draft(self, r: int, jobs, readbacks) -> torch.Tensor:
+        """Draft work for a stage-0 verify call: catch each lane's draft
+        cache up to the committed stream (usually the previous round's
+        accepted tail), then k greedy draft steps. Returns the [W, k+1]
+        verify input on the device, lane w = [gen[-1], d_1..d_k], with no
+        host copy in the dispatch phase; the drafts' host copies ride the
+        call's deferred readbacks (only the accept finalizer needs them)."""
+        spec = self._spec
+        k = spec.k
+        C = k + 1
+        W = self.max_batch
+        tok0 = np.zeros((W,), np.int64)
+        entries = []  # [member, slot, ctx, draft_len, L] of lanes that draft
+        dr_entries = []
+        for _, m, _, _, valid in jobs:
+            slot = m.slot_ids[0]
+            ctx = np.concatenate([np.asarray(m.prompt, np.int64), np.asarray(m.generated, np.int64)])
+            L = len(ctx) - 1  # committed rows; ctx[L] is the round's true input
+            tok0[slot] = ctx[L]
+            if valid < 2:
+                continue  # the request's last token: nothing to draft
+            if spec.rid[r][slot] != m.rid:
+                # First round on this lane (or the lane was reused): the
+                # draft knows nothing of the stream, rebuild from 0.
+                spec.rid[r][slot] = m.rid
+                spec.lens[r][slot] = 0
+            entries.append([m, slot, ctx, int(spec.lens[r][slot]), L])
+            dr_entries.append((m, slot, valid - 1))
+        tok0_dev = torch.from_numpy(tok0).to(self.device)
+        if not entries:
+            return torch.cat([tok0_dev[:, None], tok0_dev.new_zeros((W, k))], dim=1)
+        # Catch-up: a rebuilt lane may be far behind; feed fixed C-wide
+        # chunks until one round's ingest suffices.
+        while any(e[4] - e[3] > C for e in entries):
+            offs, valids, buf = _draft_buffers(W, C)
+            lanes = []
+            for e in entries:
+                _, slot, ctx, dl, L = e
+                if L - dl > C:
+                    lanes.append(slot)
+                    offs[slot], valids[slot] = dl, C
+                    buf[slot] = ctx[dl : dl + C]
+                    e[3] = dl + C
+            spec.ingest(r, buf, offs, valids, np.asarray(lanes, np.int64))
+            self.stats.draft_calls += 1
+        offs, valids, buf = _draft_buffers(W, C)
+        for _, slot, ctx, dl, L in entries:
+            gap = L - dl
+            if gap > 0:
+                offs[slot], valids[slot] = dl, gap
+                buf[slot, :gap] = ctx[dl:L]
+            else:
+                # Caught up (an abandoned round can even leave the draft one
+                # row ahead): ingest nothing, pin the draft's length to L.
+                offs[slot], valids[slot] = L, 0
+            spec.lens[r][slot] = L + 1  # the first draft step writes ctx[L]'s row
+        lanes = np.asarray([e[1] for e in entries], np.int64)
+        drafts = spec.round(r, buf, offs, valids, tok0_dev, lanes)
+        self.stats.draft_calls += 1
+
+        def fin(d, dr=dr_entries):
+            for m, slot, ke in dr:
+                m.spec_drafts = [int(x) for x in d[slot, :ke]]
+
+        readbacks.append((drafts, fin))
+        return torch.cat([tok0_dev[:, None], drafts], dim=1)
+
     def _start_call(self, g: int, r: int, members: list[Request]) -> _StageCall | None:
         """Launch the batched work for every member and open the call.
 
@@ -625,17 +884,28 @@ class PipelineServer:
         youngest resident on page exhaustion; members that cannot get
         memory this slot are deferred), then at most three kinds of
         launches run: whole-prompt prefills (one per distinct length),
-        one chunked-prefill launch, and one decode — so prefill chunks
-        and decode tokens share the step."""
+        one chunked-prefill launch, one speculative draft + verify, and one
+        decode — so prefill chunks and decode tokens share the step."""
         mgr = self.managers[(g, r)]
         sched = self.scheduler
         chunk = self.prefill_chunk
+        spec = self._spec
         plan: dict[int, tuple] = {}
         need: dict[int, int] = {}
         for m in members:
             if m.cache_ready[g]:
-                plan[m.rid] = ("decode",)
-                need[m.rid] = int(mgr.lengths[m.slot_ids[g]]) + 1
+                # Speculative rounds start at stage 0; a mid stage joins one
+                # only while the round is live (spec_adv[0] set by the stage-0
+                # verify): after a mid-round failover re-prefill the handoff
+                # is a plain prefix and later stages decode plainly.
+                if spec is not None and (g == 0 or (m.spec_adv is not None and m.spec_adv[0] > 0)):
+                    v = min(spec.k + 1, m.n_tokens - len(m.generated)) if g == 0 \
+                        else m.spec_adv[0]
+                    plan[m.rid] = ("spec", v)
+                    need[m.rid] = int(mgr.lengths[m.slot_ids[g]]) + v
+                else:
+                    plan[m.rid] = ("decode",)
+                    need[m.rid] = int(mgr.lengths[m.slot_ids[g]]) + 1
             elif chunk is not None:
                 # Keep the assembled stage input across chunk steps (reset
                 # on failover and preemption through chunk_seq).
@@ -661,11 +931,14 @@ class PipelineServer:
             return None
 
         outputs: list[tuple] = [None] * len(served)
-        whole_jobs, chunk_jobs, decode_jobs = [], [], []
+        whole_jobs, chunk_jobs, decode_jobs, spec_jobs = [], [], [], []
         for i, m in enumerate(served):
             item = plan[m.rid]
             if item[0] == "decode":
                 decode_jobs.append((i, m))
+            elif item[0] == "spec":
+                seq = None if g == 0 else m.hidden
+                spec_jobs.append((i, m, seq, int(mgr.lengths[m.slot_ids[g]]), item[1]))
             elif item[0] == "chunk":
                 chunk_jobs.append((i, m, *item[1:]))
             else:
@@ -677,6 +950,12 @@ class PipelineServer:
             ex.run_prefill_whole(r, whole_jobs, outputs, mgr, readbacks)
         if chunk_jobs:
             ex.run_chunks(r, chunk_jobs, outputs, mgr, readbacks)
+        if spec_jobs:
+            # Stage 0 drafts first: its readback precedes the verify's in
+            # the call's drain order, so the accept finalizer finds the
+            # round's drafts already read.
+            tok_dev = self._run_draft(r, spec_jobs, readbacks) if g == 0 else None
+            ex.run_verify(r, spec_jobs, outputs, mgr, readbacks, tok_dev)
         if decode_jobs:
             ex.run_decode(r, decode_jobs, outputs, mgr, readbacks)
 
@@ -719,11 +998,29 @@ class PipelineServer:
             req.t_first_token = t_ready if t_ready is not None else time.perf_counter()
             req.slot_first_token = ready_slot
         self.stats.tokens_generated += 1
+        self.stats.accepted_tokens += 1
 
     def _commit(self, req: Request, out: tuple, g: int, t_ready=None, ready_slot=None) -> None:
         """Apply a completed stage call's result to the request."""
         req.in_call = False
         kind, value, advance = out
+        if kind == "spec_hidden":
+            # Mid-stage verify handoff: the [1, v, D] hidden feeds the next
+            # stage's verify; the round stays in flight.
+            req.cache_ready[g] = True
+            req.hidden = value
+            self._advance(req)
+            return
+        if kind == "spec_done":
+            req.cache_ready[g] = True
+            self._finish_spec_round(req, value, advance, t_ready, ready_slot)
+            self._advance(req)
+            return
+        if req.spec_adv is not None and any(req.spec_adv):
+            # A plain result landing mid-round means the round was broken (a
+            # mid-pipeline failover re-prefill replaced it): rewind the
+            # optimistic rows before committing plain state.
+            self.scheduler.rewind_spec(req)
         if kind == "chunk_part":
             # Prefill continues at this stage next step; mid-pipeline
             # chunks accumulate for the downstream handoff.
@@ -749,6 +1046,40 @@ class PipelineServer:
         else:
             req.hidden = value
         self._advance(req)
+
+    def _finish_spec_round(self, req: Request, emit: list[int], v: int, t_ready,
+                           ready_slot) -> None:
+        """Commit a speculative round: accept the emitted prefix, rewind
+        every stage's rejected tail, move the draft mirror past the
+        accepted rows, count the round, and stream the tokens."""
+        e = len(emit)
+        self.stats.spec_rounds += 1
+        self.stats.spec_proposed += v - 1
+        self.stats.spec_accepted += e - 1
+        for g in range(self.G):
+            adv = req.spec_adv[g] if req.spec_adv is not None else 0
+            if req.spec_adv is not None:
+                req.spec_adv[g] = 0
+            if not adv:
+                continue
+            slot = req.slot_ids[g] if req.slot_ids is not None else None
+            if slot is None or req.replicas is None:
+                continue
+            mgr = self.managers[(g, req.replicas[g])]
+            if mgr.slots[slot] == req.rid:
+                mgr.rollback(req.rid, slot, adv - e)
+        spec = self._spec
+        if req.spec_drafts is not None and req.slot_ids is not None:
+            # Draft rows are valid through the accepted prefix: the steps
+            # wrote rows for [gen[-1], d_1..d_{k-1}] and d_j == t_j for
+            # j < e, so the next round's ingest starts after them.
+            r0, slot0 = req.replicas[0], req.slot_ids[0]
+            L = len(req.prompt) + len(req.generated) - 1
+            if slot0 is not None and spec.rid[r0][slot0] == req.rid:
+                spec.lens[r0][slot0] = L + min(e, spec.k)
+        req.spec_drafts = None
+        for t in emit:
+            self._emit_token(req, t, t_ready, ready_slot)
 
     def _advance(self, req: Request) -> None:
         req.stage += 1

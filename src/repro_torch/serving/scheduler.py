@@ -1,8 +1,8 @@
 """Serving control plane: admission, queueing, failover, preemption.
 
 A copy of the JAX package's ``serving/scheduler.py`` (plain host logic)
-without the speculative-decoding and multi-process hooks, which arrive
-with their slices. :class:`StepScheduler` is the per-step decision maker:
+without the multi-process hook, which arrives with its slice.
+:class:`StepScheduler` is the per-step decision maker:
 *policy* (who runs where, who waits, who is evicted) is written once
 against the :class:`~.cache.KVCacheManager` abstraction, while the
 engine keeps only *execution* (building inputs, launching the stage
@@ -34,6 +34,9 @@ Responsibilities:
   preempts.
 * **Energy gating**: a replica only opens a call when its budget clears
   ``ReplicaBudget.can_start`` (paper: CE(PM) <= E).
+* **Speculative rewind**: a speculative round broken by failover or
+  preemption is rewound to the state plain decode would have left
+  (:meth:`StepScheduler.rewind_spec`).
 """
 
 from __future__ import annotations
@@ -75,6 +78,13 @@ class Request:
     t_first_token: float | None = None  # wall clock of the first generated token
     submit_slot: int = 0  # engine slot counter at submit
     slot_first_token: int | None = None  # slot the first token's call completed
+    # Speculative round state (engine-managed). ``spec_drafts`` holds the
+    # host copies of the round's draft tokens once the stage-0 call
+    # commits; ``spec_adv[g]`` counts the KV rows stage ``g`` wrote for
+    # the round still in flight (rewound by the accept finalizer, or by
+    # :meth:`StepScheduler.rewind_spec` when the round breaks first).
+    spec_drafts: list[int] | None = None
+    spec_adv: list[int] | None = None
 
     @property
     def ttft(self) -> float | None:
@@ -274,6 +284,33 @@ class StepScheduler:
             ):
                 req.park_steps = 0
 
+    def rewind_spec(self, req: Request) -> None:
+        """Abort an in-flight speculative round: rewind every stage's
+        optimistic KV advance back to the committed stream.
+
+        A stage that already committed its verify this round keeps ONE
+        row, the KV of ``generated[-1]`` (the round's first, true input),
+        which is the row a plain decode round would have left behind, so
+        an abandoned round degrades to plain-decode state. The current
+        stage (launched, never committed) rewinds fully; the round's
+        drafts are discarded. No-op outside a round.
+        """
+        if req.spec_adv is None:
+            return
+        for g in range(self.G):
+            n = req.spec_adv[g]
+            req.spec_adv[g] = 0
+            if not n:
+                continue
+            keep = 1 if g < req.stage else 0
+            slot = req.slot_ids[g] if req.slot_ids is not None else None
+            if slot is None or req.replicas is None:
+                continue
+            mgr = self.managers[(g, req.replicas[g])]
+            if mgr.slots[slot] == req.rid:
+                mgr.rollback(req.rid, slot, n - keep)
+        req.spec_drafts = None
+
     def reroute_or_drop(self, req: Request) -> None:
         """Failure handling: shift the in-flight stage to a sibling.
 
@@ -282,7 +319,10 @@ class StepScheduler:
         sibling re-prefills. Stage 0 reconstructs its full context from
         the immutable prompt + generated tokens; deeper stages restart
         from the latest hidden handoff (documented context loss under
-        failure)."""
+        failure). An in-flight speculative round is rewound first
+        (:meth:`rewind_spec`): its uncommitted draft rows must not survive
+        as phantom context on the stages that stay placed."""
+        self.rewind_spec(req)
         g = req.stage
         self.managers[(g, req.replicas[g])].release(req.rid, req.slot_ids[g])
         req.slot_ids[g] = None
@@ -400,6 +440,11 @@ class StepScheduler:
         victim.chunk_outs = []
         victim.chunk_seq = None
         victim.park_steps = 0
+        # A preempted mid-round speculative request starts over: every slot
+        # and page was just released (lengths zeroed with them), so no
+        # rollback is needed, only the round is forgotten.
+        victim.spec_drafts = None
+        victim.spec_adv = None
         victim.queued = True
         self.pending.append(victim)
         self.stats.preempted_jobs += 1

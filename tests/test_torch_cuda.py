@@ -41,7 +41,7 @@ from repro_torch.kernels.flash_attention import flash_attention, flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
 from repro_torch.kernels.selective_scan import ops as scan_ops
 from repro_torch.kernels.selective_scan import selective_scan, selective_scan_ref
-from repro_torch.models import build_model, init_from_template, ssm
+from repro_torch.models import build_model, init_from_template, ssm, transformer
 from repro_torch.serving import PipelineServer
 
 pytestmark = pytest.mark.cuda
@@ -96,6 +96,8 @@ def test_flash_kernel_matches_plain(gen, dtype, B, S, H, KV, D, causal, window):
         (4, 4096, 32, 32, 64, [100, 1000, 2500, 4096], None),  # phase 3's long MHA case
         (4, 4096, 40, 8, 128, [100, 1000, 2500, 4096], None),  # qwen2.5: G=5
         (4, 4096, 48, 1, 128, [100, 1000, 2500, 4096], None),  # granite MQA: G=48
+        (4, 128, 48, 1, 128, [9, 40, 77, 128], None),  # granite served, max_len 128
+        (8, 261, 32, 32, 64, [9, 40, 77, 128, 150, 200, 231, 259], None),  # draft steps
     ],
 )
 def test_decode_kernel_matches_plain(gen, dtype, B, S, H, KV, D, lengths, window):
@@ -341,6 +343,8 @@ def test_paged_decode_kernel_refuses_pool_rows_off_16_bytes(gen, dtype):
         (3, 7, 12, 24, 8, 128, [0, 13, 50]),  # GQA, page of 12 rows
         (2, 37, 16, 8, 2, 64, [5, 59]),  # chunks straddling page and 64-row tile edges
         (4, 128, 16, 24, 8, 128, [0, 1000, 2500, 3968]),  # long prefix
+        (4, 5, 16, 40, 8, 128, [0, 17, 100, 250]),  # qwen2.5 verify, k = 4: G=5
+        (4, 5, 16, 48, 1, 128, [3, 60, 1000, 2000]),  # granite verify: G=48
     ],
 )
 def test_paged_prefill_kernel_matches_plain(gen, dtype, int8, B, C, page, H, KV, D, offsets):
@@ -364,6 +368,116 @@ def test_paged_prefill_kernel_matches_plain(gen, dtype, int8, B, C, page, H, KV,
     if deep.any():
         err = (out[deep].float() - want[deep]).abs().max()
         assert err <= 2.0**-7 * want[deep].abs().max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "W,C,L,offsets",
+    [
+        (4, 32, 128, [0, 40, 96, 120]),  # 32-token chunks, one past L
+        (4, 32, 133, [0, 40, 96, 120]),  # a draft cache: max_len + k + 1 at 128, k = 4
+        (8, 5, 261, [0, 9, 40, 77, 128, 150, 200, 255]),  # draft ingest, max_len 256
+    ],
+)
+@pytest.mark.parametrize("H,KV,D", [(32, 32, 64), (48, 1, 128)])
+def test_paged_prefill_kernel_over_a_dense_cache(gen, dtype, W, C, L, offsets, H, KV, D):
+    """Dense chunked prefill's route: a [W, L, KV, D] slot cache read as W
+    pages of L rows with block table arange(W)."""
+    k = torch.randn(W, L, KV, D, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(W, L, KV, D, generator=gen, device="cuda").to(dtype)
+    q = torch.randn(W, C, H, D, generator=gen, device="cuda").to(dtype)
+    bt = torch.arange(W, dtype=torch.int32, device="cuda")[:, None]
+    offs = torch.tensor(offsets, dtype=torch.int32, device="cuda")
+    before = paged_prefill_attention.launches
+    out = paged_prefill_attention(q, k, v, bt, offs)
+    torch.cuda.synchronize()
+    assert paged_prefill_attention.launches == before + 1
+    want = paged_prefill_attention_ref(q.float(), k.float(), v.float(), bt, offs)
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), want, atol=TOL[dtype], rtol=0)
+
+
+def _launches_within(monkeypatch, entry: str) -> list[int]:
+    """Count the paged-prefill kernel's launches made while
+    ``transformer.<entry>`` runs (the registry looks it up at call time)."""
+    fn, counted = getattr(transformer, entry), [0]
+
+    def call(*args, **kwargs):
+        before = paged_prefill_attention.launches
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            counted[0] += paged_prefill_attention.launches - before
+
+    monkeypatch.setattr(transformer, entry, call)
+    return counted
+
+
+def _run_to_done(server, reqs, limit=400):
+    for _ in range(limit):
+        if all(r.done for r in reqs):
+            return
+        server.step()
+    raise AssertionError("requests did not finish")
+
+
+def test_dense_chunked_server_runs_through_the_kernels(gen, monkeypatch):
+    cfg = dataclasses.replace(get_smoke_config("stablelm-1.6b"), d_model=256, n_heads=4,
+                              n_kv_heads=4, dtype="float32", param_dtype="float32")
+    model = build_model(cfg)
+    params = init_from_template(model.template, gen, cfg.param_dtype, device="cuda")
+    server = PipelineServer(model, params, n_groups=2, max_len=128, prefill_chunk=8,
+                            device="cuda")
+    dense_chunk = _launches_within(monkeypatch, "prefill_chunk")
+    decode_before = decode_attention.launches
+    reqs = [server.submit(np.arange(n) % cfg.vocab_size, n_tokens=6) for n in (12, 40)]
+    _run_to_done(server, reqs)
+    assert all(len(r.generated) == 6 for r in reqs)
+    assert dense_chunk[0] > 0
+    assert decode_attention.launches > decode_before
+    assert server.stats.prefill_calls == 0 and server.host_readback.counts["dispatch"] == 0
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_spec_server_runs_through_the_kernels(gen, monkeypatch, kv_dtype):
+    """Self-draft at fp32: the draft's chunks and steps and the target's
+    verify all launch kernels, and nearly every draft is accepted."""
+    cfg = dataclasses.replace(get_smoke_config("stablelm-1.6b"), d_model=256, n_heads=4,
+                              n_kv_heads=4, dtype="float32", param_dtype="float32")
+    model = build_model(cfg)
+    params = init_from_template(model.template, gen, cfg.param_dtype, device="cuda")
+    server = PipelineServer(model, params, n_groups=2, max_len=128, paged=True, page_size=16,
+                            kv_dtype=kv_dtype, spec_draft=(model, params), spec_k=4,
+                            device="cuda")
+    routes = {route: _launches_within(monkeypatch, entry)
+              for route, entry in (("verify", "verify_step_paged"), ("dense_chunk", "prefill_chunk"))}
+    decode_before = decode_attention.launches
+    reqs = [server.submit(np.arange(n) % cfg.vocab_size, n_tokens=12) for n in (12, 40)]
+    _run_to_done(server, reqs)
+    assert all(len(r.generated) == 12 for r in reqs)
+    for route, counted in routes.items():
+        assert counted[0] > 0, route
+    assert decode_attention.launches > decode_before
+    st = server.stats
+    assert st.spec_rounds > 0 and st.spec_accepted <= st.spec_proposed
+    assert st.acceptance_rate > 0.5
+    assert server.host_readback.counts["dispatch"] == 0
+    for mgr in server.managers.values():
+        mgr.check_conservation()
+
+
+@pytest.mark.parametrize("flags", [["--prefill-chunk", "32"],
+                                   ["--paged", "--spec-draft", "auto", "--spec-k", "4"]])
+def test_cli_serves_on_the_card(gen, capsys, flags):
+    """The CLI at full stablelm width (its smoke width has 16-wide heads,
+    which the kernels do not take), fp32, a few slots."""
+    from repro_torch.launch import serve as serve_cli
+
+    serve_cli.main(flags + ["--slots", "8", "--max-batch", "2"])
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert line.startswith("policy=adaptive: submitted=")
+    if "--spec-draft" in flags:
+        assert "spec_rounds=" in line
 
 
 @pytest.mark.parametrize("kv_dtype", [None, "int8"])

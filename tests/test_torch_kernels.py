@@ -268,7 +268,7 @@ def _one_layer(arch):
     return model, params
 
 
-@pytest.mark.parametrize("mode", ["dense", "paged", "paged-int8"])
+@pytest.mark.parametrize("mode", ["dense", "dense-chunk", "paged", "paged-int8", "paged-spec"])
 @pytest.mark.parametrize(
     "arch", ["stablelm-1.6b", "phi4-mini-3.8b", "qwen2.5-14b", "granite-20b"]
 )
@@ -276,7 +276,9 @@ def test_served_attention_operands_pass_the_bf16_alignment_checks(arch, mode, mo
     """Every prefill-attention and decode call of a served request hands
     the kernels q / k / v (models/attention.py), dense caches and page
     pools whose rows start on 16-byte boundaries, as the bf16 tensor-core
-    kernels and the decode kernels' 16-byte loads ask."""
+    kernels and the decode kernels' 16-byte loads ask: dense chunks read
+    the slot cache as a pool, and a speculative round's draft cache has
+    ``max_len + k + 1`` rows."""
     model, params = _one_layer(arch)
     seen = []
 
@@ -299,17 +301,27 @@ def test_served_attention_operands_pass_the_bf16_alignment_checks(arch, mode, mo
     monkeypatch.setattr(attention, "paged_decode_attention",
                         checked("paged_decode_attention", attention.paged_decode_attention,
                                 ("q", "k_pages", "v_pages")))
-    kw = {} if mode == "dense" else dict(
-        paged=True, page_size=16, max_pages=8, prefill_chunk=8,
-        kv_dtype="int8" if mode == "paged-int8" else None)
+    kw = {
+        "dense": {},
+        "dense-chunk": dict(prefill_chunk=8),
+        "paged": dict(paged=True, page_size=16, max_pages=8, prefill_chunk=8),
+        "paged-int8": dict(paged=True, page_size=16, max_pages=8, prefill_chunk=8,
+                           kv_dtype="int8"),
+        "paged-spec": dict(paged=True, page_size=16, max_pages=8, spec_draft=(model, params)),
+    }[mode]
     server = PipelineServer(model, params, n_groups=1, n_replicas=1, max_batch=2, max_len=64,
                             seed=0, device="cpu", **kw)
-    req = server.submit(np.arange(20) % 256, n_tokens=2)
+    req = server.submit(np.arange(20) % 256, n_tokens=4)
     for _ in range(200):
         if req.done:
             break
         server.step()
     assert req.done
-    want = {"flash_attention", "decode_attention"} if mode == "dense" else {
-        "paged_prefill_attention", "paged_decode_attention"}
+    want = {
+        "dense": {"flash_attention", "decode_attention"},
+        "dense-chunk": {"paged_prefill_attention", "decode_attention"},
+        "paged": {"paged_prefill_attention", "paged_decode_attention"},
+        "paged-int8": {"paged_prefill_attention", "paged_decode_attention"},
+        "paged-spec": {"flash_attention", "paged_prefill_attention", "decode_attention"},
+    }[mode]
     assert set(seen) == want, seen

@@ -33,8 +33,9 @@ ARCHS = [
     "stablelm-1.6b",  # MHA
     "qwen2.5-14b",  # GQA KV=1, qkv_bias
     "phi4-mini-3.8b",  # GQA KV=2, tied embeddings
+    "granite-20b",  # MQA KV=1, gelu MLP
 ]
-ATOL = {"stablelm-1.6b": 1e-4, "qwen2.5-14b": 1e-4, "phi4-mini-3.8b": 1e-3}
+ATOL = {"stablelm-1.6b": 1e-4, "qwen2.5-14b": 1e-4, "phi4-mini-3.8b": 1e-3, "granite-20b": 1e-4}
 
 
 @functools.lru_cache(maxsize=None)
@@ -88,6 +89,21 @@ def test_prefill_and_decode_match_jax(arch):
         _close(t_logits, j_logits, arch)
     _close(t_cache["c0"]["k"], j_cache["c0"]["k"], arch)
     assert t_cache["len"].tolist() == [int(j_cache["len"])] * 2
+
+
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "granite-20b"])
+def test_token_ids_past_the_vocabulary_read_the_last_row_as_in_jax(arch):
+    """A speculative draft ingests its target's tokens, which may lie past
+    its own vocabulary: the JAX gather clamps such an id to the last row,
+    and so does the port (torch indexing would raise)."""
+    jmodel, jparams, tmodel, tparams = _pair(arch)
+    V = tmodel.cfg.vocab_size
+    toks = np.asarray([[3, V, V + 7, 1, 2 * V + 1], [V - 1, 0, V + 100, 5, 9]], np.int32)
+    j_logits, _ = jmodel.prefill(jparams, {"tokens": jnp.asarray(toks)}, 16)
+    t_logits, _ = tmodel.prefill(tparams, {"tokens": torch.from_numpy(toks)}, 16)
+    _close(t_logits, j_logits, arch)
+    clamped, _ = tmodel.prefill(tparams, {"tokens": torch.from_numpy(np.minimum(toks, V - 1))}, 16)
+    torch.testing.assert_close(t_logits, clamped, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

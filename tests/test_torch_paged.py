@@ -479,8 +479,9 @@ def test_paged_arguments_are_checked(weights):
         PipelineServer(tmodel, tparams, device="cpu", paged=True, n_groups=2, kv_dtype="float16")
     with pytest.raises(ValueError, match="positive"):
         PipelineServer(tmodel, tparams, device="cpu", paged=True, n_groups=2, prefill_chunk=0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        PipelineServer(tmodel, tparams, device="cpu", prefill_chunk=4)
+    # Chunked prefill over the dense cache is served too (tests/test_torch_chunked.py).
+    dense = PipelineServer(tmodel, tparams, device="cpu", prefill_chunk=4)
+    assert dense.prefill_chunk == 4 and not dense.paged
     server = PipelineServer(tmodel, tparams, device="cpu", paged=True, n_groups=2, max_len=64)
     assert server.max_pages == 4 * 4  # the dense reservation
 
