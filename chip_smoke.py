@@ -132,7 +132,28 @@ Phases, in order; any failure exits non-zero:
    included, runs the kernel and its plain version on the same inputs
    (within 1e-3 of the output's scale, as phase 6); the first token equals
    that of a plain fp32 paged server; some draft token is accepted.
-12. A JSON line of per-kernel results (all six kernels; the paged-prefill
+12. The paper's simulator on the card (``repro_torch.core``; plain PyTorch,
+   no kernel of its own), at the paper's 1000 Monte-Carlo runs, with the
+   paper's calibration copied below: (a) Fig. 2a, the four power-mode
+   strategies on one device (p = 0.62, harvest U{7..13}, 100 slots), one
+   sweep, holding the orderings of the Fig. 2a test; (b) Fig. 4, the
+   21-scenario grid on 3 x 3 ``paper_topology`` fleets (harvest means
+   m-2 / m / m+2 for m in 4, 6, 8 at p = 0.7; p in 0.5 .. 1.0 on the
+   default fleet; x three policies; 300 slots), one sweep, printing
+   throughput and drops per scenario; (c) Fig. 2b analytics, q_lim of
+   15 / 30 / 60 W and the dynamic mode's 1/kappa_bar at q = 0.34 (harvest
+   U{6..10}, xi_lim 0.01) on the card, each within 1e-9 of the CPU's,
+   beside the paper's markers; (d) the Fig. 4 grid at 64 runs on the
+   card and on the CPU with the same draws (made by a CPU generator):
+   integer counters and downtime equal, mean battery within 1e-6
+   relative; (e) a fleet of 8 groups x 16 devices (harvest means 4..12,
+   dynamic PM, long-term rates at xi_lim 0.01), three policies x p in
+   0.4 / 0.7 / 1.0, 1000 slots, conserving jobs in every run. The step
+   loops of (a), (b) and (e) run under ``torch.cuda.set_sync_debug_mode(
+   "error")``: a readback to the host inside them fails the phase. Each
+   sweep prints its wall time, slots x scenarios x runs per second and
+   peak memory.
+13. A JSON line of per-kernel results (all six kernels; the paged-prefill
    kernel's launches also by route: ``paged_chunk`` from phase 5,
    ``verify`` and ``dense_chunk`` from phases 9 and 10; rmsnorm's counter
    is read over phases 4-10 and must stay 0: no served path launches it),
@@ -170,6 +191,14 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense; fp32 witho
 SFU_PER_S = PEAK_FLOPS[torch.float32] * 16 / 256
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 N_TIMED = 20
+
+
+def card_name() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
 
 
 def time_ms(fn) -> float:
@@ -1274,6 +1303,202 @@ def routes_recorded():
         counts["paged_chunk"] = kernel.launches - start - sum(counts.values())
 
 
+# The paper's calibration (the JAX package's benchmarks/common.py, which
+# imports the JAX package): Fig. 2a p = 0.62 on U{7..13}; Fig. 2b harvest
+# U{6..10}; Fig. 3/4 fleets of harvest means (6, 8, 10); risk xi_lim 0.01.
+FIG2A_P, FIG2A_ARRIVALS = 0.62, (7, 13)
+FIG2B_ARRIVALS = (6, 10)
+XI_LIM = 0.01
+PM_STRATEGIES = {"15W": ((), (1,)), "30W": ((), (2,)), "60W": ((), (3,)),
+                 "dynamic": ((40.0, 60.0), (1, 2, 3))}
+FIG2B_PAPER = {"15W": 1 / 3, "30W": 1 / 2, "60W": 0.33, "dynamic": 0.64}
+SIM_POLICIES = ("uniform", "long_term", "adaptive")
+SIM_RUNS = 1000  # the paper's Monte-Carlo repetitions
+ANALYTICS_TOL = 1e-9
+
+
+@contextlib.contextmanager
+def no_host_sync():
+    """Fail on any CUDA call that waits for the device (a readback)."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def card_sweep(label: str, params, n_steps: int, seed: int, cuda: torch.device):
+    """One sweep on the card, its step loop under ``no_host_sync``."""
+    from repro_torch.core.simulator import SweepResult, build_runner, step_draws
+
+    params = params.to(cuda)
+    (S,), (G, N) = params.grid_shape, params.network_shape
+    # Two slots first: the first call of each PyTorch op loads its kernels.
+    build_runner(G, N, 2)(params, SIM_RUNS, step_draws(
+        params, SIM_RUNS, 2, torch.Generator(device=cuda).manual_seed(seed)))
+    run = build_runner(G, N, n_steps)
+    draws = step_draws(params, SIM_RUNS, n_steps, torch.Generator(device=cuda).manual_seed(seed))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with no_host_sync():
+        out = run(params, SIM_RUNS, draws)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    off_card = [name for name, t in out.items() if t.device != params.arrival_lo.device]
+    assert not off_card, f"{label}: state off the card: {off_card}"
+    rate = n_steps * S * SIM_RUNS / wall
+    stats = {"slots": n_steps, "scenarios": S, "runs": SIM_RUNS, "groups": G, "per_group": N,
+             "wall_s": wall, "slot_runs_per_s": rate, "peak_gb": peak_gb()}
+    print(f"  {label}: {n_steps} slots x {S} scenarios x {SIM_RUNS} runs, G={G} N={N}: "
+          f"{wall:.3f} s, {rate:.4g} slot-runs/s, {wall / n_steps * 1e3:.3f} ms/slot, "
+          f"peak {stats['peak_gb']:.3f} GB", flush=True)
+    res = SweepResult.from_run(out, n_steps)
+    in_flight = res.arrivals - res.completed - res.dropped
+    assert (in_flight >= 0).all() and (in_flight <= 2 * N).all(), f"{label}: jobs not conserved"
+    return res, stats
+
+
+def fig4_grid(cuda: torch.device):
+    """Fig. 4's 21 scenarios (labels, stacked params): harvest means
+    m-2 / m / m+2 for m in 4, 6, 8 at p = 0.7, and p in 0.5 .. 1.0 on the
+    default fleet, each under the three policies; 300 slots."""
+    from repro_torch.core import SimConfig, paper_topology, scenario_params, stack_scenarios
+
+    base = SimConfig(n_groups=3, n_per_group=3, n_steps=300, p_arrival=0.7)
+    points = []
+    for mean in (4.0, 6.0, 8.0):
+        topo = paper_topology(arrival_means=(mean - 2, mean, mean + 2), half_width=2)
+        points.append((f"mean_arrival={mean:.0f}", topo, topo.long_term_rates(XI_LIM, cuda), {}))
+    topo = paper_topology()
+    rates = topo.long_term_rates(XI_LIM, cuda)
+    for p in (0.5, 0.65, 0.8, 1.0):
+        points.append((f"p={p:.2f}", topo, rates, {"p_arrival": p}))
+    labels, grid = [], []
+    for label, topo, rates, overrides in points:
+        for pol in SIM_POLICIES:
+            labels.append(f"{label}/{pol}")
+            grid.append(scenario_params(topo, dataclasses.replace(base, policy=pol, **overrides),
+                                        long_term_rates=rates))
+    return labels, stack_scenarios(grid)
+
+
+FLEET_SCENARIOS = [(p, pol) for p in (0.4, 0.7, 1.0) for pol in SIM_POLICIES]
+
+
+def fleet_grid(cuda: torch.device):
+    """8 groups x 16 devices (harvest means spread over 4..12, half-width 2,
+    dynamic PM, e_max 100, long-term rates at xi_lim 0.01) under the
+    three policies at p = 0.4 / 0.7 / 1.0; 1000 slots."""
+    from repro_torch.core import (SimConfig, dynamic_policy, paper_topology, scenario_params,
+                                  stack_scenarios)
+
+    G, N = 8, 16
+    topo = paper_topology(n_groups=G, n_per_group=N, arrival_means=tuple(np.linspace(4, 12, N)),
+                          half_width=2, e_max=100, policy=dynamic_policy(100))
+    rates = topo.long_term_rates(XI_LIM, cuda)
+    return stack_scenarios([
+        scenario_params(topo, SimConfig(n_groups=G, n_per_group=N, n_steps=1000, p_arrival=p,
+                                        policy=pol), long_term_rates=rates)
+        for p, pol in FLEET_SCENARIOS
+    ])
+
+
+def simulator_phase(cuda: torch.device) -> dict:
+    """Phase 12: the paper's energy model and network simulator on the card."""
+    from repro_torch.core import (DeviceModel, SimConfig, dynamic_policy, fixed_policy, q_lim,
+                                  scenario_from_config, simulate_sweep, stack_scenarios,
+                                  step_draws, uniform_mdf)
+
+    report = {}
+    # (a) Fig. 2a: the four strategies on one device, one sweep.
+    strategies = [
+        scenario_from_config(
+            SimConfig(n_groups=1, n_per_group=1, n_steps=100, p_arrival=FIG2A_P,
+                      pm_thresholds=thr, pm_allowed=allowed),
+            np.array([[FIG2A_ARRIVALS[0]]]), np.array([[FIG2A_ARRIVALS[1]]]), n_thresholds=2)
+        for thr, allowed in PM_STRATEGIES.values()
+    ]
+    res, report["fig2a"] = card_sweep("(a) fig2a", stack_scenarios(strategies), 100, 0, cuda)
+    jobs = dict(zip(PM_STRATEGIES, res.completed.mean(axis=1)))
+    down = dict(zip(PM_STRATEGIES, res.downtime_fraction.mean(axis=1)))
+    batt = dict(zip(PM_STRATEGIES, res.mean_battery.mean(axis=1)))
+    for name in PM_STRATEGIES:
+        print(f"    {name}: jobs {jobs[name]:.3f}, battery {batt[name]:.3f}, "
+              f"downtime {down[name]:.5f}")
+    assert abs(jobs["15W"] - 31) <= 2, jobs
+    assert jobs["15W"] < jobs["30W"] <= jobs["dynamic"] + 1.5 <= jobs["60W"] + 3.5, jobs
+    assert down["dynamic"] < 1e-3 and down["60W"] > 0.01, down
+    assert batt["dynamic"] > batt["60W"], batt
+    report["fig2a"]["jobs"] = {k: float(v) for k, v in jobs.items()}
+
+    # (b) Fig. 4: 7 settings x 3 policies, one sweep. The long-term rates
+    # solve their chains on the card.
+    t0 = time.perf_counter()
+    labels, grid = fig4_grid(cuda)
+    rates_s = time.perf_counter() - t0
+    print(f"  (b) long-term rates of the four fleets on the card: {rates_s:.3f} s")
+    res, report["fig4"] = card_sweep("(b) fig4", grid, 300, 0, cuda)
+    report["fig4"]["rates_s"] = rates_s
+    thr, drops = res.normalized_throughput.mean(axis=1), res.dropped.mean(axis=1)
+    for label, t, d in zip(labels, thr, drops):
+        print(f"    {label}: throughput {t:.4f}, dropped {d:.3f}")
+    assert ((thr > 0) & (thr <= 1)).all(), thr
+
+    # (c) Fig. 2b analytics on the card against the CPU.
+    analytics = {}
+    for name, pol in (("15W", fixed_policy(1)), ("30W", fixed_policy(2)), ("60W", fixed_policy(3)),
+                      ("dynamic", dynamic_policy(100))):
+        model = DeviceModel(mdf=uniform_mdf(*FIG2B_ARRIVALS), policy=pol, e_max=100)
+        t0 = time.perf_counter()
+        if name == "dynamic":
+            on_card = 1.0 / model.chain(0.34, cuda).kappa_bar()
+            on_cpu = 1.0 / model.chain(0.34, "cpu").kappa_bar()
+            what = "1/kappa_bar(0.34)"
+        else:
+            on_card = q_lim(model, XI_LIM, device=cuda).q_lim
+            on_cpu = q_lim(model, XI_LIM, device="cpu").q_lim
+            what = "q_lim"
+        seconds = time.perf_counter() - t0
+        print(f"  (c) {name}: {what} card {on_card!r}, cpu {on_cpu!r}, |diff| "
+              f"{abs(on_card - on_cpu):.3e} (paper {FIG2B_PAPER[name]:.3f}); "
+              f"card + cpu {seconds:.3f} s")
+        assert abs(on_card - on_cpu) <= ANALYTICS_TOL, (name, on_card, on_cpu)
+        analytics[name] = {what: on_card, "cpu": on_cpu, "paper": FIG2B_PAPER[name]}
+    report["fig2b"] = analytics
+
+    # (d) The card against the CPU on the same draws: the Fig. 4 grid at 64 runs.
+    n_runs = 64
+    draws = list(step_draws(grid, n_runs, 300, torch.Generator().manual_seed(1)))
+    t0 = time.perf_counter()
+    cpu_res = simulate_sweep(None, grid, n_runs=n_runs, n_steps=300, device="cpu", draws=draws)
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    card_res = simulate_sweep(None, grid, n_runs=n_runs, n_steps=300, device=cuda,
+                              draws=[d.to(cuda) for d in draws])
+    card_s = time.perf_counter() - t0
+    for field in ("completed", "dropped", "arrivals", "downtime_fraction"):
+        assert np.array_equal(getattr(card_res, field), getattr(cpu_res, field)), field
+    battery_rel = float(np.max(np.abs(card_res.mean_battery - cpu_res.mean_battery)
+                               / np.abs(cpu_res.mean_battery)))
+    assert battery_rel <= 1e-6, battery_rel
+    print(f"  (d) card = cpu on shared draws, 21 x {n_runs} runs x 300 slots: counters equal, "
+          f"mean battery within {battery_rel:.3e} relative; cpu {cpu_s:.3f} s, card {card_s:.3f} s")
+    report["card_vs_cpu"] = {"battery_rel": battery_rel, "cpu_s": cpu_s, "card_s": card_s}
+
+    # (e) A fleet: 8 groups x 16 devices, 9 scenarios, 1000 runs, 1000 slots.
+    t0 = time.perf_counter()
+    fleet = fleet_grid(cuda)
+    rates_s = time.perf_counter() - t0
+    print(f"  (e) long-term rates of the 8 x 16 fleet on the card: {rates_s:.3f} s")
+    res, report["fleet"] = card_sweep("(e) fleet", fleet, 1000, 0, cuda)
+    report["fleet"]["rates_s"] = rates_s
+    for i, (p, pol) in enumerate(FLEET_SCENARIOS):
+        print(f"    p={p}/{pol}: completed {res.completed[i].mean():.2f}, dropped "
+              f"{res.dropped[i].mean():.2f}, downtime {res.downtime_fraction[i].mean():.5f}")
+    return report
+
+
 def load_model(name: str, seed: int, device: torch.device):
     from repro_torch.configs import get_config
     from repro_torch.models import build_model, count_params, init_from_template
@@ -1469,11 +1694,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    print(f"[1] card: {card}", flush=True)
+    print(f"[1] card: {card_name()}", flush=True)
 
     info = _build.build()
     _build.load()
@@ -1585,6 +1806,9 @@ def main() -> int:
     del params32
     free_memory()
 
+    print("[12] the paper's simulator and analytics on the card", flush=True)
+    print("  simulator:", json.dumps(simulator_phase(cuda)))
+
     kernels = []
     for name, source, replaces, main_shape in (
         ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1640,7 +1864,7 @@ def main() -> int:
             entry["launches_note"] = ("no served path launches it: the models call their plain "
                                       "rmsnorm (models/layers.py), as the JAX models do")
         kernels.append(entry)
-    print(f"[12] all phases passed in {time.perf_counter() - t_start:.1f} s, build included")
+    print(f"[13] all phases passed in {time.perf_counter() - t_start:.1f} s, build included")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

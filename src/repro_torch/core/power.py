@@ -1,18 +1,19 @@
 """Power modes and the power-mode selection policy (paper Secs. II, V).
 
-A copy of the JAX package's ``core/power.py`` (plain numpy) as far as
-the serving fleet needs it. The paper measures a 100-encoder +
-100-decoder LLM block on a Jetson AGX Orin and derives, per power mode,
-the per-job processing time (in slots of delta = 100 s) and energy (in
-units of 1 kJ):
+A copy of the JAX package's ``core/power.py`` (plain numpy). The paper
+measures a 100-encoder + 100-decoder LLM block on a Jetson AGX Orin and
+derives, per power mode, the per-job processing time (in slots of delta
+= 100 s) and energy (in units of 1 kJ):
 
     15 W -> (300 s, 26 kJ)  => kappa = 3, CE = 26
     30 W -> (200 s, 22 kJ)  => kappa = 2, CE = 22
     60 W -> (100 s, 23 kJ)  => kappa = 1, CE = 23
 
 (50 W is dominated by 30 W and excluded, paper Sec. V.) Active modes
-are indexed ``PM = 1..M``; the *dynamic* power mode picks one from the
-current battery level with thresholds at 40 % and 60 % of capacity.
+are indexed ``PM = 1..M`` (``PM = 0`` is the power-saving state:
+computation suspended, jobs rejected); the *dynamic* power mode picks
+one from the current battery level with thresholds at 40 % and 60 % of
+capacity.
 """
 
 from __future__ import annotations
@@ -22,7 +23,16 @@ from typing import Sequence
 
 import numpy as np
 
-__all__ = ["PowerMode", "ORIN_POWER_MODES", "PowerModePolicy", "dynamic_policy"]
+__all__ = [
+    "PowerMode",
+    "ORIN_POWER_MODES",
+    "POWER_SAVE",
+    "PowerModePolicy",
+    "fixed_policy",
+    "dynamic_policy",
+]
+
+POWER_SAVE = 0  # PM index of the power-saving state
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,7 +64,8 @@ class PowerModePolicy:
     """Deterministic map battery level -> active PM index (1-based).
 
     With thresholds ``(40, 60)`` and 3 modes: E < 40 -> PM1,
-    40 <= E < 60 -> PM2, E >= 60 -> PM3.
+    40 <= E < 60 -> PM2, E >= 60 -> PM3. A fixed policy is the
+    degenerate case with no thresholds and a single allowed mode.
     """
 
     modes: tuple[PowerMode, ...]
@@ -70,14 +81,37 @@ class PowerModePolicy:
             if not (1 <= pm <= len(self.modes)):
                 raise ValueError(f"PM index {pm} out of range")
 
-    def pm_for_energy(self, e: float) -> int:
-        """Active PM index for battery level ``e``."""
-        idx = np.searchsorted(np.asarray(self.thresholds), e, side="right")
-        return int(self.allowed[int(idx)])
+    def pm_for_energy(self, e: float | np.ndarray) -> int | np.ndarray:
+        """Active PM index for battery level ``e`` (vectorized)."""
+        idx = np.searchsorted(np.asarray(self.thresholds), np.asarray(e), side="right")
+        out = np.asarray(self.allowed)[idx]
+        if np.isscalar(e) or np.ndim(e) == 0:
+            return int(out)
+        return out
 
     def mode(self, pm_index: int) -> PowerMode:
         """The :class:`PowerMode` for a 1-based active PM index."""
         return self.modes[pm_index - 1]
+
+    def kappa_for_energy(self, e: int) -> int:
+        return self.mode(int(self.pm_for_energy(e))).kappa
+
+    def ce_for_energy(self, e: int) -> int:
+        return self.mode(int(self.pm_for_energy(e))).ce
+
+    @property
+    def kappa_table(self) -> np.ndarray:
+        """kappa per active PM index (index 0 unused -> 0)."""
+        return np.array([0] + [m.kappa for m in self.modes], dtype=np.int32)
+
+    @property
+    def ce_table(self) -> np.ndarray:
+        return np.array([0] + [m.ce for m in self.modes], dtype=np.int32)
+
+
+def fixed_policy(pm_index: int, modes: Sequence[PowerMode] = ORIN_POWER_MODES) -> PowerModePolicy:
+    """Always run at active mode ``pm_index`` (1-based)."""
+    return PowerModePolicy(modes=tuple(modes), thresholds=(), allowed=(pm_index,))
 
 
 def dynamic_policy(

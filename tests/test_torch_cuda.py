@@ -15,7 +15,11 @@ y and h_final each within 2e-5 of max(1, the plain value's magnitude),
 since 2e-5 is below one fp32 ulp of a y of ~10^2 (long scans). The smoke
 falcon-mamba's prefill logits through the kernel agree with those through
 the plain version within 1e-4 of their scale and within 1e-2 of how far
-zeroing every scan's y moves them.
+zeroing every scan's y moves them. The network simulator on the card
+equals its CPU run on the same draws (integer counters and downtime
+exactly, mean battery within 1e-6 relative: the devices' float32 mean
+adds in another order), its step loop reads nothing back to the host,
+and the semi-Markov analytics on the card equal the CPU's within 1e-9.
 """
 
 import dataclasses
@@ -25,6 +29,9 @@ import pytest
 import torch
 
 from repro_torch.configs import get_smoke_config
+from repro_torch.core import network, rates, semi_markov, simulator
+from repro_torch.core.energy import uniform_mdf
+from repro_torch.core.power import dynamic_policy, fixed_policy
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import (
     decode_attention,
@@ -656,3 +663,56 @@ def test_mamba_server_runs_through_the_scan_kernel(gen, monkeypatch):
     diff = (logits - plain).abs().max().item()
     assert diff <= 1e-4 * plain.abs().max().item()
     assert diff <= 1e-2 * (plain - zero_y).abs().max().item()
+
+
+def _fig4_grid(device):
+    topo = network.paper_topology()
+    lt = topo.long_term_rates(0.01, device)
+    cfgs = [simulator.SimConfig(n_groups=3, n_per_group=3, n_steps=100, p_arrival=p, policy=pol)
+            for p in (0.5, 1.0) for pol in ("uniform", "long_term", "adaptive")]
+    return simulator.stack_scenarios([simulator.scenario_params(topo, c, long_term_rates=lt)
+                                      for c in cfgs])
+
+
+def test_simulator_on_the_card_equals_the_cpu_on_shared_draws(gen):
+    params = _fig4_grid("cpu")
+    draws = list(simulator.step_draws(params, 64, 100, torch.Generator().manual_seed(0)))
+    cpu = simulator.simulate_sweep(None, params, n_runs=64, n_steps=100, device="cpu", draws=draws)
+    card = simulator.simulate_sweep(None, params, n_runs=64, n_steps=100, device="cuda",
+                                    draws=[d.to("cuda") for d in draws])
+    for field in ("completed", "dropped", "arrivals", "downtime_fraction"):
+        np.testing.assert_array_equal(getattr(card, field), getattr(cpu, field), err_msg=field)
+    np.testing.assert_allclose(card.mean_battery, cpu.mean_battery, rtol=1e-6, atol=0)
+    assert cpu.completed.sum() > 0 and cpu.dropped.sum() > 0
+
+
+def test_simulator_step_loop_reads_nothing_back(gen):
+    params = _fig4_grid("cuda").to("cuda")
+    draws = simulator.step_draws(params, 128, 50, torch.Generator(device="cuda").manual_seed(0))
+    run = simulator.build_runner(3, 3, 50)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = run(params, 128, draws)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(t.device.type == "cuda" for t in out.values())
+    in_flight = out["arrivals"] - out["completed"] - out["dropped"]
+    assert int(in_flight.min()) >= 0 and int(in_flight.max()) <= 6
+
+
+@pytest.mark.parametrize("mode", ["15W", "30W", "60W", "dynamic"])
+def test_analytics_on_the_card_equal_the_cpu(gen, mode):
+    policy = {"15W": fixed_policy(1), "30W": fixed_policy(2), "60W": fixed_policy(3),
+              "dynamic": dynamic_policy(100)}[mode]
+    model = semi_markov.DeviceModel(uniform_mdf(6, 10), policy, e_max=100)
+    card, cpu = model.chain(0.34, "cuda"), model.chain(0.34, "cpu")
+    assert card.transition_matrix().device.type == "cuda"
+    torch.testing.assert_close(card.transition_matrix().cpu(), cpu.transition_matrix(),
+                               rtol=0, atol=1e-12)
+    torch.testing.assert_close(card.stationary().cpu(), cpu.stationary(), rtol=0, atol=1e-12)
+    for metric in ("risk", "kappa_bar", "mean_energy", "throughput"):
+        assert getattr(card, metric)() == pytest.approx(getattr(cpu, metric)(), rel=1e-9, abs=1e-14)
+    got, want = rates.q_lim(model, 0.01, device="cuda"), rates.q_lim(model, 0.01, device="cpu")
+    assert got.q_lim == pytest.approx(want.q_lim, rel=1e-9)
+    assert got.binding == want.binding
