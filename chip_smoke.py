@@ -49,7 +49,13 @@ Phases, in order; any failure exits non-zero:
    cache), bf16 and fp32, and at phase 10's draft ingest (bf16, C = 5,
    eight lanes of a 261-row cache, offsets up to 255); bf16 dense decode
    also at the served shapes of phases 9 (granite, B=4, S=128, G=48) and
-   10 (the draft's steps, B=8 over 261 rows, lengths up to 259). Kernel, plain-version and
+   10 (the draft's steps, B=8 over 261 rows, lengths up to 259); and at
+   phase 13's hymba shapes (H=25, KV=5: G=5, D=64, bf16): flash over a
+   1300-token prompt with the window of 1024 and without, dense decode
+   over a 1024-row ring (lengths 1, 513, 1024, 1024, window 1024) and over
+   the 1536-row global cache, the scan at B=1, S=1300, Din 3200 (fp32); a
+   windowed flash's yardstick is one SDPA call with a banded boolean mask,
+   and its bound counts the band's (query, key) pairs. Kernel, plain-version and
    yardstick times (CUDA events, median of 20 runs, each queued behind a
    device sleep so the events time the device and not the launch): one
    ``scaled_dot_product_attention`` call for the dense kernels; for the
@@ -152,11 +158,44 @@ Phases, in order; any failure exits non-zero:
    loops of (a), (b) and (e) run under ``torch.cuda.set_sync_debug_mode(
    "error")``: a readback to the host inside them fails the phase. Each
    sweep prints its wall time, slots x scenarios x runs per second and
-   peak memory.
-13. A JSON line of per-kernel results (all six kernels; the paged-prefill
+   peak memory. ``python3 -c 'import chip_smoke, torch;
+   chip_smoke.simulator_phase(torch.device("cuda"))'`` runs it alone.
+13. Serve hybrid: full-width hymba-1.5b (32 layers, d_model 1600, 25 / 5
+   heads of 64, d_ff 5504, vocab 32001, d_inner 3200, state 16; 29
+   window-1024 layers and 3 global ones; bf16, random weights from a
+   seeded ``torch.Generator``, the exact parameter count printed) through
+   the dense ``PipelineServer`` at G=3 x R=3, max_batch 4, max_len 1536,
+   async depth 2, seed 0: ``run(30, arrival_p=0.5)`` plus four prompts of
+   1100..1400 tokens, which make windowed flash trim its keys, prefill
+   store a rotated ring and decode read full rings. Flash must launch on
+   both routes (windowed and full, counted apart, a windowed prompt longer
+   than the window among them), dense decode and the scan must launch (a
+   decode reading a full ring among them), rmsnorm must not; every
+   parameter and cache tensor lives on the card, window classes hold 1024
+   rows and global ones 1536. The flash, decode and scan calls are printed
+   as histograms, and decode and the scan re-timed warm at each served
+   shape and summed over the calls, as in phases 4 and 7, with the
+   phase's tokens/s and peak memory.
+14. Hybrid parity: the same weights in fp32. (a) At full depth, every
+   attention and scan call of a 1100-token prefill and 1000 teacher-forced
+   decode steps (every window layer's write slot wraps at position 2048)
+   runs the kernel and its plain version on the same inputs (attention
+   within 1e-3 of the output's scale, the windowed calls apart; the scan
+   within 1e-4); an fp32 server's first token on the prompt equals the
+   monolithic kernel path's. (b) On hymba's first three layers (one global,
+   two of the window class) at full width, where rounding does not yet
+   compound (``HYBRID_CUT``): each call's logits through the kernels, from
+   the plain path's cache, within 1e-3 of the plain logits' scale; the
+   plain decode's logits after the wrap within 1e-3 of a fresh plain
+   prefill's of the same tokens (the ring check); an fp32 server's first
+   token equals the plain path's.
+   ``python3 -c 'import chip_smoke, torch;
+   chip_smoke.hybrid_phase(torch.device("cuda"))'`` runs phases 13-14 alone.
+15. A JSON line of per-kernel results (all six kernels; the paged-prefill
    kernel's launches also by route: ``paged_chunk`` from phase 5,
-   ``verify`` and ``dense_chunk`` from phases 9 and 10; rmsnorm's counter
-   is read over phases 4-10 and must stay 0: no served path launches it),
+   ``verify`` and ``dense_chunk`` from phases 9 and 10; flash's by route:
+   ``windowed`` from phase 13, ``full`` from the rest; rmsnorm's counter
+   is read over phases 4-13 and must stay 0: no served path launches it),
    then the device line last.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -226,32 +265,45 @@ def bound(bytes_moved: float, flops: float, dtype) -> tuple[float, str]:
     return (mem_ms, "bytes") if mem_ms >= op_ms else (op_ms, "operations")
 
 
-def flash_case(B, S, H, KV, D, dtype, gen):
+def band_pairs(S: int, window: int | None) -> int:
+    """(query, key) pairs a causal attention over S positions scores: each
+    query sees itself and the ``window - 1`` positions before it."""
+    return sum(min(i + 1, window or S) for i in range(S))
+
+
+def flash_case(B, S, H, KV, D, dtype, gen, window=None):
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
 
     q = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype)
     k = torch.randn(B, S, KV, D, generator=gen, device="cuda").to(dtype)
     v = torch.randn(B, S, KV, D, generator=gen, device="cuda").to(dtype)
-    out = flash_attention(q, k, v, causal=True)
+    out = flash_attention(q, k, v, causal=True, window=window)
     torch.cuda.synchronize()
-    want = flash_attention_ref(q.float(), k.float(), v.float(), causal=True)
+    want = flash_attention_ref(q.float(), k.float(), v.float(), causal=True, window=window)
     err = (out.float() - want).abs().max().item()
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if window is None:
+        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=H != KV)
+    else:  # one SDPA call with a banded boolean mask
+        pos = torch.arange(S, device="cuda")
+        band = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
+        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, attn_mask=band, enable_gqa=H != KV)
     item = q.element_size()
     b_ms, b_by = bound(
         (2 * q.numel() + k.numel() + v.numel()) * item,
-        4 * B * H * D * S * (S + 1) / 2,
+        4 * B * H * D * band_pairs(S, window),
         dtype,
     )
     return {
-        "shape": f"B={B} S={S} H={H} KV={KV} D={D}",
+        "shape": f"B={B} S={S} H={H} KV={KV} D={D}" + (f" window={window}" if window else ""),
         "dtype": str(dtype).removeprefix("torch."),
         "max_abs_err": err,
         "tol": TOL[dtype],
-        "ms": time_ms(lambda: flash_attention(q, k, v, causal=True)),
-        "plain_ms": time_ms(lambda: flash_attention_ref(q, k, v, causal=True)),
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=H != KV)),
+        "ms": time_ms(lambda: flash_attention(q, k, v, causal=True, window=window)),
+        "plain_ms": time_ms(lambda: flash_attention_ref(q, k, v, causal=True, window=window)),
+        "library_ms": time_ms(library),
         "bound_ms": b_ms,
         "bound_by": b_by,
     }
@@ -266,33 +318,38 @@ def decode_bound(q, rows: int, KV: int, D: int) -> tuple[float, str]:
                  q.dtype)
 
 
-def decode_case(B, S, H, KV, D, lengths, dtype, gen):
+def decode_case(B, S, H, KV, D, lengths, dtype, gen, window=None):
     from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref_model
 
     q = torch.randn(B, 1, H, D, generator=gen, device="cuda").to(dtype)
     kc = torch.randn(B, S, KV, D, generator=gen, device="cuda").to(dtype)
     vc = torch.randn(B, S, KV, D, generator=gen, device="cuda").to(dtype)
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-    out = decode_attention(q, kc, vc, lens)
+    out = decode_attention(q, kc, vc, lens, window=window)
     torch.cuda.synchronize()
-    want = decode_attention_ref_model(q.float(), kc.float(), vc.float(), lens)
+    want = decode_attention_ref_model(q.float(), kc.float(), vc.float(), lens, window=window)
     # A lane of length 0 sees no key: the TPU kernel (and this one) output 0
     # there, where the plain version averages V over the masked rows.
     want = torch.where((lens > 0)[:, None, None, None], want, 0.0)
     err = (out.float() - want).abs().max().item()
-    mask = (torch.arange(S, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+    pos = torch.arange(S, device="cuda")[None, :]
+    mask = pos < lens[:, None]
+    if window is not None:
+        mask = mask & (pos >= lens[:, None] - window)
+    mask = mask[:, None, None, :]
     qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
-    b_ms, b_by = decode_bound(q, sum(min(n, S) for n in lengths), KV, D)
+    b_ms, b_by = decode_bound(q, sum(min(n, S, window or S) for n in lengths), KV, D)
     deep = deep_lane_check(lens, out, want, decode_attention(q, *tile_overwritten(kc, vc, lens),
-                                                             lens)) \
+                                                             lens, window=window)) \
         if max(lengths) >= DEEP_OFFSET else {}
     return {
-        "shape": f"B={B} S={S} H={H} KV={KV} D={D} lengths={lengths}",
+        "shape": f"B={B} S={S} H={H} KV={KV} D={D} lengths={lengths}"
+                 + (f" window={window}" if window else ""),
         "dtype": str(dtype).removeprefix("torch."),
         "max_abs_err": err,
         "tol": TOL[dtype],
-        "ms": time_ms(lambda: decode_attention(q, kc, vc, lens)),
-        "plain_ms": time_ms(lambda: decode_attention_ref_model(q, kc, vc, lens)),
+        "ms": time_ms(lambda: decode_attention(q, kc, vc, lens, window=window)),
+        "plain_ms": time_ms(lambda: decode_attention_ref_model(q, kc, vc, lens, window=window)),
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=H != KV)),
         "bound_ms": b_ms,
@@ -623,6 +680,13 @@ DRAFT_INGEST_OFFSETS = [0, 9, 40, 77, 128, 150, 200, 255]
 DRAFT_LENGTHS = [9, 40, 77, 128, 150, 200, 231, 259]
 # (H, KV, D) of the speculative verify cases: qwen2.5 (G=5) and granite (G=48).
 VERIFY_HEADS = [(40, 8, 128), (48, 1, 128)]
+# Phase 13's hymba-1.5b: its window, max_len, the lengths of a ring's lanes
+# (fresh, half full, full after the wrap) and of the global cache's (the
+# 1100..1400-token prompts plus their tokens).
+HYMBA_WINDOW, HYMBA_MAX_LEN = 1024, 1536
+HYMBA_RING_LENGTHS = [1, 513, 1024, 1024]
+HYMBA_GLOBAL_LENGTHS = [1101, 1201, 1301, 1408]
+HYMBA_PROMPTS = (1100, 1200, 1300, 1400)
 
 
 def check_kernels() -> dict[str, list[dict]]:
@@ -661,6 +725,16 @@ def check_kernels() -> dict[str, list[dict]]:
     # 128) and the draft's steps over its 261-row cache.
     decode.append(decode_case(4, 128, 48, 1, 128, [9, 40, 77, 128], torch.bfloat16, gen))
     decode.append(decode_case(8, 261, 32, 32, 64, DRAFT_LENGTHS, torch.bfloat16, gen))
+    # hymba's served shapes (phase 13; H=25, KV=5: G=5, D=64): a 1300-token
+    # prefill through the window-1024 class and through the global class;
+    # decode over a 1024-row ring (a fresh lane, one half full, two full
+    # after the wrap) and over the 1536-row global cache.
+    flash.append(flash_case(1, 1300, 25, 5, 64, torch.bfloat16, gen, window=HYMBA_WINDOW))
+    flash.append(flash_case(1, 1300, 25, 5, 64, torch.bfloat16, gen))
+    decode.append(decode_case(4, HYMBA_WINDOW, 25, 5, 64, HYMBA_RING_LENGTHS, torch.bfloat16,
+                              gen, window=HYMBA_WINDOW))
+    decode.append(decode_case(4, HYMBA_MAX_LEN, 25, 5, 64, HYMBA_GLOBAL_LENGTHS, torch.bfloat16,
+                              gen))
     for int8 in (False, True):
         ppre.append(paged_prefill_case(4, 128, 16, 24, 8, 128, LONG_PREFIX_OFFSETS,
                                        torch.bfloat16, int8, gen))
@@ -682,6 +756,7 @@ def check_kernels() -> dict[str, list[dict]]:
     scan += [scan_case(B, 8, 8192, 16, False, gen) for B in (1, 2, 3, 4)]
     scan += [scan_case(1, 120, 8192, 16, False, gen), scan_case(3, 77, 3200, 16, True, gen),
              scan_case(1, SCAN_LONG_S, 8192, 16, False, gen)]
+    scan.append(scan_case(1, 1300, 3200, 16, False, gen))  # hymba's 1300-token prefill
     results = {"flash_attention": flash, "decode_attention": decode,
                "paged_decode_attention": pdec, "paged_prefill_attention": ppre,
                "selective_scan": scan, "rmsnorm": norm}
@@ -763,7 +838,7 @@ def serve(params, model, device: torch.device) -> tuple[dict, dict]:
     # Each served decode call's shapes and its lengths tensor, which a decode
     # step makes anew and never writes again (models/transformer.py); read
     # after the run, so recording adds no work on the card.
-    key = lambda q, k, v, lens: (tuple(q.shape), tuple(k.shape), lens)  # noqa: E731
+    key = lambda q, k, v, lens, **_: (tuple(q.shape), tuple(k.shape), lens)  # noqa: E731
     with calls_recorded(attention, "decode_attention", key) as calls:
         direct = [server.submit(rng.integers(0, V, size=L), n_tokens=8)
                   for L in (64, 88, 104, 120)]
@@ -800,22 +875,24 @@ def serve(params, model, device: torch.device) -> tuple[dict, dict]:
 def served_decode_times(served: collections.Counter, dtype) -> dict:
     """The dense-decode kernel timed at each served call's shapes and
     lengths (random caches and queries), and the sums over the served calls
-    of its time and of its bound."""
+    of its time and of its bound. A served key is (q shape, cache shape,
+    lengths) or, with the call's window (0 for none), (..., window)."""
     from repro_torch.kernels.decode_attention import decode_attention
 
     gen = torch.Generator(device="cuda").manual_seed(6)
     total = total_bound = 0.0
     operands = {}
-    for (q_shape, k_shape, lengths), n in sorted(served.items()):
+    for (q_shape, k_shape, lengths, *window), n in sorted(served.items()):
         B, _, H, D = q_shape
         _, S, KV, _ = k_shape
+        window = window[0] if window and window[0] else None  # 0: no window
         if (q_shape, k_shape) not in operands:
             operands[q_shape, k_shape] = [
                 torch.randn(*shape, generator=gen, device="cuda").to(dtype)
                 for shape in (q_shape, k_shape, k_shape)]
         q, kc, vc = operands[q_shape, k_shape]
         lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-        total += n * time_ms(lambda: decode_attention(q, kc, vc, lens))
+        total += n * time_ms(lambda: decode_attention(q, kc, vc, lens, window=window))
         total_bound += n * decode_bound(q, sum(min(max(x, 0), S) for x in lengths), KV, D)[0]
     n_calls = sum(served.values())
     print(f"  decode_attention at the served lengths: {total:.3f} ms over {n_calls} calls "
@@ -843,7 +920,8 @@ def serve_paged(params, model, device: torch.device, kv_dtype) -> tuple[dict, di
     # Each served decode call's shapes and its lengths tensor, which a decode
     # step makes anew and never writes again (models/attention.py); read
     # after the run, so recording adds no work on the card.
-    key = lambda q, k, v, bt, lens: (tuple(q.shape), tuple(k.shape), bt.shape[1], lens)  # noqa: E731
+    key = lambda q, k, v, bt, lens, **_: (  # noqa: E731
+        tuple(q.shape), tuple(k.shape), bt.shape[1], lens)
     with calls_recorded(attention, "paged_decode_attention", key) as calls:
         direct = [server.submit(rng.integers(0, V, size=L), n_tokens=8)
                   for L in (64, 112, 160, 200)]
@@ -914,13 +992,14 @@ def served_paged_times(served: collections.Counter, dtype, int8: bool) -> dict:
 
 @contextlib.contextmanager
 def calls_recorded(module, name: str, key):
-    """Record ``key(*args)`` of every call of ``module.name`` (the wrapper
-    still runs and counts its launches) for the duration of the block."""
+    """Record ``key(*args, **kwargs)`` of every call of ``module.name`` (the
+    wrapper still runs and counts its launches) for the duration of the
+    block."""
     fn = getattr(module, name)
     calls = []
 
     def recorded(*args, **kwargs):
-        calls.append(key(*args))
+        calls.append(key(*args, **kwargs))
         return fn(*args, **kwargs)
 
     setattr(module, name, recorded)
@@ -949,8 +1028,10 @@ def compared_attention(worst: dict[str, float]):
     on the same inputs, record the worst relative difference per kernel
     (the paged-prefill kernel's verify and dense-chunk routes apart, as
     ``routes_recorded`` tells them: ``paged_prefill_attention verify``
-    ...), and continue with the plain output, so the whole forward is the
-    plain-attention reference and each comparison sees its exact inputs."""
+    ..., and calls with a sliding window apart: ``flash_attention
+    windowed``, ``decode_attention windowed``), and continue with the plain
+    output, so the whole forward is the plain-attention reference and each
+    comparison sees its exact inputs."""
     from repro_torch.kernels.decode_attention import (
         decode_attention_ref_model, paged_decode_attention_ref, paged_prefill_attention_ref)
     from repro_torch.kernels.flash_attention import flash_attention_ref
@@ -970,6 +1051,8 @@ def compared_attention(worst: dict[str, float]):
             got = kernels[name](*args, **kwargs)
             route = _route[-1] if name == "paged_prefill_attention" else "paged_chunk"
             key = f"{name} {route}" if route != "paged_chunk" else name
+            if kwargs.get("window") is not None:
+                key += " windowed"
             worst[key] = max(worst.get(key, 0.0), _rel_err(got, want))
             return want
         return call
@@ -1680,6 +1763,260 @@ def spec_parity(params32, model, device: torch.device) -> dict:
             "peak_gb": peak_gb()}
 
 
+# Phase 14's fp32 parity: a 1100-token prompt (past the window: its ring is
+# stored rotated), then 1000 teacher-forced decode steps, so that every
+# window layer's write slot passes the ring's end (position 2048) and wraps.
+HYBRID_PARITY_PROMPT, HYBRID_PARITY_STEPS, HYBRID_PARITY_MAX_LEN = 1100, 1000, 2176
+# A full-width random-init attention model is chaotic under rounding: its
+# logits through the kernels and through the plain versions part by O(1)
+# at full depth (phase 6; phase 14 prints hymba's), and so do a decode's
+# and a prefill's of the same tokens (rounding in another order), while a
+# few layers keep them within ~1e-4 of their scale. The logits-level
+# checks (kernel vs plain per call, the ring against a fresh prefill, the
+# server's first token against the plain path's) therefore run on the
+# first HYBRID_CUT layers, one global and two of the window class, at full
+# width; the per-kernel-call checks run at full depth.
+HYBRID_CUT = 3
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Every kernel the models call replaced by its plain version."""
+    from repro_torch.kernels.decode_attention import decode_attention_ref_model
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.kernels.selective_scan import selective_scan_ref
+    from repro_torch.models import attention, ssm
+
+    saved = [(attention, "flash_attention", flash_attention_ref),
+             (attention, "decode_attention", decode_attention_ref_model),
+             (ssm, "selective_scan", selective_scan_ref)]
+    saved = [(mod, name, getattr(mod, name), plain) for mod, name, plain in saved]
+    for mod, name, _, plain in saved:
+        setattr(mod, name, plain)
+    try:
+        yield
+    finally:
+        for mod, name, fn, _ in saved:
+            setattr(mod, name, fn)
+
+
+def serve_hybrid(params, model, device: torch.device) -> tuple[dict, dict]:
+    """Phase 13: full-width hymba-1.5b through the dense server: windowed
+    and full flash prefill, dense decode over 1024-row rings and 1536-row
+    global caches, the selective scan."""
+    from repro_torch.models import attention, ssm
+    from repro_torch.models.transformer import layer_plan
+    from repro_torch.serving import PipelineServer
+
+    server = PipelineServer(model, params, n_groups=3, n_replicas=3, max_batch=4,
+                            max_len=HYMBA_MAX_LEN, async_depth=2, seed=0, device=device)
+    rng = np.random.default_rng(1)
+    V = model.cfg.vocab_size
+    # Recorded as phase 4 records decode: lengths tensors are read after the
+    # run (a decode step makes them anew and never writes them again).
+    flash_key = lambda q, k, v, causal=True, window=None: (  # noqa: E731
+        "windowed" if window else "full", q.shape[1])
+    decode_key = lambda q, k, v, lens, window=None: (  # noqa: E731
+        tuple(q.shape), tuple(k.shape), lens, window or 0)
+    scan_key = lambda x, dt, Bm, Cm, A: (*x.shape, A.shape[1])  # noqa: E731  (B, S, Din, N)
+    zero_counters()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        flash_calls = stack.enter_context(calls_recorded(attention, "flash_attention", flash_key))
+        decode_calls = stack.enter_context(calls_recorded(attention, "decode_attention",
+                                                          decode_key))
+        scan_calls = stack.enter_context(calls_recorded(ssm, "selective_scan", scan_key))
+        direct = [server.submit(rng.integers(0, V, size=L), n_tokens=8) for L in HYMBA_PROMPTS]
+        stats = server.run(30, arrival_p=0.5)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    routes = collections.Counter(route for route, _ in flash_calls)
+    flash_hist = collections.Counter((route, f"{S // 256 * 256}-{S // 256 * 256 + 255}")
+                                     for route, S in flash_calls)
+    served = collections.Counter((q, k, tuple(lens.tolist()), w) for q, k, lens, w in decode_calls)
+    decode_hist = collections.Counter()
+    for (q, k, lens, _), n in served.items():
+        top = max(lens)
+        decode_hist[q[0], k[1], f"{top // 256 * 256}-{top // 256 * 256 + 255}"] += n
+    print("  flash_attention calls by (route, prompt length): " + ", ".join(
+        f"({r}, {b}): {n}" for (r, b), n in sorted(flash_hist.items())))
+    print("  decode_attention calls by (lanes, cache rows, longest length): " + ", ".join(
+        f"({B}, {L}, {b}): {n}" for (B, L, b), n in sorted(decode_hist.items())))
+    print(f"  slots={stats.slots} submitted={stats.submitted} completed={stats.completed_jobs} "
+          f"tokens={stats.tokens_generated} prefill_calls={stats.prefill_calls} "
+          f"decode_calls={stats.decode_calls} downtime={stats.downtime_fraction:.4f} "
+          f"wall_s={wall:.3f} tokens_per_s={stats.tokens_generated / wall:.2f} "
+          f"peak_gb={peak_gb():.2f}")
+    print(f"  launches {launches}; flash_attention by route {dict(routes)}; direct prompts "
+          f"generated {[len(r.generated) if r is not None else None for r in direct]}")
+    assert stats.completed_jobs >= 1 and stats.tokens_generated > 0
+    assert all(0 <= t < V for r in direct if r is not None for t in r.generated)
+    assert sum(routes.values()) == launches["flash_attention"], (routes, launches)
+    assert routes["windowed"] > 0 and routes["full"] > 0, f"a flash route never ran: {routes}"
+    assert any(r == "windowed" and S > HYMBA_WINDOW for r, S in flash_calls), \
+        "no windowed prefill was longer than the window"
+    assert launches["decode_attention"] > 0 and launches["selective_scan"] > 0, launches
+    assert launches["rmsnorm"] == 0, f"a served path launched rmsnorm: {launches}"
+    assert any(k[1] == HYMBA_WINDOW and HYMBA_WINDOW in lens for _, k, lens, _ in served), \
+        "no decode read a full ring"
+    assert all(on_device(p, device) for _, p in server.stages), "a parameter is off the card"
+    assert all(on_device(c, device) for c in server._caches.values()), \
+        "a cache tensor is off the card"
+    for (g, _), cache in server._caches.items():
+        for i, cls in enumerate(layer_plan(server.stages[g][0].cfg).classes):
+            rows = cache[f"c{i}"]["k"].shape[2]
+            assert rows == (HYMBA_MAX_LEN if cls.window is None else HYMBA_WINDOW), (g, i, rows)
+    return launches, {
+        "flash_launches_by_route": dict(routes),
+        "flash_calls_by_route_and_length": {f"{r},{b}": n for (r, b), n in
+                                            sorted(flash_hist.items())},
+        "decode_calls_by_lanes_rows_and_length": {f"{B},{L},{b}": n for (B, L, b), n in
+                                                  sorted(decode_hist.items())},
+        "decode": served_decode_times(served, model.cfg.compute_dtype),
+        "scan": served_scan_times(collections.Counter(scan_calls)),
+        "tokens": stats.tokens_generated, "wall_s": wall,
+        "tokens_per_s": stats.tokens_generated / wall, "peak_gb": peak_gb()}
+
+
+def _first_token(model, params, prompt: np.ndarray, device: torch.device) -> int:
+    """The first token of an fp32 server (G=3 x R=3, max_len 1536) for one
+    long prompt."""
+    from repro_torch.serving import PipelineServer
+
+    server = PipelineServer(model, params, n_groups=3, n_replicas=3, max_batch=4,
+                            max_len=HYMBA_MAX_LEN, async_depth=2, seed=0, device=device)
+    req = server.submit(prompt, n_tokens=2)
+    for _ in range(500):
+        if req.done:
+            break
+        server.step()
+    assert req.done, f"the fp32 hymba server did not finish: {len(req.generated)} tokens"
+    return req.generated[0]
+
+
+def hybrid_parity(params32, model, device: torch.device) -> dict:
+    """Phase 14: fp32 hymba-1.5b, the kernels against their plain versions."""
+    from repro_torch.kernels.selective_scan import selective_scan_ref
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.transformer import layer_plan
+
+    cfg = model.cfg
+    n_prompt, n_steps = HYBRID_PARITY_PROMPT, HYBRID_PARITY_STEPS
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, size=(1, n_prompt + n_steps))).to(device)
+    prompt = {"tokens": tokens[:, :n_prompt]}
+    worst: dict[str, float] = {}
+    scan_worst = {"y": 0.0, "h_final": 0.0, "calls": 0}
+
+    def compared_scan(kernel, *args):
+        want_y, want_h = selective_scan_ref(*args)
+        got_y, got_h = kernel(*args)
+        scan_worst["y"] = max(scan_worst["y"], _rel_err(got_y, want_y))
+        scan_worst["h_final"] = max(scan_worst["h_final"], _rel_err(got_h, want_h))
+        scan_worst["calls"] += 1
+        return want_y, want_h
+
+    # (a) Full depth, teacher-forced per kernel call: every attention and
+    # scan call of the prefill and of every decode step runs the kernel and
+    # its plain version on the same inputs, and goes on with the plain one.
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        kernel_logits, _ = model.prefill(params32, prompt, HYBRID_PARITY_MAX_LEN)
+        with compared_attention(worst), scan_replaced(compared_scan):
+            plain_logits, cache = model.prefill(params32, prompt, HYBRID_PARITY_MAX_LEN)
+            for t in range(n_prompt, n_prompt + n_steps):
+                _, cache = model.decode_step(params32, tokens[:, t:t + 1], cache)
+    print(f"  every attention and scan call of a {n_prompt}-token prefill + {n_steps} decode "
+          f"steps ({cfg.n_layers} layers), kernel vs plain on the same inputs: max|kernel - "
+          "plain| / max|plain| = " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+          + f" (tol {MODEL_REL_TOL}); selective_scan ({scan_worst['calls']} calls) y "
+          f"{scan_worst['y']:.3g}, h_final {scan_worst['h_final']:.3g} (tol {SCAN_REL_TOL}); "
+          f"{time.perf_counter() - t0:.1f} s")
+    assert set(worst) == {"flash_attention", "flash_attention windowed", "decode_attention",
+                          "decode_attention windowed"}, worst
+    assert all(v <= MODEL_REL_TOL for v in worst.values()), worst
+    assert scan_worst["calls"] == cfg.n_layers, scan_worst
+    assert scan_worst["y"] <= SCAN_REL_TOL and scan_worst["h_final"] <= SCAN_REL_TOL, scan_worst
+    end_to_end = _rel_err(kernel_logits, plain_logits)
+    print(f"  first-token logits at full depth, kernel path vs plain path: max diff / scale "
+          f"{end_to_end:.3g} (not asserted: rounding grows layer over layer)")
+    served_first = _first_token(model, params32, prompt["tokens"][0].cpu().numpy(), device)
+    # The server's stage prefills run the monolithic kernel path's operations
+    # on the same shapes, so its first token is that path's, exactly.
+    print(f"  fp32 server ({cfg.n_layers} layers): first token {served_first} (monolithic kernel "
+          f"path {int(kernel_logits[0, -1].argmax())}, plain path "
+          f"{int(plain_logits[0, -1].argmax())})")
+    assert served_first == int(kernel_logits[0, -1].argmax())
+
+    # (b) The first HYBRID_CUT layers at full width: per call, the kernel
+    # path's logits from the plain path's cache against the plain path's;
+    # the plain decode past the wrap against a fresh plain prefill of the
+    # same tokens; the server's first token against the plain path's.
+    cut_cfg = dataclasses.replace(cfg, n_layers=HYBRID_CUT, global_attn_layers=(0,))
+    cut = build_model(cut_cfg)
+    plan = layer_plan(cut_cfg)
+    assert [(c.window, c.layer_ids) for c in plan.classes] == [(None, (0,)),
+                                                               (HYMBA_WINDOW, (1, 2))]
+    cut_params = {**params32, "classes": {  # hymba's layers 0 (global) and 1, 2 (window)
+        f"c{i}": tree_map(lambda a, n=c.count: a[:n], params32["classes"][f"c{i}"])
+        for i, c in enumerate(plan.classes)}}
+    per_call = []
+    with torch.no_grad():
+        with plain_versions():
+            plain, cache = cut.prefill(cut_params, prompt, HYBRID_PARITY_MAX_LEN)
+        kernel, _ = cut.prefill(cut_params, prompt, HYBRID_PARITY_MAX_LEN)
+        per_call.append(_rel_err(kernel, plain))
+        plain_first = int(plain[0, -1].argmax())
+        for t in range(n_prompt, n_prompt + n_steps):
+            tok = tokens[:, t:t + 1]
+            kernel, _ = cut.decode_step(cut_params, tok, tree_map(torch.clone, cache))
+            with plain_versions():
+                plain, cache = cut.decode_step(cut_params, tok, cache)
+            per_call.append(_rel_err(kernel, plain))
+        with plain_versions():
+            fresh, _ = cut.prefill(cut_params, {"tokens": tokens}, HYBRID_PARITY_MAX_LEN)
+    ring_err = _rel_err(plain, fresh)
+    cut_first = _first_token(cut, cut_params, prompt["tokens"][0].cpu().numpy(), device)
+    print(f"  first {HYBRID_CUT} layers: logits per call (prefill + {n_steps} steps), kernel vs "
+          f"plain from the same cache: max diff / scale {max(per_call):.3g} (tol "
+          f"{MODEL_REL_TOL}); plain decode at position {n_prompt + n_steps - 1} vs a fresh "
+          f"plain prefill: {ring_err:.3g}; fp32 server's first token {cut_first} (plain path "
+          f"{plain_first})")
+    assert max(per_call) <= MODEL_REL_TOL, max(per_call)
+    assert ring_err <= MODEL_REL_TOL, ring_err
+    assert cut_first == plain_first
+    return {"attention_rel_err": worst,
+            "scan_rel_err": {k: scan_worst[k] for k in ("y", "h_final")},
+            "logits_end_to_end_full_depth": end_to_end,
+            "cut_logits_per_call_rel_err": max(per_call), "cut_ring_vs_prefill_rel_err": ring_err,
+            "peak_gb": peak_gb()}
+
+
+def hybrid_phase(cuda: torch.device) -> tuple[dict, dict]:
+    """Phases 13-14: full-width hymba-1.5b served in bf16, then its fp32
+    parity. Returns the kernels' launches in phase 13, and the report."""
+    from repro_torch.models import build_model, count_params
+    from repro_torch.models.common import tree_map
+
+    print("[13] serve full-width hymba-1.5b, dense, sliding-window rings", flush=True)
+    model, params = load_model("hymba-1.5b", 0, cuda)
+    print(f"  hymba-1.5b: {count_params(model.template)} parameters")
+    with torch.no_grad():
+        launches, served = serve_hybrid(params, model, cuda)
+    cfg32 = dataclasses.replace(model.cfg, dtype="float32", param_dtype="float32")
+    params32 = tree_map(lambda t: t.float(), params)
+    del params, model
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    print("[14] hybrid parity at full width, fp32", flush=True)
+    checks = hybrid_parity(params32, build_model(cfg32), cuda)
+    del params32
+    free_memory()
+    return launches, {"served": served, "parity": checks}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1809,6 +2146,11 @@ def main() -> int:
     print("[12] the paper's simulator and analytics on the card", flush=True)
     print("  simulator:", json.dumps(simulator_phase(cuda)))
 
+    hybrid_launches, hybrid = hybrid_phase(cuda)
+    for name in KERNELS:
+        launches[name] += hybrid_launches[name]
+    assert launches["rmsnorm"] == 0, f"a served path launched rmsnorm: {launches}"
+
     kernels = []
     for name, source, replaces, main_shape in (
         ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1838,6 +2180,12 @@ def main() -> int:
         }
         if name == "flash_attention":
             entry["tensor_core_sass"] = tensor_core["flash_fwd_tc_kernel"]
+            windowed = hybrid["served"]["flash_launches_by_route"]["windowed"]
+            entry["launches_by_route"] = {"full": launches[name] - windowed,
+                                          "windowed": windowed}
+        if name in ("flash_attention", "decode_attention", "selective_scan"):
+            entry["launches_by_run"] = {**entry.get("launches_by_run", {}),
+                                        "hybrid": hybrid_launches[name]}
         if name == "paged_prefill_attention":
             entry["tensor_core_sass"] = tensor_core["paged_prefill_tc_kernel"]
         if name in PAGED_KERNELS:
@@ -1859,12 +2207,17 @@ def main() -> int:
             entry["library_note"] = "no PyTorch call computes the recurrence"
             entry["model_parity"] = ssm_checks
             entry.update(scan_served)
+            entry["served_hybrid"] = hybrid["served"]["scan"]
+        if name == "decode_attention":
+            entry["served_hybrid"] = hybrid["served"]["decode"]
+        if name == "flash_attention":
+            entry["hybrid_parity"] = hybrid["parity"]
         if name == "rmsnorm":
             entry["library_note"] = "torch.nn.functional.rms_norm"
             entry["launches_note"] = ("no served path launches it: the models call their plain "
                                       "rmsnorm (models/layers.py), as the JAX models do")
         kernels.append(entry)
-    print(f"[13] all phases passed in {time.perf_counter() - t_start:.1f} s, build included")
+    print(f"[15] all phases passed in {time.perf_counter() - t_start:.1f} s, build included")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,8 @@
 ``get_config(name)`` returns the exact published config and
 ``get_smoke_config(name)`` its reduced same-family variant for CPU
 tests — the same ``CONFIG`` / ``smoke()`` pair as the JAX package, for
-the four dense full-attention decoders and the pure-Mamba falcon-mamba.
+the four dense full-attention decoders, the pure-Mamba falcon-mamba and
+the hybrid hymba (sliding-window attention beside Mamba in every layer).
 The other architectures of the JAX package raise until their slice of
 the port lands (ROADMAP.md, Queue 1).
 """
@@ -22,6 +23,7 @@ _MODULES = {
     "qwen2.5-14b": "qwen2_5_14b",
     "granite-20b": "granite_20b",
     "falcon-mamba-7b": "falcon_mamba_7b",
+    "hymba-1.5b": "hymba_1_5b",
 }
 
 ARCH_NAMES = tuple(_MODULES)
@@ -31,7 +33,6 @@ _NOT_PORTED = (
     "seamless-m4t-large-v2",
     "qwen3-moe-30b-a3b",
     "granite-moe-1b-a400m",
-    "hymba-1.5b",
     "internvl2-76b",
     "paper-block",
 )
@@ -42,7 +43,8 @@ def _module(name: str):
         raise NotImplementedError(
             f"{name} is not ported to PyTorch yet: the port serves "
             f"{sorted(_MODULES)} "
-            "(ROADMAP.md, Queue 1 ports the rest of the zoo, hymba first)"
+            "(ROADMAP.md, Queue 1 ports the rest of the zoo: MoE, encoder-decoder, "
+            "modality frontends)"
         )
     if name not in _MODULES:
         raise KeyError(f"unknown architecture {name!r}; known: {sorted(_MODULES)}")

@@ -42,10 +42,11 @@ _LEAF_RANK = {"k": 5, "v": 5, "conv": 4, "ssm": 4}
 
 
 def cache_from_numpy(cache, *, device, dtype: str | torch.dtype | None = None) -> dict:
-    """A JAX dense cache -> the port's ``{"len": [B] int32, "c0": {...}}``
-    with K/V ``[n_layers, B, max_len, KV, Dh]`` (attention) or ``conv``
-    ``[n_layers, B, K-1, Din]`` and ``ssm`` ``[n_layers, B, Din, N]``
-    (Mamba).
+    """A JAX dense cache -> the port's ``{"len": [B] int32, "c0": {...},
+    ...}``, one entry per layer class, with K/V ``[n_layers, B, L, KV,
+    Dh]`` (attention; L is ``max_len``, or a window class's ring length)
+    and / or ``conv`` ``[n_layers, B, K-1, Din]`` and ``ssm`` ``[n_layers,
+    B, Din, N]`` (Mamba).
 
     Takes either JAX layout: a model-level cache (``len`` a scalar or
     [B], leaves ``[n_layers, B, ...]``) or the serving engine's
@@ -54,25 +55,30 @@ def cache_from_numpy(cache, *, device, dtype: str | torch.dtype | None = None) -
     """
     device = resolve_device(device)
     dt = torch_dtype(dtype) if dtype is not None else None
-    c0 = {}
-    for name, leaf in cache["c0"].items():
-        a = np.asarray(leaf)
-        if a.ndim == _LEAF_RANK[name] + 1:  # slot-stacked: [W, n, 1, ...] -> [n, W, ...]
-            a = a[:, :, 0].swapaxes(0, 1)
-        c0[name] = _tensor(a, device, None if name == "ssm" else dt)
-    W = next(iter(c0.values())).shape[1]
+    out: dict = {}
+    for key, entry in cache.items():
+        if key == "len":
+            continue
+        out[key] = {}
+        for name, leaf in entry.items():
+            a = np.asarray(leaf)
+            if a.ndim == _LEAF_RANK[name] + 1:  # slot-stacked: [W, n, 1, ...] -> [n, W, ...]
+                a = a[:, :, 0].swapaxes(0, 1)
+            out[key][name] = _tensor(a, device, None if name == "ssm" else dt)
+    W = next(iter(out["c0"].values())).shape[1]
     lengths = np.broadcast_to(np.asarray(cache["len"], np.int32), (W,))
-    return {"len": torch.from_numpy(lengths.copy()).to(device), "c0": c0}
+    return {"len": torch.from_numpy(lengths.copy()).to(device), **out}
 
 
 def cache_to_numpy(cache: dict) -> dict:
     """The port's cache -> the JAX serving engine's slot-stacked layout:
-    ``len`` [W] and leaves ``[W, n_layers, 1, ...]`` (fp32)."""
+    ``len`` [W] and, per class, leaves ``[W, n_layers, 1, ...]`` (fp32)."""
 
     def slot_stacked(t: torch.Tensor) -> np.ndarray:
         return t.detach().float().cpu().numpy().swapaxes(0, 1)[:, :, None]
 
     return {
-        "len": cache["len"].cpu().numpy(),
-        "c0": {name: slot_stacked(t) for name, t in cache["c0"].items()},
+        key: entry.cpu().numpy() if key == "len"
+        else {name: slot_stacked(t) for name, t in entry.items()}
+        for key, entry in cache.items()
     }

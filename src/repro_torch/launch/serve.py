@@ -7,6 +7,7 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b --smoke \
         --paged --spec-draft auto --spec-k 4
     PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b --smoke
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b --smoke
 
 Hosts G pipeline groups x R replicas of the (partitioned) model on one
 device (CUDA unless ``--device`` says otherwise), routes requests with

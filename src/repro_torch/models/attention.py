@@ -1,8 +1,8 @@
 """Attention sub-blocks: GQA projections with RoPE, then
 
 * prefill through the flash-attention kernel and single-token decode
-  through the flash-decode kernel against a dense KV cache
-  (:func:`attention_block`);
+  through the flash-decode kernel against a dense KV cache or a
+  sliding-window ring (:func:`attention_block`);
 * chunked prefill against a dense KV cache (:func:`chunk_attention_block`)
   through the paged-prefill kernel, the cache read as a pool of one page
   per lane;
@@ -91,33 +91,40 @@ def attention_block(
     cfg: ModelConfig,
     *,
     positions: torch.Tensor,
-    cache: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None,
+    window: int | None = None,
+    cache: tuple[torch.Tensor, ...] | None = None,
     lanes: torch.Tensor | None = None,
 ):
     """Full attention sub-block: qkv -> attn -> o_proj.
 
+    ``window`` is the layer class's static sliding window (None: full
+    attention); both kernels take it, as JAX's Pallas branch passes
+    ``window_static``.
+
     Without ``cache``: causal self-attention over x (prefill); returns
     (out, (k, v)) so the caller can fill the cache.
 
-    With ``cache=(k_cache, v_cache, attn_len)`` — one layer's cache
-    ``[W, max_len, KV, Dh]`` and per-lane valid lengths ``[W]`` that
-    include the token being decoded — single-token decode for the lanes
-    in ``lanes`` (a [N] index tensor): their new K/V rows are written *in
-    place* at ``attn_len - 1`` (the JAX version returns an updated copy
-    through ``dynamic_update_slice``), then every lane attends. Rows of
-    lanes outside ``lanes`` are left untouched and their outputs are
-    garbage the caller discards. Returns (out, (k_cache, v_cache)).
+    With ``cache=(k_cache, v_cache, attn_len, write_idx)`` — one layer's
+    cache ``[W, L, KV, Dh]``, per-lane valid rows ``[W]`` that include the
+    token being decoded, and per-lane write rows ``[W]`` (``attn_len - 1``
+    for a full cache, ``len % L`` for a ring) — single-token decode for
+    the lanes in ``lanes`` (a [N] index tensor): their new K/V rows are
+    written *in place* (the JAX version returns an updated copy through
+    ``dynamic_update_slice``), then every lane attends over its first
+    ``attn_len`` rows. Rows of lanes outside ``lanes`` are left untouched
+    and their outputs are garbage the caller discards. Returns (out,
+    (k_cache, v_cache)).
     """
     dtype = cfg.compute_dtype
     q, k, v = _project_qkv(x, p, cfg, positions)
     if cache is None:
-        out = flash_attention(q, k, v, causal=True)
+        out = flash_attention(q, k, v, causal=True, window=window)
         return _out_proj(out, p["wo"], dtype), (k, v)
-    k_cache, v_cache, attn_len = cache
-    idx = (attn_len[lanes] - 1).long()
+    k_cache, v_cache, attn_len, write_idx = cache
+    idx = write_idx[lanes].long()
     k_cache[lanes, idx] = k[lanes, 0].to(k_cache.dtype)
     v_cache[lanes, idx] = v[lanes, 0].to(v_cache.dtype)
-    out = decode_attention(q, k_cache, v_cache, attn_len)
+    out = decode_attention(q, k_cache, v_cache, attn_len, window=window)
     return _out_proj(out, p["wo"], dtype), (k_cache, v_cache)
 
 

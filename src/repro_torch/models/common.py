@@ -49,11 +49,12 @@ class ModelConfig:
     """One architecture: a field-for-field copy of the JAX package's
     ``ModelConfig``, so configs carry over unchanged.
 
-    ``attn_impl``, ``decode_mulsum`` and ``attn_kv_stream`` select
-    between JAX code paths and are kept only for that parity: the port
-    does not read them. On CUDA it always runs its hand-written attention
-    and selective-scan kernels; on the CPU the kernels' plain PyTorch
-    versions.
+    ``attn_impl``, ``decode_mulsum``, ``attn_kv_stream`` and
+    ``ring_impl`` select between JAX code paths and are kept only for that
+    parity: the port does not read them (a sliding-window ring is decoded
+    in place, as JAX's ``ring_impl="index"``). On CUDA it always runs its
+    hand-written attention and selective-scan kernels; on the CPU the
+    kernels' plain PyTorch versions.
     """
 
     name: str
@@ -100,7 +101,7 @@ class ModelConfig:
     stage_embed: bool = True
     stage_unembed: bool = True
     decode_mulsum: bool = False  # not read by the port
-    ring_impl: str = "roll"
+    ring_impl: str = "roll"  # not read by the port
     moe_impl: str = "einsum"
     attn_kv_stream: bool = False  # not read by the port
     # numerics

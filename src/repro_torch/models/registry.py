@@ -3,8 +3,9 @@
 ``Model`` bundles the entry points so the serving engine and the
 launcher never branch on family. ``prefill_batch`` / ``decode_batch``
 are the serving engine's batched entry points over a slot cache
-(``{"len": [W], "c0": {...}}``: K/V rows for attention models, conv
-tails and SSM states for Mamba models): in JAX they ``vmap`` the
+(``{"len": [W], "c0": {...}, ...}``, one entry per layer class: K/V
+rows or sliding-window rings for attention layers, conv tails and SSM
+states for Mamba layers, both for hymba's): in JAX they ``vmap`` the
 single-request functions over stacked per-request caches; here the batch
 is written out — every call covers the cache's whole slot width W and
 updates the given lanes in place. ``prefill_chunk`` /
@@ -13,8 +14,9 @@ per lane (chunked prefill, and the speculative draft's ingest);
 ``decode_paged`` / ``prefill_chunk_paged`` / ``verify_step_paged`` are
 the paged entry points, natively batched over the slot width as in JAX,
 updating the shared page pool in place. The chunk and paged entry points
-cover the ``supports_paged`` configs and are ``None`` for Mamba models,
-which serve whole prompts from the dense slot cache.
+cover the ``supports_paged`` configs and are ``None`` for Mamba and
+hybrid models and any windowed plan, which serve whole prompts from the
+dense slot cache, as in JAX.
 
 ``SPEC_DRAFT_PAIRS`` / :func:`default_draft_for` are the JAX registry's
 draft pairings for speculative decoding, copied.

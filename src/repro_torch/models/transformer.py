@@ -1,5 +1,5 @@
-"""Decoder-only LM assembly for the uniform full-attention decoders and
-the pure-Mamba SSM family.
+"""Decoder-only LM assembly for the full-attention decoders, the
+pure-Mamba SSM family and the hybrid (hymba) family.
 
 Entry points, as in the JAX package's ``models/transformer.py``:
 
@@ -13,26 +13,44 @@ Entry points, as in the JAX package's ``models/transformer.py``:
   :func:`verify_step_paged`, a speculative round's verify, which is the
   paged chunk call.
 
-The JAX ``lax.scan`` over stacked layer params is a Python loop over the
-layer axis here. The cache is batched natively, with per-lane lengths:
-``{"len": [B] int32, "c0": {...}}`` where ``c0`` holds ``"k", "v":
-[n_layers, B, max_len, KV, Dh]`` for attention layers and ``"conv":
-[n_layers, B, K-1, Din]`` (compute dtype) and ``"ssm": [n_layers, B, Din,
-N]`` (fp32) for Mamba layers, so a batch of serving slots is one call —
-:func:`prefill_into` and :func:`decode_step` take the ``lanes`` they
-write and update the cache in place.
+**Layer plan.** As in JAX, layers are grouped into *classes* by attention
+window (full first, then the windows in ascending order); each class
+stacks its parameters on a leading axis (``params["classes"]["c<i>"]``)
+and owns its cache entry ``c<i>``. Execution follows the original layer
+order as *runs*, each a contiguous slice of one class. The JAX
+``lax.scan`` over a run is a Python loop here.
 
-A Mamba layer is ``x + mamba(rmsnorm(x))`` with no feed-forward, as the
-JAX ``_layer_body`` for ``block == "mamba"``.
+**Cache.** Batched natively, with per-lane lengths: ``{"len": [B] int32,
+"c0": {...}, "c1": {...}, ...}``. A class entry holds ``"k", "v": [n, B,
+Lc, KV, Dh]`` for attention (``Lc = max_len`` for full attention, ``Lc =
+min(max_len, window)`` for a sliding-window ring) and ``"conv": [n, B,
+K-1, Din]`` (compute dtype) and ``"ssm": [n, B, Din, N]`` (fp32) for
+Mamba; a hymba class holds all four. A batch of serving slots is one
+call: :func:`prefill_into` and :func:`decode_step` take the ``lanes``
+they write and update the cache in place.
 
-Sliding windows and ring caches, hybrid (hymba) blocks, MoE,
-encoder–decoder models and modality frontends are not ported yet: they
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+**Rings.** A window class's ring keeps position ``p`` at row ``p % Lc``:
+prefill stores the last ``Lc`` rows so rotated, and decode writes lane
+``b``'s new row at ``len[b] % Lc`` and attends over its ``min(len[b] +
+1, Lc)`` valid rows (JAX's ``ring_impl="index"``). JAX's default,
+``"roll"``, rotates the whole ring twice per layer and step so that the
+new row lands at ``attn_len - 1``; the two layouts hold the same rows in
+another order, so they differ only in the rounding of the softmax sums.
+
+A Mamba layer is ``x + mamba(rmsnorm(x))`` with no feed-forward; a hymba
+layer runs attention and Mamba on the same normed input and averages
+their per-branch normed, gained outputs before the feed-forward, as the
+JAX ``_mixer`` / ``_layer_body``.
+
+MoE, encoder–decoder models and modality frontends are not ported yet:
+they raise ``NotImplementedError`` naming the ROADMAP item that ports
+them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -68,20 +86,16 @@ __all__ = [
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the architectures whose model code is not ported yet."""
     missing = []
-    if cfg.block not in ("attn", "mamba"):
-        missing.append(f"{cfg.block} blocks (hybrid attention + SSM)")
     if cfg.is_moe:
         missing.append("MoE feed-forward")
     if cfg.is_encdec:
         missing.append("encoder-decoder")
-    if cfg.attn_window is not None:
-        missing.append("sliding-window ring caches")
     if cfg.frontend is not None:
         missing.append(f"{cfg.frontend} frontend")
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported to PyTorch yet "
-            "(ROADMAP.md, Queue 1: the hybrid models and the rest of the zoo)"
+            "(ROADMAP.md, Queue 1: the rest of the zoo)"
         )
 
 
@@ -92,7 +106,7 @@ def check_supported(cfg: ModelConfig) -> None:
 @dataclasses.dataclass(frozen=True)
 class ClassSpec:
     window: int | None  # None = full attention
-    layer_ids: tuple[int, ...]
+    layer_ids: tuple[int, ...]  # original layer indices, ascending
 
     @property
     def count(self) -> int:
@@ -102,7 +116,7 @@ class ClassSpec:
 @dataclasses.dataclass(frozen=True)
 class RunSpec:
     class_idx: int
-    offset: int
+    offset: int  # start within the class stack
     count: int
 
 
@@ -112,28 +126,61 @@ class LayerPlan:
     runs: tuple[RunSpec, ...]
 
 
+@functools.lru_cache(maxsize=None)
 def layer_plan(cfg: ModelConfig) -> LayerPlan:
-    """The uniform plan: one class ``c0`` holding every layer, run in one
-    pass (the JAX plan's single-class case: full attention, or Mamba
-    layers, whose window is None)."""
+    """The JAX package's plan: one class per distinct window, sorted by
+    ``(window is not None, window)`` (so ``c0`` is the full-attention
+    class wherever there is one), and runs in the original layer order.
+
+    A stage without layers (more stages than layers, as the two-layer
+    smoke configs give at G=3) keeps one empty full-attention class, so
+    it serves like a uniform stage, paged included; the JAX plan has no
+    class for it and refuses it paged (ROADMAP, Queue 3).
+    """
     check_supported(cfg)
-    n = cfg.n_layers
-    return LayerPlan((ClassSpec(None, tuple(range(n))),), (RunSpec(0, 0, n),))
+    windows = [cfg.window_for_layer(l) for l in range(cfg.n_layers)]
+    uniq = sorted(set(windows), key=lambda w: (w is not None, w)) or [None]
+    classes = tuple(
+        ClassSpec(w, tuple(l for l, lw in enumerate(windows) if lw == w)) for w in uniq
+    )
+    cls_of = {l: ci for ci, c in enumerate(classes) for l in c.layer_ids}
+    pos_in_cls = {l: c.layer_ids.index(l) for c in classes for l in c.layer_ids}
+    runs: list[RunSpec] = []
+    l = 0
+    while l < cfg.n_layers:
+        ci, start, n = cls_of[l], pos_in_cls[l], 1
+        while l + n < cfg.n_layers and cls_of[l + n] == ci and pos_in_cls[l + n] == start + n:
+            n += 1
+        runs.append(RunSpec(ci, start, n))
+        l += n
+    return LayerPlan(classes, tuple(runs))
+
+
+def _class_layers_template(cfg: ModelConfig, n: int) -> dict:
+    """Template for one class of ``n`` layers (the JAX leaves)."""
+    D = cfg.d_model
+    layers: dict = {"ln1": ParamSpec((n, D), ("layers", "embed"), init="ones")}
+    if cfg.block in ("attn", "hymba"):
+        layers["attn"] = attn_template(cfg, n_layers=n)
+        layers["ln2"] = ParamSpec((n, D), ("layers", "embed"), init="ones")
+        layers["mlp"] = mlp_template(cfg, n_layers=n)
+    if cfg.block in ("mamba", "hymba"):
+        layers["ssm"] = ssm_template(cfg, n_layers=n)
+    if cfg.block == "hymba":
+        for name in ("norm_attn", "norm_ssm", "beta_attn", "beta_ssm"):
+            layers[name] = ParamSpec((n, D), ("layers", "embed"), init="ones")
+    return layers
 
 
 def lm_template(cfg: ModelConfig) -> dict:
     """Full parameter template (the JAX package's, leaf for leaf)."""
     cfg.validate()
-    n = layer_plan(cfg).classes[0].count
-    D = cfg.d_model
-    layers: dict = {"ln1": ParamSpec((n, D), ("layers", "embed"), init="ones")}
-    if cfg.block == "mamba":
-        layers["ssm"] = ssm_template(cfg, n_layers=n)
-    else:
-        layers["attn"] = attn_template(cfg, n_layers=n)
-        layers["ln2"] = ParamSpec((n, D), ("layers", "embed"), init="ones")
-        layers["mlp"] = mlp_template(cfg, n_layers=n)
-    t: dict = {"classes": {"c0": layers}}
+    plan = layer_plan(cfg)
+    t: dict = {
+        "classes": {
+            f"c{i}": _class_layers_template(cfg, c.count) for i, c in enumerate(plan.classes)
+        }
+    }
     emb = embed_template(cfg)
     keep_emb: dict = {}
     if cfg.stage_embed or (cfg.stage_unembed and cfg.tie_embeddings):
@@ -184,26 +231,40 @@ def _layer_params(stack: dict, l: int) -> dict:
     return tree_map(lambda a: a[l], stack)
 
 
-def _layer(x, p_layer, cfg: ModelConfig, *, positions, cache=None, lanes=None):
-    """One attention layer (attention + FFN); returns (x, (k, v))."""
+def _layer(x, p_layer, cfg: ModelConfig, *, positions, window=None, cache=None, lanes=None):
+    """One layer of any family (the JAX ``_layer_body`` with ``_mixer``).
+
+    Prefill (``cache`` None) returns (x, parts) with the new rows ``"k",
+    "v"`` of an attention layer and the final ``"conv", "ssm"`` state of a
+    Mamba one. Decode takes the layer's cache views ``{"k", "v",
+    "attn_len", "write_idx"}`` and / or ``{"conv", "ssm"}``: K/V rows of
+    the lanes in ``lanes`` are written in place, and the new conv / SSM
+    state of every lane is returned in ``parts`` for the caller to store.
+    """
     h = rmsnorm(x, p_layer["ln1"], cfg.rms_eps)
-    a, kv = attention_block(
-        h, p_layer["attn"], cfg, positions=positions, cache=cache, lanes=lanes
-    )
-    x = x + a
+    parts: dict = {}
+    if cfg.block in ("attn", "hymba"):
+        kv = None if cache is None else (
+            cache["k"], cache["v"], cache["attn_len"], cache["write_idx"])
+        mix, (parts["k"], parts["v"]) = attention_block(
+            h, p_layer["attn"], cfg, positions=positions, window=window, cache=kv, lanes=lanes
+        )
+    if cfg.block in ("mamba", "hymba"):
+        if cache is None:
+            m, (parts["conv"], parts["ssm"]) = mamba_block(h, p_layer["ssm"], cfg)
+        else:
+            m, (parts["conv"], parts["ssm"]) = mamba_decode_step(
+                h, p_layer["ssm"], cfg, (cache["conv"], cache["ssm"])
+            )
+        if cfg.block == "mamba":
+            return x + m, parts
+        # hymba fusion: per-branch norm and learned gain, averaged.
+        a = rmsnorm(mix, p_layer["norm_attn"], cfg.rms_eps) * p_layer["beta_attn"].to(mix.dtype)
+        m = rmsnorm(m, p_layer["norm_ssm"], cfg.rms_eps) * p_layer["beta_ssm"].to(m.dtype)
+        mix = 0.5 * (a + m)
+    x = x + mix
     h2 = rmsnorm(x, p_layer["ln2"], cfg.rms_eps)
-    return x + _ffn(h2, p_layer, cfg), kv
-
-
-def _mamba_layer(x, p_layer, cfg: ModelConfig, state=None):
-    """One Mamba layer, no FFN: prefill (``state`` None) or one decode step
-    against ``state = (conv, ssm)``; returns (x, (conv, ssm))."""
-    h = rmsnorm(x, p_layer["ln1"], cfg.rms_eps)
-    if state is None:
-        m, state = mamba_block(h, p_layer["ssm"], cfg)
-    else:
-        m, state = mamba_decode_step(h, p_layer["ssm"], cfg, state)
-    return x + m, state
+    return x + _ffn(h2, p_layer, cfg), parts
 
 
 def _stage_input(batch: dict, cfg: ModelConfig) -> torch.Tensor:
@@ -214,20 +275,27 @@ def _stage_input(batch: dict, cfg: ModelConfig) -> torch.Tensor:
 # Cache
 # ---------------------------------------------------------------------------
 
+def _class_cache_len(cls: ClassSpec, max_len: int) -> int:
+    return max_len if cls.window is None else min(max_len, cls.window)
+
+
 def init_cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> dict:
-    """Cache layout as (shape, dtype) leaves: per-lane lengths and the
-    stacked K/V of every attention layer, or the conv tail and SSM state
-    of every Mamba layer (O(1) in the context, so ``max_len`` is unused)."""
-    n = layer_plan(cfg).classes[0].count
-    if cfg.block == "mamba":
-        c0 = {
-            "conv": ((n, batch, cfg.ssm_conv - 1, cfg.d_inner), cfg.compute_dtype),
-            "ssm": ((n, batch, cfg.d_inner, cfg.ssm_state), torch.float32),
-        }
-    else:
-        kv = ((n, batch, max_len, cfg.n_kv_heads, cfg.head_dim), cfg.compute_dtype)
-        c0 = {"k": kv, "v": kv}
-    return {"len": ((batch,), torch.int32), "c0": c0}
+    """Cache layout as (shape, dtype) leaves: per-lane lengths and, per
+    class, the stacked K/V of its attention layers (``max_len`` rows, or
+    a ring of ``min(max_len, window)``) and / or the conv tail and SSM
+    state of its Mamba layers (O(1) in the context)."""
+    out: dict = {"len": ((batch,), torch.int32)}
+    for i, cls in enumerate(layer_plan(cfg).classes):
+        n, entry = cls.count, {}
+        if cfg.block in ("attn", "hymba"):
+            Lc = _class_cache_len(cls, max_len)
+            kv = ((n, batch, Lc, cfg.n_kv_heads, cfg.head_dim), cfg.compute_dtype)
+            entry["k"] = entry["v"] = kv
+        if cfg.block in ("mamba", "hymba"):
+            entry["conv"] = ((n, batch, cfg.ssm_conv - 1, cfg.d_inner), cfg.compute_dtype)
+            entry["ssm"] = ((n, batch, cfg.d_inner, cfg.ssm_state), torch.float32)
+        out[f"c{i}"] = entry
+    return out
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
@@ -238,6 +306,21 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
     )
 
 
+def _classes(cache: dict, cfg: ModelConfig):
+    """(class index, class spec, class cache entry) of every class."""
+    return [(i, cls, cache[f"c{i}"]) for i, cls in enumerate(layer_plan(cfg).classes)]
+
+
+def _runs(params, cache: dict, cfg: ModelConfig):
+    """(class index, class spec, class params, class cache, layer row) of
+    every layer, in the original layer order."""
+    plan = layer_plan(cfg)
+    for run in plan.runs:
+        i = run.class_idx
+        for row in range(run.offset, run.offset + run.count):
+            yield i, plan.classes[i], params["classes"][f"c{i}"], cache[f"c{i}"], row
+
+
 # ---------------------------------------------------------------------------
 # Entry points
 # ---------------------------------------------------------------------------
@@ -246,40 +329,42 @@ def prefill_into(params, batch: dict, cache: dict, lanes: torch.Tensor, cfg: Mod
     """Prefill N same-length prompts into cache lanes ``lanes`` [N].
 
     batch: {"tokens": [N, S]} (first stage) or {"hidden": [N, S, D]}.
-    Writes each layer's K/V rows ``[0, S)`` (attention) or its conv tail
-    and final SSM state (Mamba) into the given lanes and sets their
-    lengths to S, in place; other lanes are untouched. Returns the last
-    position's logits [N, 1, V] (last stage) or the whole hidden sequence
-    [N, S, D] (a middle stage: the next stage prefills from it).
+    Writes each attention layer's K/V rows ``[0, S)`` — for a window
+    class whose ring is shorter than S, its last ``Lc`` rows, row = position
+    mod ``Lc`` — and each Mamba layer's conv tail and final SSM state into
+    the given lanes and sets their lengths to S, in place; other lanes are
+    untouched. Returns the last position's logits [N, 1, V] (last stage)
+    or the whole hidden sequence [N, S, D] (a middle stage: the next stage
+    prefills from it).
     """
     x_in = _stage_input(batch, cfg)
     S = x_in.shape[1]
+    for _, cls, entry in _classes(cache, cfg):
+        if cls.window is None and "k" in entry and S > entry["k"].shape[2]:
+            raise ValueError(
+                f"prompt of {S} tokens exceeds the cache's max_len {entry['k'].shape[2]}")
     x = _embed(params, x_in, cfg)
-    stack = params["classes"]["c0"]
-    c0 = cache["c0"]
-    if cfg.block == "mamba":
-        for l in range(c0["conv"].shape[0]):
-            x, (conv, ssm) = _mamba_layer(x, _layer_params(stack, l), cfg)
-            c0["conv"][l, lanes] = conv.to(c0["conv"].dtype)
-            c0["ssm"][l, lanes] = ssm
-    else:
-        max_len = c0["k"].shape[2]
-        if S > max_len:
-            raise ValueError(f"prompt of {S} tokens exceeds the cache's max_len {max_len}")
-        positions = torch.arange(S, device=x.device)
-        k_all, v_all = c0["k"], c0["v"]
-        for l in range(k_all.shape[0]):
-            x, (k, v) = _layer(x, _layer_params(stack, l), cfg, positions=positions)
-            k_all[l, lanes, :S] = k.to(k_all.dtype)
-            v_all[l, lanes, :S] = v.to(v_all.dtype)
+    positions = torch.arange(S, device=x.device)
+    for _, cls, stack, entry, row in _runs(params, cache, cfg):
+        x, parts = _layer(x, _layer_params(stack, row), cfg, positions=positions,
+                          window=cls.window)
+        for name, new in parts.items():
+            dst = entry[name]
+            if name in ("k", "v"):
+                Lc = dst.shape[2]
+                if S > Lc:  # a window class: the ring of the last Lc positions
+                    new = torch.roll(new[:, S - Lc:], S % Lc, dims=1)
+                dst[row, lanes, : new.shape[1]] = new.to(dst.dtype)
+            else:
+                dst[row, lanes] = new.to(dst.dtype)
     cache["len"][lanes] = S
     return _unembed(params, x[:, -1:] if cfg.stage_unembed else x, cfg)
 
 
 def prefill(params, batch: dict, cfg: ModelConfig, *, max_len: int):
     """Forward over a batch of prompts, building a fresh cache of
-    ``max_len`` rows per lane. Returns (logits [B, 1, V] | hidden
-    [B, S, D], cache)."""
+    ``max_len`` rows per lane (rings of ``min(max_len, window)``).
+    Returns (logits [B, 1, V] | hidden [B, S, D], cache)."""
     x_in = _stage_input(batch, cfg)
     if max_len < x_in.shape[1]:
         raise ValueError("max_len must cover the prompt")
@@ -293,35 +378,37 @@ def decode_step(params, token: torch.Tensor, cache: dict, cfg: ModelConfig,
     """One decode step for every lane of the cache.
 
     token: [B, 1] ids (first stage) or hidden [B, 1, D]. Lane b's new
-    token sits at position ``cache["len"][b]``. Only the lanes in
-    ``lanes`` (default: all) get their K/V row (or conv / SSM state)
-    written and their length bumped — in place; the other lanes compute
-    garbage the caller drops (the JAX engine's masked merge).
+    token sits at position ``cache["len"][b]``: a full-attention class
+    writes its K/V row there and attends over ``len[b] + 1`` rows, a
+    window class writes at ``len[b] % Lc`` and attends over
+    ``min(len[b] + 1, Lc)`` rows of its ring. Only the lanes in ``lanes``
+    (default: all) get their K/V rows (and conv / SSM state) written and
+    their length bumped — in place; the other lanes compute garbage the
+    caller drops (the JAX engine's masked merge).
     Returns (logits [B, 1, V] | hidden [B, 1, D], cache).
     """
     x = _embed(params, token, cfg)
     lengths = cache["len"]
     if lanes is None:
         lanes = torch.arange(x.shape[0], device=x.device)
-    stack = params["classes"]["c0"]
-    if cfg.block == "mamba":
-        conv_all, ssm_all = cache["c0"]["conv"], cache["c0"]["ssm"]
-        for l in range(conv_all.shape[0]):
-            x, (conv, ssm) = _mamba_layer(
-                x, _layer_params(stack, l), cfg, state=(conv_all[l], ssm_all[l])
-            )
-            conv_all[l, lanes] = conv[lanes].to(conv_all.dtype)
-            ssm_all[l, lanes] = ssm[lanes]
-        cache["len"][lanes] += 1
-        return _unembed(params, x, cfg), cache
     positions = lengths[:, None]
-    attn_len = lengths + 1
-    k_all, v_all = cache["c0"]["k"], cache["c0"]["v"]
-    for l in range(k_all.shape[0]):
-        x, _ = _layer(
-            x, _layer_params(stack, l), cfg, positions=positions,
-            cache=(k_all[l], v_all[l], attn_len), lanes=lanes,
-        )
+    # Valid rows and write rows per class, the same for every layer of it.
+    rows: dict[int, dict] = {}
+    for i, cls, entry in _classes(cache, cfg):
+        if "k" in entry:
+            Lc = entry["k"].shape[2]
+            ring = cls.window is not None
+            rows[i] = {
+                "attn_len": (lengths + 1).clamp(max=Lc) if ring else lengths + 1,
+                "write_idx": lengths % Lc if ring else lengths,
+            }
+    for i, cls, stack, entry, row in _runs(params, cache, cfg):
+        views = {name: t[row] for name, t in entry.items()}
+        x, parts = _layer(x, _layer_params(stack, row), cfg, positions=positions,
+                          window=cls.window, cache={**views, **rows.get(i, {})}, lanes=lanes)
+        for name in ("conv", "ssm"):
+            if name in parts:
+                entry[name][row, lanes] = parts[name][lanes].to(entry[name].dtype)
     cache["len"][lanes] += 1
     return _unembed(params, x, cfg), cache
 
@@ -384,13 +471,13 @@ def prefill_chunk(params, chunk, cache: dict, offsets, valids, cfg: ModelConfig,
 
 def supports_paged(cfg: ModelConfig) -> bool:
     """Paged serving pages the unbounded full-attention KV: every
-    pure-attention architecture whose layers all attend globally, which
-    is every attention architecture the port has (``check_supported``
-    raises for the rest). Mamba layers keep O(1) state per lane and serve
-    from the dense slot cache, as in JAX. A pipeline stage without layers
-    (more stages than layers, as the two-layer smoke configs give at G=3)
-    pages nothing and is served all the same; the JAX layer plan has no
-    class for it and refuses it."""
+    pure-attention architecture whose layers all attend globally. Ring
+    buffers and Mamba states are already O(window) / O(1) per lane and
+    serve from the dense slot cache, as in JAX: so hybrid (hymba) and
+    Mamba models, and any plan with a window class, are not paged. A
+    pipeline stage without layers (more stages than layers, as the
+    two-layer smoke configs give at G=3) pages nothing and is served all
+    the same; the JAX layer plan has no class for it and refuses it."""
     if cfg.is_encdec or cfg.block != "attn":
         return False
     plan = layer_plan(cfg)

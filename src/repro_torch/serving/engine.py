@@ -17,17 +17,21 @@ decides everything else. It is the port of the JAX package's
   ``_DenseExec`` or ``_PagedExec``.
 
 Continuous batching. Each (group, replica) owns one dense cache
-``{"len": [W], "c0": {...}}`` of ``W = max_batch`` slots: K/V
-``[n_layers, W, max_len, KV, Dh]`` for attention models, the conv tail
+``{"len": [W], "c0": {...}, ...}`` of ``W = max_batch`` slots, one entry
+per layer class of its stage (``models/transformer.py``): K/V
+``[n_layers, W, max_len, KV, Dh]`` for full-attention layers, a ring of
+``min(max_len, window)`` rows for sliding-window layers, the conv tail
 ``[n_layers, W, K-1, Din]`` and SSM state ``[n_layers, W, Din, N]`` for
-Mamba models. Per simulation slot a replica launches one batched stage
+Mamba layers (a hymba class holds both). Per simulation slot a replica launches one batched stage
 call for every resident request at that stage: a decode over the full
 slot width plus one prefill per distinct length of the joining prompts,
 and charges ``CE(PM)/kappa`` per slot per call. The JAX engine decodes
 all W slots and merges the whole cache back with a select (a full cache
 copy per step); here the decode writes K/V rows (or conv / SSM state)
 and bumps lengths only for member slots, in place, and prefill writes
-the joining slots' rows ``[0, S)`` (or their whole state).
+the joining slots' rows ``[0, S)`` (a ring its last rows) or their whole
+state. Hybrid and sliding-window models serve dense only, as in JAX:
+paged serving, chunked prefill and speculative decoding refuse them.
 
 Paged KV cache (``paged=True``). Each (group, replica) owns a shared pool
 ``{"k", "v": [n_layers, P+1, page, KV, Dh]}`` of ``max_pages`` pages

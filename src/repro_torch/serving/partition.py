@@ -4,8 +4,8 @@ whose first/last stages keep the embedding/unembedding; middle stages
 exchange hidden states — the paper's "groups of devices, identical
 portions of the LLM layers replicated within a group".
 
-Stage parameters are views into the full model's tensors (slices of the
-layer axis), so partitioning copies no weights.
+Stage parameters are views into the full model's tensors (slices of each
+layer class's leading axis), so partitioning copies no weights.
 """
 
 from __future__ import annotations
@@ -32,13 +32,16 @@ def _stage_ranges(n_layers: int, n_stages: int) -> list[tuple[int, int]]:
 
 def stage_configs(cfg: ModelConfig, n_stages: int) -> list[ModelConfig]:
     """Per-stage configs: a slice of the layers, embedding on the first
-    stage, unembedding on the last."""
+    stage, unembedding on the last, and the global-attention layer ids
+    that fall in the stage remapped to its own layer indices."""
     layer_plan(cfg)  # raises for architectures the port does not have
     return [
         dataclasses.replace(
             cfg,
             name=f"{cfg.name}/stage{g}",
             n_layers=end - start,
+            global_attn_layers=tuple(l - start for l in cfg.global_attn_layers
+                                     if start <= l < end),
             stage_embed=(g == 0),
             stage_unembed=(g == n_stages - 1),
         )
@@ -49,17 +52,27 @@ def stage_configs(cfg: ModelConfig, n_stages: int) -> list[ModelConfig]:
 def slice_stage_params(cfg: ModelConfig, params, n_stages: int) -> list:
     """Slice the full model's parameters into per-stage trees.
 
-    The layer stack is sliced along its leading axis; the embedding goes
-    to stage 0 (and, when tied, to the last stage too), final norm /
-    lm_head to the last stage.
+    Each stage class takes the rows of the full-model class with the same
+    window that its layers occupy (contiguous, since a stage is a
+    contiguous layer range): a stage with one class has only ``c0``,
+    which may be the full model's ``c1``. The embedding goes to stage 0
+    (and, when tied, to the last stage too), final norm / lm_head to the
+    last stage.
     """
+    full = layer_plan(cfg).classes
     out = []
     for (start, end), s_cfg in zip(
         _stage_ranges(cfg.n_layers, n_stages), stage_configs(cfg, n_stages)
     ):
-        tree: dict = {
-            "classes": {"c0": tree_map(lambda a: a[start:end], params["classes"]["c0"])}
-        }
+        classes = {}
+        for si, s_cls in enumerate(layer_plan(s_cfg).classes):
+            # A stage without layers has one empty full-attention class.
+            fi = next((i for i, c in enumerate(full) if c.window == s_cls.window), 0)
+            keep = [pos for pos, l in enumerate(full[fi].layer_ids) if start <= l < end]
+            lo, hi = (keep[0], keep[-1] + 1) if keep else (0, 0)
+            assert keep == list(range(lo, hi)), "class rows must be contiguous"
+            classes[f"c{si}"] = tree_map(lambda a: a[lo:hi], params["classes"][f"c{fi}"])
+        tree: dict = {"classes": classes}
         emb: dict = {}
         if s_cfg.stage_embed or (s_cfg.stage_unembed and s_cfg.tie_embeddings):
             emb["tok"] = params["embed"]["tok"]

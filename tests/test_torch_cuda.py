@@ -48,7 +48,7 @@ from repro_torch.kernels.flash_attention import flash_attention, flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
 from repro_torch.kernels.selective_scan import ops as scan_ops
 from repro_torch.kernels.selective_scan import selective_scan, selective_scan_ref
-from repro_torch.models import build_model, init_from_template, ssm, transformer
+from repro_torch.models import attention, build_model, init_from_template, ssm, transformer
 from repro_torch.serving import PipelineServer
 
 pytestmark = pytest.mark.cuda
@@ -78,6 +78,9 @@ def gen():
         (1, 300, 8, 2, 64, True, 64),  # window edge on a tile boundary
         (2, 1000, 40, 8, 128, True, None),  # qwen2.5: G=5 rows per position
         (1, 512, 48, 1, 128, True, None),  # granite MQA: G=48
+        (1, 1300, 25, 5, 64, True, 1024),  # hymba's window class, S past the window
+        (1, 1300, 25, 5, 64, True, None),  # hymba's global class
+        (2, 200, 25, 5, 64, True, 16),  # hymba-smoke's window at G=5, D=64
     ],
 )
 def test_flash_kernel_matches_plain(gen, dtype, B, S, H, KV, D, causal, window):
@@ -105,6 +108,8 @@ def test_flash_kernel_matches_plain(gen, dtype, B, S, H, KV, D, causal, window):
         (4, 4096, 48, 1, 128, [100, 1000, 2500, 4096], None),  # granite MQA: G=48
         (4, 128, 48, 1, 128, [9, 40, 77, 128], None),  # granite served, max_len 128
         (8, 261, 32, 32, 64, [9, 40, 77, 128, 150, 200, 231, 259], None),  # draft steps
+        (4, 1024, 25, 5, 64, [1, 513, 1024, 1024], 1024),  # hymba's ring, full after the wrap
+        (4, 1536, 25, 5, 64, [1101, 1200, 1300, 1536], None),  # hymba's global cache
     ],
 )
 def test_decode_kernel_matches_plain(gen, dtype, B, S, H, KV, D, lengths, window):
@@ -235,6 +240,82 @@ def test_server_runs_through_the_kernels(gen):
     assert flash_attention.launches > flash_before
     assert decode_attention.launches > decode_before
     assert server.host_readback.counts["dispatch"] == 0
+
+
+def _hybrid(gen):
+    """hymba-smoke at head_dim 64 (d_model 320, 5 / 1 heads, window 16),
+    fp32, random weights on the card."""
+    cfg = dataclasses.replace(get_smoke_config("hymba-1.5b"), d_model=320, dtype="float32",
+                              param_dtype="float32")
+    assert cfg.head_dim == 64
+    model = build_model(cfg)
+    return model, init_from_template(model.template, gen, cfg.param_dtype, device="cuda")
+
+
+def test_hybrid_layer_stack_kernel_path_matches_plain_path(gen, monkeypatch):
+    """A 40-token prompt (past the window) and 40 teacher-forced decode
+    steps (every ring wraps twice more), through the kernels and through
+    their plain versions: every call's kernel output within 1e-3 of the
+    plain output's scale on the same inputs, and the logits of the two
+    paths within 1e-3 of their scale at every step."""
+    model, params = _hybrid(gen)
+    tokens = torch.randint(0, model.cfg.vocab_size, (2, 80), generator=gen, device="cuda")
+
+    def run():
+        logits, cache = model.prefill(params, {"tokens": tokens[:, :40]}, 96)
+        out = [logits]
+        for t in range(40, 80):
+            logits, cache = model.decode_step(params, tokens[:, t:t + 1], cache)
+            out.append(logits)
+        return torch.cat(out, dim=1), cache
+
+    before = flash_attention.launches, decode_attention.launches, selective_scan.launches
+    kernel_logits, kernel_cache = run()
+    after = flash_attention.launches, decode_attention.launches, selective_scan.launches
+    assert all(a > b for a, b in zip(after, before)), (before, after)
+    assert kernel_cache["c1"]["k"].shape[2] == 16 and kernel_cache["c0"]["k"].shape[2] == 96
+    worst = {}
+
+    def compared(name, kernel, plain):
+        def call(*args, **kwargs):
+            want = plain(*args, **kwargs)
+            got = kernel(*args, **kwargs)
+            for g, w in zip(got if isinstance(got, tuple) else (got,),
+                            want if isinstance(want, tuple) else (want,)):
+                err = ((g - w).abs().max() / w.abs().max()).item()
+                worst[name] = max(worst.get(name, 0.0), err)
+            return want
+        return call
+
+    monkeypatch.setattr(attention, "flash_attention",
+                        compared("flash", flash_attention, flash_attention_ref))
+    monkeypatch.setattr(attention, "decode_attention",
+                        compared("decode", decode_attention, decode_attention_ref_model))
+    monkeypatch.setattr(ssm, "selective_scan",
+                        compared("scan", selective_scan, selective_scan_ref))
+    plain_logits, _ = run()
+    assert set(worst) == {"flash", "decode", "scan"} and max(worst.values()) <= 1e-3, worst
+    err = (kernel_logits - plain_logits).abs().max().item()
+    assert err <= 1e-3 * plain_logits.abs().max().item(), err
+
+
+def test_hybrid_server_runs_through_the_kernels(gen):
+    model, params = _hybrid(gen)
+    server = PipelineServer(model, params, n_groups=3, max_len=96, device="cuda")
+    before = flash_attention.launches, decode_attention.launches, selective_scan.launches
+    prompt = np.arange(40) % model.cfg.vocab_size
+    req = server.submit(prompt, n_tokens=24)
+    for _ in range(400):
+        if req.done:
+            break
+        server.step()
+    assert req.done and len(req.generated) == 24
+    after = flash_attention.launches, decode_attention.launches, selective_scan.launches
+    assert all(a > b for a, b in zip(after, before)), (before, after)
+    assert server.host_readback.counts["dispatch"] == 0
+    # The server's first token is the monolithic kernel path's.
+    logits, _ = model.prefill(params, {"tokens": torch.from_numpy(prompt)[None].cuda()}, 96)
+    assert req.generated[0] == int(logits[0, -1].argmax())
 
 
 def _paged(gen, B, NB, page, KV, D, dtype, int8):

@@ -35,6 +35,7 @@ from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 from repro_torch.kernels.flash_attention.ops import check_rows_16b_aligned
 from repro_torch.kernels.selective_scan.ops import states_per_thread
 from repro_torch.models import attention, build_model, init_from_template
+from repro_torch.models.transformer import layer_plan
 from repro_torch.serving import PipelineServer
 
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -258,28 +259,20 @@ def test_alignment_check_refuses_rows_off_16_bytes():
 
 
 @functools.lru_cache(maxsize=None)
-def _one_layer(arch):
+def _cut(arch, n_layers=1):
     """The architecture at its full attention width (d_model, heads,
-    head_dim) in bf16, cut to one layer, d_ff 64 and a 256-token vocabulary."""
-    cfg = dataclasses.replace(get_config(arch), n_layers=1, d_ff=64, vocab_size=256)
+    head_dim) in bf16, cut to ``n_layers`` layers, d_ff 64 and a 256-token
+    vocabulary."""
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers, d_ff=64, vocab_size=256)
     model = build_model(cfg)
     params = init_from_template(model.template, torch.Generator().manual_seed(0),
                                 cfg.param_dtype, device="cpu")
     return model, params
 
 
-@pytest.mark.parametrize("mode", ["dense", "dense-chunk", "paged", "paged-int8", "paged-spec"])
-@pytest.mark.parametrize(
-    "arch", ["stablelm-1.6b", "phi4-mini-3.8b", "qwen2.5-14b", "granite-20b"]
-)
-def test_served_attention_operands_pass_the_bf16_alignment_checks(arch, mode, monkeypatch):
-    """Every prefill-attention and decode call of a served request hands
-    the kernels q / k / v (models/attention.py), dense caches and page
-    pools whose rows start on 16-byte boundaries, as the bf16 tensor-core
-    kernels and the decode kernels' 16-byte loads ask: dense chunks read
-    the slot cache as a pool, and a speculative round's draft cache has
-    ``max_len + k + 1`` rows."""
-    model, params = _one_layer(arch)
+def _checked_kernel_calls(monkeypatch) -> list:
+    """Route the attention kernels the models call through the bf16
+    alignment check; returns the list of kernel names called."""
     seen = []
 
     def checked(name, fn, operands):
@@ -301,14 +294,10 @@ def test_served_attention_operands_pass_the_bf16_alignment_checks(arch, mode, mo
     monkeypatch.setattr(attention, "paged_decode_attention",
                         checked("paged_decode_attention", attention.paged_decode_attention,
                                 ("q", "k_pages", "v_pages")))
-    kw = {
-        "dense": {},
-        "dense-chunk": dict(prefill_chunk=8),
-        "paged": dict(paged=True, page_size=16, max_pages=8, prefill_chunk=8),
-        "paged-int8": dict(paged=True, page_size=16, max_pages=8, prefill_chunk=8,
-                           kv_dtype="int8"),
-        "paged-spec": dict(paged=True, page_size=16, max_pages=8, spec_draft=(model, params)),
-    }[mode]
+    return seen
+
+
+def _serve_one(model, params, **kw):
     server = PipelineServer(model, params, n_groups=1, n_replicas=1, max_batch=2, max_len=64,
                             seed=0, device="cpu", **kw)
     req = server.submit(np.arange(20) % 256, n_tokens=4)
@@ -317,6 +306,30 @@ def test_served_attention_operands_pass_the_bf16_alignment_checks(arch, mode, mo
             break
         server.step()
     assert req.done
+
+
+@pytest.mark.parametrize("mode", ["dense", "dense-chunk", "paged", "paged-int8", "paged-spec"])
+@pytest.mark.parametrize(
+    "arch", ["stablelm-1.6b", "phi4-mini-3.8b", "qwen2.5-14b", "granite-20b"]
+)
+def test_served_attention_operands_pass_the_bf16_alignment_checks(arch, mode, monkeypatch):
+    """Every prefill-attention and decode call of a served request hands
+    the kernels q / k / v (models/attention.py), dense caches and page
+    pools whose rows start on 16-byte boundaries, as the bf16 tensor-core
+    kernels and the decode kernels' 16-byte loads ask: dense chunks read
+    the slot cache as a pool, and a speculative round's draft cache has
+    ``max_len + k + 1`` rows."""
+    model, params = _cut(arch)
+    seen = _checked_kernel_calls(monkeypatch)
+    kw = {
+        "dense": {},
+        "dense-chunk": dict(prefill_chunk=8),
+        "paged": dict(paged=True, page_size=16, max_pages=8, prefill_chunk=8),
+        "paged-int8": dict(paged=True, page_size=16, max_pages=8, prefill_chunk=8,
+                           kv_dtype="int8"),
+        "paged-spec": dict(paged=True, page_size=16, max_pages=8, spec_draft=(model, params)),
+    }[mode]
+    _serve_one(model, params, **kw)
     want = {
         "dense": {"flash_attention", "decode_attention"},
         "dense-chunk": {"paged_prefill_attention", "decode_attention"},
@@ -325,3 +338,14 @@ def test_served_attention_operands_pass_the_bf16_alignment_checks(arch, mode, mo
         "paged-spec": {"flash_attention", "paged_prefill_attention", "decode_attention"},
     }[mode]
     assert set(seen) == want, seen
+
+
+def test_hybrid_served_attention_operands_pass_the_bf16_alignment_checks(monkeypatch):
+    """The same for hymba-1.5b (25 / 5 heads of 64, d_model 1600) cut to
+    its first two layers, one global and one of the window-1024 class,
+    whose ring (min(max_len, window) rows) the decode kernel reads."""
+    model, params = _cut("hymba-1.5b", n_layers=2)
+    assert [c.window for c in layer_plan(model.cfg).classes] == [None, 1024]
+    seen = _checked_kernel_calls(monkeypatch)
+    _serve_one(model, params)
+    assert set(seen) == {"flash_attention", "decode_attention"}, seen

@@ -182,13 +182,14 @@ def test_partitioned_stages_equal_whole_model(arch, G):
         torch.testing.assert_close(x, whole_logits, rtol=0, atol=1e-6)
 
 
-@pytest.mark.parametrize("arch", ["hymba-1.5b", "qwen3-moe-30b-a3b", "seamless-m4t-large-v2"])
+@pytest.mark.parametrize("arch", ["internvl2-76b", "qwen3-moe-30b-a3b", "seamless-m4t-large-v2"])
 def test_unported_architectures_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_config(arch)
 
 
 def test_unported_layer_kinds_raise():
-    windowed = dataclasses.replace(get_smoke_config("stablelm-1.6b"), attn_window=16)
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        build_model(windowed)
+    moe = dataclasses.replace(get_smoke_config("stablelm-1.6b"), n_experts=4, moe_top_k=2,
+                              d_ff_expert=32)
+    with pytest.raises(NotImplementedError, match="MoE"):
+        build_model(moe)
