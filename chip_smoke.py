@@ -53,7 +53,14 @@ Phases, in order; any failure exits non-zero:
    phase 13's hymba shapes (H=25, KV=5: G=5, D=64, bf16): flash over a
    1300-token prompt with the window of 1024 and without, dense decode
    over a 1024-row ring (lengths 1, 513, 1024, 1024, window 1024) and over
-   the 1536-row global cache, the scan at B=1, S=1300, Din 3200 (fp32); a
+   the 1536-row global cache, the scan at B=1, S=1300, Din 3200 (fp32);
+   and at the MoE phases' packings (bf16): granite-moe (H=16, KV=8: G=2,
+   D=64) flash over its whole prompts, dense decode at its serving shape,
+   paged decode and 32-token chunks on bf16 and int8 pages; qwen3-moe
+   (H=32, KV=4: G=8, D=128) flash over a 200-token prompt, dense decode
+   over a 4096-row cache, paged decode and its verify (C = 5); phi4-mini
+   (G=3, D=128) paged decode and chunks as a target, and its draft steps
+   and ingests over a 261-row cache; a
    windowed flash's yardstick is one SDPA call with a banded boolean mask,
    and its bound counts the band's (query, key) pairs. Kernel, plain-version and
    yardstick times (CUDA events, median of 20 runs, each queued behind a
@@ -191,12 +198,51 @@ Phases, in order; any failure exits non-zero:
    token equals the plain path's.
    ``python3 -c 'import chip_smoke, torch;
    chip_smoke.hybrid_phase(torch.device("cuda"))'`` runs phases 13-14 alone.
-15. A JSON line of per-kernel results (all six kernels; the paged-prefill
-   kernel's launches also by route: ``paged_chunk`` from phase 5,
-   ``verify`` and ``dense_chunk`` from phases 9 and 10; flash's by route:
-   ``windowed`` from phase 13, ``full`` from the rest; rmsnorm's counter
-   is read over phases 4-13 and must stay 0: no served path launches it),
-   then the device line last.
+15. Serve MoE: full-width granite-moe-1b-a400m (24 layers, d_model 1024,
+   16 / 8 heads of 64, 32 experts of width 512, top 8; 1,384,963,072
+   parameters, bf16, seed 0) at G=3 x R=3, async depth 2, seed 0: dense
+   (whole prompts through flash, dense decode; max_batch 4, max_len 128,
+   four 64..120-token prompts, ``run(60, arrival_p=0.5)``), then paged
+   (page 16, max_batch 8, max_len 256, 32-token chunks, bf16 pages, four
+   64..200-token prompts, ``run(60)``). Each run prints its tokens/s, peak
+   memory, launches per kernel, and the share of routed assignments its
+   MoE layers dropped (``moe_ffn.routed`` / ``dropped``, summed on the
+   card). The path's kernels must launch and the MoE layers route on the
+   card.
+16. Serve MoE speculative: full-width qwen3-moe-30b-a3b (48 layers,
+   d_model 2048, 32 / 4 heads of 128 with q/k norm, 128 experts of width
+   768, top 8; 30,532,122,624 parameters, 61.06 GB bf16, seed 0; the peak
+   while its weights are drawn is printed) with its registry draft
+   phi4-mini-3.8b (seed 1): paged, page 16, max_batch 8, max_len 256,
+   k = 4, four 64..200-token prompts, ``run(30)`` (as phase 10), printing
+   the same and the acceptance; the verify and dense-chunk routes and
+   dense decode must launch. Then phi4-mini-3.8b served as a target on
+   its weights: paged, 32-token chunks, bf16 pages, ``run(30)``. The MoE
+   call that first routes a whole verify and drops an assignment is kept
+   for phase 17, with the first three layers of both models; the full
+   weights are freed.
+17. MoE parity, fp32: (a) every attention call of a dense and a paged
+   served run of granite-moe at full depth against its plain version
+   (within 1e-3 of the output's scale, as phase 6); (b) a recorded MoE
+   call of each model (granite-moe's from (a), qwen3-moe's from phase
+   16), einsum dispatch against gather: equal keep masks and dropped
+   fractions, outputs within 1e-5 of scale; (c) on the first three
+   layers at full width (a full-depth random-init model amplifies
+   rounding, as phase 14 found), the first served token of granite-moe
+   (dense and paged), qwen3-moe (paged) and phi4-mini (paged, chunked)
+   through the kernels equal to that through the plain versions; (d)
+   qwen3-moe's three layers through 13 teacher-forced paged calls (chunks
+   of eight ragged prompts, decode steps and verifies, masked lanes
+   included): the logits of each call through the kernels, from the plain
+   path's pools, within 1e-3 of the plain logits' scale, and every
+   attention call within 1e-3.
+18. A JSON line of per-kernel results (all six kernels; the paged-prefill
+   kernel's launches also by route: ``paged_chunk`` from phases 5, 15 and
+   16, ``verify`` and ``dense_chunk`` from phases 9, 10 and 16; flash's by
+   route: ``windowed`` from phase 13, ``full`` from the rest; launches by
+   run, the MoE runs of phases 15-16 included; rmsnorm's counter is read
+   over phases 4-16 and must stay 0: no served path launches it), then
+   the device line last.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -687,6 +733,10 @@ HYMBA_WINDOW, HYMBA_MAX_LEN = 1024, 1536
 HYMBA_RING_LENGTHS = [1, 513, 1024, 1024]
 HYMBA_GLOBAL_LENGTHS = [1101, 1201, 1301, 1408]
 HYMBA_PROMPTS = (1100, 1200, 1300, 1400)
+# (H, KV, D) of the MoE phases' attention: granite-moe-1b-a400m (G=2, half
+# of a decode block's 4 packed query heads), qwen3-moe-30b-a3b (G=8, two
+# full blocks) and phi4-mini-3.8b served as a target (G=3).
+GRANITE_MOE_HEADS, QWEN3_MOE_HEADS, PHI4_HEADS = (16, 8, 64), (32, 4, 128), (24, 8, 128)
 
 
 def check_kernels() -> dict[str, list[dict]]:
@@ -749,6 +799,27 @@ def check_kernels() -> dict[str, list[dict]]:
         ppre.append(dense_view_case(4, 32, 133, 32, 32, 64, DENSE_VIEW_OFFSETS, dtype, gen))
     # Phase 10's draft ingest, the route's most launched shape.
     ppre.append(dense_view_case(8, 5, 261, 32, 32, 64, DRAFT_INGEST_OFFSETS, torch.bfloat16, gen))
+    # The MoE phases' packings (15-16), bf16 at their served shapes:
+    # granite-moe's whole prompts, dense decode, paged decode and 32-token
+    # chunks; qwen3-moe's whole prompts (a speculative server prefills
+    # whole), paged decode and verify (k = 4), and a long decode cache;
+    # phi4-mini's paged decode and chunks as a target, and its dense draft
+    # steps and ingests over qwen3-moe's 261-row draft cache.
+    bf16 = torch.bfloat16
+    flash.append(flash_case(2, 120, *GRANITE_MOE_HEADS, bf16, gen))
+    flash.append(flash_case(1, 200, *QWEN3_MOE_HEADS, bf16, gen))
+    decode.append(decode_case(4, 128, *GRANITE_MOE_HEADS, [9, 40, 77, 128], bf16, gen))
+    decode.append(decode_case(4, 4096, *QWEN3_MOE_HEADS, LONG_LENGTHS, bf16, gen))
+    decode.append(decode_case(8, 261, *PHI4_HEADS, DRAFT_LENGTHS, bf16, gen))
+    for heads in (GRANITE_MOE_HEADS, QWEN3_MOE_HEADS, PHI4_HEADS):
+        for int8 in (False, True):
+            pdec.append(paged_decode_case(8, 16, *heads, SERVE_LENGTHS, bf16, int8, gen))
+    for int8 in (False, True):
+        ppre.append(paged_prefill_case(8, 32, 16, *GRANITE_MOE_HEADS, PREFILL_OFFSETS, bf16,
+                                       int8, gen))
+    ppre.append(paged_prefill_case(8, 5, 16, *QWEN3_MOE_HEADS, VERIFY_OFFSETS, bf16, False, gen))
+    ppre.append(paged_prefill_case(8, 32, 16, *PHI4_HEADS, PREFILL_OFFSETS, bf16, False, gen))
+    ppre.append(dense_view_case(8, 5, 261, *PHI4_HEADS, DRAFT_INGEST_OFFSETS, bf16, gen))
     # falcon-mamba's serving prefill; its served short prefills (8-token
     # arrivals, B = 1..4 lanes) and a 120-token prompt; hymba's width,
     # ragged, with a state; long.
@@ -856,7 +927,8 @@ def serve(params, model, device: torch.device) -> tuple[dict, dict]:
     print(f"  slots={stats.slots} submitted={stats.submitted} completed={stats.completed_jobs} "
           f"tokens={stats.tokens_generated} prefill_calls={stats.prefill_calls} "
           f"decode_calls={stats.decode_calls} downtime={stats.downtime_fraction:.4f} "
-          f"wall_s={wall:.3f} tokens_per_s={stats.tokens_generated / wall:.2f}")
+          f"wall_s={wall:.3f} tokens_per_s={stats.tokens_generated / wall:.2f} "
+          f"peak_gb={peak_gb():.2f}")
     print(f"  launches {launches}; direct prompts generated "
           f"{[len(r.generated) if r is not None else None for r in direct]}")
     assert stats.completed_jobs >= 1, "no request completed"
@@ -903,7 +975,8 @@ def served_decode_times(served: collections.Counter, dtype) -> dict:
 PAGED_KERNELS = ("paged_decode_attention", "paged_prefill_attention")
 
 
-def serve_paged(params, model, device: torch.device, kv_dtype) -> tuple[dict, dict]:
+def serve_paged(params, model, device: torch.device, kv_dtype,
+                n_slots: int = 60) -> tuple[dict, dict]:
     from repro_torch.kernels.decode_attention import (
         paged_decode_attention, paged_prefill_attention)
     from repro_torch.models import attention
@@ -925,7 +998,7 @@ def serve_paged(params, model, device: torch.device, kv_dtype) -> tuple[dict, di
     with calls_recorded(attention, "paged_decode_attention", key) as calls:
         direct = [server.submit(rng.integers(0, V, size=L), n_tokens=8)
                   for L in (64, 112, 160, 200)]
-        stats = server.run(60, arrival_p=0.5)
+        stats = server.run(n_slots, arrival_p=0.5)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"paged_decode_attention": paged_decode_attention.launches,
@@ -941,7 +1014,7 @@ def serve_paged(params, model, device: torch.device, kv_dtype) -> tuple[dict, di
           f"preempted_jobs={stats.preempted_jobs} tokens={stats.tokens_generated} "
           f"chunk_prefill_calls={stats.chunk_prefill_calls} decode_calls={stats.decode_calls} "
           f"downtime={stats.downtime_fraction:.4f} wall_s={wall:.3f} "
-          f"tokens_per_s={stats.tokens_generated / wall:.2f}")
+          f"tokens_per_s={stats.tokens_generated / wall:.2f} peak_gb={peak_gb():.2f}")
     print(f"  launches {launches}; direct prompts generated "
           f"{[len(r.generated) if r is not None else None for r in direct]}")
     assert stats.tokens_generated > 0, "no token generated"
@@ -1589,11 +1662,14 @@ def load_model(name: str, seed: int, device: torch.device):
     cfg = get_config(name)
     model = build_model(cfg)
     t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
     params = init_from_template(model.template, torch.Generator(device="cuda").manual_seed(seed),
                                 cfg.param_dtype, device=device)
     torch.cuda.synchronize()
+    load_model.draw_peak_gb = peak_gb()
     print(f"  {name} weights: {count_params(model.template) / 1e9:.3f} B params "
-          f"({cfg.param_dtype}, seed {seed}) in {time.perf_counter() - t0:.2f} s")
+          f"({cfg.param_dtype}, seed {seed}) in {time.perf_counter() - t0:.2f} s, "
+          f"peak {load_model.draw_peak_gb:.2f} GB while drawing")
     torch.cuda.reset_peak_memory_stats()  # the phases' peaks: serving, not drawing weights
     return model, params
 
@@ -1782,13 +1858,16 @@ HYBRID_CUT = 3
 @contextlib.contextmanager
 def plain_versions():
     """Every kernel the models call replaced by its plain version."""
-    from repro_torch.kernels.decode_attention import decode_attention_ref_model
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_ref_model, paged_decode_attention_ref, paged_prefill_attention_ref)
     from repro_torch.kernels.flash_attention import flash_attention_ref
     from repro_torch.kernels.selective_scan import selective_scan_ref
     from repro_torch.models import attention, ssm
 
     saved = [(attention, "flash_attention", flash_attention_ref),
              (attention, "decode_attention", decode_attention_ref_model),
+             (attention, "paged_decode_attention", paged_decode_attention_ref),
+             (attention, "paged_prefill_attention", paged_prefill_attention_ref),
              (ssm, "selective_scan", selective_scan_ref)]
     saved = [(mod, name, getattr(mod, name), plain) for mod, name, plain in saved]
     for mod, name, _, plain in saved:
@@ -1879,19 +1958,20 @@ def serve_hybrid(params, model, device: torch.device) -> tuple[dict, dict]:
         "tokens_per_s": stats.tokens_generated / wall, "peak_gb": peak_gb()}
 
 
-def _first_token(model, params, prompt: np.ndarray, device: torch.device) -> int:
-    """The first token of an fp32 server (G=3 x R=3, max_len 1536) for one
-    long prompt."""
+def _first_token(model, params, prompt: np.ndarray, device: torch.device, **kw) -> int:
+    """The first token of an fp32 server (G=3 x R=3; by default hymba's:
+    max_batch 4, max_len 1536) for one prompt."""
     from repro_torch.serving import PipelineServer
 
-    server = PipelineServer(model, params, n_groups=3, n_replicas=3, max_batch=4,
-                            max_len=HYMBA_MAX_LEN, async_depth=2, seed=0, device=device)
+    kw = kw or dict(max_batch=4, max_len=HYMBA_MAX_LEN)
+    server = PipelineServer(model, params, n_groups=3, n_replicas=3, async_depth=2, seed=0,
+                            device=device, **kw)
     req = server.submit(prompt, n_tokens=2)
     for _ in range(500):
         if req.done:
             break
         server.step()
-    assert req.done, f"the fp32 hymba server did not finish: {len(req.generated)} tokens"
+    assert req.done, f"an fp32 server did not finish: {len(req.generated)} tokens"
     return req.generated[0]
 
 
@@ -2015,6 +2095,303 @@ def hybrid_phase(cuda: torch.device) -> tuple[dict, dict]:
     del params32
     free_memory()
     return launches, {"served": served, "parity": checks}
+
+
+# Phase 17's paged fp32 servers: phase 16's layout.
+PAGED_KW = dict(paged=True, page_size=16, max_batch=8, max_len=256)
+# Phase 17's logits per call, kernel path against plain path, on the first
+# MOE_CUT layers of qwen3-moe at full width (PERF.md §7 q5: full depth
+# amplifies rounding), and the first served tokens on the same cuts.
+MOE_CUT = 3
+DISPATCH_TOL = 1e-5  # einsum vs gather dispatch, fp32, of the output's scale
+
+
+@contextlib.contextmanager
+def moe_call_recorded(keep: list):
+    """Append to ``keep`` the inputs (x cloned, the layer's weights, cfg)
+    of the first MoE call of the block that routes a whole paged chunk or
+    verify (one group of W x C tokens) and drops an assignment. The drop
+    fractions are read after the block, so recording adds no host sync."""
+    from repro_torch.models import transformer
+
+    fn = transformer.moe_ffn
+    seen = []
+
+    def recorded(x, p, cfg, *, per_lane=False):
+        out, aux = fn(x, p, cfg, per_lane=per_lane)
+        if not per_lane and x.shape[1] > 1 and len(seen) < 64:
+            seen.append((x.detach().clone(), p, cfg, aux["dropped_frac"]))
+        return out, aux
+
+    transformer.moe_ffn = recorded
+    try:
+        yield
+    finally:
+        transformer.moe_ffn = fn
+    keep.extend([c[:3] for c in seen if float(c[3]) > 0][:1])
+
+
+@contextlib.contextmanager
+def moe_routing(label: str, device: torch.device):
+    """Count the assignments the MoE layers route and drop in the block
+    into the yielded dict (``moe_ffn``'s counters: the drops are summed on
+    the device and read after the block), and print them."""
+    from repro_torch.models import moe
+
+    moe.moe_ffn.routed, moe.moe_ffn.dropped = 0, 0
+    counts: dict = {}
+    yield counts
+    routed, dropped = moe.moe_ffn.routed, moe.moe_ffn.dropped
+    assert routed > 0 and dropped.device.type == device.type, \
+        f"{label}: the MoE layers did not route on the device"
+    counts.update(moe_routed=routed, moe_dropped=int(dropped),
+                  moe_dropped_frac=int(dropped) / routed)
+    print(f"  {label}: MoE assignments routed {routed}, dropped {int(dropped)} "
+          f"({counts['moe_dropped_frac']:.4f})")
+
+
+def moe_dense_phase(cuda: torch.device) -> tuple[dict, dict]:
+    """Phase 15: full-width granite-moe-1b-a400m, dense (whole prompts,
+    flash + dense decode; phase 4's run) and paged (32-token chunks, bf16
+    pages; phase 5's run). Returns each run's launches and report."""
+    from repro_torch.models import count_params
+
+    model, params = load_model("granite-moe-1b-a400m", 0, cuda)
+    n = count_params(model.template)
+    print(f"  granite-moe-1b-a400m: {n} parameters")
+    runs = {}
+    with torch.no_grad():
+        with moe_routing("dense", cuda) as routing:
+            launches, served = serve(params, model, cuda)
+        runs["granite_moe_dense"] = (launches, {"served": served, **routing})
+        with moe_routing("paged", cuda) as routing:
+            launches, served = serve_paged(params, model, cuda, None)
+        runs["granite_moe_paged"] = (launches, {
+            "served": served, "routes": {"paged_chunk": launches["paged_prefill_attention"]},
+            **routing})
+    del params, model
+    free_memory()
+    return runs, {"params": n}
+
+
+def layer_cut(params, cfg, n_layers: int):
+    """The first ``n_layers`` layers of a uniform decoder (one layer class),
+    with its embeddings and final norm: (cfg, params)."""
+    from repro_torch.models.common import tree_map
+
+    cut = {**params, "classes": {"c0": tree_map(lambda a: a[:n_layers],
+                                                params["classes"]["c0"])}}
+    return dataclasses.replace(cfg, n_layers=n_layers), cut
+
+
+def moe_spec_phase(cuda: torch.device) -> tuple[dict, dict, dict]:
+    """Phase 16: full-width qwen3-moe-30b-a3b, paged and speculative,
+    drafted by its registry draft phi4-mini-3.8b; then phi4-mini served as
+    a target on the same weights. Returns the runs, a report, and what
+    phase 17 takes: the recorded MoE call and the 3-layer cuts (bf16
+    copies; the full weights are freed here)."""
+    from repro_torch.models import count_params
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.registry import default_draft_for
+
+    model, params = load_model("qwen3-moe-30b-a3b", 0, cuda)
+    load_peak = load_model.draw_peak_gb
+    draft_name = default_draft_for("qwen3-moe-30b-a3b")
+    assert draft_name == "phi4-mini-3.8b", draft_name
+    draft, draft_params = load_model(draft_name, 1, cuda)
+    n, n_draft = count_params(model.template), count_params(draft.template)
+    print(f"  qwen3-moe-30b-a3b: {n} parameters ({n / 1e9:.3f} B); {draft_name}: {n_draft}; "
+          f"resident {torch.cuda.memory_allocated() / 1e9:.2f} GB of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f} GB")
+    assert f"{n / 1e9:.3f}" == "30.532", n
+    runs, recorded = {}, []
+    with torch.no_grad():
+        # Phase 10's run (serve_spec), then phase 5's at 30 slots.
+        with moe_routing("qwen3-moe spec", cuda) as routing, moe_call_recorded(recorded):
+            launches, served = serve_spec(params, model, draft, draft_params, cuda)
+        runs["qwen3_moe_spec"] = (launches, {**served, **routing})
+        launches, served = serve_paged(draft_params, draft, cuda, None, n_slots=30)
+        runs["phi4_mini_paged"] = (launches, {
+            "served": served, "routes": {"paged_chunk": launches["paged_prefill_attention"]}})
+    free_memory()  # the servers' pools, before phase 17's copies
+    assert recorded, "no served paged MoE call dropped an assignment"
+    x, p, cfg = recorded[0]
+    call = (x, tree_map(torch.clone, p), cfg)
+    cuts = {"qwen3-moe-30b-a3b": layer_cut(params, model.cfg, MOE_CUT),
+            "phi4-mini-3.8b": layer_cut(draft_params, draft.cfg, MOE_CUT)}
+    cuts = {name: (c, tree_map(torch.clone, p)) for name, (c, p) in cuts.items()}
+    report = {"params": n, "draft_params": n_draft, "load_peak_gb": load_peak,
+              "peak_gb": peak_gb()}
+    del params, model, draft, draft_params
+    free_memory()
+    return runs, report, {"call": call, "cuts": cuts}
+
+
+def dispatch_parity(x, p, cfg) -> dict:
+    """One recorded MoE call in fp32, einsum dispatch against gather:
+    equal keep masks and dropped fractions, outputs within DISPATCH_TOL of
+    the output's scale."""
+    from repro_torch.models import moe
+    from repro_torch.models.common import tree_map
+
+    einsum = dataclasses.replace(cfg, dtype="float32", param_dtype="float32",
+                                 moe_impl="einsum")
+    gather = dataclasses.replace(einsum, moe_impl="gather")
+    x32, p32 = x.float(), tree_map(lambda t: t.float(), p)
+    keep = [moe._route(x32, p32, c, False)[6] for c in (einsum, gather)]
+    (a, a_aux), (b, b_aux) = (moe.moe_ffn(x32, p32, c) for c in (einsum, gather))
+    err = _rel_err(b, a)
+    out = {"tokens": x.shape[0] * x.shape[1], "dropped_frac": float(a_aux["dropped_frac"]),
+           "rel_err": err}
+    assert torch.equal(keep[0], keep[1]) and float(a_aux["dropped_frac"]) == float(
+        b_aux["dropped_frac"]), out
+    assert err <= DISPATCH_TOL, out
+    return out
+
+
+def paged_calls_parity(model, params, cuda: torch.device) -> dict:
+    """Teacher-forced paged calls of a model at fp32 on one stage: 32-token
+    chunks of eight ragged prompts (finished lanes masked), four decode
+    steps and two verifies of k = 4 (a lane masked). Per call: the kernel
+    path's logits from the plain path's pools against the plain path's,
+    every lane and position, and every attention call of the plain path
+    kernel against plain (``compared_attention``)."""
+    from repro_torch.models.common import tree_map
+
+    cfg = model.cfg
+    rng = np.random.default_rng(3)
+    W, page, NB, C = 8, 16, 16, 32
+    lens = [64, 112, 160, 200, 37, 90, 128, 17]
+    shape = (cfg.n_layers, W * NB + 1, page, cfg.n_kv_heads, cfg.head_dim)
+    pools = {"k": torch.zeros(shape, device=cuda), "v": torch.zeros(shape, device=cuda)}
+    bt = torch.from_numpy(rng.permutation(W * NB).reshape(W, NB).astype(np.int32)).to(cuda)
+    tok = lambda *s: torch.from_numpy(rng.integers(0, cfg.vocab_size, s)).to(cuda)  # noqa: E731
+    prompts = rng.integers(0, cfg.vocab_size, (W, max(lens)))
+    calls = []
+    pos = [0] * W
+    while any(p < n for p, n in zip(pos, lens)):
+        offs = [p if p < n else -1 for p, n in zip(pos, lens)]
+        valids = [min(C, n - p) if p < n else 0 for p, n in zip(pos, lens)]
+        chunk = np.zeros((W, C), np.int64)  # padding and masked lanes: token 0
+        for w, (o, v) in enumerate(zip(offs, valids)):
+            chunk[w, :v] = prompts[w, o:o + v]
+        calls.append(("chunk", model.prefill_chunk_paged, torch.from_numpy(chunk).to(cuda),
+                      offs, valids))
+        pos = [p + v for p, v in zip(pos, valids)]
+    length = list(lens)
+    for step in range(4):
+        masked = [w == step for w in range(W)]
+        calls.append(("decode", model.decode_paged, tok(W, 1),
+                      [-1 if m else n for m, n in zip(masked, length)], None))
+        length = [n if m else n + 1 for m, n in zip(masked, length)]
+    for _ in range(2):
+        offs = [-1 if w == 5 else n for w, n in enumerate(length)]
+        calls.append(("verify", model.verify_step_paged, tok(W, 5), offs,
+                      [0 if w == 5 else 5 for w in range(W)]))
+        length = [n if w == 5 else n + 5 for w, n in enumerate(length)]
+    worst_logits: dict[str, float] = {}
+    worst: dict[str, float] = {}
+    with torch.no_grad():
+        for name, fn, inp, offs, valids in calls:
+            offs_t = torch.tensor(offs, dtype=torch.int32, device=cuda)
+            args = (offs_t,) if valids is None else (
+                offs_t, torch.tensor(valids, dtype=torch.int32, device=cuda))
+            kernel = fn(params, inp, tree_map(torch.clone, pools), *args, bt)
+            with compared_attention(worst), routes_recorded():
+                plain = fn(params, inp, pools, *args, bt)
+            worst_logits[name] = max(worst_logits.get(name, 0.0), _rel_err(kernel, plain))
+    return {"calls": len(calls), "logits_rel_err": worst_logits, "attention_rel_err": worst}
+
+
+def moe_parity_phase(cuda: torch.device, carried: dict) -> dict:
+    """Phase 17: fp32 parity of the MoE phases (module docstring)."""
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map
+    from repro_torch.serving import PipelineServer
+
+    torch.cuda.reset_peak_memory_stats()
+    report: dict = {}
+    fp32 = dict(dtype="float32", param_dtype="float32")
+    # (a) granite-moe at full depth: every attention call of a dense and a
+    # paged served run against the plain version; a paged MoE call is kept.
+    model, params = load_model("granite-moe-1b-a400m", 0, cuda)
+    cfg32 = dataclasses.replace(model.cfg, **fp32)
+    model32, params32 = build_model(cfg32), tree_map(lambda t: t.float(), params)
+    del params
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg32.vocab_size, size=L) for L in (64, 112)]
+    worst: dict[str, float] = {}
+    recorded = []
+    with torch.no_grad():
+        for kw in (dict(max_batch=4, max_len=128),
+                   dict(prefill_chunk=32, **PAGED_KW)):
+            with compared_attention(worst), routes_recorded(), moe_call_recorded(recorded):
+                server = PipelineServer(model32, params32, n_groups=3, n_replicas=3,
+                                        async_depth=2, seed=0, device=cuda, **kw)
+                reqs = [server.submit(p, n_tokens=8) for p in prompts]
+                for _ in range(500):
+                    if all(r.done for r in reqs):
+                        break
+                    server.step()
+                assert all(r.done for r in reqs), "an fp32 granite-moe server did not finish"
+    print("  granite-moe fp32, every attention call of a dense and a paged served run, kernel "
+          "vs plain on the same inputs: max|kernel - plain| / max|plain| = "
+          + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()) + f" (tol {MODEL_REL_TOL})")
+    assert {"flash_attention", "decode_attention", "paged_decode_attention",
+            "paged_prefill_attention"} <= set(worst), worst
+    assert all(v <= MODEL_REL_TOL for v in worst.values()), worst
+    report["granite_moe_attention_rel_err"] = worst
+    assert recorded, "no served paged granite-moe call dropped an assignment"
+    report["granite_moe_dispatch"] = dispatch_parity(*recorded[0])
+    # (b) einsum against gather on a recorded paged call of each model.
+    report["qwen3_moe_dispatch"] = dispatch_parity(*carried["call"])
+    print(f"  einsum vs gather dispatch on one recorded paged MoE call, fp32: granite-moe "
+          f"{report['granite_moe_dispatch']}, qwen3-moe {report['qwen3_moe_dispatch']} "
+          f"(tol {DISPATCH_TOL})")
+    # (c) The first served token of each model against the plain path's,
+    # on the first MOE_CUT layers at full width.
+    firsts = {}
+    prompt = prompts[1]
+    granite_cut = layer_cut(params32, cfg32, MOE_CUT)
+    del params32, model32
+    free_memory()
+    cuts = {"granite-moe-1b-a400m": [(granite_cut, dict(max_batch=4, max_len=128)),
+                                     (granite_cut, dict(prefill_chunk=32, **PAGED_KW))]}
+    for name, (cut_cfg, cut_params) in carried.pop("cuts").items():
+        cut = (dataclasses.replace(cut_cfg, **fp32), tree_map(lambda t: t.float(), cut_params))
+        kw = dict(PAGED_KW) if name.startswith("qwen3") else dict(prefill_chunk=32, **PAGED_KW)
+        cuts[name] = [(cut, kw)]
+    qwen_cut = None
+    with torch.no_grad():
+        for name, runs in cuts.items():
+            for (cfg, params), kw in runs:
+                model = build_model(cfg)
+                p = rng.integers(0, cfg.vocab_size, size=len(prompt))
+                kernel = _first_token(model, params, p, cuda, **kw)
+                with plain_versions():
+                    plain = _first_token(model, params, p, cuda, **kw)
+                firsts[f"{name} {'paged' if kw.get('paged') else 'dense'}"] = (kernel, plain)
+                if name.startswith("qwen3"):
+                    qwen_cut = (model, params)
+    print(f"  first {MOE_CUT} layers at full width, fp32: first served token (kernel path, "
+          f"plain path) {firsts}")
+    assert all(k == p for k, p in firsts.values()), firsts
+    report["first_tokens"] = {k: list(v) for k, v in firsts.items()}
+    # (d) qwen3-moe's cut: logits per paged call, kernel path against plain.
+    checks = paged_calls_parity(*qwen_cut, cuda)
+    print(f"  qwen3-moe first {MOE_CUT} layers, {checks['calls']} teacher-forced paged calls "
+          f"(chunks, decode, verify): logits max diff / scale "
+          + ", ".join(f"{k} {v:.3g}" for k, v in checks["logits_rel_err"].items())
+          + "; attention calls " + ", ".join(f"{k} {v:.3g}" for k, v in
+                                              checks["attention_rel_err"].items())
+          + f" (tol {MODEL_REL_TOL})")
+    assert set(checks["logits_rel_err"]) == {"chunk", "decode", "verify"}, checks
+    assert all(v <= MODEL_REL_TOL for v in checks["logits_rel_err"].values()), checks
+    assert all(v <= MODEL_REL_TOL for v in checks["attention_rel_err"].values()), checks
+    assert "paged_prefill_attention verify" in checks["attention_rel_err"], checks
+    report["qwen3_moe_cut_paged_calls"] = checks
+    report["peak_gb"] = peak_gb()
+    return report
 
 
 def main() -> int:
@@ -2151,6 +2528,23 @@ def main() -> int:
         launches[name] += hybrid_launches[name]
     assert launches["rmsnorm"] == 0, f"a served path launched rmsnorm: {launches}"
 
+    print("[15] serve full-width granite-moe-1b-a400m, dense and paged", flush=True)
+    moe_runs, granite_report = moe_dense_phase(cuda)
+    print("[16] serve full-width qwen3-moe-30b-a3b, paged, speculative with its registry draft "
+          "phi4-mini-3.8b; then phi4-mini-3.8b served paged", flush=True)
+    spec_runs, qwen_report, carried = moe_spec_phase(cuda)
+    moe_runs.update(spec_runs)
+    print("[17] MoE parity, fp32", flush=True)
+    moe_checks = moe_parity_phase(cuda, carried)
+    del carried
+    free_memory()
+    for run_launches, run in moe_runs.values():
+        for name in KERNELS:
+            launches[name] += run_launches.get(name, 0)
+        for route in routes:
+            routes[route] += run.get("routes", {}).get(route, 0)
+    assert launches["rmsnorm"] == 0, f"a served path launched rmsnorm: {launches}"
+
     kernels = []
     for name, source, replaces, main_shape in (
         ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -2212,12 +2606,20 @@ def main() -> int:
             entry["served_hybrid"] = hybrid["served"]["decode"]
         if name == "flash_attention":
             entry["hybrid_parity"] = hybrid["parity"]
+        entry.setdefault("launches_by_run", {}).update(
+            {run: counts.get(name, 0) for run, (counts, _) in moe_runs.items()})
+        if name == "paged_prefill_attention":
+            entry["served_moe"] = {
+                "granite_moe_1b_a400m": granite_report, "qwen3_moe_30b_a3b": qwen_report,
+                **{run: {k: v for k, v in out.items() if k != "launches"}
+                   for run, (_, out) in moe_runs.items()}}
+            entry["moe_parity"] = moe_checks
         if name == "rmsnorm":
             entry["library_note"] = "torch.nn.functional.rms_norm"
             entry["launches_note"] = ("no served path launches it: the models call their plain "
                                       "rmsnorm (models/layers.py), as the JAX models do")
         kernels.append(entry)
-    print(f"[15] all phases passed in {time.perf_counter() - t_start:.1f} s, build included")
+    print(f"[18] all phases passed in {time.perf_counter() - t_start:.1f} s, build included")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

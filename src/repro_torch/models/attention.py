@@ -33,6 +33,7 @@ __all__ = [
     "paged_attention_block",
     "paged_chunk_attention_block",
     "chunk_attention_block",
+    "last_writes",
 ]
 
 
@@ -128,7 +129,7 @@ def attention_block(
     return _out_proj(out, p["wo"], dtype), (k_cache, v_cache)
 
 
-def _scatter_kv_pages(pages: dict, k, v, write_pages, write_offs) -> None:
+def _scatter_kv_pages(pages: dict, k, v, write_pages, write_offs, write_src) -> None:
     """Write K/V rows into one layer's pool views at (write_pages,
     write_offs), in place (the JAX version returns updated copies).
 
@@ -137,8 +138,13 @@ def _scatter_kv_pages(pages: dict, k, v, write_pages, write_offs) -> None:
     [..., KV, Dh] matching the coordinates' shape; int8 pools quantize
     each row here (:func:`~repro_torch.kernels.decode_attention.quantize_kv`)
     and store its fp32 scale beside it, so a row is quantized once.
-    Masked lanes' coordinates point at the scratch page.
+    Masked lanes' coordinates point at the scratch page, where several
+    writes of one call can meet: every write of a row takes the values of
+    its last write, ``write_src`` (:func:`last_writes`), so the row ends
+    as XLA's in-order scatter leaves it, on any device.
     """
+    k = k.flatten(0, -3)[write_src]
+    v = v.flatten(0, -3)[write_src]
     if "k_scale" in pages:
         qk, ks = quantize_kv(k)
         qv, vs = quantize_kv(v)
@@ -151,6 +157,19 @@ def _scatter_kv_pages(pages: dict, k, v, write_pages, write_offs) -> None:
         pages["v"][write_pages, write_offs] = v.to(pages["v"].dtype)
 
 
+def last_writes(write_pages: torch.Tensor, write_offs: torch.Tensor, pool_shape) -> torch.Tensor:
+    """For each of one call's pool writes, the flat index (row-major over
+    the coordinates) of the last write to the same row of a pool of
+    ``pool_shape`` ``[P+1, page, ...]``. Layer-invariant, like the
+    coordinates."""
+    n_pages, page = pool_shape[:2]
+    flat = (write_pages * page + write_offs).reshape(-1)
+    order = torch.arange(flat.numel(), device=flat.device)
+    last = torch.full((n_pages * page,), -1, dtype=torch.long, device=flat.device)
+    last.scatter_reduce_(0, flat, order, "amax")
+    return last[flat].view_as(write_pages)
+
+
 def paged_attention_block(
     x: torch.Tensor,
     p: dict,
@@ -161,20 +180,21 @@ def paged_attention_block(
     block_tables: torch.Tensor,
     write_pages: torch.Tensor,
     write_offs: torch.Tensor,
+    write_src: torch.Tensor,
 ):
     """Single-token attention sub-block against a paged KV pool.
 
     x [W, 1, D] over the engine's slot width; positions [W, 1] int32 per
     lane absolute position (>= 0); pages: one layer's pool views
     {"k", "v": [P+1, page, KV, Dh]} (+ int8 scales [P+1, page]);
-    block_tables [W, NB] int32; write_pages / write_offs [W], precomputed
-    by :func:`repro_torch.models.transformer.decode_step_paged`. The new
+    block_tables [W, NB] int32; write_pages / write_offs / write_src [W],
+    precomputed by :func:`repro_torch.models.transformer.decode_step_paged`. The new
     token's K/V are written in place, then every lane attends through
     the paged-decode kernel. Returns out [W, 1, D].
     """
     dtype = cfg.compute_dtype
     q, k, v = _project_qkv(x, p, cfg, positions)
-    _scatter_kv_pages(pages, k[:, 0], v[:, 0], write_pages, write_offs)
+    _scatter_kv_pages(pages, k[:, 0], v[:, 0], write_pages, write_offs, write_src)
     attn_len = positions[:, 0] + 1  # valid entries incl. the new token
     out = paged_decode_attention(
         q, pages["k"], pages["v"], block_tables, attn_len,
@@ -193,11 +213,12 @@ def paged_chunk_attention_block(
     block_tables: torch.Tensor,
     write_pages: torch.Tensor,
     write_offs: torch.Tensor,
+    write_src: torch.Tensor,
 ):
     """Chunked-prefill sub-block against a paged KV pool.
 
     x [W, C, D]; positions [W, C] int32 absolute position per chunk
-    token; write_pages / write_offs [W, C] (masked lanes and padding
+    token; write_pages / write_offs / write_src [W, C] (masked lanes and padding
     positions point at the scratch page, precomputed by
     :func:`repro_torch.models.transformer.prefill_chunk_paged`). The
     chunk's K/V are written in place, then the chunk attends causally
@@ -206,7 +227,7 @@ def paged_chunk_attention_block(
     """
     dtype = cfg.compute_dtype
     q, k, v = _project_qkv(x, p, cfg, positions)
-    _scatter_kv_pages(pages, k, v, write_pages, write_offs)
+    _scatter_kv_pages(pages, k, v, write_pages, write_offs, write_src)
     out = paged_prefill_attention(
         q, pages["k"], pages["v"], block_tables, positions[:, 0].contiguous(),
         k_scales=pages.get("k_scale"), v_scales=pages.get("v_scale"),

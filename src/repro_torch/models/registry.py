@@ -8,7 +8,10 @@ rows or sliding-window rings for attention layers, conv tails and SSM
 states for Mamba layers, both for hymba's): in JAX they ``vmap`` the
 single-request functions over stacked per-request caches; here the batch
 is written out — every call covers the cache's whole slot width W and
-updates the given lanes in place. ``prefill_chunk`` /
+updates the given lanes in place. An MoE layer inside them still routes
+each lane on its own, with the capacity of that lane's tokens, as under
+JAX's ``vmap``; the paged entry points route the whole call at once, as
+JAX's do (:mod:`.moe`). ``prefill_chunk`` /
 ``prefill_chunk_batch`` advance the dense slot cache by one prompt chunk
 per lane (chunked prefill, and the speculative draft's ingest);
 ``decode_paged`` / ``prefill_chunk_paged`` / ``verify_step_paged`` are

@@ -42,9 +42,16 @@ layer runs attention and Mamba on the same normed input and averages
 their per-branch normed, gained outputs before the feed-forward, as the
 JAX ``_mixer`` / ``_layer_body``.
 
-MoE, encoder–decoder models and modality frontends are not ported yet:
-they raise ``NotImplementedError`` naming the ROADMAP item that ports
-them.
+**MoE.** An MoE config's layers carry ``"moe"`` leaves in place of
+``"mlp"`` and their feed-forward is :func:`~.moe.moe_ffn`. Its capacity
+depends on how many tokens one call routes together, so each entry point
+routes as the JAX engine calls it: whole-prompt prefill, decode and
+dense chunks route each lane on its own (JAX ``vmap``s them over
+requests), and the paged entry points route the whole call at once,
+masked lanes and padding positions included (JAX batches them natively).
+
+Encoder–decoder models and modality frontends are not ported yet: they
+raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -58,11 +65,13 @@ from .attention import (
     attention_block,
     attn_template,
     chunk_attention_block,
+    last_writes,
     paged_attention_block,
     paged_chunk_attention_block,
 )
 from .common import ModelConfig, ParamSpec, tree_map
 from .layers import embed_template, gelu_mlp, mlp_template, rmsnorm, swiglu_mlp
+from .moe import moe_ffn, moe_template
 from .ssm import mamba_block, mamba_decode_step, ssm_template
 
 __all__ = [
@@ -86,8 +95,6 @@ __all__ = [
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the architectures whose model code is not ported yet."""
     missing = []
-    if cfg.is_moe:
-        missing.append("MoE feed-forward")
     if cfg.is_encdec:
         missing.append("encoder-decoder")
     if cfg.frontend is not None:
@@ -163,7 +170,10 @@ def _class_layers_template(cfg: ModelConfig, n: int) -> dict:
     if cfg.block in ("attn", "hymba"):
         layers["attn"] = attn_template(cfg, n_layers=n)
         layers["ln2"] = ParamSpec((n, D), ("layers", "embed"), init="ones")
-        layers["mlp"] = mlp_template(cfg, n_layers=n)
+        if cfg.is_moe:
+            layers["moe"] = moe_template(cfg, n_layers=n)
+        else:
+            layers["mlp"] = mlp_template(cfg, n_layers=n)
     if cfg.block in ("mamba", "hymba"):
         layers["ssm"] = ssm_template(cfg, n_layers=n)
     if cfg.block == "hymba":
@@ -221,7 +231,12 @@ def _unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return x @ params["embed"]["lm_head"].to(dtype)
 
 
-def _ffn(x, p_layer, cfg: ModelConfig):
+def _ffn(x, p_layer, cfg: ModelConfig, *, per_lane: bool):
+    """The feed-forward. ``per_lane`` is an MoE layer's routing group:
+    each lane of ``x`` alone, or the whole call (:func:`~.moe.moe_ffn`);
+    serving drops the routing's ``aux``, as JAX does."""
+    if cfg.is_moe:
+        return moe_ffn(x, p_layer["moe"], cfg, per_lane=per_lane)[0]
     if cfg.act == "swiglu":
         return swiglu_mlp(x, p_layer["mlp"], cfg.compute_dtype)
     return gelu_mlp(x, p_layer["mlp"], cfg.compute_dtype)
@@ -264,7 +279,7 @@ def _layer(x, p_layer, cfg: ModelConfig, *, positions, window=None, cache=None, 
         mix = 0.5 * (a + m)
     x = x + mix
     h2 = rmsnorm(x, p_layer["ln2"], cfg.rms_eps)
-    return x + _ffn(h2, p_layer, cfg), parts
+    return x + _ffn(h2, p_layer, cfg, per_lane=True), parts
 
 
 def _stage_input(batch: dict, cfg: ModelConfig) -> torch.Tensor:
@@ -460,7 +475,7 @@ def prefill_chunk(params, chunk, cache: dict, offsets, valids, cfg: ModelConfig,
             lane_table=lane_table, lanes=lanes, write_src=write_src, write_pos=write_pos,
         )
         h2 = rmsnorm(x, p_layer["ln2"], cfg.rms_eps)
-        x = x + _ffn(h2, p_layer, cfg)
+        x = x + _ffn(h2, p_layer, cfg, per_lane=True)
     cache["len"][lanes] = (offsets + valids)[lanes].to(cache["len"].dtype)
     return _unembed(params, x, cfg), cache
 
@@ -494,7 +509,7 @@ def _paged_layers(x, params, cfg: ModelConfig, pools: dict, block, **kw):
         pages = {name: t[l] for name, t in pools.items()}
         x = x + block(h, p_layer["attn"], cfg, pages=pages, **kw)
         h2 = rmsnorm(x, p_layer["ln2"], cfg.rms_eps)
-        x = x + _ffn(h2, p_layer, cfg)
+        x = x + _ffn(h2, p_layer, cfg, per_lane=False)
     return _unembed(params, x, cfg)
 
 
@@ -530,6 +545,7 @@ def decode_step_paged(params, token, pools: dict, lengths, block_tables, cfg: Mo
         x, params, cfg, pools, paged_attention_block,
         positions=pos[:, None], block_tables=block_tables,
         write_pages=write_pages, write_offs=write_offs,
+        write_src=last_writes(write_pages, write_offs, pools["k"].shape[1:]),
     )
 
 
@@ -570,6 +586,7 @@ def prefill_chunk_paged(params, chunk, pools: dict, offsets, valids, block_table
         x, params, cfg, pools, paged_chunk_attention_block,
         positions=positions, block_tables=block_tables,
         write_pages=write_pages, write_offs=write_offs,
+        write_src=last_writes(write_pages, write_offs, pools["k"].shape[1:]),
     )
 
 

@@ -602,15 +602,29 @@ class _SpecState:
         """One round's draft work: ingest the tokens the draft has not
         seen yet (usually the previous round's accepted tail), then k
         greedy decode steps from ``tok0`` [W], the argmax chained on the
-        device. Returns the [W, k] draft tokens, on the device."""
+        device. Returns the [W, k] draft tokens, on the device.
+
+        A lane outside ``lanes`` drafts too, and its tokens reach the
+        verify call, where an MoE target routes them beside the real ones:
+        as in JAX, whose round runs every lane and then keeps only
+        ``lanes``' cache, such a lane drafts from ``tok0`` alone at
+        position 0. Its rows ``[0, k)`` and length are restored after."""
         self.ingest(r, buf, offs, valids, lanes)
-        (lanes_t,) = self._tensors(lanes)
         cache = self.caches[r]
+        W = cache["len"].shape[0]
+        (idle,) = self._tensors(np.setdiff1d(np.arange(W), lanes))
+        kept = {name: t[:, idle, : self.k].clone() for name, t in cache["c0"].items()}
+        kept_len = cache["len"][idle].clone()
+        cache["len"][idle] = 0
+        every = torch.arange(W, device=self.device)
         tok, drafts = tok0, []
         for _ in range(self.k):
-            logits = self.model.decode_batch(self.params, tok[:, None], cache, lanes_t)
+            logits = self.model.decode_batch(self.params, tok[:, None], cache, every)
             tok = logits[:, -1].argmax(dim=-1)
             drafts.append(tok)
+        for name, t in kept.items():
+            cache["c0"][name][:, idle, : self.k] = t
+        cache["len"][idle] = kept_len
         return torch.stack(drafts, dim=1)
 
 

@@ -15,7 +15,9 @@ y and h_final each within 2e-5 of max(1, the plain value's magnitude),
 since 2e-5 is below one fp32 ulp of a y of ~10^2 (long scans). The smoke
 falcon-mamba's prefill logits through the kernel agree with those through
 the plain version within 1e-4 of their scale and within 1e-2 of how far
-zeroing every scan's y moves them. The network simulator on the card
+zeroing every scan's y moves them. A granite-moe smoke server widened to heads of
+64 (G=2) runs the attention kernels with its MoE layers routing on the
+card. The network simulator on the card
 equals its CPU run on the same draws (integer counters and downtime
 exactly, mean battery within 1e-6 relative: the devices' float32 mean
 adds in another order), its step loop reads nothing back to the host,
@@ -48,7 +50,14 @@ from repro_torch.kernels.flash_attention import flash_attention, flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
 from repro_torch.kernels.selective_scan import ops as scan_ops
 from repro_torch.kernels.selective_scan import selective_scan, selective_scan_ref
-from repro_torch.models import attention, build_model, init_from_template, ssm, transformer
+from repro_torch.models import (
+    attention,
+    build_model,
+    init_from_template,
+    moe,
+    ssm,
+    transformer,
+)
 from repro_torch.serving import PipelineServer
 
 pytestmark = pytest.mark.cuda
@@ -81,6 +90,8 @@ def gen():
         (1, 1300, 25, 5, 64, True, 1024),  # hymba's window class, S past the window
         (1, 1300, 25, 5, 64, True, None),  # hymba's global class
         (2, 200, 25, 5, 64, True, 16),  # hymba-smoke's window at G=5, D=64
+        (2, 120, 16, 8, 64, True, None),  # granite-moe: G=2, half a packed block
+        (2, 200, 32, 4, 128, True, None),  # qwen3-moe: G=8, two full packed blocks
     ],
 )
 def test_flash_kernel_matches_plain(gen, dtype, B, S, H, KV, D, causal, window):
@@ -110,6 +121,8 @@ def test_flash_kernel_matches_plain(gen, dtype, B, S, H, KV, D, causal, window):
         (8, 261, 32, 32, 64, [9, 40, 77, 128, 150, 200, 231, 259], None),  # draft steps
         (4, 1024, 25, 5, 64, [1, 513, 1024, 1024], 1024),  # hymba's ring, full after the wrap
         (4, 1536, 25, 5, 64, [1101, 1200, 1300, 1536], None),  # hymba's global cache
+        (4, 128, 16, 8, 64, [9, 40, 77, 128], None),  # granite-moe served: G=2
+        (4, 4096, 32, 4, 128, [100, 1000, 2500, 4096], None),  # qwen3-moe: G=8
     ],
 )
 def test_decode_kernel_matches_plain(gen, dtype, B, S, H, KV, D, lengths, window):
@@ -155,7 +168,8 @@ def test_decode_kernel_edge_lengths(gen, dtype, window):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D,G", [(64, 1), (128, 1), (128, 3), (128, 5), (128, 48)])
+@pytest.mark.parametrize("D,G", [(64, 1), (128, 1), (128, 3), (128, 5), (128, 48), (64, 2),
+                                 (128, 8)])
 def test_decode_launch_shape_from_the_build(gen, dtype, D, G):
     """The launch shape the dense wrapper splits a lane's rows by comes from
     the C entry: a resident instantiation, one query head per block under
@@ -342,6 +356,8 @@ def _paged(gen, B, NB, page, KV, D, dtype, int8):
         (2, 16, 48, 1, 128, [700, 33], None),  # granite MQA: G=48
         (2, 16, 32, 32, 64, [5, 4096], None),  # a one-page lane beside a 4096-row lane
         (4, 16, 24, 8, 128, [100, 1000, 2500, 4096], None),  # phase 3's long case
+        (8, 16, 16, 8, 64, [9, 40, 77, 128, 150, 200, 231, 256], None),  # granite-moe: G=2
+        (4, 16, 32, 4, 128, [100, 1000, 2500, 4096], None),  # qwen3-moe: G=8
     ],
 )
 def test_paged_decode_kernel_matches_plain(gen, dtype, int8, B, page, H, KV, D, lengths, window):
@@ -393,7 +409,7 @@ def test_paged_decode_kernel_edge_lengths_and_wide_tables(gen, dtype, int8, wind
 
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D,G", [(64, 1), (128, 1), (64, 3), (128, 48)])
+@pytest.mark.parametrize("D,G", [(64, 1), (128, 1), (64, 3), (128, 48), (64, 2), (128, 8)])
 def test_paged_decode_launch_shape_from_the_build(gen, dtype, int8, D, G):
     """The launch shape the wrapper splits rows by comes from the C entry:
     a resident instantiation, one query head per block under MHA and a
@@ -433,6 +449,9 @@ def test_paged_decode_kernel_refuses_pool_rows_off_16_bytes(gen, dtype):
         (4, 128, 16, 24, 8, 128, [0, 1000, 2500, 3968]),  # long prefix
         (4, 5, 16, 40, 8, 128, [0, 17, 100, 250]),  # qwen2.5 verify, k = 4: G=5
         (4, 5, 16, 48, 1, 128, [3, 60, 1000, 2000]),  # granite verify: G=48
+        (8, 32, 16, 16, 8, 64, [0, 16, 32, 45, 64, 100, 150, 224]),  # granite-moe chunk: G=2
+        (8, 5, 16, 32, 4, 128, [0, 9, 40, 77, 128, 150, 200, 250]),  # qwen3-moe verify: G=8
+        (4, 32, 16, 32, 4, 128, [0, 100, 1000, 2000]),  # qwen3-moe chunk, long prefix
     ],
 )
 def test_paged_prefill_kernel_matches_plain(gen, dtype, int8, B, C, page, H, KV, D, offsets):
@@ -589,6 +608,36 @@ def test_paged_server_runs_through_the_kernels(gen, kv_dtype):
     for mgr in server.managers.values():
         mgr.check_conservation()
         assert mgr.device_block_table().device.type == "cuda"
+
+
+@pytest.mark.parametrize("mode", ["dense", "paged", "paged-int8"])
+def test_moe_server_runs_through_the_kernels(gen, mode):
+    """granite-moe-smoke widened to heads of 64 (G=2) at fp32: the server
+    runs the attention kernels, its MoE layers route on the card (the
+    drop count lives there), and its first token is the monolithic kernel
+    path's (dense: the stage prefills repeat its operations)."""
+    cfg = dataclasses.replace(get_smoke_config("granite-moe-1b-a400m"), d_model=256,
+                              dtype="float32", param_dtype="float32")
+    assert (cfg.head_dim, cfg.n_heads // cfg.n_kv_heads) == (64, 2)
+    model = build_model(cfg)
+    params = init_from_template(model.template, gen, cfg.param_dtype, device="cuda")
+    kw = {"dense": {}, "paged": dict(paged=True, page_size=16, prefill_chunk=8),
+          "paged-int8": dict(paged=True, page_size=16, prefill_chunk=8, kv_dtype="int8")}[mode]
+    server = PipelineServer(model, params, n_groups=2, max_len=128, device="cuda", **kw)
+    kernels = ((flash_attention, decode_attention) if mode == "dense"
+               else (paged_prefill_attention, paged_decode_attention))
+    before = [k.launches for k in kernels]
+    moe.moe_ffn.routed, moe.moe_ffn.dropped = 0, 0
+    prompt = np.arange(40) % cfg.vocab_size
+    reqs = [server.submit(np.arange(n) % cfg.vocab_size, n_tokens=6) for n in (12, 40)]
+    _run_to_done(server, reqs)
+    assert all(len(r.generated) == 6 for r in reqs)
+    assert all(k.launches > b for k, b in zip(kernels, before))
+    assert moe.moe_ffn.routed > 0 and moe.moe_ffn.dropped.device.type == "cuda"
+    assert server.host_readback.counts["dispatch"] == 0
+    if mode == "dense":
+        logits, _ = model.prefill(params, {"tokens": torch.from_numpy(prompt)[None].cuda()}, 128)
+        assert reqs[1].generated[0] == int(logits[0, -1].argmax())
 
 
 def _scan_operands(gen, B, S, Din, N, with_h0):

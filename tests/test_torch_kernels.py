@@ -262,8 +262,10 @@ def test_alignment_check_refuses_rows_off_16_bytes():
 def _cut(arch, n_layers=1):
     """The architecture at its full attention width (d_model, heads,
     head_dim) in bf16, cut to ``n_layers`` layers, d_ff 64 and a 256-token
-    vocabulary."""
+    vocabulary; an MoE config to 8 experts of width 64."""
     cfg = dataclasses.replace(get_config(arch), n_layers=n_layers, d_ff=64, vocab_size=256)
+    if cfg.is_moe:
+        cfg = dataclasses.replace(cfg, n_experts=8, d_ff_expert=64)
     model = build_model(cfg)
     params = init_from_template(model.template, torch.Generator().manual_seed(0),
                                 cfg.param_dtype, device="cpu")
@@ -310,7 +312,8 @@ def _serve_one(model, params, **kw):
 
 @pytest.mark.parametrize("mode", ["dense", "dense-chunk", "paged", "paged-int8", "paged-spec"])
 @pytest.mark.parametrize(
-    "arch", ["stablelm-1.6b", "phi4-mini-3.8b", "qwen2.5-14b", "granite-20b"]
+    "arch", ["stablelm-1.6b", "phi4-mini-3.8b", "qwen2.5-14b", "granite-20b",
+             "granite-moe-1b-a400m", "qwen3-moe-30b-a3b"]
 )
 def test_served_attention_operands_pass_the_bf16_alignment_checks(arch, mode, monkeypatch):
     """Every prefill-attention and decode call of a served request hands

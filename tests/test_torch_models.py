@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from conftest import direct_greedy
+from repro.configs import get_config as jax_get_config
 from repro.configs import get_smoke_config as jax_smoke_config
 from repro.models import build_model as jax_build_model
 from repro.models import init_from_template as jax_init
@@ -182,14 +183,27 @@ def test_partitioned_stages_equal_whole_model(arch, G):
         torch.testing.assert_close(x, whole_logits, rtol=0, atol=1e-6)
 
 
-@pytest.mark.parametrize("arch", ["internvl2-76b", "qwen3-moe-30b-a3b", "seamless-m4t-large-v2"])
+@pytest.mark.parametrize("arch", ["internvl2-76b", "paper-block", "seamless-m4t-large-v2"])
 def test_unported_architectures_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_config(arch)
 
 
 def test_unported_layer_kinds_raise():
-    moe = dataclasses.replace(get_smoke_config("stablelm-1.6b"), n_experts=4, moe_top_k=2,
-                              d_ff_expert=32)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        build_model(moe)
+    vlm = dataclasses.replace(get_smoke_config("stablelm-1.6b"), frontend="patches",
+                              frontend_dim=32, n_frontend_tokens=4)
+    with pytest.raises(NotImplementedError, match="patches frontend"):
+        build_model(vlm)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "qwen3-moe-30b-a3b"])
+def test_moe_architectures_build(arch):
+    """The MoE decoders, which raised before their slice, build at full
+    size and smoke size with the JAX template's leaves."""
+    for cfg, jcfg in ((get_config(arch), jax_get_config(arch)),
+                      (get_smoke_config(arch), jax_smoke_config(arch))):
+        layers = build_model(cfg).template["classes"]["c0"]
+        assert "moe" in layers and "mlp" not in layers
+        jax_layers = jax_build_model(jcfg).template["classes"]["c0"]
+        assert {n: s.shape for n, s in layers["moe"].items()} == {
+            n: s.shape for n, s in jax_layers["moe"].items()}
