@@ -60,9 +60,18 @@ Phases, in order; any failure exits non-zero:
    (H=32, KV=4: G=8, D=128) flash over a 200-token prompt, dense decode
    over a 4096-row cache, paged decode and its verify (C = 5); phi4-mini
    (G=3, D=128) paged decode and chunks as a target, and its draft steps
-   and ingests over a 261-row cache; a
-   windowed flash's yardstick is one SDPA call with a banded boolean mask,
-   and its bound counts the band's (query, key) pairs. Kernel, plain-version and
+   and ingests over a 261-row cache;
+   at the encoder-decoders' shapes (phases 18-19): flash at head_dim 8 on
+   paper-block's packing (B=64, S=16, 100 heads) bidirectional (its encoder
+   and its cross-attention, 16 frames) and causal (its decoder prompt), and
+   flash cross at seamless's (B=4, 8 decoder tokens against 1000 frames, 16
+   heads of 64), fp32 and bf16; dense decode at head_dim 8 over paper-block's
+   32-row self cache and 16-row cross cache (fp32 and bf16) and over
+   seamless's cross cache of 1000 rows and of ENC_LEN_DECODE = 4096 rows,
+   every lane seeing every row; flash over internvl2-76b's 1100-token
+   prompts (64 / 8 heads of 128); a windowed flash's yardstick is one SDPA
+   call with a banded boolean mask, and its bound counts the band's (query,
+   key) pairs. Kernel, plain-version and
    yardstick times (CUDA events, median of 20 runs, each queued behind a
    device sleep so the events time the device and not the launch): one
    ``scaled_dot_product_attention`` call for the dense kernels; for the
@@ -236,13 +245,47 @@ Phases, in order; any failure exits non-zero:
    included): the logits of each call through the kernels, from the plain
    path's pools, within 1e-3 of the plain logits' scale, and every
    attention call within 1e-3.
-18. A JSON line of per-kernel results (all six kernels; the paged-prefill
+18. Serve encoder-decoders: full-size seamless-m4t-large-v2 (24 + 24
+   layers, d_model 1024, 16 heads of 64, vocabulary 256206 tied;
+   1,370,824,704 parameters, bf16, seed 0): 4 requests of 1000 frames x
+   1024 (a 25 s utterance at 40 Hz frames) with 8-token prompts, 32 greedy
+   tokens each, through ``prefill_batch`` / ``decode_batch(lanes)`` on a
+   4-lane slot cache (max_len 64, enc_len 1000), two lanes prefilled at
+   step 0 and two at step 8; then paper-block (the paper's Sec. V block:
+   100 + 100 layers, d_model 512, 100 heads of 8; 944,237,568 parameters)
+   at the paper's input, 64 requests of 16 frames x 512 with 16-token
+   prompts, 16 greedy tokens each. Each prints its tokens/s, the wall time
+   of one prefill (the paper's unit of work; warm, median of three) and its
+   peak memory. Flash must launch on its ``bidirectional`` (encoder),
+   ``full`` (decoder prompt) and ``cross`` routes and dense decode on
+   ``self`` and ``cross`` (counted by route: a cross-attention block's calls
+   are marked while it runs), and every parameter and cache tensor lives
+   on the card.
+19. Encoder-decoder parity: both models cut to 3 encoder + 3 decoder
+   layers at full width, fp32 (seed 0). Every attention call of a prefill
+   (seamless: 2 x 1000 frames, 8 tokens; paper-block: 64 x 16 frames, 16
+   tokens) and 8 teacher-forced decode steps runs the kernel and its plain
+   version on the same inputs (within 1e-4 of the output's scale, per
+   route); the first greedy token of every request is equal on the kernel
+   path and the plain path; the same weights in bf16, every call's kernel
+   output against the plain version in fp32 within 2e-2 of scale.
+20. internvl2-76b reduced to 8 of its 80 layers at full width (d_model
+   8192, 64 / 8 heads of 128, vocabulary 128256, bf16, seed 0; the whole
+   model, ~141 GB, does not fit the card): two 1100-token prompts whose
+   first 1024 positions take projected patch embeddings [2, 1024, 3200],
+   then 16 greedy decode steps (the patches must move the logits); then
+   one dense ``PipelineServer`` run at G=2 x R=3 (phase 4's workload,
+   tokens only, as the JAX fleet serves it), stage 0 alone holding
+   ``vision_proj``.
+21. A JSON line of per-kernel results (all six kernels; the paged-prefill
    kernel's launches also by route: ``paged_chunk`` from phases 5, 15 and
    16, ``verify`` and ``dense_chunk`` from phases 9, 10 and 16; flash's by
-   route: ``windowed`` from phase 13, ``full`` from the rest; launches by
-   run, the MoE runs of phases 15-16 included; rmsnorm's counter is read
-   over phases 4-16 and must stay 0: no served path launches it), then
-   the device line last.
+   route: ``windowed`` from phase 13, ``bidirectional`` and ``cross`` from
+   phase 18, ``full`` from the rest; dense decode's ``cross`` from phase 18
+   and ``self`` from the rest; launches by run, the MoE runs of phases
+   15-16 and phases 18 and 20 included; rmsnorm's counter is read over
+   phases 4-20 and must stay 0: no served path launches it), then the
+   device line last.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -311,44 +354,48 @@ def bound(bytes_moved: float, flops: float, dtype) -> tuple[float, str]:
     return (mem_ms, "bytes") if mem_ms >= op_ms else (op_ms, "operations")
 
 
-def band_pairs(S: int, window: int | None) -> int:
-    """(query, key) pairs a causal attention over S positions scores: each
-    query sees itself and the ``window - 1`` positions before it."""
-    return sum(min(i + 1, window or S) for i in range(S))
-
-
-def flash_case(B, S, H, KV, D, dtype, gen, window=None):
+def flash_case(B, S, H, KV, D, dtype, gen, window=None, *, Skv=None, causal=True, label=""):
+    """One flash case: S queries against Skv keys (default S; a cross-
+    attention's differ), causal or bidirectional; ``label`` names the
+    route it stands for."""
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
 
+    Skv = Skv or S
     q = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype)
-    k = torch.randn(B, S, KV, D, generator=gen, device="cuda").to(dtype)
-    v = torch.randn(B, S, KV, D, generator=gen, device="cuda").to(dtype)
-    out = flash_attention(q, k, v, causal=True, window=window)
+    k = torch.randn(B, Skv, KV, D, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(B, Skv, KV, D, generator=gen, device="cuda").to(dtype)
+    out = flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    want = flash_attention_ref(q.float(), k.float(), v.float(), causal=True, window=window)
+    want = flash_attention_ref(q.float(), k.float(), v.float(), causal=causal, window=window)
     err = (out.float() - want).abs().max().item()
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if window is None:
         library = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, is_causal=True, enable_gqa=H != KV)
+            qt, kt, vt, is_causal=causal, enable_gqa=H != KV)
     else:  # one SDPA call with a banded boolean mask
         pos = torch.arange(S, device="cuda")
         band = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
         library = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qt, kt, vt, attn_mask=band, enable_gqa=H != KV)
     item = q.element_size()
+    # (query, key) pairs scored: under a causal mask (positions compared
+    # from 0) each query sees itself and the window - 1 keys before it.
+    pairs = sum(min(i + 1, Skv, window or Skv) for i in range(S)) if causal else S * Skv
     b_ms, b_by = bound(
         (2 * q.numel() + k.numel() + v.numel()) * item,
-        4 * B * H * D * band_pairs(S, window),
+        4 * B * H * D * pairs,
         dtype,
     )
+    shape = f"B={B} S={S} H={H} KV={KV} D={D}" if Skv == S else \
+        f"B={B} Sq={S} Skv={Skv} H={H} KV={KV} D={D}"
     return {
-        "shape": f"B={B} S={S} H={H} KV={KV} D={D}" + (f" window={window}" if window else ""),
+        "shape": shape + (f" window={window}" if window else "")
+                 + ("" if causal else " bidirectional") + (f" ({label})" if label else ""),
         "dtype": str(dtype).removeprefix("torch."),
         "max_abs_err": err,
         "tol": TOL[dtype],
-        "ms": time_ms(lambda: flash_attention(q, k, v, causal=True, window=window)),
-        "plain_ms": time_ms(lambda: flash_attention_ref(q, k, v, causal=True, window=window)),
+        "ms": time_ms(lambda: flash_attention(q, k, v, causal=causal, window=window)),
+        "plain_ms": time_ms(lambda: flash_attention_ref(q, k, v, causal=causal, window=window)),
         "library_ms": time_ms(library),
         "bound_ms": b_ms,
         "bound_by": b_by,
@@ -364,7 +411,7 @@ def decode_bound(q, rows: int, KV: int, D: int) -> tuple[float, str]:
                  q.dtype)
 
 
-def decode_case(B, S, H, KV, D, lengths, dtype, gen, window=None):
+def decode_case(B, S, H, KV, D, lengths, dtype, gen, window=None, label=""):
     from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref_model
 
     q = torch.randn(B, 1, H, D, generator=gen, device="cuda").to(dtype)
@@ -390,7 +437,7 @@ def decode_case(B, S, H, KV, D, lengths, dtype, gen, window=None):
         if max(lengths) >= DEEP_OFFSET else {}
     return {
         "shape": f"B={B} S={S} H={H} KV={KV} D={D} lengths={lengths}"
-                 + (f" window={window}" if window else ""),
+                 + (f" window={window}" if window else "") + (f" ({label})" if label else ""),
         "dtype": str(dtype).removeprefix("torch."),
         "max_abs_err": err,
         "tol": TOL[dtype],
@@ -737,6 +784,15 @@ HYMBA_PROMPTS = (1100, 1200, 1300, 1400)
 # of a decode block's 4 packed query heads), qwen3-moe-30b-a3b (G=8, two
 # full blocks) and phi4-mini-3.8b served as a target (G=3).
 GRANITE_MOE_HEADS, QWEN3_MOE_HEADS, PHI4_HEADS = (16, 8, 64), (32, 4, 128), (24, 8, 128)
+# (H, KV, D) of the encoder-decoders (phases 18-19): paper-block (100 heads
+# of 8) and seamless-m4t-large-v2 (16 of 64); seamless's served prompt and
+# frames (a 25 s utterance at 40 Hz), and the JAX package's encoder length
+# of its decode cells (a ~100 s utterance).
+PAPER_HEADS, SEAMLESS_HEADS = (100, 100, 8), (16, 16, 64)
+SEAMLESS_PROMPT, SEAMLESS_FRAMES, ENC_LEN_DECODE = 8, 1000, 4096
+# internvl2-76b (phase 20): 64 / 8 heads of 128, 1100-token prompts whose
+# first 1024 positions are patches.
+VLM_HEADS, VLM_PROMPT = (64, 8, 128), 1100
 
 
 def check_kernels() -> dict[str, list[dict]]:
@@ -820,6 +876,28 @@ def check_kernels() -> dict[str, list[dict]]:
     ppre.append(paged_prefill_case(8, 5, 16, *QWEN3_MOE_HEADS, VERIFY_OFFSETS, bf16, False, gen))
     ppre.append(paged_prefill_case(8, 32, 16, *PHI4_HEADS, PREFILL_OFFSETS, bf16, False, gen))
     ppre.append(dense_view_case(8, 5, 261, *PHI4_HEADS, DRAFT_INGEST_OFFSETS, bf16, gen))
+    # The encoder-decoders (phases 18-19): paper-block's 100 heads of 8 at
+    # the paper's input (64 x 16 frames; its encoder and its cross-attention
+    # are one shape, bidirectional, and its decoder prompt is causal) and its
+    # decode over a 32-row self cache (16 prompt + 16 tokens) and its 16-row
+    # cross cache; seamless's cross-attention (16 heads of 64, 8 decoder
+    # tokens against 1000 frames) and its cross decode over 1000 rows and
+    # over ENC_LEN_DECODE rows. internvl2-76b's 1100-token prefill (phase 20,
+    # 64 / 8 heads of 128).
+    for dtype in (torch.bfloat16, torch.float32):
+        flash.append(flash_case(64, 16, *PAPER_HEADS, dtype, gen, causal=False,
+                                label="paper-block encoder / cross"))
+        flash.append(flash_case(64, 16, *PAPER_HEADS, dtype, gen, label="paper-block prompt"))
+        flash.append(flash_case(4, SEAMLESS_PROMPT, *SEAMLESS_HEADS, dtype, gen,
+                                Skv=SEAMLESS_FRAMES, causal=False, label="seamless cross"))
+        decode.append(decode_case(64, 32, *PAPER_HEADS, [16 + i % 17 for i in range(64)], dtype,
+                                  gen, label="paper-block self"))
+        decode.append(decode_case(64, 16, *PAPER_HEADS, [16] * 64, dtype, gen,
+                                  label="paper-block cross"))
+    for S in (SEAMLESS_FRAMES, ENC_LEN_DECODE):
+        decode.append(decode_case(4, S, *SEAMLESS_HEADS, [S] * 4, bf16, gen,
+                                  label="seamless cross"))
+    flash.append(flash_case(2, VLM_PROMPT, *VLM_HEADS, bf16, gen, label="internvl2 prompt"))
     # falcon-mamba's serving prefill; its served short prefills (8-token
     # arrivals, B = 1..4 lanes) and a 120-token prompt; hymba's width,
     # ragged, with a state; long.
@@ -893,13 +971,13 @@ def on_device(tree, device: torch.device) -> bool:
     return all(t.device.type == device.type for t in _leaves(tree))
 
 
-def serve(params, model, device: torch.device) -> tuple[dict, dict]:
+def serve(params, model, device: torch.device, n_groups: int = 3) -> tuple[dict, dict]:
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models import attention
     from repro_torch.serving import PipelineServer
 
-    server = PipelineServer(model, params, n_groups=3, n_replicas=3, max_batch=4,
+    server = PipelineServer(model, params, n_groups=n_groups, n_replicas=3, max_batch=4,
                             max_len=128, async_depth=2, seed=0, device=device)
     flash_attention.launches = 0
     decode_attention.launches = 0
@@ -941,6 +1019,8 @@ def serve(params, model, device: torch.device) -> tuple[dict, dict]:
         "a cache tensor is off the card"
     return launches, {"served_calls_by_lanes_and_length": {
         f"{B},{L}": n for (B, L), n in sorted(hist.items())},
+        "tokens": stats.tokens_generated, "wall_s": wall,
+        "tokens_per_s": stats.tokens_generated / wall, "peak_gb": peak_gb(),
         **served_decode_times(served, model.cfg.compute_dtype)}
 
 
@@ -1101,8 +1181,10 @@ def compared_attention(worst: dict[str, float]):
     on the same inputs, record the worst relative difference per kernel
     (the paged-prefill kernel's verify and dense-chunk routes apart, as
     ``routes_recorded`` tells them: ``paged_prefill_attention verify``
-    ..., and calls with a sliding window apart: ``flash_attention
-    windowed``, ``decode_attention windowed``), and continue with the plain
+    ..., calls with a sliding window apart: ``flash_attention windowed``,
+    ``decode_attention windowed``, and an encoder-decoder's routes apart,
+    as ``attention_route`` tells them: ``flash_attention bidirectional``,
+    ``flash_attention cross``, ``decode_attention cross``), and continue with the plain
     output, so the whole forward is the plain-attention reference and each
     comparison sees its exact inputs."""
     from repro_torch.kernels.decode_attention import (
@@ -1126,6 +1208,8 @@ def compared_attention(worst: dict[str, float]):
             key = f"{name} {route}" if route != "paged_chunk" else name
             if kwargs.get("window") is not None:
                 key += " windowed"
+            if _cross[-1] or not kwargs.get("causal", True):
+                key += f" {attention_route(name, kwargs)}"
             worst[key] = max(worst.get(key, 0.0), _rel_err(got, want))
             return want
         return call
@@ -2394,6 +2478,377 @@ def moe_parity_phase(cuda: torch.device, carried: dict) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# Phases 18-20: the encoder-decoders and internvl2's patches frontend
+# ---------------------------------------------------------------------------
+
+_cross = [False]  # True inside an encoder-decoder's cross-attention block
+
+
+@contextlib.contextmanager
+def cross_marked():
+    """Mark the attention calls made inside ``cross_attention_block`` (a
+    prompt's flash call, a decode step's decode call) for the duration of
+    the block: ``encdec`` looks the block up in its own module at call
+    time."""
+    from repro_torch.models import encdec
+
+    fn = encdec.cross_attention_block
+
+    def marked(*args, **kwargs):
+        _cross.append(True)
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _cross.pop()
+
+    encdec.cross_attention_block = marked
+    try:
+        yield
+    finally:
+        encdec.cross_attention_block = fn
+
+
+def attention_route(name: str, kwargs: dict) -> str:
+    """The route of a flash or decode call: ``cross`` inside a
+    cross-attention block; else flash's ``bidirectional`` (an encoder,
+    ``causal=False``), ``windowed`` or ``full``, and decode's ``self``."""
+    if _cross[-1]:
+        return "cross"
+    if name != "flash_attention":
+        return "self"
+    if not kwargs.get("causal", True):
+        return "bidirectional"
+    return "windowed" if kwargs.get("window") else "full"
+
+
+# Phase 19: the encoder-decoders cut to their first ENCDEC_CUT encoder and
+# decoder layers at full width (a full-depth random-init model amplifies
+# rounding, PERF.md §7 q5); the bf16 calls of the cut against the plain
+# version in fp32, relative to the output's scale (the random-init V rows
+# reach ~10, where bf16's own rounding is ~2^-8 of a value).
+ENCDEC_CUT = 3
+ENCDEC_REL_TOL = 1e-4
+BF16_REL_TOL = 2e-2
+# Phase 20: internvl2-76b's first VLM_LAYERS of 80 layers at full width
+# (the whole model, ~141 GB in bf16, does not fit the card's 80 GB).
+VLM_LAYERS = 8
+
+
+def encdec_batch(cfg, n_req: int, n_frames: int, prompt: int, device) -> dict:
+    """n_req requests of n_frames frames and prompt decoder tokens, from
+    the port's make_inputs (the JAX package's draws)."""
+    from repro_torch.configs import ShapeCell
+    from repro_torch.models.inputs import make_inputs
+
+    return {
+        "tokens": make_inputs(cfg, ShapeCell("prompt", "prefill", prompt, n_req), 2,
+                              device)["tokens"],
+        "frames": make_inputs(cfg, ShapeCell("frames", "prefill", n_frames, n_req), 1,
+                              device)["frames"],
+    }
+
+
+def serve_encdec(params, model, device: torch.device, *, n_req: int, n_frames: int,
+                 prompt: int, n_tokens: int, max_len: int, waves) -> tuple[dict, dict]:
+    """Greedy-decode ``n_tokens`` tokens for each of ``n_req`` requests
+    through the slot-batched entry points on a slot cache of ``n_req``
+    lanes (``max_len`` self rows, ``n_frames`` cross rows). ``waves``:
+    (decode step, lanes) at which groups of requests are prefilled into
+    their lanes; every decode step runs over the whole slot width for the
+    lanes still decoding (``decode_batch``'s ``lanes``), the others masked.
+    Returns the kernels' launches and a report (launches by route, tokens/s,
+    prefill wall times, peak memory)."""
+    from repro_torch.models import attention
+
+    cfg = model.cfg
+    batch = encdec_batch(cfg, n_req, n_frames, prompt, device)
+    cache = model.init_cache(n_req, max_len, device, n_frames)
+    flash_key = lambda q, k, v, causal=True, window=None: attention_route(  # noqa: E731
+        "flash_attention", {"causal": causal, "window": window})
+    decode_key = lambda *args, **kwargs: attention_route("decode_attention", kwargs)  # noqa: E731
+    token = torch.zeros(n_req, 1, dtype=torch.long, device=device)
+    generated = [[] for _ in range(n_req)]  # device scalars, read after the run
+    pending, active, prefill_s, step = list(waves), [], [], 0
+    zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(cross_marked())
+        flash_calls = stack.enter_context(calls_recorded(attention, "flash_attention", flash_key))
+        decode_calls = stack.enter_context(calls_recorded(attention, "decode_attention",
+                                                          decode_key))
+        while True:
+            while pending and pending[0][0] == step:
+                lanes = pending.pop(0)[1]
+                idx = torch.tensor(lanes, device=device)
+                t = time.perf_counter()
+                logits = model.prefill_batch(
+                    params, {k: v[idx] for k, v in batch.items()}, cache, idx)
+                nxt = logits[:, -1].argmax(-1)
+                torch.cuda.synchronize()
+                prefill_s.append(time.perf_counter() - t)
+                token[idx, 0] = nxt
+                for i, lane in enumerate(lanes):
+                    generated[lane].append(nxt[i])
+                active += lanes
+            active = [lane for lane in active if len(generated[lane]) < n_tokens]
+            if not active and not pending:
+                break
+            idx = torch.tensor(active, device=device)
+            logits = model.decode_batch(params, token, cache, idx)
+            nxt = logits[:, -1].argmax(-1)
+            token[idx, 0] = nxt[idx]
+            for lane in active:
+                generated[lane].append(nxt[lane])
+            step += 1
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    tokens = torch.stack([torch.stack(g) for g in generated]).tolist()
+    routes = {"flash_attention": dict(collections.Counter(flash_calls)),
+              "decode_attention": dict(collections.Counter(decode_calls))}
+    n_gen = sum(len(g) for g in tokens)
+    # The paper's unit of work, warm: one prefill of the first wave into a
+    # fresh cache (median of three).
+    first = torch.tensor(waves[0][1], device=device)
+    fresh = model.init_cache(n_req, max_len, device, n_frames)
+    warm = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model.prefill_batch(params, {k: v[first] for k, v in batch.items()}, fresh, first)
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t)
+    report = {"requests": n_req, "frames": n_frames, "prompt": prompt, "tokens": n_gen,
+              "decode_steps": step, "wall_s": wall, "tokens_per_s": n_gen / wall,
+              "prefill_s": prefill_s, "prefill_wall_s": statistics.median(warm),
+              "peak_gb": peak_gb(), "launches_by_route": routes}
+    print(f"  {cfg.name}: {n_req} requests of {n_frames} frames x {cfg.frontend_dim} and "
+          f"{prompt}-token prompts, {n_tokens} greedy tokens each: {n_gen} tokens, {step} "
+          f"decode steps in {wall:.3f} s ({n_gen / wall:.2f} tokens/s); prefills "
+          f"{[round(x, 4) for x in prefill_s]} s, one prefill of {len(waves[0][1])} requests "
+          f"warm {report['prefill_wall_s']:.4f} s; peak {peak_gb():.2f} GB")
+    print(f"  launches {launches}; by route {routes}")
+    V = cfg.vocab_size
+    assert all(len(g) == n_tokens for g in tokens), [len(g) for g in tokens]
+    assert all(0 <= t < V for g in tokens for t in g), "a token outside the vocabulary"
+    assert bool(torch.isfinite(logits).all()), "non-finite logits"
+    assert cache["len"].tolist() == [prompt + n_tokens - 1] * n_req, cache["len"].tolist()
+    for name, want in (("flash_attention", {"bidirectional", "full", "cross"}),
+                       ("decode_attention", {"self", "cross"})):
+        assert set(routes[name]) == want and all(routes[name].values()), (name, routes[name])
+        assert sum(routes[name].values()) == launches[name], (name, routes[name], launches)
+    assert all(n == 0 for k, n in launches.items()
+               if k not in ("flash_attention", "decode_attention")), launches
+    assert on_device(params, device), "a parameter is off the card"
+    assert on_device(cache, device), "a cache tensor is off the card"
+    assert cache["ck"].shape[2] == n_frames
+    return launches, report
+
+
+def encdec_serve_phase(cuda: torch.device) -> tuple[dict, dict]:
+    """Phase 18: full-size seamless-m4t-large-v2 (4 requests of 1000
+    frames, 8-token prompts, 32 tokens each, two waves of two lanes) and
+    paper-block at the paper's input (64 x 16 x 512 frames, 16-token
+    prompts, 16 tokens each, one wave), both bf16. Returns the launches
+    summed over both runs and a report per model."""
+    from repro_torch.models import count_params
+    from repro_torch.models.inputs import ENC_LEN_DECODE as PORT_ENC_LEN
+
+    assert PORT_ENC_LEN == ENC_LEN_DECODE, PORT_ENC_LEN
+    runs = {}
+    for name, kw in (
+        ("seamless-m4t-large-v2", dict(n_req=4, n_frames=SEAMLESS_FRAMES,
+                                       prompt=SEAMLESS_PROMPT, n_tokens=32, max_len=64,
+                                       waves=[(0, [0, 1]), (8, [2, 3])])),
+        ("paper-block", dict(n_req=64, n_frames=16, prompt=16, n_tokens=16, max_len=32,
+                             waves=[(0, list(range(64)))])),
+    ):
+        model, params = load_model(name, 0, cuda)
+        n = count_params(model.template)
+        print(f"  {name}: {n} parameters, {model.cfg.encoder_layers} + {model.cfg.n_layers} "
+              f"layers, d_model {model.cfg.d_model}, {model.cfg.n_heads} heads of "
+              f"{model.cfg.head_dim}, vocabulary {model.cfg.vocab_size}")
+        with torch.no_grad():
+            launches, report = serve_encdec(params, model, cuda, **kw)
+        runs[name] = (launches, {"params": n, **report})
+        del params, model
+        free_memory()
+    total = {k: sum(launches[k] for launches, _ in runs.values()) for k in KERNELS}
+    return total, {name: report for name, (_, report) in runs.items()}
+
+
+@contextlib.contextmanager
+def compared_bf16(worst: dict[str, float]):
+    """Every flash and decode call of the block runs the kernel on its bf16
+    inputs and the plain version on the same inputs in fp32; the worst
+    difference relative to the plain output's scale is kept per route, and
+    the forward goes on with the kernel's output."""
+    from repro_torch.kernels.decode_attention import decode_attention_ref_model
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.models import attention
+
+    plain = {"flash_attention": flash_attention_ref, "decode_attention": decode_attention_ref_model}
+    kernels = {name: getattr(attention, name) for name in plain}
+
+    def compared(name):
+        def call(*args, **kwargs):
+            got = kernels[name](*args, **kwargs)
+            up = [a.float() if a.is_floating_point() else a for a in args]
+            want = plain[name](*up, **kwargs)
+            key = f"{name} {attention_route(name, kwargs)}"
+            worst[key] = max(worst.get(key, 0.0), _rel_err(got, want))
+            return got
+        return call
+
+    for name in plain:
+        setattr(attention, name, compared(name))
+    try:
+        yield
+    finally:
+        for name, fn in kernels.items():
+            setattr(attention, name, fn)
+
+
+def encdec_parity_phase(cuda: torch.device) -> dict:
+    """Phase 19: each encoder-decoder cut to ENCDEC_CUT encoder and decoder
+    layers at full width, fp32 (random weights, seed 0): (a) every
+    attention call of a prefill and 8 teacher-forced decode steps, kernel
+    against plain version on the same inputs, within ENCDEC_REL_TOL of the
+    output's scale, per route; (b) the first greedy token of every request
+    equal on the kernel path and the plain path; (c) the same weights in
+    bf16: every call's kernel output against the plain version in fp32,
+    within BF16_REL_TOL of scale."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, init_from_template
+    from repro_torch.models.common import tree_map
+
+    out = {}
+    for name, (n_req, n_frames, prompt) in (
+            ("seamless-m4t-large-v2", (2, SEAMLESS_FRAMES, SEAMLESS_PROMPT)),
+            ("paper-block", (64, 16, 16))):
+        cfg = dataclasses.replace(get_config(name), n_layers=ENCDEC_CUT,
+                                  encoder_layers=ENCDEC_CUT, dtype="float32",
+                                  param_dtype="float32")
+        model = build_model(cfg)
+        params = init_from_template(model.template, torch.Generator(device="cuda").manual_seed(0),
+                                    "float32", device=cuda)
+        batch = encdec_batch(cfg, n_req, n_frames, prompt, cuda)
+        max_len = prompt + 8
+        worst: dict[str, float] = {}
+        with torch.no_grad():
+            kernel_logits, _ = model.prefill(params, batch, max_len)
+            with cross_marked(), compared_attention(worst):
+                plain_logits, cache = model.prefill(params, batch, max_len)
+                tok = plain_logits[:, -1].argmax(-1, keepdim=True)
+                for _ in range(8):
+                    logits, cache = model.decode_step(params, tok, cache)
+                    tok = logits[:, -1].argmax(-1, keepdim=True)
+            kernel_first = kernel_logits[:, -1].argmax(-1)
+            plain_first = plain_logits[:, -1].argmax(-1)
+            cfg16 = dataclasses.replace(cfg, dtype="bfloat16", param_dtype="bfloat16")
+            model16 = build_model(cfg16)
+            params16 = tree_map(lambda t: t.bfloat16(), params)
+            worst16: dict[str, float] = {}
+            with cross_marked(), compared_bf16(worst16):
+                logits16, cache16 = model16.prefill(params16, batch, max_len)
+                tok = logits16[:, -1].argmax(-1, keepdim=True)
+                for _ in range(8):
+                    logits16, cache16 = model16.decode_step(params16, tok, cache16)
+                    tok = logits16[:, -1].argmax(-1, keepdim=True)
+        agree = int((kernel_first == plain_first).sum())
+        print(f"  {name} cut to {ENCDEC_CUT} + {ENCDEC_CUT} layers, fp32: every attention call "
+              f"of a prefill ({n_req} x {n_frames} frames, {prompt} tokens) + 8 decode steps, "
+              f"kernel vs plain: max|kernel - plain| / max|plain| = "
+              + ", ".join(f"{k} {v:.3g}" for k, v in sorted(worst.items()))
+              + f" (tol {ENCDEC_REL_TOL}); first tokens equal on {agree}/{n_req} requests; "
+              "bf16 kernel vs fp32 plain: "
+              + ", ".join(f"{k} {v:.3g}" for k, v in sorted(worst16.items()))
+              + f" (tol {BF16_REL_TOL})")
+        routes = {"flash_attention", "flash_attention bidirectional", "flash_attention cross",
+                  "decode_attention", "decode_attention cross"}
+        assert set(worst) == routes, worst
+        assert all(v <= ENCDEC_REL_TOL for v in worst.values()), worst
+        assert agree == n_req, (kernel_first.tolist(), plain_first.tolist())
+        assert {k.replace(" self", "").replace(" full", "") for k in worst16} == routes, worst16
+        assert all(v <= BF16_REL_TOL for v in worst16.values()), worst16
+        out[name] = {"attention_rel_err": worst, "bf16_rel_err": worst16,
+                     "first_tokens_equal": agree, "requests": n_req}
+        del params, params16, cache, cache16
+        free_memory()
+    return out
+
+
+def vlm_phase(cuda: torch.device) -> tuple[dict, dict]:
+    """Phase 20: internvl2-76b cut to VLM_LAYERS of its 80 layers at full
+    width (bf16, seed 0): two 1100-token prompts whose first 1024 positions
+    take projected patch embeddings [2, 1024, 3200], then 16 greedy decode
+    steps; then one dense PipelineServer run at G=2 x R=3 (phase 4's, as
+    the JAX fleet serves it: tokens only). Returns the launches of both and
+    a report."""
+    from repro_torch.configs import ShapeCell, get_config
+    from repro_torch.models import build_model, count_params, init_from_template
+    from repro_torch.models.inputs import make_inputs
+    from repro_torch.serving import slice_stage_params
+
+    full = get_config("internvl2-76b")
+    cfg = dataclasses.replace(full, n_layers=VLM_LAYERS)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_from_template(model.template, torch.Generator(device="cuda").manual_seed(0),
+                                cfg.param_dtype, device=cuda)
+    n, n_full = count_params(model.template), count_params(build_model(full).template)
+    print(f"  internvl2-76b reduced: {VLM_LAYERS} of {full.n_layers} layers at full width "
+          f"(d_model {cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.head_dim}, "
+          f"vocabulary {cfg.vocab_size}, vision_proj {tuple(model.template['vision_proj'].shape)})"
+          f": {n} parameters ({n / 1e9:.3f} B; the whole model {n_full / 1e9:.3f} B), drawn in "
+          f"{time.perf_counter() - t0:.2f} s, peak {peak_gb():.2f} GB")
+    batch = make_inputs(cfg, ShapeCell("vlm", "prefill", VLM_PROMPT, 2), 3, cuda)
+    assert tuple(batch["patch_embeds"].shape) == (2, cfg.n_frontend_tokens, cfg.frontend_dim)
+    zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, batch, VLM_PROMPT + 16)
+        tokens = [logits[:, -1].argmax(-1)]
+        for _ in range(16):
+            logits, cache = model.decode_step(params, tokens[-1][:, None], cache)
+            tokens.append(logits[:, -1].argmax(-1))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        direct = read_counters()
+        # The same prompts without their patches: the last position's logits move.
+        with_patches, _ = model.prefill(params, batch, VLM_PROMPT)
+        text, _ = model.prefill(params, {"tokens": batch["tokens"]}, VLM_PROMPT)
+    tokens = torch.stack(tokens, 1).tolist()
+    moved = _rel_err(with_patches, text)
+    print(f"  2 prompts of {VLM_PROMPT} tokens (patches at positions 0.."
+          f"{cfg.n_frontend_tokens - 1})"
+          f" + 16 decode steps: {wall:.3f} s, {2 * 17 / wall:.2f} tokens/s, peak {peak_gb():.2f} "
+          f"GB; tokens {tokens}; launches {direct}; the patches move the last prompt position's "
+          f"logits by {moved:.3g} of their scale")
+    assert bool(torch.isfinite(logits).all()), "non-finite logits"
+    assert all(0 <= t < cfg.vocab_size for row in tokens for t in row)
+    assert direct["flash_attention"] == VLM_LAYERS, direct
+    assert direct["decode_attention"] == 16 * VLM_LAYERS, direct
+    assert moved > 0, "the patch embeddings did not reach the logits"
+    stages = slice_stage_params(cfg, params, 2)
+    assert ["vision_proj" in s for s in stages] == [True, False]
+    with torch.no_grad():
+        served_launches, served = serve(params, model, cuda, n_groups=2)
+    launches = {k: direct[k] + served_launches.get(k, 0) for k in KERNELS}
+    report = {"params": n, "params_full": n_full, "layers": f"{VLM_LAYERS} of {full.n_layers}",
+              "direct": {"wall_s": wall, "tokens": 2 * 17, "tokens_per_s": 2 * 17 / wall,
+                         "launches": direct, "patches_rel_move": moved},
+              "served": served, "peak_gb": peak_gb()}
+    del params, model, cache, stages, with_patches, text
+    free_memory()
+    return launches, report
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2545,6 +3000,23 @@ def main() -> int:
             routes[route] += run.get("routes", {}).get(route, 0)
     assert launches["rmsnorm"] == 0, f"a served path launched rmsnorm: {launches}"
 
+    print("[18] serve full-size seamless-m4t-large-v2 and paper-block, encoder-decoders",
+          flush=True)
+    encdec_launches, encdec = encdec_serve_phase(cuda)
+    print("[19] encoder-decoder parity, fp32 cuts of 3 + 3 layers at full width", flush=True)
+    encdec_checks = encdec_parity_phase(cuda)
+    print(f"[20] internvl2-76b, {VLM_LAYERS} of 80 layers at full width, patches frontend",
+          flush=True)
+    vlm_launches, vlm = vlm_phase(cuda)
+    for name in KERNELS:
+        launches[name] += encdec_launches[name] + vlm_launches[name]
+    assert launches["rmsnorm"] == 0, f"a served path launched rmsnorm: {launches}"
+    encdec_routes = {name: collections.Counter() for name in ("flash_attention",
+                                                               "decode_attention")}
+    for report in encdec.values():
+        for name, counts in report["launches_by_route"].items():
+            encdec_routes[name].update(counts)
+
     kernels = []
     for name, source, replaces, main_shape in (
         ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -2575,8 +3047,20 @@ def main() -> int:
         if name == "flash_attention":
             entry["tensor_core_sass"] = tensor_core["flash_fwd_tc_kernel"]
             windowed = hybrid["served"]["flash_launches_by_route"]["windowed"]
-            entry["launches_by_route"] = {"full": launches[name] - windowed,
-                                          "windowed": windowed}
+            bidir, cross = (encdec_routes[name][r] for r in ("bidirectional", "cross"))
+            entry["launches_by_route"] = {"full": launches[name] - windowed - bidir - cross,
+                                          "windowed": windowed, "bidirectional": bidir,
+                                          "cross": cross}
+        if name == "decode_attention":
+            cross = encdec_routes[name]["cross"]
+            entry["launches_by_route"] = {"self": launches[name] - cross, "cross": cross}
+        if name in ("flash_attention", "decode_attention"):
+            entry["launches_by_run"] = {"encdec": encdec_launches[name],
+                                        "internvl2": vlm_launches[name]}
+        if name == "flash_attention":
+            entry["served_encdec"] = encdec
+            entry["encdec_parity"] = encdec_checks
+            entry["served_internvl2"] = vlm
         if name in ("flash_attention", "decode_attention", "selective_scan"):
             entry["launches_by_run"] = {**entry.get("launches_by_run", {}),
                                         "hybrid": hybrid_launches[name]}
@@ -2619,7 +3103,7 @@ def main() -> int:
             entry["launches_note"] = ("no served path launches it: the models call their plain "
                                       "rmsnorm (models/layers.py), as the JAX models do")
         kernels.append(entry)
-    print(f"[18] all phases passed in {time.perf_counter() - t_start:.1f} s, build included")
+    print(f"[21] all phases passed in {time.perf_counter() - t_start:.1f} s, build included")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -15,6 +15,13 @@
 // head_dim] per layer, through strides: no transpose to BHSD (the JAX
 // wrapper, decode_attention/ops.py:27-31, transposes the whole cache). Rows
 // start on 16-byte boundaries (the wrapper checks it).
+//
+// head_dim 8 and 16 (the paper's Sec. V block; the smoke configs) take the
+// same body: a lane then holds a whole row (8 elements: one 16-byte load in
+// bf16, two in fp32) or half of one, and a warp load instruction covers 32
+// or 16 rows, so a 16-row tile fills only part of a warp step. The cross
+// cache of an encoder-decoder is such a cache, every lane's length its
+// encoder length.
 #include "split_decode.cuh"
 
 // q [B, 1, H, D]; k/v [B, S, KV, D] (strides of lane, position, head);
@@ -46,16 +53,17 @@ extern "C" int repro_decode_attention_fwd(
   a.vs = {v_sb, kDenseTile * v_ss, v_ss, v_sh};
   a.window = window;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32 && D == 64)
-    return launch_split_decode<float, float, 64, false>(a, B, KV, n_chunks, scale, st);
-  if (dtype == kFloat32 && D == 128)
-    return launch_split_decode<float, float, 128, false>(a, B, KV, n_chunks, scale, st);
-  if (dtype == kBFloat16 && D == 64)
-    return launch_split_decode<__nv_bfloat16, __nv_bfloat16, 64, false>(a, B, KV, n_chunks,
-                                                                         scale, st);
-  if (dtype == kBFloat16 && D == 128)
-    return launch_split_decode<__nv_bfloat16, __nv_bfloat16, 128, false>(a, B, KV, n_chunks,
-                                                                          scale, st);
+#define REPRO_DECODE(T, DIM) \
+  return launch_split_decode<T, T, DIM, false>(a, B, KV, n_chunks, scale, st)
+  if (dtype == kFloat32 && D == 8) REPRO_DECODE(float, 8);
+  if (dtype == kFloat32 && D == 16) REPRO_DECODE(float, 16);
+  if (dtype == kFloat32 && D == 64) REPRO_DECODE(float, 64);
+  if (dtype == kFloat32 && D == 128) REPRO_DECODE(float, 128);
+  if (dtype == kBFloat16 && D == 8) REPRO_DECODE(__nv_bfloat16, 8);
+  if (dtype == kBFloat16 && D == 16) REPRO_DECODE(__nv_bfloat16, 16);
+  if (dtype == kBFloat16 && D == 64) REPRO_DECODE(__nv_bfloat16, 64);
+  if (dtype == kBFloat16 && D == 128) REPRO_DECODE(__nv_bfloat16, 128);
+#undef REPRO_DECODE
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -68,15 +76,16 @@ extern "C" int repro_decode_attention_launch_shape(int D, int G, int dtype, int*
   using namespace repro;
   if (G < 1) return static_cast<int>(cudaErrorInvalidValue);
   shape[4] = kDenseTile;
-  if (dtype == kFloat32 && D == 64)
-    return static_cast<int>(split_decode_launch_shape<float, float, 64, false>(G, shape));
-  if (dtype == kFloat32 && D == 128)
-    return static_cast<int>(split_decode_launch_shape<float, float, 128, false>(G, shape));
-  if (dtype == kBFloat16 && D == 64)
-    return static_cast<int>(
-        split_decode_launch_shape<__nv_bfloat16, __nv_bfloat16, 64, false>(G, shape));
-  if (dtype == kBFloat16 && D == 128)
-    return static_cast<int>(
-        split_decode_launch_shape<__nv_bfloat16, __nv_bfloat16, 128, false>(G, shape));
+#define REPRO_DECODE_SHAPE(T, DIM) \
+  return static_cast<int>(split_decode_launch_shape<T, T, DIM, false>(G, shape))
+  if (dtype == kFloat32 && D == 8) REPRO_DECODE_SHAPE(float, 8);
+  if (dtype == kFloat32 && D == 16) REPRO_DECODE_SHAPE(float, 16);
+  if (dtype == kFloat32 && D == 64) REPRO_DECODE_SHAPE(float, 64);
+  if (dtype == kFloat32 && D == 128) REPRO_DECODE_SHAPE(float, 128);
+  if (dtype == kBFloat16 && D == 8) REPRO_DECODE_SHAPE(__nv_bfloat16, 8);
+  if (dtype == kBFloat16 && D == 16) REPRO_DECODE_SHAPE(__nv_bfloat16, 16);
+  if (dtype == kBFloat16 && D == 64) REPRO_DECODE_SHAPE(__nv_bfloat16, 64);
+  if (dtype == kBFloat16 && D == 128) REPRO_DECODE_SHAPE(__nv_bfloat16, 128);
+#undef REPRO_DECODE_SHAPE
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -11,7 +11,7 @@
 // state lives in registers, in fp32. Q/K/V are read in the model layout
 // [B, S, H, D] through strides, so the caller never transposes to BHSD;
 // ragged tails are masked in-kernel instead of padding the inputs. The
-// dispatch at the bottom picks one of two designs by dtype.
+// dispatch at the bottom picks one of three designs by head_dim and dtype.
 //
 // bf16: the tensor cores (attention_tc.cuh). One warpgroup per (64 rows,
 // KV head, batch), where a row is one (query position, query head of the KV
@@ -27,6 +27,17 @@
 // and the exponentials on the special-function units take about equal
 // time at D = 64.
 //
+// head_dim 8 and 16 (the paper's Sec. V block has 100 heads of 8), fp32 and
+// bf16: the CUDA cores (flash_small_kernel). A K row of 8 or 16 elements is
+// below wgmma's 16-element contraction step and the 128-byte swizzle of the
+// tensor-core tiles, and the work is small: at the paper's shape (B = 64,
+// S = 16, 100 heads) q, k, v and o come to 6.6 MB in bf16, ~2 us at
+// 3.35 TB/s, below a launch's ~5 us. One thread owns one row (query
+// position, query head of the KV head's group), holds its q and its output
+// in registers, and walks tiles of 32 K/V rows staged in shared memory as
+// fp32, every thread reading the same row at once (a broadcast). Bound:
+// bytes; the launch's fixed cost at the served shapes.
+//
 // fp32: the CUDA cores, the parity path (fp32 on the tensor cores would be
 // TF32, ~3 decimal digits). One block per (64 query rows, query head,
 // batch); each of the four warps owns 16 rows; a lane owns two score
@@ -35,6 +46,8 @@
 // padded by one column so a warp reading 32 different K rows hits 32
 // banks). Bound: bytes at the serving shapes; at long prompts the fp32 FMAs
 // (67 TFLOP/s), which this design reaches only in part.
+#include <algorithm>
+
 #include "attention_tc.cuh"
 #include "common.cuh"
 
@@ -195,6 +208,110 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
   return cudaGetLastError();
 }
 
+// ---- head_dim 8 / 16: the CUDA cores, fp32 and bf16 --------------------------
+
+constexpr int kSmallKV = 32;       // K/V rows per shared-memory tile (one bit each in a mask)
+constexpr int kSmallThreads = 128;  // the most rows per block
+
+// One block per (up to 128 rows, KV head, batch), a row being one (query
+// position, query head of the group) pair, position-major as in the bf16
+// kernel, so the G heads of a group share each K/V tile. Each thread owns
+// one row: q (pre-scaled by scale * log2 e) and the output in registers, the
+// online softmax in exp2.
+template <typename T, int D>
+__global__ void __launch_bounds__(kSmallThreads) flash_small_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    T* __restrict__ o, int Sq, int Skv, int G, Strides4 qs, Strides4 ks, Strides4 vs,
+    Strides4 os, int causal, int window, float scale_log2) {
+  __shared__ float sK[kSmallKV][D];
+  __shared__ float sV[kSmallKV][D];
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int n_rows = Sq * G;
+  const int r0 = blockIdx.x * blockDim.x;
+  const int r = r0 + threadIdx.x;
+  const bool live = r < n_rows;
+  const int qp = live ? r / G : 0;
+  const int h = kvh * G + (live ? r % G : 0);
+  const int q_first = r0 / G;
+  const int q_last = (min(r0 + static_cast<int>(blockDim.x), n_rows) - 1) / G;
+
+  float qr[D], acc[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    qr[d] = live ? to_float(q[b * qs.b + qp * qs.s + h * qs.h + d]) * scale_log2 : 0.f;
+    acc[d] = 0.f;
+  }
+  float m = NEG_INF, l = 0.f;
+
+  // K/V rows these rows can see (flash_attention.py:50-58), in whole tiles.
+  const int kv_end = causal ? min(Skv, q_last + 1) : Skv;
+  const int kv_begin = (window > 0 ? max(0, q_first - window + 1) : 0) / kSmallKV * kSmallKV;
+  const T* kb = k + b * ks.b + kvh * ks.h;
+  const T* vb = v + b * vs.b + kvh * vs.h;
+  for (int kv0 = kv_begin; kv0 < kv_end; kv0 += kSmallKV) {
+    __syncthreads();  // the previous tile fully consumed
+    for (int i = threadIdx.x; i < kSmallKV * D; i += blockDim.x) {
+      const int row = i / D, d = i % D;
+      const int kp = kv0 + row;
+      sK[row][d] = kp < Skv ? to_float(kb[kp * ks.s + d]) : 0.f;
+      sV[row][d] = kp < Skv ? to_float(vb[kp * vs.s + d]) : 0.f;
+    }
+    __syncthreads();
+    float s[kSmallKV];
+    uint32_t ok = 0u;
+    float mx = m;
+#pragma unroll
+    for (int c = 0; c < kSmallKV; ++c) {
+      const int kp = kv0 + c;
+      bool valid = kp < Skv;
+      if (causal) valid = valid && qp >= kp;
+      if (window > 0) valid = valid && qp - kp < window;
+      float dot = 0.f;
+#pragma unroll
+      for (int d = 0; d < D; ++d) dot = fmaf(qr[d], sK[c][d], dot);
+      s[c] = dot;
+      if (valid) {
+        ok |= 1u << c;
+        mx = fmaxf(mx, dot);
+      }
+    }
+    const float corr = exp2f(m - mx);
+    l *= corr;
+#pragma unroll
+    for (int d = 0; d < D; ++d) acc[d] *= corr;
+#pragma unroll
+    for (int c = 0; c < kSmallKV; ++c) {
+      const float p = (ok >> c) & 1u ? exp2f(s[c] - mx) : 0.f;
+      l += p;
+#pragma unroll
+      for (int d = 0; d < D; ++d) acc[d] = fmaf(p, sV[c][d], acc[d]);
+    }
+    m = mx;
+  }
+  if (live) {
+    T* orow = o + b * os.b + qp * os.s + h * os.h;
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+#pragma unroll
+    for (int d = 0; d < D; ++d) orow[d] = from_float<T>(acc[d] * inv);
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch_small(const void* q, const void* k, const void* v, void* o, int B, int Sq,
+                         int Skv, int H, int KV, Strides4 qs, Strides4 ks, Strides4 vs,
+                         Strides4 os, int causal, int window, float scale, cudaStream_t stream) {
+  const int G = H / KV;
+  const int n_rows = Sq * G;
+  // A warp at least; no more threads than rows, up to kSmallThreads.
+  const int threads = std::min(kSmallThreads, std::max(32, (n_rows + 31) / 32 * 32));
+  dim3 grid((n_rows + threads - 1) / threads, KV, B);
+  flash_small_kernel<T, D><<<grid, threads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), Sq, Skv, G, qs, ks, vs, os, causal, window, scale * LOG2E);
+  return cudaGetLastError();
+}
+
 // ---- bf16: tensor cores (attention_tc.cuh) ----------------------------------
 
 // Alignment slack, Q, and two stages of K and V.
@@ -312,7 +429,9 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, int 
 }  // namespace repro
 
 // q [B, Sq, H, D], k/v [B, Skv, KV, D], o [B, Sq, H, D]: element strides of
-// the batch, sequence and head dims (the head_dim stride is 1). window <= 0
+// the batch, sequence and head dims (the head_dim stride is 1); D is 8, 16,
+// 64 or 128, and Sq may differ from Skv (cross-attention; a causal mask then
+// compares the two positions from 0, as the plain version does). window <= 0
 // means no window. dtype: 0 = fp32, 1 = bf16. Returns cudaGetLastError().
 extern "C" int repro_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv,
@@ -324,6 +443,16 @@ extern "C" int repro_flash_attention_fwd(
   const Strides4 qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh},
       os{o_sb, o_ss, o_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (Sq < 1 || Skv < 1 || KV < 1 || H % KV != 0 || B > 65535 || KV > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+#define REPRO_FLASH_SMALL(T, DIM) \
+  return launch_small<T, DIM>(q, k, v, o, B, Sq, Skv, H, KV, qs, ks, vs, os, causal, window, \
+                              scale, st)
+  if (dtype == kFloat32 && D == 8) REPRO_FLASH_SMALL(float, 8);
+  if (dtype == kFloat32 && D == 16) REPRO_FLASH_SMALL(float, 16);
+  if (dtype == kBFloat16 && D == 8) REPRO_FLASH_SMALL(__nv_bfloat16, 8);
+  if (dtype == kBFloat16 && D == 16) REPRO_FLASH_SMALL(__nv_bfloat16, 16);
+#undef REPRO_FLASH_SMALL
   if (dtype == kFloat32 && D == 64)
     return launch<64>(q, k, v, o, B, Sq, Skv, H, KV, qs, ks, vs, os, causal, window, scale, st);
   if (dtype == kFloat32 && D == 128)

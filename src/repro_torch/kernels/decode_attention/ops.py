@@ -18,7 +18,7 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
-from ..flash_attention.ops import check_rows_16b_aligned
+from ..flash_attention.ops import HEAD_DIMS, check_rows_16b_aligned
 from .ref import decode_attention_ref_model
 
 __all__ = ["decode_attention", "split_tiles", "LaunchShape", "MIN_TILES_PER_WARP"]
@@ -104,8 +104,10 @@ def decode_attention(
     window: int | None = None,
 ) -> torch.Tensor:
     """q: [B, 1, H, D]; caches: [B, S, KV, D] (the engine's per-layer
-    view, read through strides); lengths: [B] int32 valid rows including
-    the new token. Returns [B, 1, H, D] in q's dtype."""
+    view, or an encoder-decoder's cross cache, read through strides);
+    lengths: [B] int32 valid rows including the new token. Returns [B, 1,
+    H, D] in q's dtype. The CUDA kernel takes a head_dim of
+    ``HEAD_DIMS``; any other raises."""
     if q.device.type == "cpu":
         return decode_attention_ref_model(q, k_cache, v_cache, lengths, window=window)
     if q.device.type != "cuda":
@@ -115,8 +117,8 @@ def decode_attention(
     if one != 1 or v_cache.shape != k_cache.shape or Bc != B or Dc != D or H % KV:
         raise ValueError(f"decode_attention: bad shapes q={tuple(q.shape)} "
                          f"k={tuple(k_cache.shape)} v={tuple(v_cache.shape)}")
-    if D not in (64, 128):
-        raise ValueError(f"decode_attention: head_dim {D} not in (64, 128)")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"decode_attention: head_dim {D} not in {HEAD_DIMS}")
     if (q.dtype not in _DTYPE_CODES or k_cache.dtype != q.dtype
             or v_cache.dtype != q.dtype):
         raise ValueError(f"decode_attention: dtypes {q.dtype}/{k_cache.dtype}/"

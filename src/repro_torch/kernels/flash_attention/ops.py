@@ -16,8 +16,11 @@ import torch
 from .. import _build
 from .ref import flash_attention_ref
 
-__all__ = ["flash_attention", "check_rows_16b_aligned"]
+__all__ = ["flash_attention", "check_rows_16b_aligned", "HEAD_DIMS"]
 
+# head_dims the kernel takes: 8 and 16 on the CUDA cores (the paper's Sec. V
+# block, the smoke configs), 64 and 128 on the tensor cores in bf16.
+HEAD_DIMS = (8, 16, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = (
     [ctypes.c_void_p] * 4
@@ -51,8 +54,9 @@ def flash_attention(
     """q: [B, Sq, H, D]; k, v: [B, Skv, KV, D] -> [B, Sq, H, D] in q's dtype.
 
     The CUDA kernel reads all three through their strides (last dim
-    contiguous) and takes head_dim 64 or 128, fp32 or bf16; bf16 rows
-    must start on 16-byte boundaries.
+    contiguous) and takes a head_dim of ``HEAD_DIMS``, fp32 or bf16, and
+    Sq != Skv (cross-attention: ``causal=False``); bf16 rows must start on
+    16-byte boundaries. Any other head_dim raises: there is no fallback.
     """
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)
@@ -63,8 +67,8 @@ def flash_attention(
     if k.shape != v.shape or Bk != B or Dk != D or H % KV:
         raise ValueError(f"flash_attention: bad shapes q={tuple(q.shape)} "
                          f"k={tuple(k.shape)} v={tuple(v.shape)}")
-    if D not in (64, 128):
-        raise ValueError(f"flash_attention: head_dim {D} not in (64, 128)")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {D} not in {HEAD_DIMS}")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention: dtypes {q.dtype}/{k.dtype}/{v.dtype}; "
                          "need one of fp32, bf16")

@@ -1,8 +1,13 @@
 """Attention sub-blocks: GQA projections with RoPE, then
 
-* prefill through the flash-attention kernel and single-token decode
-  through the flash-decode kernel against a dense KV cache or a
-  sliding-window ring (:func:`attention_block`);
+* prefill through the flash-attention kernel (causal, or bidirectional
+  for an encoder) and single-token decode through the flash-decode kernel
+  against a dense KV cache or a sliding-window ring
+  (:func:`attention_block`);
+* an encoder-decoder's cross-attention (:func:`cross_attention_block`)
+  over the encoder's K/V (:func:`project_kv`): a prompt through the
+  flash-attention kernel, bidirectional with Sq != Skv, and a decode step
+  through the flash-decode kernel over the whole cross cache;
 * chunked prefill against a dense KV cache (:func:`chunk_attention_block`)
   through the paged-prefill kernel, the cache read as a pool of one page
   per lane;
@@ -30,6 +35,8 @@ from .layers import apply_rope, rmsnorm
 __all__ = [
     "attn_template",
     "attention_block",
+    "cross_attention_block",
+    "project_kv",
     "paged_attention_block",
     "paged_chunk_attention_block",
     "chunk_attention_block",
@@ -95,6 +102,7 @@ def attention_block(
     window: int | None = None,
     cache: tuple[torch.Tensor, ...] | None = None,
     lanes: torch.Tensor | None = None,
+    causal: bool = True,
 ):
     """Full attention sub-block: qkv -> attn -> o_proj.
 
@@ -102,8 +110,9 @@ def attention_block(
     attention); both kernels take it, as JAX's Pallas branch passes
     ``window_static``.
 
-    Without ``cache``: causal self-attention over x (prefill); returns
-    (out, (k, v)) so the caller can fill the cache.
+    Without ``cache``: self-attention over x (prefill), causal unless
+    ``causal=False`` (an encoder layer); returns (out, (k, v)) so the
+    caller can fill the cache.
 
     With ``cache=(k_cache, v_cache, attn_len, write_idx)`` — one layer's
     cache ``[W, L, KV, Dh]``, per-lane valid rows ``[W]`` that include the
@@ -119,7 +128,7 @@ def attention_block(
     dtype = cfg.compute_dtype
     q, k, v = _project_qkv(x, p, cfg, positions)
     if cache is None:
-        out = flash_attention(q, k, v, causal=True, window=window)
+        out = flash_attention(q, k, v, causal=causal, window=window)
         return _out_proj(out, p["wo"], dtype), (k, v)
     k_cache, v_cache, attn_len, write_idx = cache
     idx = write_idx[lanes].long()
@@ -127,6 +136,47 @@ def attention_block(
     v_cache[lanes, idx] = v[lanes, 0].to(v_cache.dtype)
     out = decode_attention(q, k_cache, v_cache, attn_len, window=window)
     return _out_proj(out, p["wo"], dtype), (k_cache, v_cache)
+
+
+def project_kv(x: torch.Tensor, p: dict, cfg: ModelConfig):
+    """K/V projections only (encoder output [B, S, D] -> a cross-attention
+    cache's k, v [B, S, KV, Dh]); no RoPE, as in JAX."""
+    dtype = cfg.compute_dtype
+    k = _proj(x, p["wk"], dtype)
+    v = _proj(x, p["wv"], dtype)
+    if cfg.qkv_bias:
+        k = k + p["bk"].to(dtype)
+        v = v + p["bv"].to(dtype)
+    return k, v
+
+
+def cross_attention_block(
+    x: torch.Tensor,
+    kv: tuple[torch.Tensor, torch.Tensor],
+    p: dict,
+    cfg: ModelConfig,
+    *,
+    lengths: torch.Tensor | None = None,
+):
+    """Cross-attention against the encoder's K/V (no RoPE, no mask).
+
+    x [B, Sq, D]; kv: (k, v) each [B, Skv, KV, Dh] (:func:`project_kv`).
+    Without ``lengths`` (a prompt): the flash-attention kernel,
+    bidirectional, Sq decoder tokens against Skv frames. With ``lengths``
+    [B] int32 (a decode step, Sq = 1): the flash-decode kernel over each
+    lane's first ``lengths`` rows of the cross cache, its whole encoder
+    output. JAX computes both in XLA's ``chunked_attention``.
+    """
+    dtype = cfg.compute_dtype
+    k, v = kv
+    q = _proj(x, p["wq"], dtype)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dtype)
+    if lengths is None:
+        out = flash_attention(q, k, v, causal=False)
+    else:
+        out = decode_attention(q, k, v, lengths)
+    return _out_proj(out, p["wo"], dtype)
 
 
 def _scatter_kv_pages(pages: dict, k, v, write_pages, write_offs, write_src) -> None:

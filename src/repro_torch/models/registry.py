@@ -21,6 +21,12 @@ cover the ``supports_paged`` configs and are ``None`` for Mamba and
 hybrid models and any windowed plan, which serve whole prompts from the
 dense slot cache, as in JAX.
 
+An encoder-decoder (:mod:`.encdec`) has the whole-prompt entry points
+only: its cache adds cross-attention K/V of ``enc_len`` rows
+(``cache_shapes`` / ``init_cache`` take ``enc_len``, default
+``max_len``, as JAX's), and its batches carry ``"frames"``. The JAX fleet
+does not serve it (``serving.partition.stage_configs`` raises).
+
 ``SPEC_DRAFT_PAIRS`` / :func:`default_draft_for` are the JAX registry's
 draft pairings for speculative decoding, copied.
 """
@@ -30,7 +36,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable
 
-from . import transformer
+from . import encdec, transformer
 from .common import ModelConfig
 
 __all__ = ["Model", "build_model", "SPEC_DRAFT_PAIRS", "default_draft_for"]
@@ -85,7 +91,21 @@ class Model:
 
 def build_model(cfg: ModelConfig) -> Model:
     cfg.validate()
-    transformer.check_supported(cfg)
+    if cfg.is_encdec:
+        return Model(
+            cfg=cfg,
+            template=encdec.encdec_template(cfg),
+            prefill=lambda p, b, max_len: encdec.prefill(p, b, cfg, max_len=max_len),
+            decode_step=lambda p, t, c: encdec.decode_step(p, t, c, cfg),
+            cache_shapes=lambda batch, max_len, enc_len=None: encdec.init_cache_shapes(
+                cfg, batch, max_len, enc_len if enc_len is not None else max_len
+            ),
+            init_cache=lambda batch, max_len, device, enc_len=None: encdec.init_cache(
+                cfg, batch, max_len, device, enc_len if enc_len is not None else max_len
+            ),
+            prefill_batch=lambda p, b, c, lanes: encdec.prefill_into(p, b, c, lanes, cfg),
+            decode_batch=lambda p, t, c, lanes: encdec.decode_step(p, t, c, cfg, lanes)[0],
+        )
     decode_paged = prefill_chunk = prefill_chunk_batch = None
     prefill_chunk_paged = verify_step_paged = None
     if transformer.supports_paged(cfg):

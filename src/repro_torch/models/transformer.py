@@ -50,8 +50,12 @@ dense chunks route each lane on its own (JAX ``vmap``s them over
 requests), and the paged entry points route the whole call at once,
 masked lanes and padding positions included (JAX batches them natively).
 
-Encoder–decoder models and modality frontends are not ported yet: they
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+**Patches frontend.** A ``frontend="patches"`` config (internvl2) keeps
+the JAX ``vision_proj`` leaf on its first stage: a prefill whose batch
+holds ``"patch_embeds"`` [B, P, frontend_dim] takes the projected patches
+at its first P positions in place of their token embeddings. The serving
+engine passes tokens only, as the JAX one does. Encoder-decoder models
+live in :mod:`.encdec`.
 """
 
 from __future__ import annotations
@@ -88,22 +92,7 @@ __all__ = [
     "init_cache_shapes",
     "layer_plan",
     "LayerPlan",
-    "check_supported",
 ]
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the architectures whose model code is not ported yet."""
-    missing = []
-    if cfg.is_encdec:
-        missing.append("encoder-decoder")
-    if cfg.frontend is not None:
-        missing.append(f"{cfg.frontend} frontend")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported to PyTorch yet "
-            "(ROADMAP.md, Queue 1: the rest of the zoo)"
-        )
 
 
 # ---------------------------------------------------------------------------
@@ -144,7 +133,6 @@ def layer_plan(cfg: ModelConfig) -> LayerPlan:
     it serves like a uniform stage, paged included; the JAX plan has no
     class for it and refuses it paged (ROADMAP, Queue 3).
     """
-    check_supported(cfg)
     windows = [cfg.window_for_layer(l) for l in range(cfg.n_layers)]
     uniq = sorted(set(windows), key=lambda w: (w is not None, w)) or [None]
     classes = tuple(
@@ -201,6 +189,8 @@ def lm_template(cfg: ModelConfig) -> dict:
         t["embed"] = keep_emb
     if cfg.stage_unembed:
         t["final_norm"] = ParamSpec((cfg.d_model,), ("embed",), init="ones")
+    if cfg.stage_embed and cfg.frontend == "patches":
+        t["vision_proj"] = ParamSpec((cfg.frontend_dim, cfg.d_model), ("frontend", "embed"))
     return t
 
 
@@ -208,16 +198,23 @@ def lm_template(cfg: ModelConfig) -> dict:
 # Shared pieces
 # ---------------------------------------------------------------------------
 
-def _embed(params, x_in: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """First stage: token embedding; a middle stage passes the hidden
-    states through. An id past the vocabulary reads the last row, as the
-    JAX gather clamps it: a speculative draft with a smaller vocabulary
-    than its target ingests every token the target commits."""
+def _embed(params, x_in: torch.Tensor, cfg: ModelConfig, batch: dict | None = None
+           ) -> torch.Tensor:
+    """First stage: token embedding, and for a patches frontend the
+    projected ``batch["patch_embeds"]`` [B, P, frontend_dim] in place of
+    the first P positions' (JAX ``_embed``); a middle stage passes the
+    hidden states through. An id past the vocabulary reads the last row,
+    as the JAX gather clamps it: a speculative draft with a smaller
+    vocabulary than its target ingests every token the target commits."""
     dtype = cfg.compute_dtype
     if not cfg.stage_embed:
         return x_in.to(dtype)
     tok = params["embed"]["tok"]
-    return tok[x_in.long().clamp(0, tok.shape[0] - 1)].to(dtype)
+    x = tok[x_in.long().clamp(0, tok.shape[0] - 1)].to(dtype)
+    if cfg.frontend == "patches" and batch is not None and "patch_embeds" in batch:
+        proj = batch["patch_embeds"].to(dtype) @ params["vision_proj"].to(dtype)
+        x = torch.cat([proj, x[:, proj.shape[1]:]], dim=1)
+    return x
 
 
 def _unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -343,7 +340,8 @@ def _runs(params, cache: dict, cfg: ModelConfig):
 def prefill_into(params, batch: dict, cache: dict, lanes: torch.Tensor, cfg: ModelConfig):
     """Prefill N same-length prompts into cache lanes ``lanes`` [N].
 
-    batch: {"tokens": [N, S]} (first stage) or {"hidden": [N, S, D]}.
+    batch: {"tokens": [N, S]} (first stage; a patches frontend's may add
+    "patch_embeds" [N, P, frontend_dim]) or {"hidden": [N, S, D]}.
     Writes each attention layer's K/V rows ``[0, S)`` — for a window
     class whose ring is shorter than S, its last ``Lc`` rows, row = position
     mod ``Lc`` — and each Mamba layer's conv tail and final SSM state into
@@ -358,7 +356,7 @@ def prefill_into(params, batch: dict, cache: dict, lanes: torch.Tensor, cfg: Mod
         if cls.window is None and "k" in entry and S > entry["k"].shape[2]:
             raise ValueError(
                 f"prompt of {S} tokens exceeds the cache's max_len {entry['k'].shape[2]}")
-    x = _embed(params, x_in, cfg)
+    x = _embed(params, x_in, cfg, batch)
     positions = torch.arange(S, device=x.device)
     for _, cls, stack, entry, row in _runs(params, cache, cfg):
         x, parts = _layer(x, _layer_params(stack, row), cfg, positions=positions,

@@ -33,8 +33,10 @@ def _stage_ranges(n_layers: int, n_stages: int) -> list[tuple[int, int]]:
 def stage_configs(cfg: ModelConfig, n_stages: int) -> list[ModelConfig]:
     """Per-stage configs: a slice of the layers, embedding on the first
     stage, unembedding on the last, and the global-attention layer ids
-    that fall in the stage remapped to its own layer indices."""
-    layer_plan(cfg)  # raises for architectures the port does not have
+    that fall in the stage remapped to its own layer indices. An
+    encoder-decoder raises, as in JAX."""
+    if cfg.is_encdec:
+        raise NotImplementedError("pipeline partitioning targets decoder-only archs")
     return [
         dataclasses.replace(
             cfg,
@@ -57,7 +59,7 @@ def slice_stage_params(cfg: ModelConfig, params, n_stages: int) -> list:
     contiguous layer range): a stage with one class has only ``c0``,
     which may be the full model's ``c1``. The embedding goes to stage 0
     (and, when tied, to the last stage too), final norm / lm_head to the
-    last stage.
+    last stage, a patches frontend's ``vision_proj`` to stage 0.
     """
     full = layer_plan(cfg).classes
     out = []
@@ -82,6 +84,8 @@ def slice_stage_params(cfg: ModelConfig, params, n_stages: int) -> list:
             tree["embed"] = emb
         if s_cfg.stage_unembed:
             tree["final_norm"] = params["final_norm"]
+        if s_cfg.stage_embed and cfg.frontend == "patches":
+            tree["vision_proj"] = params["vision_proj"]
         out.append(tree)
     return out
 

@@ -15,7 +15,12 @@ y and h_final each within 2e-5 of max(1, the plain value's magnitude),
 since 2e-5 is below one fp32 ulp of a y of ~10^2 (long scans). The smoke
 falcon-mamba's prefill logits through the kernel agree with those through
 the plain version within 1e-4 of their scale and within 1e-2 of how far
-zeroing every scan's y moves them. A granite-moe smoke server widened to heads of
+zeroing every scan's y moves them. The attention kernels also run at
+head_dim 8 and 16 and with queries against K/V of another length
+(cross-attention), and a smoke encoder-decoder (head_dim 16) serves on
+the card through every route (flash bidirectional, causal and cross;
+decode self and cross) with its logits within 1e-4 of scale of the plain
+versions' from the same cache. A granite-moe smoke server widened to heads of
 64 (G=2) runs the attention kernels with its MoE layers routing on the
 card. The network simulator on the card
 equals its CPU run on the same draws (integer counters and downtime
@@ -199,6 +204,143 @@ def test_decode_kernel_refuses_cache_rows_off_16_bytes(gen, dtype):
     with pytest.raises(ValueError, match="16-byte"):
         decode_attention(q, kc, bad, lens)
     assert decode_attention.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,Sq,Skv,H,KV,D,causal",
+    [
+        (64, 16, 16, 100, 100, 8, False),  # paper-block's encoder and cross (16 frames)
+        (64, 16, 16, 100, 100, 8, True),  # paper-block's decoder prompt
+        (3, 5, 7, 4, 4, 8, False),  # cross, Sq != Skv
+        (2, 77, 40, 6, 2, 8, False),  # cross, Sq > Skv, GQA, ragged tiles
+        (2, 70, 70, 6, 2, 8, True),  # causal past one 32-row tile, GQA
+        (2, 40, 40, 4, 4, 16, True),  # the smoke configs' head_dim, causal
+        (2, 40, 40, 4, 4, 16, False),  # bidirectional
+        (2, 5, 33, 4, 4, 16, False),  # cross, one row into a second tile
+        (1, 200, 1, 4, 2, 16, False),  # one frame
+        (4, 8, 1000, 16, 16, 64, False),  # seamless's cross packing
+        (4, 8, 1000, 16, 16, 64, True),  # the same, causal from position 0
+        (2, 130, 64, 8, 2, 128, False),  # cross at D=128, GQA, Sq > Skv
+    ],
+)
+def test_flash_kernel_cross_and_small_head_dims(gen, dtype, B, Sq, Skv, H, KV, D, causal):
+    """head_dim 8 and 16 (the CUDA-core kernel), and queries against a
+    K/V sequence of another length (cross-attention), against the plain
+    version."""
+    q = torch.randn(B, Sq, H, D, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(B, Skv, KV, D, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(B, Skv, KV, D, generator=gen, device="cuda").to(dtype)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_ref(q.float(), k.float(), v.float(), causal=causal)
+    torch.testing.assert_close(out.float(), want, atol=TOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,S,H,KV,D,lengths",
+    [
+        (64, 32, 100, 100, 8, [i % 33 for i in range(64)]),  # paper-block's self cache
+        (64, 16, 100, 100, 8, [16] * 64),  # paper-block's cross cache
+        (4, 4096, 4, 4, 8, [4096] * 4),  # a cross cache of ENC_LEN_DECODE rows
+        (4, 4096, 8, 2, 8, [0, 1, 2500, 4096]),  # GQA, an empty lane
+        (4, 77, 4, 4, 16, [0, 1, 40, 77]),  # the smoke configs' head_dim
+        (4, 4096, 16, 16, 64, [4096] * 4),  # seamless's cross cache at ENC_LEN_DECODE
+        (4, 1000, 16, 16, 64, [1000] * 4),  # seamless's served cross cache
+    ],
+)
+def test_decode_kernel_small_head_dims_and_cross_caches(gen, dtype, B, S, H, KV, D, lengths):
+    """head_dim 8 and 16, with lanes of length 0 (output 0, as the TPU
+    kernel gives), and cross caches whose lanes all see every row."""
+    q = torch.randn(B, 1, H, D, generator=gen, device="cuda").to(dtype)
+    kc = torch.randn(B, S, KV, D, generator=gen, device="cuda").to(dtype)
+    vc = torch.randn(B, S, KV, D, generator=gen, device="cuda").to(dtype)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    before = decode_attention.launches
+    out = decode_attention(q, kc, vc, lens)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    empty = lens == 0
+    assert bool((out[empty] == 0).all())
+    want = decode_attention_ref_model(q.float(), kc.float(), vc.float(), lens)
+    torch.testing.assert_close(out[~empty].float(), want[~empty], atol=TOL[dtype], rtol=0)
+
+
+def test_kernels_refuse_other_small_head_dims(gen):
+    """A head_dim that no instantiation takes raises and launches nothing:
+    the wrappers never hand a CUDA tensor to the plain version."""
+    before = flash_attention.launches, decode_attention.launches
+    for D in (4, 24, 32, 96):
+        q = torch.randn(1, 8, 4, D, generator=gen, device="cuda")
+        with pytest.raises(ValueError, match="head_dim"):
+            flash_attention(q, q, q, causal=False)
+        lens = torch.full((1,), 8, dtype=torch.int32, device="cuda")
+        with pytest.raises(ValueError, match="head_dim"):
+            decode_attention(q[:, :1], q, q, lens)
+    assert (flash_attention.launches, decode_attention.launches) == before
+
+
+@pytest.mark.parametrize("arch", ["paper-block", "seamless-m4t-large-v2"])
+def test_encdec_serves_through_the_kernels(gen, monkeypatch, arch):
+    """A smoke encoder-decoder (head_dim 16) at fp32 on the card: a slot
+    cache of 4 lanes, 7 frames against 5 tokens prefilled into lanes 0 and
+    2, then decode steps with lane 2 masked. Every attention runs through
+    the kernels (flash: bidirectional encoder, causal prompt, cross; decode:
+    self and cross); the first token and each step's logits equal those of
+    the plain versions from the same cache."""
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32", param_dtype="float32")
+    model = build_model(cfg)
+    params = init_from_template(model.template, gen, cfg.param_dtype, device="cuda")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 5))).cuda(),
+             "frames": torch.from_numpy(rng.standard_normal((2, 7, cfg.frontend_dim))).float()
+             .cuda()}
+    lanes = torch.tensor([0, 2], device="cuda")
+    calls = []
+    flash = attention.flash_attention
+
+    def recorded(q, k, v, causal=True, window=None):
+        calls.append((causal, q.shape[1], k.shape[1]))
+        return flash(q, k, v, causal=causal, window=window)
+
+    monkeypatch.setattr(attention, "flash_attention", recorded)
+    cache = model.init_cache(4, 16, "cuda", 7)
+    before = flash_attention.launches, decode_attention.launches
+    out = model.prefill_batch(params, batch, cache, lanes)
+    monkeypatch.setattr(attention, "flash_attention", attention_ref_model)
+    monkeypatch.setattr(attention, "decode_attention", decode_attention_ref_model)
+    plain_cache = model.init_cache(4, 16, "cuda", 7)
+    plain = model.prefill_batch(params, batch, plain_cache, lanes)
+    monkeypatch.undo()
+    assert torch.equal(out.argmax(-1), plain.argmax(-1))
+    torch.testing.assert_close(out, plain, atol=1e-4 * float(plain.abs().max()), rtol=0)
+    L = cfg.n_layers
+    assert sorted(set(calls)) == [(False, 5, 7), (False, 7, 7), (True, 5, 5)]
+    assert len(calls) == cfg.encoder_layers + 2 * L
+    tok = out[:, -1].argmax(-1)
+    token = torch.zeros(4, 1, dtype=torch.long, device="cuda")
+    token[lanes, 0] = tok
+    active = torch.tensor([0], device="cuda")
+    for _ in range(3):
+        kernel_cache = {k: t.clone() for k, t in cache.items()}
+        got = model.decode_batch(params, token, kernel_cache, active)
+        monkeypatch.setattr(attention, "decode_attention", decode_attention_ref_model)
+        want = model.decode_batch(params, token, cache, active)
+        monkeypatch.undo()
+        torch.testing.assert_close(got[0], want[0], atol=1e-4 * float(want[0].abs().max()),
+                                   rtol=0)
+        assert int(got[0, -1].argmax()) == int(want[0, -1].argmax())
+        token[0, 0] = int(want[0, -1].argmax())
+    assert flash_attention.launches - before[0] == cfg.encoder_layers + 2 * L
+    assert decode_attention.launches - before[1] == 3 * 2 * L  # self and cross per layer
+    assert cache["len"].tolist() == [8, 0, 5, 0]
+
+
+def attention_ref_model(q, k, v, causal=True, window=None):
+    return flash_attention_ref(q, k, v, causal=causal, window=window)
 
 
 def test_kernel_refuses_unsupported_head_dim(gen):

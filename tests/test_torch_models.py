@@ -183,17 +183,37 @@ def test_partitioned_stages_equal_whole_model(arch, G):
         torch.testing.assert_close(x, whole_logits, rtol=0, atol=1e-6)
 
 
+def _template_shapes(template) -> dict:
+    """{leaf path: shape} of a ParamSpec tree."""
+    out = {}
+    for path, spec in jax.tree_util.tree_leaves_with_path(
+            template, is_leaf=lambda x: hasattr(x, "shape")):
+        out[jax.tree_util.keystr(path)] = spec.shape
+    return out
+
+
 @pytest.mark.parametrize("arch", ["internvl2-76b", "paper-block", "seamless-m4t-large-v2"])
-def test_unported_architectures_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config(arch)
+def test_zoo_architectures_build(arch):
+    """The encoder-decoders and the patches frontend, which raised before
+    their slice, build at full size and smoke size with the JAX
+    template's leaves and shapes."""
+    for cfg, jcfg in ((get_config(arch), jax_get_config(arch)),
+                      (get_smoke_config(arch), jax_smoke_config(arch))):
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+        assert _template_shapes(build_model(cfg).template) == \
+            _template_shapes(jax_build_model(jcfg).template)
 
 
-def test_unported_layer_kinds_raise():
+def test_patches_frontend_builds_on_any_decoder():
+    """A patches frontend on a dense decoder adds the JAX ``vision_proj``
+    leaf to its template, as JAX's ``lm_template`` does."""
     vlm = dataclasses.replace(get_smoke_config("stablelm-1.6b"), frontend="patches",
                               frontend_dim=32, n_frontend_tokens=4)
-    with pytest.raises(NotImplementedError, match="patches frontend"):
-        build_model(vlm)
+    jvlm = dataclasses.replace(jax_smoke_config("stablelm-1.6b"), frontend="patches",
+                               frontend_dim=32, n_frontend_tokens=4)
+    got = _template_shapes(build_model(vlm).template)
+    assert got["['vision_proj']"] == (32, vlm.d_model)
+    assert got == _template_shapes(jax_build_model(jvlm).template)
 
 
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "qwen3-moe-30b-a3b"])
