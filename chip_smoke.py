@@ -277,14 +277,30 @@ Phases, in order; any failure exits non-zero:
    one dense ``PipelineServer`` run at G=2 x R=3 (phase 4's workload,
    tokens only, as the JAX fleet serves it), stage 0 alone holding
    ``vision_proj``.
-21. A JSON line of per-kernel results (all six kernels; the paged-prefill
+21. Multi-process serving: phase 4's stablelm-1.6b (full width, bf16,
+   seed 0) through ``MPPipelineServer`` at G=2 x R=2 — four worker
+   processes on the card, each drawing the model from the seed and
+   keeping its stage — and through the in-process ``PipelineServer`` on
+   the same card and weights, driven through one schedule: three waves of
+   eight prompts (64..120 tokens, 8 tokens each), a SIGKILL of stage 0's
+   replica 0 three slots into wave 2 (the ``ProcessMonitor`` turns the
+   exit into a membership leave: the router's rate for it drops to 0),
+   and ``recover_replica`` (a respawn) before wave 3. Every wave's token
+   streams and the servers' counters are equal; every worker's ``ping``
+   names the card and counts flash and dense-decode launches, and the
+   coordinator launches nothing. Prints both servers' tokens/s, the spawn
+   and respawn seconds, and the device memory of each process and of the
+   fleet.
+22. A JSON line of per-kernel results (all six kernels; the paged-prefill
    kernel's launches also by route: ``paged_chunk`` from phases 5, 15 and
    16, ``verify`` and ``dense_chunk`` from phases 9, 10 and 16; flash's by
    route: ``windowed`` from phase 13, ``bidirectional`` and ``cross`` from
    phase 18, ``full`` from the rest; dense decode's ``cross`` from phase 18
    and ``self`` from the rest; launches by run, the MoE runs of phases
-   15-16 and phases 18 and 20 included; rmsnorm's counter is read over
-   phases 4-20 and must stay 0: no served path launches it), then the
+   15-16 and phases 18, 20 and 21 included — phase 21's are the workers'
+   (the live workers' last pings plus the killed worker's after wave 1);
+   rmsnorm's counter is read over phases 4-21 and must stay 0: no served
+   path launches it), then the
    device line last.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -2849,6 +2865,197 @@ def vlm_phase(cuda: torch.device) -> tuple[dict, dict]:
     return launches, report
 
 
+
+# Phase 21: phase 4's stablelm-1.6b through MPPipelineServer, G=2 x R=2.
+MP_FLEET = dict(n_groups=2, n_replicas=2, max_batch=4, max_len=128, async_depth=2, seed=0)
+MP_PROMPTS = (64, 88, 104, 120) * 2  # phase 4's direct prompts, twice: every stage-0 slot
+MP_TOKENS = 8
+MP_KILL_AFTER = 3  # slots into wave 2 before stage 0's replica 0 is killed
+MP_KERNELS = ("flash_attention", "decode_attention")  # the dense path's kernels
+STAT_COUNTERS = ("submitted", "completed_jobs", "dropped_jobs", "queued_jobs",
+                 "tokens_generated", "prefill_calls", "decode_calls", "rerouted_stages",
+                 "slots", "downtime_replica_slots", "energy_charged")
+
+
+def mp_waves(server, vocab: int, fault, recover, after_wave=lambda wave: None) -> list[dict]:
+    """Three waves of MP_PROMPTS (seeded), MP_TOKENS each, drained: fault()
+    before slot MP_KILL_AFTER of wave 2, recover() before wave 3, and
+    after_wave(i) after wave i, each outside the waves' wall time. Returns
+    each wave's streams, wall seconds, tokens and slots."""
+    rng = np.random.default_rng(2)
+    waves = []
+    for wave in range(3):
+        prompts = [rng.integers(0, vocab, size=n) for n in MP_PROMPTS]
+        if wave == 2:
+            recover()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs = [server.submit(p, n_tokens=MP_TOKENS) for p in prompts]
+        steps = 0
+        while not all(r.done or r.dropped for r in reqs):
+            if wave == 1 and steps == MP_KILL_AFTER:
+                fault()
+            server.step()
+            steps += 1
+            assert steps < 2000, "a wave did not drain"
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        assert all(r.done and len(r.generated) == MP_TOKENS for r in reqs), "a request was lost"
+        waves.append({"streams": [list(r.generated) for r in reqs], "wall_s": wall,
+                      "tokens": len(reqs) * MP_TOKENS, "slots": steps,
+                      "tokens_per_s": len(reqs) * MP_TOKENS / wall})
+        after_wave(wave)
+    return waves
+
+
+def process_memory_mib() -> dict[int, int]:
+    """Device memory per process (MiB) by the pid nvidia-smi reports, which
+    is the host's: inside a container it names no pid of this one."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         timeout=60).stdout
+    rows = [line.split(",") for line in out.strip().splitlines()]
+    return {int(r[0]): int(r[1]) for r in rows
+            if len(r) == 2 and r[0].strip().isdigit() and r[1].strip().isdigit()}
+
+
+def multiprocess_phase(cuda: torch.device) -> tuple[dict, dict]:
+    """Phase 21: phase 4's stablelm-1.6b (full width, bf16, seed 0) served
+    by MPPipelineServer at G=2 x R=2, four worker processes on the card,
+    beside the in-process PipelineServer on the same card and weights
+    driven through the same schedule: a fault-free wave, a SIGKILL of
+    stage 0's replica 0 mid-stream (in process: ``fail_replica`` and the
+    ring abort, as the multi-process ``fail_replica`` does), then
+    ``recover_replica`` (in process after evicting the replica's stage
+    residents, as the respawn does) and a third wave. Every wave's streams
+    and the server counters must be equal. Returns the workers' kernel
+    launches (the live workers' last pings, plus the killed worker's
+    after wave 1) and a report."""
+    from repro_torch.core.network import DeviceSpec
+    from repro_torch.ft import ElasticController
+    from repro_torch.serving import MPPipelineServer, PipelineServer
+
+    model, params = load_model("stablelm-1.6b", 0, cuda)  # phase 4's weights
+    V = model.cfg.vocab_size
+    ref = PipelineServer(model, params, device=cuda, **MP_FLEET)
+    specs = [[DeviceSpec(6, 10, ref.pm_policy) for _ in range(ref.R)] for _ in range(ref.G)]
+    ref.elastic = ElasticController(ref.router, specs, device=cuda)  # the MP server's default
+    zero_counters()
+    with torch.no_grad():
+        want = mp_waves(ref, V,
+                        lambda: (ref.fail_replica(0, 0), ref._abort_ring(0, 0)),
+                        lambda: (ref.scheduler.evict_stage_residents(0, 0),
+                                 ref.recover_replica(0, 0)))
+    in_process = read_counters()
+    ref_stats = {k: getattr(ref.stats, k) for k in STAT_COUNTERS}
+    ref_peak = peak_gb()
+    del ref, params, model
+    free_memory()
+
+    zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    spec = {"arch": "stablelm-1.6b", "smoke": False, "seed": 0}
+    t0 = time.perf_counter()
+    mp = MPPipelineServer(spec, device=cuda, **MP_FLEET)
+    procs = [w.proc for w in mp._workers.values()]
+    try:
+        spawn_s = time.perf_counter() - t0
+        assert mp.elastic.specs == specs
+        boot = mp.ping()
+        seen = {}
+
+        def after_wave(wave):
+            if wave == 0:
+                seen["wave1"] = mp.ping()
+
+        def fault():
+            w = mp._workers[(0, 0)]
+            seen["pid"], seen["version"] = w.proc.pid, mp.router.membership_version
+            w.proc.kill()  # SIGKILL: the ProcessMonitor sees the exit at the next slot
+            w.proc.wait()
+
+        def recover():
+            assert not mp.budgets[0][0].alive
+            rates = mp.router.long_term_rates
+            assert rates[0][0] == 0.0 and rates[0][1] > 0.0, rates
+            assert mp.router.membership_version > seen["version"]
+            t = time.perf_counter()
+            mp.recover_replica(0, 0)
+            seen["respawn_s"] = time.perf_counter() - t
+            procs.append(mp._workers[(0, 0)].proc)
+            assert procs[-1].pid != seen["pid"] and mp.router.long_term_rates[0][0] > 0.0
+
+        with torch.no_grad():
+            got = mp_waves(mp, V, fault, recover, after_wave)
+        final = mp.ping()
+        smi = process_memory_mib()
+        coordinator = read_counters()
+        coordinator_peak = peak_gb()
+        mp_stats = {k: getattr(mp.stats, k) for k in STAT_COUNTERS}
+    finally:
+        mp.close()
+    assert all(p.poll() is not None for p in procs), "a worker outlived the server"
+
+    card = torch.cuda.get_device_name(0)
+    for key, ping in {**boot, **final}.items():
+        assert ping["device"] == card, (key, ping["device"])
+    for key, ping in final.items():
+        assert all(ping["launches"][k] > 0 for k in MP_KERNELS), (key, ping["launches"])
+    killed = seen["wave1"][(0, 0)]
+    assert all(killed["launches"][k] > 0 for k in MP_KERNELS), killed["launches"]
+    assert all(n == 0 for n in coordinator.values()), f"the coordinator launched {coordinator}"
+    launches = {k: sum(p["launches"][k] for p in final.values()) + killed["launches"][k]
+                for k in KERNELS}
+    for i, (a, b) in enumerate(zip(want, got)):
+        assert a["streams"] == b["streams"], f"wave {i + 1}: the streams differ"
+    assert mp_stats == ref_stats, (mp_stats, ref_stats)
+    assert mp_stats["rerouted_stages"] > 0, "the kill rerouted nothing"
+
+    gb = 1e9
+    workers = {f"{g},{r}": {
+        "pid": p["pid"], "build_peak_gb": p["build_peak_bytes"] / gb,
+        "serve_peak_gb": p["peak_bytes"] / gb, "reserved_gb": p["reserved_bytes"] / gb,
+        "launches": p["launches"],
+        "prefill_calls": p["prefill_calls"], "decode_calls": p["decode_calls"]}
+        for (g, r), p in final.items()}
+    tps = lambda waves: sum(w["tokens"] for w in waves) / sum(w["wall_s"] for w in waves)  # noqa: E731
+    report = {
+        "card": card_name(), "fleet": "G=2 x R=2, max_batch 4, max_len 128, async depth 2",
+        "waves": [{"prompts": len(MP_PROMPTS), "tokens": w["tokens"], "slots": w["slots"],
+                   "in_process_s": a["wall_s"], "multiprocess_s": w["wall_s"],
+                   "in_process_tokens_per_s": a["tokens_per_s"],
+                   "multiprocess_tokens_per_s": w["tokens_per_s"]}
+                  for a, w in zip(want, got)],
+        "in_process_tokens_per_s": tps(want), "multiprocess_tokens_per_s": tps(got),
+        "spawn_s": spawn_s, "respawn_s": seen["respawn_s"],
+        "in_process_peak_gb": ref_peak, "coordinator_peak_gb": coordinator_peak,
+        "nvidia_smi_mib_by_host_pid": smi, "workers": workers, "killed_worker_after_wave1": killed["launches"],
+        "fleet_reserved_gb": sum(w["reserved_gb"] for w in workers.values()),
+        "fleet_smi_mib": sum(smi.values()) if smi else "not measured",
+        "stats": mp_stats, "in_process_launches": in_process, "launches": launches,
+    }
+    print(f"  card {report['card']}; spawn {spawn_s:.2f} s (4 workers, each drawing the whole "
+          f"model on the card), respawn {seen['respawn_s']:.2f} s")
+    for i, w in enumerate(report["waves"], 1):
+        print(f"  wave {i}: {w['tokens']} tokens in {w['slots']} slots: in process "
+              f"{w['in_process_s']:.3f} s ({w['in_process_tokens_per_s']:.2f} tokens/s), "
+              f"multi-process {w['multiprocess_s']:.3f} s ({w['multiprocess_tokens_per_s']:.2f} "
+              f"tokens/s); streams equal")
+    print(f"  tokens/s over the three waves: in process {report['in_process_tokens_per_s']:.2f}, "
+          f"multi-process {report['multiprocess_tokens_per_s']:.2f}; stats equal {mp_stats}")
+    for key, w in workers.items():
+        print(f"  worker {key} (pid {w['pid']}): build peak {w['build_peak_gb']:.2f} GB, serve "
+              f"peak {w['serve_peak_gb']:.2f} GB, reserved {w['reserved_gb']:.2f} GB; launches "
+              f"{w['launches']}")
+    print(f"  killed worker after wave 1: {killed['launches']}; coordinator: launches "
+          f"{coordinator}, peak {coordinator_peak:.2f} GB; fleet reserved "
+          f"{report['fleet_reserved_gb']:.2f} GB; nvidia-smi per process (host pids) {smi} MiB, "
+          f"{report['fleet_smi_mib']} MiB in all; in-process peak {ref_peak:.2f} GB")
+    print(f"  launches: multi-process {launches} (the killed worker's wave-2 launches died with "
+          f"it), in process {in_process}")
+    return launches, report
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3011,6 +3218,12 @@ def main() -> int:
     for name in KERNELS:
         launches[name] += encdec_launches[name] + vlm_launches[name]
     assert launches["rmsnorm"] == 0, f"a served path launched rmsnorm: {launches}"
+    print("[21] serve full-width stablelm-1.6b through four worker processes, a SIGKILL "
+          "failover and a respawn", flush=True)
+    mp_launches, mp_report = multiprocess_phase(cuda)
+    for name in KERNELS:
+        launches[name] += mp_launches[name]
+    assert launches["rmsnorm"] == 0, f"a served path launched rmsnorm: {launches}"
     encdec_routes = {name: collections.Counter() for name in ("flash_attention",
                                                                "decode_attention")}
     for report in encdec.values():
@@ -3056,7 +3269,8 @@ def main() -> int:
             entry["launches_by_route"] = {"self": launches[name] - cross, "cross": cross}
         if name in ("flash_attention", "decode_attention"):
             entry["launches_by_run"] = {"encdec": encdec_launches[name],
-                                        "internvl2": vlm_launches[name]}
+                                        "internvl2": vlm_launches[name],
+                                        "multiprocess": mp_launches[name]}
         if name == "flash_attention":
             entry["served_encdec"] = encdec
             entry["encdec_parity"] = encdec_checks
@@ -3077,6 +3291,7 @@ def main() -> int:
             entry["served_spec"] = spec_served
         if name == "decode_attention":
             entry["served"] = decode_served
+            entry["served_multiprocess"] = mp_report
         if name == "paged_decode_attention":
             entry["served"] = paged_served
             entry["library_note"] = ("no single PyTorch call reads a block table; "
@@ -3103,7 +3318,7 @@ def main() -> int:
             entry["launches_note"] = ("no served path launches it: the models call their plain "
                                       "rmsnorm (models/layers.py), as the JAX models do")
         kernels.append(entry)
-    print(f"[21] all phases passed in {time.perf_counter() - t_start:.1f} s, build included")
+    print(f"[22] all phases passed in {time.perf_counter() - t_start:.1f} s, build included")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -8,10 +8,13 @@
         --paged --spec-draft auto --spec-k 4
     PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b --smoke
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b --smoke
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --multiprocess
 
 Hosts G pipeline groups x R replicas of the (partitioned) model on one
 device (CUDA unless ``--device`` says otherwise), routes requests with
-the energy-aware scheduler, and prints throughput and downtime. Like the
+the energy-aware scheduler, and prints throughput and downtime.
+``--multiprocess`` runs every (group, replica) stage in its own worker
+process on that device (dense whole-prompt mode). Like the
 JAX CLI it serves in float32 with random weights drawn from seed 0 (a
 speculative draft's from seed 1).
 """
@@ -27,7 +30,7 @@ from ..configs import ARCH_NAMES, get_config, get_smoke_config
 from ..device import resolve_device
 from ..models import build_model, init_from_template
 from ..models.registry import default_draft_for
-from ..serving import PipelineServer
+from ..serving import MPPipelineServer, PipelineServer
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -79,6 +82,10 @@ def main(argv: list[str] | None = None) -> None:
                          "reads results back from the completion queue; "
                          "1 = commit-time readback without pipelining, "
                          "0 = synchronous engine (readback at dispatch)")
+    ap.add_argument("--multiprocess", action="store_true",
+                    help="one OS process per (group, replica) stage cell "
+                         "(dense whole-prompt mode): handoffs cross process "
+                         "boundaries, process death is a live membership leave")
     ap.add_argument("--arrival-p", type=float, default=0.5)
     ap.add_argument("--harvest", type=float, nargs=2, default=(6.0, 10.0))
     ap.add_argument("--seed", type=int, default=0)
@@ -86,12 +93,10 @@ def main(argv: list[str] | None = None) -> None:
                     help="torch device; 'cpu' runs the kernels' plain versions")
     args = ap.parse_args(argv)
 
+    if args.multiprocess and (args.paged or args.prefill_chunk or args.spec_draft):
+        ap.error("--multiprocess is dense whole-prompt only "
+                 "(no --paged / --prefill-chunk / --spec-draft)")
     device = resolve_device(args.device)
-    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    cfg = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
-    model = build_model(cfg)
-    gen = torch.Generator(device=device).manual_seed(0)
-    params = init_from_template(model.template, gen, cfg.param_dtype, device=device)
     spec_draft = None
     if args.spec_draft is not None:
         name = default_draft_for(args.arch) if args.spec_draft == "auto" else args.spec_draft
@@ -101,9 +106,7 @@ def main(argv: list[str] | None = None) -> None:
         dgen = torch.Generator(device=device).manual_seed(1)
         spec_draft = (draft, init_from_template(draft.template, dgen, dcfg.param_dtype,
                                                 device=device))
-    server = PipelineServer(
-        model,
-        params,
+    common = dict(
         n_groups=args.groups,
         n_replicas=args.replicas,
         policy=args.policy,
@@ -111,19 +114,37 @@ def main(argv: list[str] | None = None) -> None:
         max_len=128,
         max_batch=args.max_batch,
         max_queue=args.max_queue,
-        paged=args.paged,
-        page_size=args.page_size,
-        max_pages=args.max_pages,
-        kv_dtype=None if args.kv_dtype == "compute" else args.kv_dtype,
-        prefill_chunk=args.prefill_chunk,
         max_park_steps=args.max_park_steps if args.max_park_steps > 0 else None,
         async_depth=args.async_depth,
-        spec_draft=spec_draft,
-        spec_k=args.spec_k,
         seed=args.seed,
         device=device,
     )
-    stats = server.run(args.slots, arrival_p=args.arrival_p)
+    if args.multiprocess:
+        spec = {"arch": args.arch, "smoke": args.smoke, "seed": 0,
+                "overrides": {"dtype": "float32", "param_dtype": "float32"}}
+        with MPPipelineServer(spec, **common) as server:
+            print(f"substrate: multiprocess workers={args.groups * args.replicas} "
+                  f"device={device}")
+            stats = server.run(args.slots, arrival_p=args.arrival_p)
+    else:
+        cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+        cfg = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+        model = build_model(cfg)
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = init_from_template(model.template, gen, cfg.param_dtype, device=device)
+        server = PipelineServer(
+            model,
+            params,
+            paged=args.paged,
+            page_size=args.page_size,
+            max_pages=args.max_pages,
+            kv_dtype=None if args.kv_dtype == "compute" else args.kv_dtype,
+            prefill_chunk=args.prefill_chunk,
+            spec_draft=spec_draft,
+            spec_k=args.spec_k,
+            **common,
+        )
+        stats = server.run(args.slots, arrival_p=args.arrival_p)
     paged_info = (
         f" preempted={stats.preempted_jobs} peak_active={stats.peak_active}"
         if args.paged

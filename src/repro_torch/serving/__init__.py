@@ -1,6 +1,7 @@
 from .budget import ReplicaBudget
 from .cache import DenseSlotCache, KVCacheManager, PageError
 from .engine import HostReadback, PipelineServer, Request, ServerStats
+from .mpserve import MPPipelineServer
 from .partition import partition_model, slice_stage_params, stage_configs
 from .router import RouteError, Router
 from .scheduler import StepScheduler
@@ -11,6 +12,7 @@ __all__ = [
     "KVCacheManager",
     "PageError",
     "HostReadback",
+    "MPPipelineServer",
     "PipelineServer",
     "Request",
     "ServerStats",

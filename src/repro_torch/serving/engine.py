@@ -88,7 +88,15 @@ Seeding. ``np.random.SeedSequence(seed).spawn(2)`` and the order of every
 draw follow the JAX engine, so harvests, arrivals and routing decisions
 match the reference draw for draw.
 
-Not in this slice: mesh and multi-process serving.
+Execution substrate. The stage executors come from :meth:`_build_exec`,
+their per-replica state from ``init_cache(r)``, the weights they read
+from :meth:`_place_params`; a dead replica's discarded ring reaches
+:meth:`_on_ring_abort`, and :meth:`_finalize` drains a call's readbacks.
+:mod:`.mpserve` overrides these to run every stage cell in a worker
+process. ``elastic`` (an :class:`..ft.elastic.ElasticController`) turns
+``fail_replica`` / ``recover_replica`` into membership events that
+re-solve the router's long-term rates. Mesh (tensor-parallel) serving is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -344,7 +352,7 @@ class _DenseExec(_StageExec):
     """Dense execution backend for one stage: the slot cache of each
     replica and the batched prefill / masked decode launches."""
 
-    def init_cache(self) -> dict:
+    def init_cache(self, r: int) -> dict:
         s = self.server
         return self.model_g.init_cache(s.max_batch, s.max_len, s.device)
 
@@ -403,7 +411,7 @@ class _PagedExec(_StageExec):
     each replica, block tables from its manager, natively batched
     decode / chunk launches through the paged kernels."""
 
-    def init_cache(self) -> dict:
+    def init_cache(self, r: int) -> dict:
         """Shared page pool: [n_layers, P+1, page, KV, Dh] (page P is the
         scratch page of masked lanes). int8 pools add one fp32 scale per
         page row, ones at start so untouched rows dequantize to 0."""
@@ -670,6 +678,7 @@ class PipelineServer:
         spec_k: int = 4,
         seed: int = 0,
         device: str | torch.device | None = None,
+        elastic=None,
     ):
         """``device``: where the weights, caches and compute live (CUDA
         unless the caller asks otherwise); ``params`` are moved there.
@@ -684,11 +693,15 @@ class PipelineServer:
         ``spec_draft``: a (draft ``Model``, draft params) pair turns every
         decode round into ``spec_k`` draft steps plus one ``spec_k + 1``
         wide verify call per stage (paged only); the draft's params are
-        moved to ``device`` too."""
+        moved to ``device`` too.
+
+        ``elastic``: an :class:`..ft.elastic.ElasticController` over this
+        server's router; failing or recovering a replica then zeroes or
+        restores its long-term rate."""
         self.device = resolve_device(device)
         self.cfg = model.cfg
-        params = tree_map(lambda t: t.to(self.device), params)
-        self.stages = partition_model(model.cfg, params, n_groups)
+        self.elastic = elastic
+        self.stages = partition_model(model.cfg, self._place_params(params), n_groups)
         self.G, self.R = n_groups, n_replicas
         self.max_len = max_len
         self.max_batch = max_batch
@@ -779,9 +792,9 @@ class PipelineServer:
         )
         if spec_draft is not None:
             self._spec = _SpecState(self, spec_draft[0], spec_draft[1], spec_k)
-        self._exec = [(_PagedExec if paged else _DenseExec)(self, g) for g in range(n_groups)]
+        self._exec = self._build_exec()
         self._caches = {
-            (g, r): self._exec[g].init_cache()
+            (g, r): self._exec[g].init_cache(r)
             for g in range(n_groups)
             for r in range(n_replicas)
         }
@@ -793,6 +806,22 @@ class PipelineServer:
         self.scheduler.inflight = lambda: [
             [len(self._calls[(g, r)]) for r in range(self.R)] for g in range(self.G)
         ]
+
+    # ------------------------------------------------------------------
+    # Execution substrate (:mod:`.mpserve` proxies it to worker processes)
+    # ------------------------------------------------------------------
+    def _place_params(self, params):
+        """The weights as the stage executors read them: on ``device``."""
+        return tree_map(lambda t: t.to(self.device), params)
+
+    def _build_exec(self) -> list:
+        """One execution backend per stage."""
+        return [(_PagedExec if self.paged else _DenseExec)(self, g) for g in range(self.G)]
+
+    def _on_ring_abort(self, g: int, r: int) -> None:
+        """Hook: a dead replica's in-flight ring was just discarded.
+        The multi-process server drains the worker's now-orphaned replies
+        here; in-process execution has nothing to clean up."""
 
     # ------------------------------------------------------------------
     # Admission
@@ -1176,20 +1205,26 @@ class PipelineServer:
 
     def _abort_ring(self, g: int, r: int) -> None:
         """Discard (g, r)'s in-flight ring: members reroute loss-free
-        (re-prefill on a sibling); readbacks are never finalized."""
+        (re-prefill on a sibling), readbacks are never finalized, and
+        the :meth:`_on_ring_abort` hook cleans up backend state."""
         ring = self._calls[(g, r)]
         for call in ring:
             for m in call.members:
                 m.in_call = False
                 self.scheduler.reroute_or_drop(m)
         ring.clear()
+        self._on_ring_abort(g, r)
 
     # ------------------------------------------------------------------
     def fail_replica(self, g: int, r: int) -> None:
         self.budgets[g][r].fail()
+        if self.elastic is not None:
+            self.elastic.fail(g, r)
 
     def recover_replica(self, g: int, r: int) -> None:
         self.budgets[g][r].recover()
+        if self.elastic is not None:
+            self.elastic.rejoin(g, r)
 
     def run(
         self,

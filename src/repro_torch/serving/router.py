@@ -42,6 +42,10 @@ class Router:
         if self.policy not in POLICIES:
             raise ValueError(f"unknown policy {self.policy!r}")
         self._rng = np.random.default_rng(self.seed)
+        # Bumped by every membership event — lets telemetry/tests observe
+        # that a live process join/leave actually re-solved the routing
+        # table, independent of whether the rates object is replaced.
+        self.membership_version = 0
 
     def probabilities(
         self,
@@ -110,3 +114,18 @@ class Router:
     ) -> int:
         """Pick a failover sibling in group ``g`` for an in-flight stage."""
         return self._pick(self.probabilities(budgets, free_slots, inflight)[g], g)
+
+    def on_membership_change(self, rates: np.ndarray | None) -> None:
+        """Elastic event: new long-term rates after add/remove of nodes
+        (the paper recomputes the stationary solution only when network
+        parameters change).
+
+        Live process leave (multi-process serving) is expressed as a
+        zero entry in the group's rate vector — the member keeps its
+        grid index so in-flight bookkeeping stays valid, but long-term /
+        adaptive routing immediately stops sending it mass; a respawned
+        process rejoins by restoring its rate
+        (:meth:`..ft.elastic.ElasticController.fail` / ``rejoin``).
+        """
+        self.long_term_rates = rates
+        self.membership_version += 1

@@ -352,6 +352,25 @@ class StepScheduler:
         req.slot_ids[g] = self.managers[(g, new_r)].reserve(req.rid, 0)
         self.stats.rerouted_stages += 1
 
+    def evict_stage_residents(self, g: int, r: int) -> None:
+        """Replica ``(g, r)``'s device state was wiped out from under
+        its residents — e.g. a respawned worker process starts with an
+        empty cache, unlike a simulated in-process failure where the
+        device arrays survive. Release every non-in-call resident's
+        stage-``g`` claim so the normal re-place machinery
+        (:meth:`replace_parked`) re-prefills them against the fresh
+        state instead of decoding over zeros."""
+        for req in self.active:
+            if (
+                req.replicas is not None
+                and req.replicas[g] == r
+                and req.slot_ids[g] is not None
+                and not req.in_call
+            ):
+                self.managers[(g, r)].release(req.rid, req.slot_ids[g])
+                req.slot_ids[g] = None
+                req.cache_ready[g] = False
+
     def force_place(self, req: Request) -> bool:
         """Starvation-free aging: give a long-parked request a slot NOW.
 

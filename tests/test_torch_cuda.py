@@ -27,6 +27,8 @@ equals its CPU run on the same draws (integer counters and downtime
 exactly, mean battery within 1e-6 relative: the devices' float32 mean
 adds in another order), its step loop reads nothing back to the host,
 and the semi-Markov analytics on the card equal the CPU's within 1e-9.
+A multi-process fleet (two worker processes on the card) streams the
+in-process server's tokens exactly, its workers launching the kernels.
 """
 
 import dataclasses
@@ -988,3 +990,32 @@ def test_analytics_on_the_card_equal_the_cpu(gen, mode):
     got, want = rates.q_lim(model, 0.01, device="cuda"), rates.q_lim(model, 0.01, device="cpu")
     assert got.q_lim == pytest.approx(want.q_lim, rel=1e-9)
     assert got.binding == want.binding
+
+
+def test_multiprocess_fleet_on_the_card_equals_in_process(gen):
+    """G=2, R=1: two worker processes on the card stream the in-process
+    server's tokens (the fp32 stablelm smoke model, heads of 16, drawn on
+    the card from seed 0 by both sides), and every worker launched the
+    flash and dense-decode kernels."""
+    from repro_torch.serving import MPPipelineServer
+    from repro_torch.serving.mpserve import build_from_spec
+
+    spec = {"arch": "stablelm-1.6b", "smoke": True, "seed": 0,
+            "overrides": {"dtype": "float32", "param_dtype": "float32"}}
+    kw = dict(n_groups=2, n_replicas=1, policy="uniform", max_len=64, max_batch=4, seed=3,
+              device="cuda")
+    _, model, params = build_from_spec(spec, "cuda")
+    prompts = [np.arange(n) * 7 % model.cfg.vocab_size for n in (5, 9, 7)]
+    ref = PipelineServer(model, params, **kw)
+    want = [ref.submit(p, n_tokens=6) for p in prompts]
+    _run_to_done(ref, want)
+    with MPPipelineServer(spec, **kw) as mp:
+        got = [mp.submit(p, n_tokens=6) for p in prompts]
+        _run_to_done(mp, got)
+        pings = mp.ping()
+    assert [r.generated for r in got] == [r.generated for r in want]
+    assert sorted(pings) == [(0, 0), (1, 0)]
+    for ping in pings.values():
+        assert ping["device"] == torch.cuda.get_device_name(0)
+        assert ping["launches"]["flash_attention"] > 0, ping
+        assert ping["launches"]["decode_attention"] > 0, ping

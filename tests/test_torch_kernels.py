@@ -227,7 +227,8 @@ _FORBIDDEN = re.compile(
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():
-    files = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"] \
+        + sorted((REPO / "examples").glob("torch_*.py"))
     assert len(files) > 10
     offenders = [
         f"{f.relative_to(REPO)}: {m.group(0).strip()}"
