@@ -291,7 +291,38 @@ Phases, in order; any failure exits non-zero:
    coordinator launches nothing. Prints both servers' tokens/s, the spawn
    and respawn seconds, and the device memory of each process and of the
    fleet.
-22. A JSON line of per-kernel results (all six kernels; the paged-prefill
+22. The flash-attention backward kernel (``csrc/flash_attention_bwd.cu``)
+   against its plain version per call, fp32: causal at the trained shapes
+   of phases 23-24 (B=4, S=256; 32 / 32 and 16 / 8 heads of 64), windowed
+   over a ragged length, GQA with G = 4, bidirectional with Sq != Skv,
+   head_dim 16, 64 and 128; dq, dk and dv within 1e-4 of their scale, the
+   forward's log-sum-exp against the plain one, and a planted fault (one dk
+   element moved by 1% of dk's scale) that the check must catch; times of
+   the kernel, the plain version and SDPA's fp32 backward through
+   autograd; then ``flash_attention`` under autograd against autograd
+   through the plain version.
+23. stablelm-1.6b trained at full width, fp32, through
+   ``launch/train.py``'s ``train``: B=4, S=256, 20 AdamW steps (lr 3e-4,
+   warmup 5), remat on; the losses, grad norms, s/step and peak memory;
+   every loss finite and exactly 48 forward and 24 backward flash launches
+   per step (24 layers, the forward recomputed under remat). Then the same
+   run on a 3-layer cut at full width, whose loss must fall (the mean of
+   its last 3 steps below that of its first 3): at full depth the random
+   model's gradient norm is ~1e10 and the clip to 1 freezes nearly every
+   leaf below AdamW's eps, so its loss is printed, not held.
+24. granite-moe-1b-a400m, the same two runs; MoE routed and dropped
+   assignments printed.
+25. Training parity: a 3-layer full-width fp32 cut of stablelm-1.6b, the
+   step-0 loss through the kernels within 1e-5 relative of the plain
+   path's on the card, every parameter's gradient within 1e-3 of its own
+   scale.
+26. Checkpoints: stablelm's smoke config on the card, 6 steps with a
+   checkpoint every 3, uninterrupted here, then in a process SIGKILLed
+   right after its step-3 checkpoint and relaunched from it: steps 4-6
+   give the uninterrupted losses bit for bit; the checkpoint's size on
+   disk.
+27. A JSON line of per-kernel results (the six kernels and the backward;
+   training's launches of both flash kernels from phases 23-24; the paged-prefill
    kernel's launches also by route: ``paged_chunk`` from phases 5, 15 and
    16, ``verify`` and ``dense_chunk`` from phases 9, 10 and 16; flash's by
    route: ``windowed`` from phase 13, ``bidirectional`` and ``cross`` from
@@ -314,7 +345,9 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1499,11 +1532,12 @@ KERNELS = ("flash_attention", "decode_attention", "paged_decode_attention",
 def kernel_wrappers() -> dict:
     from repro_torch.kernels.decode_attention import (
         decode_attention, paged_decode_attention, paged_prefill_attention)
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
     from repro_torch.kernels.rmsnorm import rmsnorm
     from repro_torch.kernels.selective_scan import selective_scan
 
-    return {"flash_attention": flash_attention, "decode_attention": decode_attention,
+    return {"flash_attention": flash_attention, "flash_attention_bwd": flash_attention_bwd,
+            "decode_attention": decode_attention,
             "paged_decode_attention": paged_decode_attention,
             "paged_prefill_attention": paged_prefill_attention,
             "selective_scan": selective_scan, "rmsnorm": rmsnorm}
@@ -3056,6 +3090,422 @@ def multiprocess_phase(cuda: torch.device) -> tuple[dict, dict]:
     return launches, report
 
 
+# ---- training: phases 22-26 -------------------------------------------------
+
+BWD_TOL = 1e-4  # dq, dk, dv against the plain backward, relative to each one's scale
+LSE_TOL = 2e-5  # the forward kernel's row log-sum-exp against the plain one, absolute
+# Phase 22's cases: (B, Sq, Skv, H, KV, D, causal, window, label). The first
+# two are the trained shapes of phases 23 and 24.
+BWD_CASES = (
+    (4, 256, 256, 32, 32, 64, True, None, "stablelm-1.6b trained"),
+    (4, 256, 256, 16, 8, 64, True, None, "granite-moe-1b-a400m trained"),
+    (2, 300, 300, 8, 8, 64, True, 100, "windowed, ragged"),
+    (2, 256, 256, 16, 4, 64, True, None, "GQA G=4"),
+    (2, 100, 177, 8, 4, 64, False, None, "bidirectional Sq != Skv"),
+    (2, 256, 256, 8, 8, 128, True, None, "head_dim 128"),
+    (4, 64, 64, 4, 2, 16, True, None, "head_dim 16, smoke"),
+    (2, 90, 130, 4, 4, 16, False, None, "head_dim 16 bidirectional"),
+)
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 20, 4, 256, 3e-4
+TRAIN_CUT_LAYERS = 3  # the full-width cut that phases 23-25 train and hold
+LOSS_REL_TOL, GRAD_REL_TOL = 1e-5, 1e-3
+# Full depth: the step-0 gradient's norm at layer 0 over that at the last
+# layer, at least; and each layer's norm through the kernels within this
+# factor of the plain one's (a one-ulp change of the JAX package's own
+# weights moves its 24-layer norm by up to 2.2 times; PERF.md, section 7).
+DEPTH_GROWTH, DEPTH_SPREAD = 1e3, 4.0
+
+
+def flash_bwd_case(B, Sq, Skv, H, KV, D, causal, window, label, gen) -> dict:
+    """The backward kernel against its plain version on the same inputs
+    (o and lse from the forward kernel, whose lse is held against the plain
+    one too), a planted fault (one dk element moved) that the check must
+    catch, and the times: kernel, plain, and SDPA's fp32 backward through
+    autograd."""
+    from repro_torch.kernels.flash_attention import (
+        attention_lse_ref, flash_attention_bwd, flash_attention_bwd_ref, flash_attention_fwd)
+
+    q = torch.randn(B, Sq, H, D, generator=gen, device="cuda")
+    k = torch.randn(B, Skv, KV, D, generator=gen, device="cuda")
+    v = torch.randn(B, Skv, KV, D, generator=gen, device="cuda")
+    do = torch.randn(B, Sq, H, D, generator=gen, device="cuda")
+    kw = dict(causal=causal, window=window)
+    o, lse = flash_attention_fwd(q, k, v, **kw)
+    got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    want = flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    lse_err = (lse - attention_lse_ref(q, k, **kw)).abs().max().item()
+    errs = {n: _rel_err(g, w) for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+    faulted = got[1].clone()
+    faulted.view(-1)[faulted.numel() // 2] += 0.01 * want[1].abs().max()
+    fault_err = _rel_err(faulted, want[1])
+    # SDPA's backward alone: its forward graph is built once, outside the timing.
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    if window is None:
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=H != KV)
+    else:
+        pos = torch.arange(Sq, device="cuda")
+        band = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band, enable_gqa=H != KV)
+    dot = do.transpose(1, 2)
+    library = lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)  # noqa: E731
+    pairs = sum(min(i + 1, Skv, window or Skv) for i in range(Sq)) if causal else Sq * Skv
+    # Bytes: q, o, do read and dq written; k, v read and dk, dv written;
+    # lse read. Operations: 2.5 times the forward's two matmuls.
+    b_ms, b_by = bound((4 * q.numel() + 4 * k.numel() + lse.numel()) * 4,
+                       2.5 * 4 * B * H * D * pairs, torch.float32)
+    shape = (f"B={B} S={Sq} H={H} KV={KV} D={D}" if Sq == Skv else
+             f"B={B} Sq={Sq} Skv={Skv} H={H} KV={KV} D={D}")
+    return {
+        "shape": shape + (f" window={window}" if window else "")
+                 + ("" if causal else " bidirectional") + f" ({label})",
+        "dtype": "float32",
+        "max_abs_err": max((g - w).abs().max().item() for g, w in zip(got, want)),
+        "max_rel_err": max(errs.values()),
+        "rel_err": errs,
+        "lse_max_abs_err": lse_err,
+        "planted_fault_rel_err": fault_err,
+        "tol": BWD_TOL,
+        "ms": time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw)),
+        "plain_ms": time_ms(lambda: flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)),
+        "library_ms": time_ms(library),
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+    }
+
+
+def flash_bwd_phase(cuda: torch.device) -> list[dict]:
+    """Phase 22: the flash-attention backward kernel per call, and the
+    autograd wiring (``flash_attention`` under grad against autograd
+    through the plain version) at the stablelm shape."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    cases = [flash_bwd_case(*c, gen) for c in BWD_CASES]
+    for c in cases:
+        print(f"  flash_attention_bwd {c['shape']}: dq/dk/dv err / scale "
+              + "/".join(f"{e:.3g}" for e in c["rel_err"].values())
+              + f" (tol {c['tol']:g}; planted fault {c['planted_fault_rel_err']:.3g}), lse err "
+              f"{c['lse_max_abs_err']:.3g} (tol {LSE_TOL:g}); kernel {c['ms']:.4f} ms "
+              f"plain {c['plain_ms']:.4f} ms "
+              f"SDPA backward {c['library_ms']:.4f} ms bound {c['bound_ms']:.4f} ms "
+              f"({c['bound_by']})")
+    bad = [c for c in cases if not (c["max_rel_err"] <= BWD_TOL < c["planted_fault_rel_err"]
+                                    and c["lse_max_abs_err"] <= LSE_TOL)]
+    assert not bad, f"the backward kernel disagrees with its plain version: {bad}"
+    B, S, H, KV, D = 2, 256, 16, 8, 64
+    leaves = [torch.randn(B, S, n, D, generator=gen, device=cuda).requires_grad_()
+              for n in (H, KV, KV)]
+    do = torch.randn(B, S, H, D, generator=gen, device=cuda)
+    got = torch.autograd.grad(flash_attention(*leaves), leaves, do)
+    want = torch.autograd.grad(flash_attention_ref(*leaves), leaves, do)
+    wiring = max(_rel_err(g, w) for g, w in zip(got, want))
+    print(f"  autograd through the kernels vs through the plain version: err / scale {wiring:.3g}")
+    assert wiring <= BWD_TOL, wiring
+    return cases
+
+
+def train_run(cfg, cuda: torch.device) -> dict:
+    """``cfg`` trained through ``launch/train.py``'s ``train`` (fp32, from
+    seed 0): TRAIN_STEPS AdamW steps (lr TRAIN_LR, warmup 5) on B=4, S=256,
+    every attention layer's forward recomputed under remat. Returns the
+    run's report; asserts finite losses and exactly 2 forward and 1
+    backward flash launches per layer and step."""
+    from repro_torch.launch.train import train
+    from repro_torch.models import build_model, count_params
+    from repro_torch.models.moe import moe_ffn
+
+    zero_counters()
+    moe_ffn.routed, moe_ffn.dropped = 0, 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    history = train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR,
+                    device=cuda)
+    seconds = time.perf_counter() - t0
+    launches = read_counters()
+    free_memory()
+    losses = [h["loss"] for h in history]
+    step_s = [h["seconds"] for h in history]
+    report = {
+        "layers": cfg.n_layers,
+        "params": count_params(build_model(cfg).template),
+        "losses": losses,
+        "first3_mean": float(np.mean(losses[:3])),
+        "last3_mean": float(np.mean(losses[-3:])),
+        "grad_norms": [h["grad_norm"] for h in history],
+        "lb_losses": [h["lb_loss"] for h in history],
+        "s_per_step_median": statistics.median(step_s),
+        "s_first_step": step_s[0],
+        "seconds": seconds,
+        "peak_gb": peak_gb(),
+        "launches": launches,
+        "launches_per_step": {k: launches[k] / TRAIN_STEPS for k in
+                              ("flash_attention", "flash_attention_bwd")},
+    }
+    if cfg.is_moe:
+        report["moe_routed"] = moe_ffn.routed
+        report["moe_dropped"] = int(moe_ffn.dropped)
+    print(f"  {cfg.name}, {cfg.n_layers} layers: {report['params'] / 1e9:.3f} B params fp32; "
+          "losses " + " ".join(f"{x:.4f}" for x in losses)
+          + f" (mean of the first 3 {report['first3_mean']:.4f}, of the last 3 "
+          f"{report['last3_mean']:.4f})")
+    print("  grad_norm " + " ".join(f"{x:.4g}" for x in report["grad_norms"]))
+    print(f"  {report['s_per_step_median']:.4f} s/step (median; first step "
+          f"{report['s_first_step']:.3f} s), peak {report['peak_gb']:.2f} GB, launches per "
+          f"step {report['launches_per_step']}"
+          + (f", MoE routed {report['moe_routed']} dropped {report['moe_dropped']}"
+             if cfg.is_moe else ""))
+    assert all(np.isfinite(losses)), losses
+    per_step = 2 * cfg.n_layers, cfg.n_layers
+    assert (launches["flash_attention"], launches["flash_attention_bwd"]) == tuple(
+        n * TRAIN_STEPS for n in per_step), launches
+    return report
+
+
+def step0_gradients(cfg, cuda: torch.device, moved: bool = False):
+    """``cfg`` in fp32 drawn from seed 0 as ``launch/train.py`` draws it,
+    and the train loss with its gradient on batch 0 (B=4, S=256) through
+    the kernels and through the plain versions. Returns (kernel, plain,
+    the kernel run's launches, moved), each of kernel, plain and moved as
+    ``loss_and_grad`` returns it; ``moved`` is the plain path's again
+    after every weight is moved one fp32 ulp up or down (signs drawn from
+    seed 1), when asked, else None."""
+    from repro_torch.models import build_model, init_from_template
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.training import SyntheticLM, make_batch
+    from repro_torch.training.train_loop import loss_and_grad
+
+    cfg = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    model = build_model(cfg)
+    params = init_from_template(model.template, torch.Generator(device=cuda).manual_seed(0),
+                                "float32", device=cuda)
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    batch = make_batch(cfg, data, 0, device=cuda)
+    zero_counters()
+    kernel = loss_and_grad(model, params, batch)
+    launched = read_counters()
+    with plain_versions():
+        plain = loss_and_grad(model, params, batch)
+        if not moved:
+            return kernel, plain, launched, None
+        gen = torch.Generator(device=cuda).manual_seed(1)
+        with torch.no_grad():
+            for t in tree_leaves(params):
+                sign = torch.randint(0, 2, t.shape, generator=gen, device=cuda) * 2 - 1
+                t.mul_(1 + 2.0**-23 * sign)
+        return kernel, plain, launched, loss_and_grad(model, params, batch)
+
+
+def layer_grad_norms(grads) -> list[float]:
+    """The gradient's norm over each layer's slice of the layer stacks,
+    layer 0 first (one layer class, as the trained models have)."""
+    from repro_torch.models.common import tree_flatten_with_names
+
+    sq = sum(g.float().square().flatten(1).sum(1) for n, g in tree_flatten_with_names(grads)
+             if n.startswith("['classes']"))
+    return sq.sqrt().tolist()
+
+
+def depth_witness(cfg, cuda: torch.device) -> dict:
+    """Why the full-depth loss does not fall, measured at step 0: the
+    gradient per layer through the kernels and through the plain
+    versions. Holds that it grows toward the input on the plain path, so
+    without the kernels (layer 0's norm at least DEPTH_GROWTH times the
+    last layer's), as the JAX package's does at stablelm's depth
+    (``tests/test_torch_training.py``), and that every layer's norm
+    through the kernels is within a factor DEPTH_SPREAD of the plain one.
+    Reports how far a one-ulp move of every weight shifts the plain
+    path's own layer norms (what rounding alone does at this depth), and
+    the share of parameters whose clipped gradient lies below AdamW's
+    eps, the updates that the clip to norm 1 all but stops."""
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.training import AdamWConfig
+    from repro_torch.training.optimizer import global_norm
+
+    ((_, _), grads_k), ((_, _), grads_p), _, ((_, _), grads_u) = step0_gradients(
+        cfg, cuda, moved=True)
+    norm_k, norm_p = global_norm(grads_k).item(), global_norm(grads_p).item()
+    layers_k, layers_p = layer_grad_norms(grads_k), layer_grad_norms(grads_p)
+    layers_u = layer_grad_norms(grads_u)
+    eps, clip = AdamWConfig().eps, AdamWConfig().clip_norm
+    leaves = tree_leaves(grads_k)
+    below = sum(int((g.abs() * (clip / norm_k) < eps).sum()) for g in leaves)
+    report = {
+        "grad_norm_kernels": norm_k, "grad_norm_plain": norm_p,
+        "layer_grad_norms_kernels": layers_k, "layer_grad_norms_plain": layers_p,
+        "growth_plain": layers_p[0] / layers_p[-1],
+        "worst_layer_ratio": max(max(a / b, b / a) for a, b in zip(layers_k, layers_p)),
+        "grad_norm_plain_one_ulp": global_norm(grads_u).item(),
+        "layer_grad_norms_plain_one_ulp": layers_u,
+        "worst_layer_ratio_one_ulp": max(max(a / b, b / a) for a, b in zip(layers_u, layers_p)),
+        "share_below_eps": below / sum(g.numel() for g in leaves),
+    }
+    del grads_k, grads_p, grads_u, leaves
+    free_memory()
+    print(f"  step-0 gradient at full depth: norm {norm_k:.4g} through the kernels, "
+          f"{norm_p:.4g} through the plain versions; per layer (0 .. {len(layers_p) - 1}) "
+          "kernels " + " ".join(f"{x:.3g}" for x in layers_k)
+          + " plain " + " ".join(f"{x:.3g}" for x in layers_p))
+    print(f"  layer 0 / last layer {report['growth_plain']:.3g} on the plain path "
+          f"(at least {DEPTH_GROWTH:g}); worst kernel / plain layer ratio "
+          f"{report['worst_layer_ratio']:.3g} (at most {DEPTH_SPREAD:g}); the plain path's "
+          f"own worst layer ratio with every weight moved one ulp "
+          f"{report['worst_layer_ratio_one_ulp']:.3g} (norm "
+          f"{report['grad_norm_plain_one_ulp']:.4g}); {report['share_below_eps']:.4f} of the "
+          f"parameters' clipped gradients below eps {eps:g}")
+    assert report["growth_plain"] >= DEPTH_GROWTH, report["growth_plain"]
+    assert report["worst_layer_ratio"] <= DEPTH_SPREAD, report["worst_layer_ratio"]
+    return report
+
+
+def train_phase(name: str, cuda: torch.device) -> dict:
+    """Phases 23-24: ``name`` at full width, fp32 (:func:`train_run`), at
+    full depth and cut to TRAIN_CUT_LAYERS layers. The cut's loss must
+    fall: the mean of its last 3 steps below that of its first 3. The
+    full-depth run is held for finite losses and its launch counts, and
+    its loss is printed, not held: the JAX init makes the random model's
+    gradient grow toward the input, to a norm of ~1e10, so the clip to
+    norm 1 leaves nearly every leaf's update below AdamW's eps and the
+    loss moves by less than its batch to batch spread. :func:`depth_witness`
+    measures that cause with and without the kernels (PERF.md, PR 24)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(name)
+    full = train_run(cfg, cuda)
+    full["depth_witness"] = depth_witness(cfg, cuda)
+    cut = train_run(dataclasses.replace(cfg, n_layers=TRAIN_CUT_LAYERS), cuda)
+    assert cut["last3_mean"] < cut["first3_mean"], cut["losses"]
+    return {"full_depth": full, "cut": cut}
+
+
+def train_parity_phase(cuda: torch.device) -> dict:
+    """Phase 25: a 3-layer full-width fp32 cut of stablelm-1.6b, one train
+    loss and its gradients through the kernels against the same through
+    the plain versions on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import tree_leaves
+
+    cfg = dataclasses.replace(get_config("stablelm-1.6b"), n_layers=TRAIN_CUT_LAYERS)
+    ((loss_k, _), grads_k), ((loss_p, _), grads_p), launched, _ = step0_gradients(cfg, cuda)
+    loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    worst = max(_rel_err(g, w) for g, w in zip(tree_leaves(grads_k), tree_leaves(grads_p)))
+    print(f"  step-0 loss kernel {loss_k.item()!r} plain {loss_p.item()!r} (rel {loss_rel:.3g}, "
+          f"tol {LOSS_REL_TOL:g}); worst leaf gradient err / its scale {worst:.3g} "
+          f"(tol {GRAD_REL_TOL:g}); kernel launches {launched}")
+    assert launched["flash_attention"] == 2 * TRAIN_CUT_LAYERS, launched
+    assert launched["flash_attention_bwd"] == TRAIN_CUT_LAYERS, launched
+    assert loss_rel <= LOSS_REL_TOL and worst <= GRAD_REL_TOL, (loss_rel, worst)
+    return {"loss_rel_err": loss_rel, "worst_grad_rel_err": worst}
+
+
+# Runs launch/train.py's main in a fresh process and SIGKILLs that process
+# right after the checkpoint of step {kill_at} lands.
+KILLED_RUN = """
+import os, signal, sys
+sys.path.insert(0, "src")
+from repro_torch.launch import train as launcher
+save = launcher.save_checkpoint
+def save_then_die(directory, step, tree, **kw):
+    path = save(directory, step, tree, **kw)
+    if step == {kill_at}:
+        os.kill(os.getpid(), signal.SIGKILL)
+    return path
+launcher.save_checkpoint = save_then_die
+launcher.main({argv!r})
+"""
+
+
+def step_losses(stdout: str) -> dict[int, float]:
+    """The per-step losses that launch/train.py prints."""
+    return {int(m.group(1)): float(m.group(2))
+            for m in re.finditer(r"^step\s+(\d+) loss=(\S+)", stdout, re.M)}
+
+
+def checkpoint_phase(cuda: torch.device) -> dict:
+    """Phase 26: stablelm's smoke config on the card, 6 steps with a
+    checkpoint every 3: uninterrupted here, then in a process killed after
+    step 3's checkpoint and relaunched from it. Steps 4-6 must give the
+    same losses, bit for bit."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.train import train
+
+    out = Path(__file__).resolve().parent / "build" / "train_ckpt"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    argv = ["--arch", "stablelm-1.6b", "--smoke", "--steps", "6", "--ckpt-every", "3",
+            "--seq", "64", "--ckpt-dir", str(out / "killed")]
+    whole = train(get_smoke_config("stablelm-1.6b"), steps=6, batch=4, seq=64, lr=3e-3,
+                  ckpt_dir=str(out / "whole"), ckpt_every=3, device=cuda)
+    root = str(Path(__file__).resolve().parent)
+    killed = subprocess.run([sys.executable, "-c", KILLED_RUN.format(kill_at=3, argv=argv)],
+                            capture_output=True, text=True, timeout=600, cwd=root)
+    assert killed.returncode == -9, (killed.returncode, killed.stderr[-2000:])
+    size = sum(f.stat().st_size for f in (out / "killed").rglob("*") if f.is_file())
+    relaunched = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *argv],
+                                capture_output=True, text=True, timeout=600, cwd=root,
+                                env={**os.environ, "PYTHONPATH": "src"})
+    assert relaunched.returncode == 0, relaunched.stderr[-2000:]
+    before, after = step_losses(killed.stdout), step_losses(relaunched.stdout)
+    expected = {h["step"]: h["loss"] for h in whole}
+    print(f"  killed after step 3 (exit {killed.returncode}) having run steps {sorted(before)}; "
+          f"relaunched: {relaunched.stdout.splitlines()[0]!r}, steps {sorted(after)}; "
+          f"checkpoint of step 3 on disk: {size} bytes")
+    print(f"  losses uninterrupted {[expected[s] for s in (4, 5, 6)]} resumed "
+          f"{[after.get(s) for s in (4, 5, 6)]}")
+    assert "restored checkpoint at step 3" in relaunched.stdout, relaunched.stdout
+    assert sorted(after) == [4, 5, 6], after
+    assert all(after[s] == expected[s] for s in (4, 5, 6)), (after, expected)
+    assert all(before[s] == expected[s] for s in (1, 2, 3)), (before, expected)
+    shutil.rmtree(out, ignore_errors=True)
+    return {"checkpoint_bytes": size, "losses": [expected[s] for s in range(1, 7)]}
+
+
+
+def training_phases(cuda: torch.device) -> tuple[dict, dict]:
+    """Phases 22-26. Returns training's launches of both flash kernels
+    (phases 23-24, the counts zeroed before each run) and the backward
+    kernel's entry of the kernels line."""
+    print("[22] the flash-attention backward kernel vs its plain version, per call", flush=True)
+    bwd_cases = flash_bwd_phase(cuda)
+    reports = {}
+    for phase, name in ((23, "stablelm-1.6b"), (24, "granite-moe-1b-a400m")):
+        print(f"[{phase}] train {name} at full width, fp32, through launch/train.py: full "
+              f"depth, then cut to {TRAIN_CUT_LAYERS} layers", flush=True)
+        reports[name] = train_phase(name, cuda)
+    runs = {f"{name} {run}": r[run] for name, r in reports.items() for run in r}
+    train_launches = {k: sum(run["launches"][k] for run in runs.values())
+                      for k in ("flash_attention", "flash_attention_bwd")}
+    # Training's path launches the flash kernels and nothing else.
+    assert all(run["launches"][k] == 0 for run in runs.values() for k in KERNELS
+               if k != "flash_attention"), [run["launches"] for run in runs.values()]
+    print(f"[25] training parity: a {TRAIN_CUT_LAYERS}-layer full-width fp32 cut of "
+          "stablelm-1.6b, kernels vs plain versions on the card", flush=True)
+    parity_report = train_parity_phase(cuda)
+    print("[26] checkpoint kill and relaunch: stablelm's smoke config on the card", flush=True)
+    ckpt = checkpoint_phase(cuda)
+    main_case = bwd_cases[0]  # stablelm-1.6b's trained shape
+    entry = {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/attention.py:76",
+        "replaces_note": ("no TPU kernel: JAX's trainer differentiates XLA's chunked_attention "
+                          "(attn_impl='xla'); this is the gradient of the port of "
+                          "src/repro/kernels/flash_attention/flash_attention.py:113"),
+        "launches": train_launches["flash_attention_bwd"],
+        **{k: main_case[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms")},
+        "main_case": f"{main_case['shape']} {main_case['dtype']}",
+        "library_note": "the backward of F.scaled_dot_product_attention, fp32, through autograd",
+        "launches_by_run": {name: run["launches"]["flash_attention_bwd"]
+                            for name, run in runs.items()},
+        "cases": bwd_cases,
+        "training": reports,
+        "train_parity": parity_report,
+        "checkpoint": ckpt,
+    }
+    return train_launches, entry
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3224,6 +3674,8 @@ def main() -> int:
     for name in KERNELS:
         launches[name] += mp_launches[name]
     assert launches["rmsnorm"] == 0, f"a served path launched rmsnorm: {launches}"
+    train_launches, bwd_entry = training_phases(cuda)
+    launches["flash_attention"] += train_launches["flash_attention"]
     encdec_routes = {name: collections.Counter() for name in ("flash_attention",
                                                                "decode_attention")}
     for report in encdec.values():
@@ -3272,6 +3724,8 @@ def main() -> int:
                                         "internvl2": vlm_launches[name],
                                         "multiprocess": mp_launches[name]}
         if name == "flash_attention":
+            entry["launches_by_run"]["training"] = train_launches[name]
+        if name == "flash_attention":
             entry["served_encdec"] = encdec
             entry["encdec_parity"] = encdec_checks
             entry["served_internvl2"] = vlm
@@ -3318,7 +3772,8 @@ def main() -> int:
             entry["launches_note"] = ("no served path launches it: the models call their plain "
                                       "rmsnorm (models/layers.py), as the JAX models do")
         kernels.append(entry)
-    print(f"[22] all phases passed in {time.perf_counter() - t_start:.1f} s, build included")
+    kernels.append(bwd_entry)
+    print(f"[27] all phases passed in {time.perf_counter() - t_start:.1f} s, build included")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,15 @@
-"""Fault tolerance for the fleet: replica health and elastic membership.
+"""Fault tolerance: replica health and elastic membership for the fleet,
+and training's atomic checkpoints (the port of the JAX package's ``ft``)."""
 
-The port of the JAX package's ``ft``; its ``checkpoint`` module belongs
-to training and is not ported yet.
-"""
-
+from .checkpoint import latest_step, list_steps, restore_checkpoint, save_checkpoint
 from .elastic import ElasticController
 from .health import HeartbeatMonitor, HedgePolicy, ProcessMonitor
 
 __all__ = [
+    "latest_step",
+    "list_steps",
+    "restore_checkpoint",
+    "save_checkpoint",
     "ElasticController",
     "HeartbeatMonitor",
     "HedgePolicy",

@@ -9,6 +9,8 @@ hash of the sources and flags, and is built at first use with a CUDA
 tensor — importing any module of the port never needs ``nvcc``.
 
 A failed build raises with ``nvcc``'s output; there is no fallback.
+:func:`refuse_grad` is the check every wrapper of a kernel without a
+backward makes before it launches.
 """
 
 from __future__ import annotations
@@ -22,8 +24,10 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["build", "load", "kernel_function", "check", "BuildInfo", "sass_mma_counts",
-           "tensor_core_check", "TENSOR_CORE_KERNELS"]
+import torch
+
+__all__ = ["build", "load", "kernel_function", "check", "refuse_grad", "BuildInfo",
+           "sass_mma_counts", "tensor_core_check", "TENSOR_CORE_KERNELS"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -132,6 +136,21 @@ def check(err: int, name: str) -> None:
     if err != 0:
         msg = load().repro_cuda_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
+
+
+def refuse_grad(name: str, *tensors: torch.Tensor | None) -> None:
+    """Raise if autograd would record the kernel's result.
+
+    A kernel writes its output through a raw pointer into a fresh tensor,
+    which autograd sees as a constant: under grad, every input that needs a
+    gradient would silently get none through this call. A wrapper whose
+    kernel has no backward calls this before it launches.
+    """
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, and an input requires grad; "
+            "run it under torch.no_grad(), or train a model whose path has one"
+        )
 
 
 def sass_mma_counts(lib: Path) -> dict[str, dict[str, int]]:

@@ -57,4 +57,35 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
+// The attention mask of flash_attention.py, shared by the flash forward
+// and backward kernels: query position qp sees key position kp when kp is
+// a real row, kp <= qp under a causal mask (the two positions compared
+// from 0, also when Sq != Skv), and qp - kp < window when window > 0.
+__device__ __forceinline__ bool attn_visible(int qp, int kp, int Skv, int causal, int window) {
+  bool ok = kp < Skv;
+  if (causal) ok = ok && qp >= kp;
+  if (window > 0) ok = ok && qp - kp < window;
+  return ok;
+}
+
+// The KV tiles of `tile` rows that query positions [q_first, q_last] can
+// see (flash_attention.py:50-58); empty when j_first > j_last.
+__device__ __forceinline__ void kv_tile_range(int q_first, int q_last, int Skv, int tile,
+                                              int causal, int window, int& j_first,
+                                              int& j_last) {
+  j_last = (Skv + tile - 1) / tile - 1;
+  if (causal) j_last = min(q_last / tile, j_last);
+  j_first = window > 0 ? max(q_first - window + 1, 0) / tile : 0;
+}
+
+// The query tiles of `tile` rows that can see key positions [kv_first,
+// kv_last]: the same mask read from the key side.
+__device__ __forceinline__ void q_tile_range(int kv_first, int kv_last, int Sq, int tile,
+                                             int causal, int window, int& i_first,
+                                             int& i_last) {
+  i_first = causal ? kv_first / tile : 0;
+  i_last = (Sq + tile - 1) / tile - 1;
+  if (window > 0) i_last = min(i_last, (kv_last + window - 1) / tile);
+}
+
 }  // namespace repro

@@ -68,8 +68,8 @@ constexpr size_t smem_bytes() {
 template <int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ o, int Sq, int Skv, int G, Strides4 qs, Strides4 ks,
-    Strides4 vs, Strides4 os, int causal, int window, float scale) {
+    float* __restrict__ o, float* __restrict__ lse, int Sq, int Skv, int G, Strides4 qs,
+    Strides4 ks, Strides4 vs, Strides4 os, int causal, int window, float scale) {
   constexpr int NC = D / 32;  // output columns per lane
   extern __shared__ float smem[];
   float* sQ = smem;                  // [kBQ][D], pre-scaled
@@ -96,12 +96,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     sQ[i] = qp < Sq ? qb[qp * qs.s + d] * scale : 0.f;
   }
 
-  // KV tile range this q tile can see (flash_attention.py:50-58).
-  const int n_kv = (Skv + kBKV - 1) / kBKV;
-  int j_last = n_kv - 1;
-  if (causal) j_last = min((q0 + kBQ - 1) / kBKV, n_kv - 1);
-  int j_first = 0;
-  if (window > 0) j_first = max(q0 - window + 1, 0) / kBKV;
+  int j_first, j_last;
+  kv_tile_range(q0, q0 + kBQ - 1, Skv, kBKV, causal, window, j_first, j_last);
 
   float m[kRows], l[kRows], acc[kRows][NC];
 #pragma unroll
@@ -148,10 +144,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
       bool ok[2];
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
-        const int kp = kv0 + lane + 32 * c;
-        bool valid = kp < Skv && qp < Sq;
-        if (causal) valid = valid && qp >= kp;
-        if (window > 0) valid = valid && (qp - kp < window);
+        const bool valid = qp < Sq && attn_visible(qp, kv0 + lane + 32 * c, Skv, causal, window);
         ok[c] = valid;
         if (!valid) s[r][c] = NEG_INF;
       }
@@ -189,11 +182,16 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const float denom = fmaxf(l[r], 1e-30f);
 #pragma unroll
     for (int i = 0; i < NC; ++i) ob[qp * os.s + lane + 32 * i] = acc[r][i] / denom;
+    // The row's log-sum-exp for the backward; a row that sees nothing gets
+    // -NEG_INF, so that its recomputed probabilities exp(s - lse) are 0.
+    if (lse && lane == 0)
+      lse[(static_cast<long long>(b) * gridDim.y + h) * Sq + qp] =
+          l[r] > 0.f ? m[r] + logf(l[r]) : -NEG_INF;
   }
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                    int Sq, int Skv, int H, int KV, Strides4 qs, Strides4 ks,
                    Strides4 vs, Strides4 os, int causal, int window, float scale,
                    cudaStream_t stream) {
@@ -204,7 +202,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
   dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), Sq, Skv, H / KV, qs, ks, vs, os, causal, window, scale);
+      static_cast<float*>(o), lse, Sq, Skv, H / KV, qs, ks, vs, os, causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -221,8 +219,8 @@ constexpr int kSmallThreads = 128;  // the most rows per block
 template <typename T, int D>
 __global__ void __launch_bounds__(kSmallThreads) flash_small_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, int Sq, int Skv, int G, Strides4 qs, Strides4 ks, Strides4 vs,
-    Strides4 os, int causal, int window, float scale_log2) {
+    T* __restrict__ o, float* __restrict__ lse, int Sq, int Skv, int G, Strides4 qs,
+    Strides4 ks, Strides4 vs, Strides4 os, int causal, int window, float scale_log2) {
   __shared__ float sK[kSmallKV][D];
   __shared__ float sV[kSmallKV][D];
   const int kvh = blockIdx.y;
@@ -263,10 +261,7 @@ __global__ void __launch_bounds__(kSmallThreads) flash_small_kernel(
     float mx = m;
 #pragma unroll
     for (int c = 0; c < kSmallKV; ++c) {
-      const int kp = kv0 + c;
-      bool valid = kp < Skv;
-      if (causal) valid = valid && qp >= kp;
-      if (window > 0) valid = valid && qp - kp < window;
+      const bool valid = attn_visible(qp, kv0 + c, Skv, causal, window);
       float dot = 0.f;
 #pragma unroll
       for (int d = 0; d < D; ++d) dot = fmaf(qr[d], sK[c][d], dot);
@@ -294,11 +289,16 @@ __global__ void __launch_bounds__(kSmallThreads) flash_small_kernel(
     const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
     for (int d = 0; d < D; ++d) orow[d] = from_float<T>(acc[d] * inv);
+    // The row's log-sum-exp in natural units (m and l are in base 2).
+    if (lse)
+      lse[(static_cast<long long>(b) * gridDim.y * G + h) * Sq + qp] =
+          l > 0.f ? (m + log2f(l)) / LOG2E : -NEG_INF;
   }
 }
 
 template <typename T, int D>
-cudaError_t launch_small(const void* q, const void* k, const void* v, void* o, int B, int Sq,
+cudaError_t launch_small(const void* q, const void* k, const void* v, void* o, float* lse,
+                         int B, int Sq,
                          int Skv, int H, int KV, Strides4 qs, Strides4 ks, Strides4 vs,
                          Strides4 os, int causal, int window, float scale, cudaStream_t stream) {
   const int G = H / KV;
@@ -308,7 +308,7 @@ cudaError_t launch_small(const void* q, const void* k, const void* v, void* o, i
   dim3 grid((n_rows + threads - 1) / threads, KV, B);
   flash_small_kernel<T, D><<<grid, threads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Skv, G, qs, ks, vs, os, causal, window, scale * LOG2E);
+      static_cast<T*>(o), lse, Sq, Skv, G, qs, ks, vs, os, causal, window, scale * LOG2E);
   return cudaGetLastError();
 }
 
@@ -344,12 +344,8 @@ __global__ void __launch_bounds__(tc::kThreads) flash_fwd_tc_kernel(
   const int q_first = r0 / G;
   const int q_last = (min(r0 + tc::kRows, n_rows) - 1) / G;
 
-  // KV tile range these rows can see (flash_attention.py:50-58).
-  const int n_kv = (Skv + tc::kCols - 1) / tc::kCols;
-  int j_last = n_kv - 1;
-  if (causal) j_last = min(q_last / tc::kCols, j_last);
-  int j_first = 0;
-  if (window > 0) j_first = max(q_first - window + 1, 0) / tc::kCols;
+  int j_first, j_last;
+  kv_tile_range(q_first, q_last, Skv, tc::kCols, causal, window, j_first, j_last);
 
   // This thread's two rows: query position and output row pointer.
   int qp[2];
@@ -394,13 +390,7 @@ __global__ void __launch_bounds__(tc::kThreads) flash_fwd_tc_kernel(
                            (window > 0 && q_last - kv0 >= window);
     tc::tile_step<D, false>(
         sm, sQ, sK(st), sV(st), scale_log2, need_mask,
-        [&](int h, int col) {
-          const int kp = kv0 + col;
-          bool ok = kp < Skv;
-          if (causal) ok = ok && qp[h] >= kp;
-          if (window > 0) ok = ok && qp[h] - kp < window;
-          return ok;
-        },
+        [&](int h, int col) { return attn_visible(qp[h], kv0 + col, Skv, causal, window); },
         nullptr, nullptr);
   }
   tc::epilogue<D>(sm, [&](int h, int col, float x0, float x1) {
@@ -432,9 +422,12 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, int 
 // the batch, sequence and head dims (the head_dim stride is 1); D is 8, 16,
 // 64 or 128, and Sq may differ from Skv (cross-attention; a causal mask then
 // compares the two positions from 0, as the plain version does). window <= 0
-// means no window. dtype: 0 = fp32, 1 = bf16. Returns cudaGetLastError().
+// means no window. dtype: 0 = fp32, 1 = bf16. lse, when not null, receives
+// each row's fp32 log-sum-exp of the scaled scores, [B, H, Sq] contiguous,
+// for the backward (flash_attention_bwd.cu); fp32 only. Returns
+// cudaGetLastError().
 extern "C" int repro_flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv,
+    const void* q, const void* k, const void* v, void* o, float* lse, int B, int Sq, int Skv,
     int H, int KV, int D, long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, long long o_sb, long long o_ss, long long o_sh, int causal,
@@ -443,20 +436,21 @@ extern "C" int repro_flash_attention_fwd(
   const Strides4 qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh},
       os{o_sb, o_ss, o_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (Sq < 1 || Skv < 1 || KV < 1 || H % KV != 0 || B > 65535 || KV > 65535)
+  if (Sq < 1 || Skv < 1 || KV < 1 || H % KV != 0 || B > 65535 || KV > 65535 ||
+      (lse && dtype != kFloat32))
     return static_cast<int>(cudaErrorInvalidValue);
 #define REPRO_FLASH_SMALL(T, DIM) \
-  return launch_small<T, DIM>(q, k, v, o, B, Sq, Skv, H, KV, qs, ks, vs, os, causal, window, \
-                              scale, st)
+  return launch_small<T, DIM>(q, k, v, o, lse, B, Sq, Skv, H, KV, qs, ks, vs, os, causal, \
+                              window, scale, st)
   if (dtype == kFloat32 && D == 8) REPRO_FLASH_SMALL(float, 8);
   if (dtype == kFloat32 && D == 16) REPRO_FLASH_SMALL(float, 16);
   if (dtype == kBFloat16 && D == 8) REPRO_FLASH_SMALL(__nv_bfloat16, 8);
   if (dtype == kBFloat16 && D == 16) REPRO_FLASH_SMALL(__nv_bfloat16, 16);
 #undef REPRO_FLASH_SMALL
   if (dtype == kFloat32 && D == 64)
-    return launch<64>(q, k, v, o, B, Sq, Skv, H, KV, qs, ks, vs, os, causal, window, scale, st);
+    return launch<64>(q, k, v, o, lse, B, Sq, Skv, H, KV, qs, ks, vs, os, causal, window, scale, st);
   if (dtype == kFloat32 && D == 128)
-    return launch<128>(q, k, v, o, B, Sq, Skv, H, KV, qs, ks, vs, os, causal, window, scale, st);
+    return launch<128>(q, k, v, o, lse, B, Sq, Skv, H, KV, qs, ks, vs, os, causal, window, scale, st);
   if (dtype == kBFloat16 && D == 64)
     return launch_tc<64>(q, k, v, o, B, Sq, Skv, H, KV, qs, ks, vs, os, causal, window, scale, st);
   if (dtype == kBFloat16 && D == 128)

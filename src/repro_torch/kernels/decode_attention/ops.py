@@ -112,6 +112,7 @@ def decode_attention(
         return decode_attention_ref_model(q, k_cache, v_cache, lengths, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
+    _build.refuse_grad("decode_attention", q, k_cache, v_cache)
     B, one, H, D = q.shape
     Bc, S, KV, Dc = k_cache.shape
     if one != 1 or v_cache.shape != k_cache.shape or Bc != B or Dc != D or H % KV:

@@ -95,6 +95,7 @@ def paged_decode_attention(
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: unsupported device {q.device}")
+    _build.refuse_grad("paged_decode_attention", q, k_pages, v_pages, k_scales, v_scales)
     B, one, H, D = q.shape
     _, page, KV, _ = k_pages.shape
     NB = block_tables.shape[1]

@@ -55,6 +55,7 @@ def paged_prefill_attention(
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged_prefill_attention: unsupported device {q.device}")
+    _build.refuse_grad("paged_prefill_attention", q, k_pages, v_pages, k_scales, v_scales)
     B, C, H, D = q.shape
     _, page, KV, _ = k_pages.shape
     NB = block_tables.shape[1]

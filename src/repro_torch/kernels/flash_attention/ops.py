@@ -1,10 +1,14 @@
-"""Wrapper of the flash-attention forward kernel (model layout).
+"""Wrappers of the flash-attention kernels (model layout): the forward,
+and the backward that carries training's gradient through it.
 
-A CPU tensor goes through the plain version (:mod:`.ref`); a CUDA tensor
-launches ``csrc/flash_attention.cu`` or raises. ``flash_attention.launches``
-counts the kernel's launches. bf16 runs on the tensor cores, which move
-rows in 16-byte chunks: :func:`check_rows_16b_aligned` says what that asks
-of the operands.
+A CPU tensor goes through the plain versions (:mod:`.ref`), which autograd
+differentiates; a CUDA tensor launches ``csrc/flash_attention.cu`` (and,
+under grad, ``csrc/flash_attention_bwd.cu`` in the backward, through a
+``torch.autograd.Function``) or raises. ``flash_attention.launches`` and
+``flash_attention_bwd.launches`` count the kernels' launches. bf16 runs on
+the tensor cores, which move rows in 16-byte chunks:
+:func:`check_rows_16b_aligned` says what that asks of the operands. The
+backward takes fp32 at a head_dim of ``BWD_HEAD_DIMS``, as training runs.
 """
 
 from __future__ import annotations
@@ -14,19 +18,27 @@ import ctypes
 import torch
 
 from .. import _build
-from .ref import flash_attention_ref
+from .ref import attention_lse_ref, flash_attention_bwd_ref, flash_attention_ref
 
-__all__ = ["flash_attention", "check_rows_16b_aligned", "HEAD_DIMS"]
+__all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
+           "check_rows_16b_aligned", "HEAD_DIMS", "BWD_HEAD_DIMS"]
 
 # head_dims the kernel takes: 8 and 16 on the CUDA cores (the paper's Sec. V
 # block, the smoke configs), 64 and 128 on the tensor cores in bf16.
 HEAD_DIMS = (8, 16, 64, 128)
+# head_dims the backward takes, in fp32: the smoke configs' and the trained ones'.
+BWD_HEAD_DIMS = (16, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = (
-    [ctypes.c_void_p] * 4
+    [ctypes.c_void_p] * 5
     + [ctypes.c_int] * 6
     + [ctypes.c_longlong] * 12
     + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+)
+_BWD_ARGTYPES = (
+    [ctypes.c_void_p] * 10
+    + [ctypes.c_int] * 6
+    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
 )
 
 
@@ -43,23 +55,8 @@ def check_rows_16b_aligned(name: str, **tensors: torch.Tensor) -> None:
                              f"(strides {t.stride()}, {t.dtype})")
 
 
-def flash_attention(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    *,
-    causal: bool = True,
-    window: int | None = None,
-) -> torch.Tensor:
-    """q: [B, Sq, H, D]; k, v: [B, Skv, KV, D] -> [B, Sq, H, D] in q's dtype.
-
-    The CUDA kernel reads all three through their strides (last dim
-    contiguous) and takes a head_dim of ``HEAD_DIMS``, fp32 or bf16, and
-    Sq != Skv (cross-attention: ``causal=False``); bf16 rows must start on
-    16-byte boundaries. Any other head_dim raises: there is no fallback.
-    """
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window)
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int | None) -> None:
+    """Raise on what the CUDA kernels do not take."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     B, Sq, H, D = q.shape
@@ -80,10 +77,18 @@ def flash_attention(
         raise ValueError("flash_attention: window must be >= 1")
     if q.dtype == torch.bfloat16:
         check_rows_16b_aligned("flash_attention", q=q, k=k, v=v)
+
+
+def _launch_fwd(q, k, v, causal: bool, window: int | None, lse: torch.Tensor | None):
+    """Launch the forward kernel into a fresh output; ``lse`` [B, H, Sq]
+    fp32, when given, receives the rows' log-sum-exp."""
+    B, Sq, H, D = q.shape
+    _, Skv, KV, _ = k.shape
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     fn = _build.kernel_function("repro_flash_attention_fwd", _ARGTYPES)
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         B, Sq, Skv, H, KV, D,
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
@@ -97,4 +102,104 @@ def flash_attention(
     return out
 
 
+def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int | None = None):
+    """The forward with the rows' log-sum-exp: (out [B, Sq, H, D], lse [B,
+    H, Sq] fp32), what the backward takes. fp32 at ``BWD_HEAD_DIMS`` on
+    CUDA; the plain versions on the CPU."""
+    if q.device.type == "cpu":
+        return (flash_attention_ref(q, k, v, causal=causal, window=window),
+                attention_lse_ref(q, k, causal=causal, window=window))
+    _check(q, k, v, window)
+    B, Sq, H, D = q.shape
+    if q.dtype != torch.float32 or D not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash_attention: the backward takes fp32 at head_dim "
+                         f"{BWD_HEAD_DIMS}, got {q.dtype} at {D}")
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    return _launch_fwd(q, k, v, causal, window, lse), lse
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        window: int | None = None):
+    """The backward kernel: (dq [B, Sq, H, D], dk, dv [B, Skv, KV, D]) from
+    the forward's inputs, its output ``o``, its ``lse`` (:func:`flash_attention_fwd`)
+    and the output's gradient ``do``, all read through strides (last dim
+    contiguous). fp32 at ``BWD_HEAD_DIMS``; the plain version on the CPU."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal, window=window)
+    _check(q, k, v, window)
+    B, Sq, H, D = q.shape
+    _, Skv, KV, _ = k.shape
+    if q.dtype != torch.float32 or D not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd: takes fp32 at head_dim {BWD_HEAD_DIMS}, "
+                         f"got {q.dtype} at {D}")
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != torch.float32 or t.device != q.device \
+                or t.stride(-1) != 1:
+            raise ValueError(f"flash_attention_bwd: {name} must be a [B, Sq, H, D] fp32 "
+                             f"tensor on {q.device} with a contiguous head_dim")
+    if lse.shape != (B, H, Sq) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError("flash_attention_bwd: lse must be a contiguous [B, H, Sq] fp32 tensor")
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    dvec = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    tensors = (q, k, v, o, do, dq, dk, dv)
+    strides = (ctypes.c_longlong * 24)(*(st for t in tensors for st in t.stride()[:3]))
+    fn = _build.kernel_function("repro_flash_attention_bwd", _BWD_ARGTYPES)
+    err = fn(
+        *(t.data_ptr() for t in (q, k, v, o, do, lse, dvec, dq, dk, dv)),
+        B, Sq, Skv, H, KV, D, ctypes.cast(strides, ctypes.c_void_p),
+        int(causal), window or 0, D**-0.5,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(err, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel, with the backward kernel as its gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(), causal=ctx.causal,
+                                         window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+) -> torch.Tensor:
+    """q: [B, Sq, H, D]; k, v: [B, Skv, KV, D] -> [B, Sq, H, D] in q's dtype.
+
+    The CUDA kernel reads all three through their strides (last dim
+    contiguous) and takes a head_dim of ``HEAD_DIMS``, fp32 or bf16, and
+    Sq != Skv (cross-attention: ``causal=False``); bf16 rows must start on
+    16-byte boundaries. Any other head_dim raises: there is no fallback.
+    Under grad, with an input that requires it, the call records the
+    backward kernel as its gradient (fp32 at ``BWD_HEAD_DIMS``; any other
+    raises rather than cut the gradient).
+    """
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window)
+    _check(q, k, v, window)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal, window)
+    return _launch_fwd(q, k, v, causal, window, None)
+
+
 flash_attention.launches = 0
+flash_attention_bwd.launches = 0

@@ -35,6 +35,7 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
         return rmsnorm_ref(x, w, eps)
     if x.device.type != "cuda":
         raise ValueError(f"rmsnorm: unsupported device {x.device}")
+    _build.refuse_grad("rmsnorm", x, w)
     D = x.shape[-1]
     if w.shape != (D,):
         raise ValueError(f"rmsnorm: w has shape {tuple(w.shape)}, want ({D},)")

@@ -57,6 +57,7 @@ def selective_scan(
         return selective_scan_ref(x, dt, Bmat, Cmat, A, h0)
     if x.device.type != "cuda":
         raise ValueError(f"selective_scan: unsupported device {x.device}")
+    _build.refuse_grad("selective_scan", x, dt, Bmat, Cmat, A, h0)
     if x.dim() != 3 or A.dim() != 2:
         raise ValueError(f"selective_scan: bad ranks x={tuple(x.shape)} A={tuple(A.shape)}")
     B, S, Din = x.shape

@@ -12,7 +12,7 @@ numbers.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Iterable
 
 import numpy as np
 import torch
@@ -26,6 +26,9 @@ __all__ = [
     "count_params",
     "torch_dtype",
     "tree_map",
+    "tree_flatten_with_names",
+    "tree_leaves",
+    "tree_unflatten",
 ]
 
 _DTYPES = {
@@ -176,10 +179,43 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     return fn(tree, *rest)
 
 
-def _leaves(tree: Any) -> list:
+def _is_node(tree: Any) -> bool:
+    return dataclasses.is_dataclass(tree) and not isinstance(tree, (type, ParamSpec))
+
+
+def tree_flatten_with_names(tree: Any, prefix: str = "") -> list[tuple[str, Any]]:
+    """(name, leaf) pairs of nested dicts and dataclasses (a ``ParamSpec``
+    is a leaf) in JAX's flattening order, each named as
+    ``jax.tree_util.keystr`` names it: dataclass fields in declaration
+    order as ``.field``, dict keys sorted as ``['key']``. The optimizer,
+    the gradients and the checkpoints all walk trees in this one order."""
+    if _is_node(tree):
+        return [pair for f in dataclasses.fields(tree)
+                for pair in tree_flatten_with_names(getattr(tree, f.name), f"{prefix}.{f.name}")]
     if isinstance(tree, dict):
-        return [leaf for v in tree.values() for leaf in _leaves(v)]
-    return [tree]
+        return [pair for k in sorted(tree)
+                for pair in tree_flatten_with_names(tree[k], f"{prefix}[{k!r}]")]
+    return [(prefix, tree)]
+
+
+def tree_leaves(tree: Any) -> list:
+    """The leaves of :func:`tree_flatten_with_names`, in its order."""
+    return [leaf for _, leaf in tree_flatten_with_names(tree)]
+
+
+def tree_unflatten(like: Any, leaves: Iterable) -> Any:
+    """``like``'s structure holding ``leaves``, given in :func:`tree_leaves` order."""
+    leaves = iter(leaves)
+
+    def rebuild(tree):
+        if _is_node(tree):
+            return dataclasses.replace(
+                tree, **{f.name: rebuild(getattr(tree, f.name)) for f in dataclasses.fields(tree)})
+        if isinstance(tree, dict):
+            return {k: rebuild(tree[k]) for k in sorted(tree)}
+        return next(leaves)
+
+    return rebuild(like)
 
 
 MAX_DRAW = 2**32  # elements of one fp32 draw in init_from_template
@@ -225,4 +261,4 @@ def init_from_template(
 
 
 def count_params(template) -> int:
-    return int(sum(np.prod(s.shape) for s in _leaves(template)))
+    return int(sum(np.prod(s.shape) for s in tree_leaves(template)))

@@ -93,7 +93,7 @@ def encode(params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         h = rmsnorm(x, p_layer["ln1"], cfg.rms_eps)
         out, _ = attention_block(h, p_layer["attn"], enc_cfg, positions=positions, causal=False)
         x = x + out
-        x = x + _ffn(rmsnorm(x, p_layer["ln2"], cfg.rms_eps), p_layer, cfg, per_lane=True)
+        x = x + _ffn(rmsnorm(x, p_layer["ln2"], cfg.rms_eps), p_layer, cfg, per_lane=True)[0]
     return rmsnorm(x, params["enc_final_norm"], cfg.rms_eps)
 
 
@@ -109,7 +109,7 @@ def _decoder_layer(x, p_layer, cfg: ModelConfig, *, positions, ckv, self_cache=N
     x = x + out
     hc = rmsnorm(x, p_layer["ln_cross"], cfg.rms_eps)
     x = x + cross_attention_block(hc, ckv, p_layer["cross_attn"], cfg, lengths=cross_lengths)
-    x = x + _ffn(rmsnorm(x, p_layer["ln2"], cfg.rms_eps), p_layer, cfg, per_lane=True)
+    x = x + _ffn(rmsnorm(x, p_layer["ln2"], cfg.rms_eps), p_layer, cfg, per_lane=True)[0]
     return x, kv
 
 

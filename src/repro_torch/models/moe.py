@@ -32,17 +32,25 @@ package computes them as einsums outside any Pallas kernel.
 :func:`moe_ffn` counts what it routes: ``moe_ffn.routed`` (assignments,
 on the host) and ``moe_ffn.dropped`` (assignments past capacity, summed
 on the tensors' device, so counting never waits for the device); set both
-to 0 to start a count.
+to 0 to start a count. Calls inside :func:`uncounted` add nothing:
+training's ``forward`` counts only the first run of a checkpointed layer,
+not the recompute in the backward.
+
+**Gradients** reach the router through the renormalized gate values and
+through ``lb_loss``'s mean probabilities; the choices, capacity slots and
+one-hots are integer decisions and carry none, as in JAX.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
 
 from .common import ModelConfig, ParamSpec
 
-__all__ = ["moe_template", "moe_ffn", "load_balance_loss"]
+__all__ = ["moe_template", "moe_ffn", "load_balance_loss", "uncounted"]
 
 
 def moe_template(cfg: ModelConfig, n_layers: int | None = None) -> dict:
@@ -170,6 +178,16 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg: ModelConfig, *, per_lane: bool = Fals
 
 moe_ffn.routed = 0
 moe_ffn.dropped = 0
+
+
+@contextlib.contextmanager
+def uncounted():
+    """The routing counters as they were on entry, whatever runs inside."""
+    saved = moe_ffn.routed, moe_ffn.dropped
+    try:
+        yield
+    finally:
+        moe_ffn.routed, moe_ffn.dropped = saved
 
 
 def load_balance_loss(probs: torch.Tensor, onehot: torch.Tensor) -> torch.Tensor:

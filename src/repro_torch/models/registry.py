@@ -1,7 +1,9 @@
 """Model registry: one uniform API over the ported families.
 
 ``Model`` bundles the entry points so the serving engine and the
-launcher never branch on family. ``prefill_batch`` / ``decode_batch``
+launchers never branch on family. ``forward`` is the teacher-forcing
+entry point that training differentiates (``transformer.forward``); it is
+``None`` for an encoder-decoder until ``encdec.forward`` is ported. ``prefill_batch`` / ``decode_batch``
 are the serving engine's batched entry points over a slot cache
 (``{"len": [W], "c0": {...}, ...}``, one entry per layer class: K/V
 rows or sliding-window rings for attention layers, conv tails and SSM
@@ -83,6 +85,7 @@ class Model:
     #   pools, offsets [W] (-1 = masked), valids [W], block_tables [W,NB]) -> out
     verify_step_paged: Callable | None = None  # speculative verify: as
     #   prefill_chunk_paged; lane w holds [last token, d_1..d_k]
+    forward: Callable | None = None  # (params, batch) -> (logits, {"lb_loss"})
 
     @property
     def name(self) -> str:
@@ -140,4 +143,5 @@ def build_model(cfg: ModelConfig) -> Model:
         prefill_chunk_batch=prefill_chunk_batch,
         prefill_chunk_paged=prefill_chunk_paged,
         verify_step_paged=verify_step_paged,
+        forward=lambda p, b: transformer.forward(p, b, cfg),
     )

@@ -3,6 +3,8 @@ pure-Mamba SSM family and the hybrid (hymba) family.
 
 Entry points, as in the JAX package's ``models/transformer.py``:
 
+* :func:`forward` — teacher-forcing logits and the MoE load-balance loss
+  (training), with no cache;
 * :func:`prefill` — forward over a prompt, building a dense cache;
 * :func:`decode_step` — one token per lane against that cache;
 * :func:`prefill_chunk` — one prompt chunk per lane against the dense
@@ -60,10 +62,12 @@ live in :mod:`.encdec`.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 
 import torch
+import torch.utils.checkpoint
 
 from .attention import (
     attention_block,
@@ -75,11 +79,12 @@ from .attention import (
 )
 from .common import ModelConfig, ParamSpec, tree_map
 from .layers import embed_template, gelu_mlp, mlp_template, rmsnorm, swiglu_mlp
-from .moe import moe_ffn, moe_template
+from .moe import moe_ffn, moe_template, uncounted
 from .ssm import mamba_block, mamba_decode_step, ssm_template
 
 __all__ = [
     "lm_template",
+    "forward",
     "prefill",
     "prefill_into",
     "decode_step",
@@ -229,24 +234,29 @@ def _unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _ffn(x, p_layer, cfg: ModelConfig, *, per_lane: bool):
-    """The feed-forward. ``per_lane`` is an MoE layer's routing group:
-    each lane of ``x`` alone, or the whole call (:func:`~.moe.moe_ffn`);
-    serving drops the routing's ``aux``, as JAX does."""
+    """The feed-forward: (out, aux). ``per_lane`` is an MoE layer's routing
+    group: each lane of ``x`` alone, or the whole call (:func:`~.moe.moe_ffn`);
+    ``aux`` holds the routing's ``lb_loss`` (empty for a dense feed-forward),
+    which serving drops, as JAX does."""
     if cfg.is_moe:
-        return moe_ffn(x, p_layer["moe"], cfg, per_lane=per_lane)[0]
+        return moe_ffn(x, p_layer["moe"], cfg, per_lane=per_lane)
     if cfg.act == "swiglu":
-        return swiglu_mlp(x, p_layer["mlp"], cfg.compute_dtype)
-    return gelu_mlp(x, p_layer["mlp"], cfg.compute_dtype)
+        return swiglu_mlp(x, p_layer["mlp"], cfg.compute_dtype), {}
+    return gelu_mlp(x, p_layer["mlp"], cfg.compute_dtype), {}
 
 
 def _layer_params(stack: dict, l: int) -> dict:
     return tree_map(lambda a: a[l], stack)
 
 
-def _layer(x, p_layer, cfg: ModelConfig, *, positions, window=None, cache=None, lanes=None):
-    """One layer of any family (the JAX ``_layer_body`` with ``_mixer``).
+def _layer(x, p_layer, cfg: ModelConfig, *, positions, window=None, cache=None, lanes=None,
+           per_lane: bool = True):
+    """One layer of any family (the JAX ``_layer_body`` with ``_mixer``):
+    (x, parts, aux), ``aux`` the feed-forward's (:func:`_ffn`, whose
+    ``per_lane`` it takes: serving routes each lane alone, :func:`forward`
+    the whole batch).
 
-    Prefill (``cache`` None) returns (x, parts) with the new rows ``"k",
+    Prefill (``cache`` None) returns parts with the new rows ``"k",
     "v"`` of an attention layer and the final ``"conv", "ssm"`` state of a
     Mamba one. Decode takes the layer's cache views ``{"k", "v",
     "attn_len", "write_idx"}`` and / or ``{"conv", "ssm"}``: K/V rows of
@@ -269,14 +279,15 @@ def _layer(x, p_layer, cfg: ModelConfig, *, positions, window=None, cache=None, 
                 h, p_layer["ssm"], cfg, (cache["conv"], cache["ssm"])
             )
         if cfg.block == "mamba":
-            return x + m, parts
+            return x + m, parts, {}
         # hymba fusion: per-branch norm and learned gain, averaged.
         a = rmsnorm(mix, p_layer["norm_attn"], cfg.rms_eps) * p_layer["beta_attn"].to(mix.dtype)
         m = rmsnorm(m, p_layer["norm_ssm"], cfg.rms_eps) * p_layer["beta_ssm"].to(m.dtype)
         mix = 0.5 * (a + m)
     x = x + mix
     h2 = rmsnorm(x, p_layer["ln2"], cfg.rms_eps)
-    return x + _ffn(h2, p_layer, cfg, per_lane=True), parts
+    ff, aux = _ffn(h2, p_layer, cfg, per_lane=per_lane)
+    return x + ff, parts, aux
 
 
 def _stage_input(batch: dict, cfg: ModelConfig) -> torch.Tensor:
@@ -337,6 +348,62 @@ def _runs(params, cache: dict, cfg: ModelConfig):
 # Entry points
 # ---------------------------------------------------------------------------
 
+def _remat_groups(run: RunSpec, cfg: ModelConfig) -> list[range]:
+    """The layer rows of a run in the groups that ``cfg.remat`` checkpoints
+    as one: blocks of ``remat_block`` layers where they tile the run (and
+    there is more than one), as JAX's block remat, else one layer each."""
+    rows = range(run.offset, run.offset + run.count)
+    kb = cfg.remat_block
+    if cfg.remat and kb > 1 and run.count % kb == 0 and run.count > kb:
+        return [rows[i : i + kb] for i in range(0, run.count, kb)]
+    return [rows[i : i + 1] for i in range(run.count)]
+
+
+def forward(params, batch: dict, cfg: ModelConfig):
+    """Teacher-forcing logits (the JAX ``forward``): batch {"tokens": [B,
+    S], ...} (a patches frontend's may add "patch_embeds", a middle stage
+    takes {"hidden": [B, S, D]}) -> (logits [B, S, V] | hidden [B, S, D],
+    {"lb_loss": the MoE load-balance loss summed over the layers and
+    divided by ``n_layers``; 0 for a model without MoE}).
+
+    The plan's runs go layer by layer, with no cache. An MoE layer routes
+    the whole [B, S] batch as one group, as JAX's ``forward`` does. With
+    ``cfg.remat`` each group of :func:`_remat_groups` runs under
+    ``torch.utils.checkpoint`` (JAX's ``jax.checkpoint``): its activations
+    are recomputed in the backward, which runs its attention kernel's
+    forward a second time; the recompute adds nothing to the MoE counters.
+    """
+    x_in = _stage_input(batch, cfg)
+    x = _embed(params, x_in, cfg, batch)
+    positions = torch.arange(x_in.shape[1], device=x.device)
+    plan = layer_plan(cfg)
+    lb_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for run in plan.runs:
+        cls = plan.classes[run.class_idx]
+        stack = params["classes"][f"c{run.class_idx}"]
+        for rows in _remat_groups(run, cfg):
+            runs_before = [0]  # a checkpointed group's second run is the recompute
+
+            def group(x, rows=rows, window=cls.window, runs_before=runs_before):
+                recompute = runs_before[0] > 0
+                runs_before[0] += 1
+                lb = torch.zeros((), dtype=torch.float32, device=x.device)
+                with uncounted() if recompute else contextlib.nullcontext():
+                    for row in rows:
+                        x, _, aux = _layer(x, _layer_params(stack, row), cfg,
+                                           positions=positions, window=window, per_lane=False)
+                        if "lb_loss" in aux:
+                            lb = lb + aux["lb_loss"]
+                return x, lb
+
+            if cfg.remat:
+                x, lb = torch.utils.checkpoint.checkpoint(group, x, use_reentrant=False)
+            else:
+                x, lb = group(x)
+            lb_total = lb_total + lb
+    return _unembed(params, x, cfg), {"lb_loss": lb_total / max(cfg.n_layers, 1)}
+
+
 def prefill_into(params, batch: dict, cache: dict, lanes: torch.Tensor, cfg: ModelConfig):
     """Prefill N same-length prompts into cache lanes ``lanes`` [N].
 
@@ -359,8 +426,8 @@ def prefill_into(params, batch: dict, cache: dict, lanes: torch.Tensor, cfg: Mod
     x = _embed(params, x_in, cfg, batch)
     positions = torch.arange(S, device=x.device)
     for _, cls, stack, entry, row in _runs(params, cache, cfg):
-        x, parts = _layer(x, _layer_params(stack, row), cfg, positions=positions,
-                          window=cls.window)
+        x, parts, _ = _layer(x, _layer_params(stack, row), cfg, positions=positions,
+                             window=cls.window)
         for name, new in parts.items():
             dst = entry[name]
             if name in ("k", "v"):
@@ -417,8 +484,9 @@ def decode_step(params, token: torch.Tensor, cache: dict, cfg: ModelConfig,
             }
     for i, cls, stack, entry, row in _runs(params, cache, cfg):
         views = {name: t[row] for name, t in entry.items()}
-        x, parts = _layer(x, _layer_params(stack, row), cfg, positions=positions,
-                          window=cls.window, cache={**views, **rows.get(i, {})}, lanes=lanes)
+        x, parts, _ = _layer(x, _layer_params(stack, row), cfg, positions=positions,
+                             window=cls.window, cache={**views, **rows.get(i, {})},
+                             lanes=lanes)
         for name in ("conv", "ssm"):
             if name in parts:
                 entry[name][row, lanes] = parts[name][lanes].to(entry[name].dtype)
@@ -473,7 +541,7 @@ def prefill_chunk(params, chunk, cache: dict, offsets, valids, cfg: ModelConfig,
             lane_table=lane_table, lanes=lanes, write_src=write_src, write_pos=write_pos,
         )
         h2 = rmsnorm(x, p_layer["ln2"], cfg.rms_eps)
-        x = x + _ffn(h2, p_layer, cfg, per_lane=True)
+        x = x + _ffn(h2, p_layer, cfg, per_lane=True)[0]
     cache["len"][lanes] = (offsets + valids)[lanes].to(cache["len"].dtype)
     return _unembed(params, x, cfg), cache
 
@@ -507,7 +575,7 @@ def _paged_layers(x, params, cfg: ModelConfig, pools: dict, block, **kw):
         pages = {name: t[l] for name, t in pools.items()}
         x = x + block(h, p_layer["attn"], cfg, pages=pages, **kw)
         h2 = rmsnorm(x, p_layer["ln2"], cfg.rms_eps)
-        x = x + _ffn(h2, p_layer, cfg, per_lane=False)
+        x = x + _ffn(h2, p_layer, cfg, per_lane=False)[0]
     return _unembed(params, x, cfg)
 
 

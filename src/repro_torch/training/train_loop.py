@@ -1,0 +1,84 @@
+"""Train step, as the JAX package's ``training/train_loop.py``: mean
+cross-entropy in fp32, the MoE load-balance auxiliary, an AdamW update,
+and the step's metrics.
+
+The gradient is autograd's through ``Model.forward``; on the card the
+attention goes through the flash forward kernel and comes back through its
+backward kernel (:mod:`repro_torch.kernels.flash_attention`), and with
+``cfg.remat`` every layer is recomputed in the backward, as JAX's
+``jax.checkpoint`` does. A path through a kernel without a backward (the
+selective scan of the Mamba and hybrid families) raises on the card
+rather than train with a cut gradient.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from ..models.common import tree_leaves, tree_unflatten
+from ..models.registry import Model
+from .optimizer import AdamWConfig, adamw_init, adamw_update
+
+__all__ = ["TrainState", "make_train_step", "init_train_state", "cross_entropy",
+           "loss_and_grad", "MOE_AUX_WEIGHT"]
+
+MOE_AUX_WEIGHT = 0.01
+
+
+@dataclasses.dataclass
+class TrainState:
+    params: Any
+    opt: dict
+    step: torch.Tensor  # int32, 0-d
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token CE in fp32. logits [B, S, V], labels [B, S]."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(lse - gold)
+
+
+def init_train_state(model: Model, params: Any) -> TrainState:
+    opt = adamw_init(params)
+    return TrainState(params=params, opt=opt,
+                      step=torch.zeros((), dtype=torch.int32, device=opt["count"].device))
+
+
+def loss_and_grad(model: Model, params: Any, batch: dict):
+    """``jax.value_and_grad`` of the train loss with its aux: returns
+    ((loss, {"ce", "lb_loss"}), grads), grads a tree like ``params``.
+    Every parameter leaf is set to require grad."""
+    if model.forward is None:
+        raise ValueError(f"{model.name}: no teacher-forcing forward (encdec.forward is not "
+                         "ported yet)")
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    logits, aux = model.forward(params, batch)
+    ce = cross_entropy(logits, batch["labels"])
+    loss = ce
+    if model.cfg.is_moe:
+        loss = loss + MOE_AUX_WEIGHT * aux["lb_loss"]
+    grads = tree_unflatten(params, torch.autograd.grad(loss, leaves))
+    return (loss.detach(), {"ce": ce.detach(), "lb_loss": aux["lb_loss"].detach()}), grads
+
+
+def make_train_step(model: Model, opt_cfg: AdamWConfig):
+    """``train_step(state, batch) -> (state, metrics)``: metrics ``loss``,
+    ``ce``, ``lb_loss``, ``grad_norm`` and ``lr`` as 0-d tensors. The
+    parameters and moments of ``state`` are updated in place
+    (:func:`~.optimizer.adamw_update`)."""
+
+    def train_step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
+        (loss, metrics), grads = loss_and_grad(model, state.params, batch)
+        params, opt, opt_metrics = adamw_update(grads, state.opt, state.params, opt_cfg)
+        new_state = TrainState(params=params, opt=opt, step=state.step + 1)
+        return new_state, {"loss": loss, **metrics, **opt_metrics}
+
+    return train_step
+

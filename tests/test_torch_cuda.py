@@ -1019,3 +1019,96 @@ def test_multiprocess_fleet_on_the_card_equals_in_process(gen):
         assert ping["device"] == torch.cuda.get_device_name(0)
         assert ping["launches"]["flash_attention"] > 0, ping
         assert ping["launches"]["decode_attention"] > 0, ping
+
+
+# ---- training: the flash-attention backward and the gradient guard ---------
+
+BWD_CASES = [
+    # B, Sq, Skv, H, KV, D, causal, window: chip_smoke.py phase 22's shapes
+    (4, 256, 256, 32, 32, 64, True, None),  # stablelm-1.6b trained
+    (4, 256, 256, 16, 8, 64, True, None),  # granite-moe-1b-a400m trained
+    (2, 300, 300, 8, 8, 64, True, 100),  # windowed, ragged
+    (2, 256, 256, 16, 4, 64, True, None),  # GQA G=4
+    (2, 100, 177, 8, 4, 64, False, None),  # bidirectional Sq != Skv
+    (2, 256, 256, 8, 8, 128, True, None),  # head_dim 128
+    (4, 64, 64, 4, 2, 16, True, None),  # head_dim 16
+]
+BWD_TOL = 1e-4  # of each gradient's scale: fp32, summed in another order
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,D,causal,window", BWD_CASES)
+def test_flash_backward_kernel_matches_plain(gen, B, Sq, Skv, H, KV, D, causal, window):
+    from repro_torch.kernels.flash_attention import (
+        attention_lse_ref, flash_attention_bwd, flash_attention_bwd_ref, flash_attention_fwd)
+
+    q = torch.randn(B, Sq, H, D, generator=gen, device="cuda")
+    k = torch.randn(B, Skv, KV, D, generator=gen, device="cuda")
+    v = torch.randn(B, Skv, KV, D, generator=gen, device="cuda")
+    do = torch.randn(B, Sq, H, D, generator=gen, device="cuda")
+    kw = dict(causal=causal, window=window)
+    o, lse = flash_attention_fwd(q, k, v, **kw)
+    torch.testing.assert_close(lse, attention_lse_ref(q, k, **kw), atol=2e-5, rtol=0)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    assert flash_attention_bwd.launches == before + 1
+    want = flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert (g - w).abs().max() <= BWD_TOL * w.abs().max()
+
+
+def test_flash_attention_carries_the_gradient_through_its_kernels(gen):
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    leaves = [torch.randn(2, 128, n, 64, generator=gen, device="cuda").requires_grad_()
+              for n in (16, 8, 8)]
+    do = torch.randn(2, 128, 16, 64, generator=gen, device="cuda")
+    fwd, bwd = flash_attention.launches, flash_attention_bwd.launches
+    got = torch.autograd.grad(flash_attention(*leaves, window=40), leaves, do)
+    assert (flash_attention.launches, flash_attention_bwd.launches) == (fwd + 1, bwd + 1)
+    want = torch.autograd.grad(flash_attention_ref(*leaves, window=40), leaves, do)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max() <= BWD_TOL * w.abs().max()
+    with pytest.raises(ValueError, match="backward takes fp32"):
+        flash_attention(*(t.detach().bfloat16().requires_grad_() for t in leaves))
+
+
+def test_kernels_without_a_backward_raise_under_grad(gen):
+    x = torch.randn(2, 8, 32, generator=gen, device="cuda", requires_grad=True)
+    dt = torch.rand(2, 8, 32, generator=gen, device="cuda")
+    bc = torch.randn(2, 8, 16, generator=gen, device="cuda")
+    A = -torch.rand(32, 16, generator=gen, device="cuda")
+    with pytest.raises(RuntimeError, match="selective_scan: the CUDA kernel has no backward"):
+        selective_scan(x, dt, bc, bc, A)
+    with torch.no_grad():
+        selective_scan(x, dt, bc, bc, A)
+    q = torch.randn(2, 1, 4, 64, generator=gen, device="cuda", requires_grad=True)
+    cache = torch.randn(2, 16, 4, 64, generator=gen, device="cuda")
+    lengths = torch.tensor([5, 16], dtype=torch.int32, device="cuda")
+    with pytest.raises(RuntimeError, match="decode_attention: the CUDA kernel has no backward"):
+        decode_attention(q, cache, cache, lengths)
+    with pytest.raises(RuntimeError, match="rmsnorm: the CUDA kernel has no backward"):
+        rmsnorm(x, torch.ones(32, device="cuda"))
+    # A Mamba model trains on the card only once its scan has a backward.
+    from repro_torch.training.train_loop import loss_and_grad
+
+    cfg = dataclasses.replace(get_smoke_config("falcon-mamba-7b"), dtype="float32",
+                              param_dtype="float32")
+    model = build_model(cfg)
+    params = init_from_template(model.template, gen, "float32", device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 9), device="cuda", generator=gen)
+    with pytest.raises(RuntimeError, match="no backward"):
+        loss_and_grad(model, params, {"tokens": tokens[:, :8], "labels": tokens[:, 1:]})
+
+
+def test_smoke_training_on_the_card(gen):
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.launch.train import train
+
+    fwd, bwd = flash_attention.launches, flash_attention_bwd.launches
+    history = train(get_smoke_config("stablelm-1.6b"), steps=4, batch=4, seq=64, lr=3e-3,
+                    device="cuda")
+    losses = [h["loss"] for h in history]
+    assert all(np.isfinite(losses)) and len(losses) == 4
+    # 2 layers: the forward twice (remat) and the backward once per layer and step.
+    assert (flash_attention.launches - fwd, flash_attention_bwd.launches - bwd) == (16, 8)
