@@ -292,15 +292,22 @@ Phases, in order; any failure exits non-zero:
    and respawn seconds, and the device memory of each process and of the
    fleet.
 22. The flash-attention backward kernel (``csrc/flash_attention_bwd.cu``)
-   against its plain version per call, fp32: causal at the trained shapes
+   against its plain version per call, fp32: first its product kernels'
+   SASS, where every instantiation must hold TF32 ``HMMA`` (3xTF32 on the
+   tensor cores, ``csrc/tf32x3.cuh``); then causal at the trained shapes
    of phases 23-24 (B=4, S=256; 32 / 32 and 16 / 8 heads of 64), windowed
-   over a ragged length, GQA with G = 4, bidirectional with Sq != Skv,
-   head_dim 16, 64 and 128; dq, dk and dv within 1e-4 of their scale, the
-   forward's log-sum-exp against the plain one, and a planted fault (one dk
-   element moved by 1% of dk's scale) that the check must catch; times of
-   the kernel, the plain version and SDPA's fp32 backward through
-   autograd; then ``flash_attention`` under autograd against autograd
-   through the plain version.
+   over a ragged length, GQA with G = 4 and G = 16 (the widest split of a
+   group's heads over blocks), S = 1024, bidirectional with Sq != Skv,
+   head_dim 16, 64 and 128; dq, dk and dv within 1e-4 of their scale, a
+   second call equal bit for bit, the forward's log-sum-exp against the
+   plain one, and a planted fault (one dk element moved by 1% of dk's
+   scale) that the check must catch; times of the kernel, the plain
+   version and SDPA's fp32 backward through autograd (any backend, and
+   the memory-efficient one alone, each named), and the bound in bytes
+   and in 3xTF32 operations (the fp32 CUDA-core figure beside them); then
+   ``flash_attention`` under autograd against autograd through the plain
+   version; then the fp32 forward kernel (lse on) at the two trained
+   shapes, timed beside SDPA's fp32 forward.
 23. stablelm-1.6b trained at full width, fp32, through
    ``launch/train.py``'s ``train``: B=4, S=256, 20 AdamW steps (lr 3e-4,
    warmup 5), remat on; the losses, grad norms, s/step and peak memory;
@@ -403,6 +410,12 @@ def bound(bytes_moved: float, flops: float, dtype) -> tuple[float, str]:
     return (mem_ms, "bytes") if mem_ms >= op_ms else (op_ms, "operations")
 
 
+def band_mask(Sq: int, window: int) -> torch.Tensor:
+    """[Sq, Sq] bool: causal and within the window, as one SDPA mask."""
+    pos = torch.arange(Sq, device="cuda")
+    return (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
+
+
 def flash_case(B, S, H, KV, D, dtype, gen, window=None, *, Skv=None, causal=True, label=""):
     """One flash case: S queries against Skv keys (default S; a cross-
     attention's differ), causal or bidirectional; ``label`` names the
@@ -422,8 +435,7 @@ def flash_case(B, S, H, KV, D, dtype, gen, window=None, *, Skv=None, causal=True
         library = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qt, kt, vt, is_causal=causal, enable_gqa=H != KV)
     else:  # one SDPA call with a banded boolean mask
-        pos = torch.arange(S, device="cuda")
-        band = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
+        band = band_mask(S, window)
         library = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qt, kt, vt, attn_mask=band, enable_gqa=H != KV)
     item = q.element_size()
@@ -3105,7 +3117,15 @@ BWD_CASES = (
     (2, 256, 256, 8, 8, 128, True, None, "head_dim 128"),
     (4, 64, 64, 4, 2, 16, True, None, "head_dim 16, smoke"),
     (2, 90, 130, 4, 4, 16, False, None, "head_dim 16 bidirectional"),
+    (1, 1024, 1024, 16, 4, 64, True, None, "long, many tiles through the ring"),
+    (2, 256, 256, 32, 2, 64, True, None, "GQA G=16, the widest head split"),
 )
+# 3xTF32: three TF32 tensor-core products per product (csrc/tf32x3.cuh), at
+# the H100's dense TF32 rate.
+TF32X3_FLOPS = 495e12 / 3
+# Phase 22 also times the fp32 forward kernel (lse on) at the trained shapes.
+FWD_SHAPES = ((4, 256, 32, 32, 64, "stablelm-1.6b trained"),
+              (4, 256, 16, 8, 64, "granite-moe-1b-a400m trained"))
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 20, 4, 256, 3e-4
 TRAIN_CUT_LAYERS = 3  # the full-width cut that phases 23-25 train and hold
 LOSS_REL_TOL, GRAD_REL_TOL = 1e-5, 1e-3
@@ -3116,14 +3136,46 @@ LOSS_REL_TOL, GRAD_REL_TOL = 1e-5, 1e-3
 DEPTH_GROWTH, DEPTH_SPREAD = 1e3, 4.0
 
 
-def flash_bwd_case(B, Sq, Skv, H, KV, D, causal, window, label, gen) -> dict:
-    """The backward kernel against its plain version on the same inputs
-    (o and lse from the forward kernel, whose lse is held against the plain
-    one too), a planted fault (one dk element moved) that the check must
-    catch, and the times: kernel, plain, and SDPA's fp32 backward through
-    autograd."""
-    from repro_torch.kernels.flash_attention import (
-        attention_lse_ref, flash_attention_bwd, flash_attention_bwd_ref, flash_attention_fwd)
+def sdpa_backend(out: torch.Tensor) -> str:
+    """The SDPA backend an output came from, read off its backward node."""
+    name = out.grad_fn.name()
+    for key, backend in (("Efficient", "efficient"), ("Flash", "flash"), ("Cudnn", "cudnn")):
+        if key in name:
+            return backend
+    return f"math ({name})"
+
+
+def sdpa_backward(q, k, v, do, causal: bool, window, efficient: bool = False):
+    """SDPA's fp32 backward through autograd on the model-layout inputs:
+    the forward graph built once (any backend, or the memory-efficient one
+    alone), a function that runs its backward, the backend it took, and
+    how GQA went in (SDPA's ``enable_gqa``, or K and V repeated over the
+    group inside the graph where the backend refuses it)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    H, KV = q.shape[2], k.shape[2]
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    kw = dict(is_causal=causal) if window is None else dict(attn_mask=band_mask(q.shape[1],
+                                                                              window))
+    ctx = sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION) if efficient else contextlib.nullcontext()
+    with ctx:
+        try:
+            out = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=H != KV, **kw)
+            gqa = "enable_gqa" if H != KV else "none"
+        except RuntimeError:
+            G = H // KV
+            out = F.scaled_dot_product_attention(qt, kt.repeat_interleave(G, 1),
+                                                 vt.repeat_interleave(G, 1), **kw)
+            gqa = "repeat_interleave"
+    dot = do.transpose(1, 2)
+    run = lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)  # noqa: E731
+    return run, sdpa_backend(out), gqa
+
+
+def bwd_inputs(B, Sq, Skv, H, KV, D, causal, window, gen):
+    """One backward case's inputs on the card, drawn from ``gen``: q, k, v,
+    do, and o, lse from the forward kernel, with the mask's keywords."""
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
 
     q = torch.randn(B, Sq, H, D, generator=gen, device="cuda")
     k = torch.randn(B, Skv, KV, D, generator=gen, device="cuda")
@@ -3131,29 +3183,40 @@ def flash_bwd_case(B, Sq, Skv, H, KV, D, causal, window, label, gen) -> dict:
     do = torch.randn(B, Sq, H, D, generator=gen, device="cuda")
     kw = dict(causal=causal, window=window)
     o, lse = flash_attention_fwd(q, k, v, **kw)
+    return q, k, v, do, o, lse, kw
+
+
+def flash_bwd_case(B, Sq, Skv, H, KV, D, causal, window, label, gen) -> dict:
+    """The backward kernel against its plain version on the same inputs
+    (o and lse from the forward kernel, whose lse is held against the plain
+    one too), a second call that must give the same bits, a planted fault
+    (one dk element moved) that the check must catch, and the times:
+    kernel, plain, and SDPA's fp32 backward through autograd, with any
+    backend and with the memory-efficient one alone."""
+    from repro_torch.kernels.flash_attention import (
+        attention_lse_ref, bwd_head_splits, flash_attention_bwd, flash_attention_bwd_ref)
+
+    q, k, v, do, o, lse, kw = bwd_inputs(B, Sq, Skv, H, KV, D, causal, window, gen)
     got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
     torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
     want = flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
     lse_err = (lse - attention_lse_ref(q, k, **kw)).abs().max().item()
     errs = {n: _rel_err(g, w) for n, g, w in zip(("dq", "dk", "dv"), got, want)}
     faulted = got[1].clone()
     faulted.view(-1)[faulted.numel() // 2] += 0.01 * want[1].abs().max()
     fault_err = _rel_err(faulted, want[1])
-    # SDPA's backward alone: its forward graph is built once, outside the timing.
-    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-    if window is None:
-        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=H != KV)
-    else:
-        pos = torch.arange(Sq, device="cuda")
-        band = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
-        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band, enable_gqa=H != KV)
-    dot = do.transpose(1, 2)
-    library = lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)  # noqa: E731
+    library, backend, gqa = sdpa_backward(q, k, v, do, causal, window)
+    efficient, eff_backend, eff_gqa = sdpa_backward(q, k, v, do, causal, window, efficient=True)
     pairs = sum(min(i + 1, Skv, window or Skv) for i in range(Sq)) if causal else Sq * Skv
     # Bytes: q, o, do read and dq written; k, v read and dk, dv written;
-    # lse read. Operations: 2.5 times the forward's two matmuls.
-    b_ms, b_by = bound((4 * q.numel() + 4 * k.numel() + lse.numel()) * 4,
-                       2.5 * 4 * B * H * D * pairs, torch.float32)
+    # lse read. Operations: the five products, 2.5 times the forward's two
+    # matmuls, each as three TF32 products; beside them the same on the
+    # CUDA cores in fp32, the first design's bound.
+    bytes_ms = (4 * q.numel() + 4 * k.numel() + lse.numel()) * 4 / HBM_BYTES_PER_S * 1e3
+    flops = 2.5 * 4 * B * H * D * pairs
+    tf32x3_ms = flops / TF32X3_FLOPS * 1e3
     shape = (f"B={B} S={Sq} H={H} KV={KV} D={D}" if Sq == Skv else
              f"B={B} Sq={Sq} Skv={Skv} H={H} KV={KV} D={D}")
     return {
@@ -3165,34 +3228,113 @@ def flash_bwd_case(B, Sq, Skv, H, KV, D, causal, window, label, gen) -> dict:
         "rel_err": errs,
         "lse_max_abs_err": lse_err,
         "planted_fault_rel_err": fault_err,
+        "bitwise_repeat": bitwise,
+        "head_splits": bwd_head_splits(
+            B, Skv, KV, H // KV, torch.cuda.get_device_properties(0).multi_processor_count),
         "tol": BWD_TOL,
         "ms": time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw)),
         "plain_ms": time_ms(lambda: flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)),
         "library_ms": time_ms(library),
-        "bound_ms": b_ms,
-        "bound_by": b_by,
+        "library_backend": backend,
+        "library_gqa": gqa,
+        "library_efficient_ms": time_ms(efficient),
+        "library_efficient_backend": eff_backend,
+        "library_efficient_gqa": eff_gqa,
+        "bound_ms": max(bytes_ms, tf32x3_ms),
+        "bound_by": "bytes" if bytes_ms >= tf32x3_ms else "operations",
+        "bytes_ms": bytes_ms,
+        "tf32x3_ms": tf32x3_ms,
+        "fp32_cuda_core_ms": flops / PEAK_FLOPS[torch.float32] * 1e3,
     }
 
 
-def flash_bwd_phase(cuda: torch.device) -> list[dict]:
-    """Phase 22: the flash-attention backward kernel per call, and the
-    autograd wiring (``flash_attention`` under grad against autograd
-    through the plain version) at the stablelm shape."""
+def flash_bwd_nan_check(gen) -> dict:
+    """The card's own NaN (0x7fffffff) planted in one element of dO, at
+    granite-moe-1b-a400m's trained shape (two head splits): dq, dk and dv
+    are non-finite exactly where the plain version's are, which the
+    3xTF32 rounding must not turn into zeros. The NaN sits in the last
+    query row, which every KV tile sees: for an earlier row the plain
+    version also multiplies the masked zeros of the tiles the kernel
+    skips by it."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_bwd_ref
+
+    q, k, v, do, o, lse, kw = bwd_inputs(*BWD_CASES[1][:8], gen)
+    do.view(torch.int32)[1, -1, 3, 5] = 0x7FFFFFFF
+    got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    return {n: {"non_finite": int((~g.isfinite()).sum()),
+                "plain_non_finite": int((~w.isfinite()).sum()),
+                "same_places": bool(torch.equal(g.isfinite(), w.isfinite()))}
+            for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+
+
+def flash_fwd_fp32_case(B, S, H, KV, D, label, gen) -> dict:
+    """The fp32 forward kernel with the lse on (what training launches)
+    against SDPA's fp32 forward, timed at one trained shape; a measurement
+    beside the backward, held only against the plain version."""
+    from repro_torch.kernels.flash_attention import flash_attention_fwd, flash_attention_ref
+
+    q = torch.randn(B, S, H, D, generator=gen, device="cuda")
+    k = torch.randn(B, S, KV, D, generator=gen, device="cuda")
+    v = torch.randn(B, S, KV, D, generator=gen, device="cuda")
+    out, _ = flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    err = (out - flash_attention_ref(q, k, v)).abs().max().item()
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True, enable_gqa=H != KV)
+    pairs = S * (S + 1) // 2
+    flops = 4 * B * H * D * pairs
+    return {
+        "shape": f"B={B} S={S} H={H} KV={KV} D={D} ({label})",
+        "max_abs_err": err,
+        "ms": time_ms(lambda: flash_attention_fwd(q, k, v)),
+        "library_ms": time_ms(library),
+        "bytes_ms": (2 * q.numel() + 2 * k.numel() + B * H * S) * 4 / HBM_BYTES_PER_S * 1e3,
+        "tf32x3_ms": flops / TF32X3_FLOPS * 1e3,
+        "fp32_cuda_core_ms": flops / PEAK_FLOPS[torch.float32] * 1e3,
+    }
+
+
+def flash_bwd_phase(cuda: torch.device, report: dict | None = None) -> dict:
+    """Phase 22: the flash-attention backward kernel per call, its SASS
+    (``report``, phase 2's, or built here when phase 22 runs alone: every
+    instantiation of its product kernels must hold TF32 HMMA), the autograd
+    wiring (``flash_attention`` under grad against autograd through the
+    plain version), and the fp32 forward at the trained shapes."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
 
+    report = report or kernel_report(_build.build())
+    tf32 = _build.tensor_core_check(report, _build.TF32_KERNELS, key="hmma_tf32")
+    for kernel in tf32.values():
+        for name in kernel:
+            r = report[name]
+            print(f"  {name}: HMMA on TF32 {r['hmma_tf32']} (of {r['hmma']} HMMA), FFMA "
+                  f"{r['ffma']}, {r.get('registers')} registers, {r.get('spill_bytes')} spill "
+                  "bytes")
     gen = torch.Generator(device=cuda).manual_seed(22)
     cases = [flash_bwd_case(*c, gen) for c in BWD_CASES]
     for c in cases:
         print(f"  flash_attention_bwd {c['shape']}: dq/dk/dv err / scale "
               + "/".join(f"{e:.3g}" for e in c["rel_err"].values())
               + f" (tol {c['tol']:g}; planted fault {c['planted_fault_rel_err']:.3g}), lse err "
-              f"{c['lse_max_abs_err']:.3g} (tol {LSE_TOL:g}); kernel {c['ms']:.4f} ms "
-              f"plain {c['plain_ms']:.4f} ms "
-              f"SDPA backward {c['library_ms']:.4f} ms bound {c['bound_ms']:.4f} ms "
-              f"({c['bound_by']})")
+              f"{c['lse_max_abs_err']:.3g} (tol {LSE_TOL:g}); repeat bit for bit "
+              f"{c['bitwise_repeat']}; head splits {c['head_splits']}; kernel {c['ms']:.4f} ms "
+              f"plain {c['plain_ms']:.4f} ms SDPA backward {c['library_ms']:.4f} ms "
+              f"({c['library_backend']}, GQA {c['library_gqa']}), efficient backend alone "
+              f"{c['library_efficient_ms']:.4f} ms ({c['library_efficient_backend']}, GQA "
+              f"{c['library_efficient_gqa']}); bound {c['bound_ms']:.4f} ms ({c['bound_by']}: "
+              f"bytes {c['bytes_ms']:.4f}, 3xTF32 operations {c['tf32x3_ms']:.4f}; fp32 on "
+              f"the CUDA cores {c['fp32_cuda_core_ms']:.4f})")
     bad = [c for c in cases if not (c["max_rel_err"] <= BWD_TOL < c["planted_fault_rel_err"]
-                                    and c["lse_max_abs_err"] <= LSE_TOL)]
+                                    and c["lse_max_abs_err"] <= LSE_TOL
+                                    and c["bitwise_repeat"])]
     assert not bad, f"the backward kernel disagrees with its plain version: {bad}"
+    nan = flash_bwd_nan_check(gen)
+    print("  a NaN (0x7fffffff) in dO: non-finite entries kernel / plain "
+          + ", ".join(f"{n} {r['non_finite']} / {r['plain_non_finite']}" for n, r in nan.items()))
+    assert all(r["non_finite"] and r["same_places"] for r in nan.values()), nan
     B, S, H, KV, D = 2, 256, 16, 8, 64
     leaves = [torch.randn(B, S, n, D, generator=gen, device=cuda).requires_grad_()
               for n in (H, KV, KV)]
@@ -3202,7 +3344,14 @@ def flash_bwd_phase(cuda: torch.device) -> list[dict]:
     wiring = max(_rel_err(g, w) for g, w in zip(got, want))
     print(f"  autograd through the kernels vs through the plain version: err / scale {wiring:.3g}")
     assert wiring <= BWD_TOL, wiring
-    return cases
+    forward = [flash_fwd_fp32_case(*c, gen) for c in FWD_SHAPES]
+    for c in forward:
+        print(f"  flash_attention_fwd fp32, lse on, {c['shape']}: err {c['max_abs_err']:.3g}; "
+              f"kernel {c['ms']:.4f} ms SDPA forward {c['library_ms']:.4f} ms; bytes "
+              f"{c['bytes_ms']:.4f} ms, 3xTF32 operations {c['tf32x3_ms']:.4f} ms, fp32 on the "
+              f"CUDA cores {c['fp32_cuda_core_ms']:.4f} ms")
+    assert all(c["max_abs_err"] <= TOL[torch.float32] for c in forward), forward
+    return {"cases": cases, "tf32_sass": tf32, "nan_in_do": nan, "fp32_forward": forward}
 
 
 def train_run(cfg, cuda: torch.device) -> dict:
@@ -3461,12 +3610,13 @@ def checkpoint_phase(cuda: torch.device) -> dict:
 
 
 
-def training_phases(cuda: torch.device) -> tuple[dict, dict]:
-    """Phases 22-26. Returns training's launches of both flash kernels
-    (phases 23-24, the counts zeroed before each run) and the backward
-    kernel's entry of the kernels line."""
+def training_phases(cuda: torch.device, report: dict | None = None) -> tuple[dict, dict]:
+    """Phases 22-26 (``report``: phase 2's SASS report). Returns training's
+    launches of both flash kernels (phases 23-24, the counts zeroed before
+    each run) and the backward kernel's entry of the kernels line."""
     print("[22] the flash-attention backward kernel vs its plain version, per call", flush=True)
-    bwd_cases = flash_bwd_phase(cuda)
+    bwd = flash_bwd_phase(cuda, report)
+    bwd_cases = bwd["cases"]
     reports = {}
     for phase, name in ((23, "stablelm-1.6b"), (24, "granite-moe-1b-a400m")):
         print(f"[{phase}] train {name} at full width, fp32, through launch/train.py: full "
@@ -3495,7 +3645,14 @@ def training_phases(cuda: torch.device) -> tuple[dict, dict]:
         **{k: main_case[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                      "library_ms")},
         "main_case": f"{main_case['shape']} {main_case['dtype']}",
-        "library_note": "the backward of F.scaled_dot_product_attention, fp32, through autograd",
+        "library_note": ("the backward of F.scaled_dot_product_attention, fp32, through autograd, "
+                         f"any backend ({main_case['library_backend']}); the memory-efficient "
+                         f"backend alone: {main_case['library_efficient_ms']} ms"),
+        "bound_note": (f"bytes {main_case['bytes_ms']} ms, 3xTF32 operations "
+                       f"{main_case['tf32x3_ms']} ms at 495 / 3 TFLOP/s; fp32 on the CUDA cores "
+                       f"{main_case['fp32_cuda_core_ms']} ms"),
+        "tf32_sass": bwd["tf32_sass"],
+        "fp32_forward": bwd["fp32_forward"],
         "launches_by_run": {name: run["launches"]["flash_attention_bwd"]
                             for name, run in runs.items()},
         "cases": bwd_cases,
@@ -3674,7 +3831,7 @@ def main() -> int:
     for name in KERNELS:
         launches[name] += mp_launches[name]
     assert launches["rmsnorm"] == 0, f"a served path launched rmsnorm: {launches}"
-    train_launches, bwd_entry = training_phases(cuda)
+    train_launches, bwd_entry = training_phases(cuda, report)
     launches["flash_attention"] += train_launches["flash_attention"]
     encdec_routes = {name: collections.Counter() for name in ("flash_attention",
                                                                "decode_attention")}

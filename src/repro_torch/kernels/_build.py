@@ -15,9 +15,11 @@ backward makes before it launches.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -27,7 +29,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["build", "load", "kernel_function", "check", "refuse_grad", "BuildInfo",
-           "sass_mma_counts", "tensor_core_check", "TENSOR_CORE_KERNELS"]
+           "sass_by_function", "sass_opcodes", "sass_mma_counts", "tensor_core_check",
+           "TENSOR_CORE_KERNELS", "TF32_KERNELS"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -40,6 +43,10 @@ NVCC_FLAGS = (
 # the tensor cores (csrc/attention_tc.cuh): kernel name -> instantiations
 # (head width 64 / 128; paged also bf16 / int8 pools).
 TENSOR_CORE_KERNELS = {"flash_fwd_tc_kernel": 2, "paged_prefill_tc_kernel": 4}
+# The fp32 flash backward's product kernels, which run their products as
+# 3xTF32 mma.sync (csrc/tf32x3.cuh): kernel name -> instantiations (head
+# width 16 / 64 / 128).
+TF32_KERNELS = {"flash_bwd_dkdv_kernel": 3, "flash_bwd_dq_kernel": 3}
 
 _lib: ctypes.CDLL | None = None  # the process's loaded kernel library
 
@@ -153,29 +160,45 @@ def refuse_grad(name: str, *tensors: torch.Tensor | None) -> None:
         )
 
 
-def sass_mma_counts(lib: Path) -> dict[str, dict[str, int]]:
-    """Per kernel function of the library, by mangled name, its wgmma
-    (``hgmma``) and mma.sync (``hmma``) instructions in ``cuobjdump -sass``,
-    and its ``MUFU.EX2`` (exp2 on the special-function units)."""
+def sass_by_function(lib: Path) -> dict[str, str]:
+    """The library's ``cuobjdump -sass`` split per kernel function: mangled
+    name -> its SASS."""
     cuobjdump = Path(_nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
                           check=True, timeout=300).stdout
-    counts = {}
-    for block in sass.split("Function : ")[1:]:
-        name, body = block.split(None, 1)
-        counts[name] = {"hgmma": body.count("HGMMA"), "hmma": body.count("HMMA"),
-                        "mufu_ex2": body.count("MUFU.EX2")}
-    return counts
+    return dict(block.split(None, 1) for block in sass.split("Function : ")[1:])
 
 
-def tensor_core_check(counts: dict[str, dict[str, int]]) -> dict[str, dict[str, int]]:
-    """The HGMMA count of every instantiation of ``TENSOR_CORE_KERNELS``
-    in ``counts`` (keyed by mangled or readable name); raises unless each
-    kernel has all its instantiations and each holds HGMMA."""
+def sass_opcodes(body: str) -> dict[str, int]:
+    """Opcode histogram of one function's SASS (the mnemonic before the
+    first '.', predicates skipped), most frequent first."""
+    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", body)
+    return dict(collections.Counter(ops).most_common())
+
+
+def sass_mma_counts(lib: Path) -> dict[str, dict[str, int]]:
+    """Per kernel function of the library, by mangled name, its wgmma
+    (``hgmma``) and mma.sync (``hmma``; of them on TF32 operands,
+    ``hmma_tf32``) instructions in ``cuobjdump -sass``, its fp32 FMAs on the
+    CUDA cores (``ffma``) and its ``MUFU.EX2`` (exp2 on the
+    special-function units)."""
+    return {name: {"hgmma": body.count("HGMMA"), "hmma": body.count("HMMA"),
+                   "hmma_tf32": len(re.findall(r"HMMA\.[\w.]*TF32", body)),
+                   "ffma": body.count("FFMA"), "mufu_ex2": body.count("MUFU.EX2")}
+            for name, body in sass_by_function(lib).items()}
+
+
+def tensor_core_check(counts: dict[str, dict[str, int]], kernels: dict[str, int] | None = None,
+                      key: str = "hgmma") -> dict[str, dict[str, int]]:
+    """The ``key`` count (default HGMMA) of every instantiation of
+    ``kernels`` (default ``TENSOR_CORE_KERNELS``; ``TF32_KERNELS`` with
+    ``key="hmma_tf32"``) in ``counts`` (keyed by mangled or readable name);
+    raises unless each kernel has all its instantiations and each holds
+    such instructions."""
     found = {}
-    for kernel, n in TENSOR_CORE_KERNELS.items():
-        hgmma = {name: c["hgmma"] for name, c in counts.items() if kernel in name}
-        if len(hgmma) != n or not all(hgmma.values()):
-            raise RuntimeError(f"{kernel}: {n} instantiations with HGMMA expected, SASS has {hgmma}")
-        found[kernel] = hgmma
+    for kernel, n in (TENSOR_CORE_KERNELS if kernels is None else kernels).items():
+        held = {name: c[key] for name, c in counts.items() if kernel in name}
+        if len(held) != n or not all(held.values()):
+            raise RuntimeError(f"{kernel}: {n} instantiations with {key} expected, SASS has {held}")
+        found[kernel] = held
     return found

@@ -21,7 +21,7 @@ from .. import _build
 from .ref import attention_lse_ref, flash_attention_bwd_ref, flash_attention_ref
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
-           "check_rows_16b_aligned", "HEAD_DIMS", "BWD_HEAD_DIMS"]
+           "check_rows_16b_aligned", "bwd_head_splits", "HEAD_DIMS", "BWD_HEAD_DIMS"]
 
 # head_dims the kernel takes: 8 and 16 on the CUDA cores (the paper's Sec. V
 # block, the smoke configs), 64 and 128 on the tensor cores in bf16.
@@ -36,10 +36,27 @@ _ARGTYPES = (
     + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 )
 _BWD_ARGTYPES = (
-    [ctypes.c_void_p] * 10
-    + [ctypes.c_int] * 6
+    [ctypes.c_void_p] * 11
+    + [ctypes.c_int] * 8
     + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
 )
+# Rows of the backward kernel's KV tiles (kT in csrc/flash_attention_bwd.cu):
+# the grid size that the head split aims at, nothing else.
+BWD_TILE = 64
+
+
+def bwd_head_splits(B: int, Skv: int, KV: int, G: int, n_sm: int) -> int:
+    """How many blocks of the backward's dK / dV pass share each group of
+    G query heads: 1 when (KV tiles x KV heads x batch) blocks give each of
+    the card's ``n_sm`` SMs two, else as many as bring the grid there, at
+    most G, each taking an equal share of the group's heads. Each split
+    writes partial dK, dV that a second pass sums in split order."""
+    blocks = -(-Skv // BWD_TILE) * KV * B
+    want = min(G, -(-2 * n_sm // blocks))
+    if want <= 1:
+        return 1
+    per = -(-G // want)
+    return -(-G // per)
 
 
 def check_rows_16b_aligned(name: str, **tensors: torch.Tensor) -> None:
@@ -123,7 +140,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     """The backward kernel: (dq [B, Sq, H, D], dk, dv [B, Skv, KV, D]) from
     the forward's inputs, its output ``o``, its ``lse`` (:func:`flash_attention_fwd`)
     and the output's gradient ``do``, all read through strides (last dim
-    contiguous). fp32 at ``BWD_HEAD_DIMS``; the plain version on the CPU."""
+    contiguous). fp32 at ``BWD_HEAD_DIMS``; the plain version on the CPU.
+    On CUDA one call is one count of ``launches``, whatever it launches
+    inside (dQ, which also computes ``D = rowsum(do * o)``; dK / dV; and
+    the sum of the head splits of :func:`bwd_head_splits` when there are
+    several)."""
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal, window=window)
     _check(q, k, v, window)
@@ -143,12 +164,19 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     dvec = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+    G = H // KV
+    splits = bwd_head_splits(B, Skv, KV, G, n_sm)
+    per_split = -(-G // splits)  # query heads of each split; the kernel checks the pair
+    scratch = (torch.empty((2, splits, B, Skv, KV, D), dtype=torch.float32, device=q.device)
+               if splits > 1 else None)
     tensors = (q, k, v, o, do, dq, dk, dv)
     strides = (ctypes.c_longlong * 24)(*(st for t in tensors for st in t.stride()[:3]))
     fn = _build.kernel_function("repro_flash_attention_bwd", _BWD_ARGTYPES)
     err = fn(
         *(t.data_ptr() for t in (q, k, v, o, do, lse, dvec, dq, dk, dv)),
-        B, Sq, Skv, H, KV, D, ctypes.cast(strides, ctypes.c_void_p),
+        None if scratch is None else scratch.data_ptr(),
+        B, Sq, Skv, H, KV, D, splits, per_split, ctypes.cast(strides, ctypes.c_void_p),
         int(causal), window or 0, D**-0.5,
         torch.cuda.current_stream(q.device).cuda_stream,
     )

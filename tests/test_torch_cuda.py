@@ -1032,6 +1032,8 @@ BWD_CASES = [
     (2, 100, 177, 8, 4, 64, False, None),  # bidirectional Sq != Skv
     (2, 256, 256, 8, 8, 128, True, None),  # head_dim 128
     (4, 64, 64, 4, 2, 16, True, None),  # head_dim 16
+    (1, 1024, 1024, 16, 4, 64, True, None),  # many tiles through the ring
+    (2, 256, 256, 32, 2, 64, True, None),  # GQA G=16, the widest head split
 ]
 BWD_TOL = 1e-4  # of each gradient's scale: fp32, summed in another order
 
@@ -1055,6 +1057,84 @@ def test_flash_backward_kernel_matches_plain(gen, B, Sq, Skv, H, KV, D, causal, 
     for g, w in zip(got, want):
         assert g.shape == w.shape
         assert (g - w).abs().max() <= BWD_TOL * w.abs().max()
+
+
+def test_flash_backward_kernel_reads_rows_off_16_bytes(gen):
+    """Operands whose rows do not start on 16 bytes (views one float into
+    a wider tensor) stream in 4-byte copies and give the same gradients."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_ref, flash_attention_fwd)
+
+    B, S, H, KV, D = 2, 200, 8, 4, 64
+    wide = [torch.randn(B, S, n, D + 1, generator=gen, device="cuda") for n in (H, KV, KV, H)]
+    q, k, v, do = (t[..., 1:] for t in wide)
+    o, lse = flash_attention_fwd(q, k, v, window=70)
+    got = flash_attention_bwd(q, k, v, o, lse, do, window=70)
+    want = flash_attention_bwd_ref(q, k, v, o, lse, do, window=70)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max() <= BWD_TOL * w.abs().max()
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,D,causal,window", BWD_CASES)
+def test_flash_backward_kernel_is_bit_reproducible(gen, B, Sq, Skv, H, KV, D, causal, window):
+    """No atomics: two calls on the same inputs give the same bits, also
+    where the group's heads are split over blocks and summed."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
+
+    q = torch.randn(B, Sq, H, D, generator=gen, device="cuda")
+    k = torch.randn(B, Skv, KV, D, generator=gen, device="cuda")
+    v = torch.randn(B, Skv, KV, D, generator=gen, device="cuda")
+    do = torch.randn(B, Sq, H, D, generator=gen, device="cuda")
+    kw = dict(causal=causal, window=window)
+    o, lse = flash_attention_fwd(q, k, v, **kw)
+    first = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    second = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name,bits", [
+    ("do", 0x7FFFFFFF), ("do", 0x7FC00000), ("do", -0x1000), ("do", 0x7F800000),
+    ("q", 0x7FFFFFFF), ("k", 0x7FFFFFFF), ("v", 0x7FFFFFFF),
+], ids=["do-nan-7fffffff", "do-nan-7fc00000", "do-nan-fffff000", "do-inf", "q-nan-7fffffff",
+        "k-nan-7fffffff", "v-nan-7fffffff"])
+def test_flash_backward_kernel_carries_a_non_finite_input(gen, name, bits):
+    """One NaN or Inf in an input (the card's own NaN 0x7fffffff among them)
+    reaches dq, dk and dv where it reaches the plain version's, through the
+    forward's o and lse, the 3xTF32 rounding and the head split's sum; the
+    finite rest agrees. It sits in the last row of q or dO, which every KV
+    tile sees, or the first of k or v, which every query sees: elsewhere the
+    plain version also multiplies the masked zeros of the tiles that the
+    kernel skips by it."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_ref, flash_attention_fwd)
+
+    B, S, H, KV, D = 1, 128, 8, 2, 64
+    t = {"q": torch.randn(B, S, H, D, generator=gen, device="cuda"),
+         "k": torch.randn(B, S, KV, D, generator=gen, device="cuda"),
+         "v": torch.randn(B, S, KV, D, generator=gen, device="cuda"),
+         "do": torch.randn(B, S, H, D, generator=gen, device="cuda")}
+    t[name].view(torch.int32)[0, -1 if name in ("q", "do") else 0, 1, 3] = bits
+    q, k, v, do = t["q"], t["k"], t["v"], t["do"]
+    o, lse = flash_attention_fwd(q, k, v)
+    got = flash_attention_bwd(q, k, v, o, lse, do)
+    want = flash_attention_bwd_ref(q, k, v, o, lse, do)
+    for grad, g, w in zip(("dq", "dk", "dv"), got, want):
+        finite = w.isfinite()
+        if grad != "dv" or name != "v":  # dV does not depend on V
+            assert not bool(finite.all()), grad
+        assert torch.equal(g.isfinite(), finite), grad
+        assert finite.any(), grad  # the planted head's group only
+        assert (g[finite] - w[finite]).abs().max() <= BWD_TOL * w[finite].abs().max(), grad
+
+
+@pytest.mark.parametrize("kernel", sorted(_build.TF32_KERNELS))
+def test_flash_backward_products_run_as_tf32_on_the_tensor_cores(gen, kernel):
+    """The SASS of each head width's product kernels holds TF32 mma.sync
+    (HMMA ... TF32): the 3xTF32 products of csrc/tf32x3.cuh."""
+    counts = _build.sass_mma_counts(_build.build().path)
+    found = _build.tensor_core_check(counts, _build.TF32_KERNELS, key="hmma_tf32")[kernel]
+    assert len(found) == _build.TF32_KERNELS[kernel]
 
 
 def test_flash_attention_carries_the_gradient_through_its_kernels(gen):
