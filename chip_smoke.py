@@ -12,7 +12,10 @@ Phases, in order; any failure exits non-zero:
    memory, and the tensor-core instructions (``HGMMA``, ``HMMA``) and
    special-function-unit exponentials (``MUFU.EX2``) in its SASS
    (``cuobjdump -sass`` of the built library). The bf16 instantiations of
-   the two prefill-attention kernels must hold ``HGMMA``.
+   the two prefill-attention kernels must hold ``HGMMA``; every
+   instantiation of the fp32 flash forward (head_dim 64 / 128, its P V)
+   and of the backward's product kernels must hold TF32 ``HMMA`` (3xTF32,
+   ``_build.TF32_KERNELS``), printed with its registers and spill bytes.
 3. Kernels: each kernel against its plain PyTorch version on the card at
    the serving path's shapes plus long cases (bf16 flash attention also
    at S = 1, 63, 64, 65 and 129 around the 64-row tile edges, and with
@@ -306,8 +309,15 @@ Phases, in order; any failure exits non-zero:
    the memory-efficient one alone, each named), and the bound in bytes
    and in 3xTF32 operations (the fp32 CUDA-core figure beside them); then
    ``flash_attention`` under autograd against autograd through the plain
-   version; then the fp32 forward kernel (lse on) at the two trained
-   shapes, timed beside SDPA's fp32 forward.
+   version; then the fp32 forward kernel (lse on; P V as 3xTF32 on the
+   tensor cores) at the two trained shapes, hymba-1.5b's window class (B=1,
+   S=1300, 25 / 5 heads, window 1024), seamless's cross packing (B=4, 8
+   queries against 1000 keys, 16 / 16 heads, bidirectional) and head_dim
+   128 with G=8 (B=2, S=200, 32 / 4 heads): the output within 2e-5 and the
+   lse within 2e-5 of the plain versions, a second call equal bit for bit,
+   and the kernel's, the plain version's and SDPA's fp32 forward's times
+   beside the bound, max(bytes, 3xTF32 operations), with the fp32
+   CUDA-core figure.
 23. stablelm-1.6b trained at full width, fp32, through
    ``launch/train.py``'s ``train``: B=4, S=256, 20 AdamW steps (lr 3e-4,
    warmup 5), remat on; the losses, grad norms, s/step and peak memory;
@@ -373,6 +383,10 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense; fp32 witho
 # compute capability 9.0 (CUDA C++ Programming Guide, arithmetic
 # instruction throughput) against 128 fp32 FMA lanes of 2 flops each.
 SFU_PER_S = PEAK_FLOPS[torch.float32] * 16 / 256
+# 3xTF32: three TF32 tensor-core products per product (csrc/tf32x3.cuh), at
+# the H100's dense TF32 rate: the fp32 flash forward at head_dim 64 / 128 and
+# the flash backward.
+TF32X3_FLOPS = 495e12 / 3
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 N_TIMED = 20
 
@@ -442,11 +456,16 @@ def flash_case(B, S, H, KV, D, dtype, gen, window=None, *, Skv=None, causal=True
     # (query, key) pairs scored: under a causal mask (positions compared
     # from 0) each query sees itself and the window - 1 keys before it.
     pairs = sum(min(i + 1, Skv, window or Skv) for i in range(S)) if causal else S * Skv
-    b_ms, b_by = bound(
-        (2 * q.numel() + k.numel() + v.numel()) * item,
-        4 * B * H * D * pairs,
-        dtype,
-    )
+    flops = 4 * B * H * D * pairs
+    bytes_moved = (2 * q.numel() + k.numel() + v.numel()) * item
+    b_ms, b_by = bound(bytes_moved, flops, dtype)
+    extra = {}
+    if dtype == torch.float32 and D >= 64:
+        # fp32 at head_dim 64 / 128: the least time takes the products as
+        # 3xTF32 on the tensor cores; the CUDA-core figure beside it.
+        extra["fp32_cuda_core_ms"] = flops / PEAK_FLOPS[torch.float32] * 1e3
+        mem_ms, op_ms = bytes_moved / HBM_BYTES_PER_S * 1e3, flops / TF32X3_FLOPS * 1e3
+        b_ms, b_by = (mem_ms, "bytes") if mem_ms >= op_ms else (op_ms, "operations")
     shape = f"B={B} S={S} H={H} KV={KV} D={D}" if Skv == S else \
         f"B={B} Sq={S} Skv={Skv} H={H} KV={KV} D={D}"
     return {
@@ -460,6 +479,7 @@ def flash_case(B, S, H, KV, D, dtype, gen, window=None, *, Skv=None, causal=True
         "library_ms": time_ms(library),
         "bound_ms": b_ms,
         "bound_by": b_by,
+        **extra,
     }
 
 
@@ -988,6 +1008,8 @@ def check_kernels() -> dict[str, list[dict]]:
                 yard += (f" (deep lanes: err {c['deep_rel_err']:.3g}, planted fault "
                          f"{c['deep_fault_rel_err']:.3g} of their scale {c['deep_scale']:.3g}; "
                          f"limit {DEEP_TOL:.3g})")
+            if "fp32_cuda_core_ms" in c:
+                yard += f" (fp32 on the CUDA cores {c['fp32_cuda_core_ms']:.4f} ms)"
             print(f"  {name} {c['dtype']} {c['shape']}: err {c['max_abs_err']:.3g} "
                   f"kernel {c['ms']:.4f} ms plain {c['plain_ms']:.4f} ms {yard} "
                   f"bound {c['bound_ms']:.4f} ms ({c['bound_by']})")
@@ -3120,12 +3142,16 @@ BWD_CASES = (
     (1, 1024, 1024, 16, 4, 64, True, None, "long, many tiles through the ring"),
     (2, 256, 256, 32, 2, 64, True, None, "GQA G=16, the widest head split"),
 )
-# 3xTF32: three TF32 tensor-core products per product (csrc/tf32x3.cuh), at
-# the H100's dense TF32 rate.
-TF32X3_FLOPS = 495e12 / 3
-# Phase 22 also times the fp32 forward kernel (lse on) at the trained shapes.
-FWD_SHAPES = ((4, 256, 32, 32, 64, "stablelm-1.6b trained"),
-              (4, 256, 16, 8, 64, "granite-moe-1b-a400m trained"))
+# Phase 22 also holds and times the fp32 forward kernel (lse on): (B, Sq,
+# Skv, H, KV, D, causal, window, label). The first two are the trained
+# shapes of phases 23 and 24.
+FWD_SHAPES = (
+    (4, 256, 256, 32, 32, 64, True, None, "stablelm-1.6b trained"),
+    (4, 256, 256, 16, 8, 64, True, None, "granite-moe-1b-a400m trained"),
+    (1, 1300, 1300, 25, 5, 64, True, 1024, "hymba-1.5b's window class"),
+    (4, 8, 1000, 16, 16, 64, False, None, "seamless-m4t-large-v2's cross packing"),
+    (2, 200, 200, 32, 4, 128, True, None, "head_dim 128, GQA G=8"),
+)
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 20, 4, 256, 3e-4
 TRAIN_CUT_LAYERS = 3  # the full-width cut that phases 23-25 train and hold
 LOSS_REL_TOL, GRAD_REL_TOL = 1e-5, 1e-3
@@ -3268,30 +3294,52 @@ def flash_bwd_nan_check(gen) -> dict:
             for n, g, w in zip(("dq", "dk", "dv"), got, want)}
 
 
-def flash_fwd_fp32_case(B, S, H, KV, D, label, gen) -> dict:
+def flash_fwd_fp32_case(B, Sq, Skv, H, KV, D, causal, window, label, gen) -> dict:
     """The fp32 forward kernel with the lse on (what training launches)
-    against SDPA's fp32 forward, timed at one trained shape; a measurement
-    beside the backward, held only against the plain version."""
-    from repro_torch.kernels.flash_attention import flash_attention_fwd, flash_attention_ref
+    against its plain versions (output within TOL, lse within LSE_TOL), a
+    second call that must give the same bits, and the times: kernel, plain,
+    and SDPA's fp32 forward (one call; a window as a banded boolean mask).
+    Bound: max(bytes, 3xTF32 operations), the fp32 CUDA-core figure beside."""
+    from repro_torch.kernels.flash_attention import (
+        attention_lse_ref, flash_attention_fwd, flash_attention_ref)
 
-    q = torch.randn(B, S, H, D, generator=gen, device="cuda")
-    k = torch.randn(B, S, KV, D, generator=gen, device="cuda")
-    v = torch.randn(B, S, KV, D, generator=gen, device="cuda")
-    out, _ = flash_attention_fwd(q, k, v)
+    q = torch.randn(B, Sq, H, D, generator=gen, device="cuda")
+    k = torch.randn(B, Skv, KV, D, generator=gen, device="cuda")
+    v = torch.randn(B, Skv, KV, D, generator=gen, device="cuda")
+    kw = dict(causal=causal, window=window)
+    out, lse = flash_attention_fwd(q, k, v, **kw)
+    again, lse_again = flash_attention_fwd(q, k, v, **kw)
     torch.cuda.synchronize()
-    err = (out - flash_attention_ref(q, k, v)).abs().max().item()
+    err = (out - flash_attention_ref(q, k, v, **kw)).abs().max().item()
+    lse_err = (lse - attention_lse_ref(q, k, **kw)).abs().max().item()
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    mask = dict(is_causal=causal) if window is None else dict(attn_mask=band_mask(Sq, window))
     library = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, is_causal=True, enable_gqa=H != KV)
-    pairs = S * (S + 1) // 2
+        qt, kt, vt, enable_gqa=H != KV, **mask)
+    plain = lambda: (flash_attention_ref(q, k, v, **kw),  # noqa: E731
+                     attention_lse_ref(q, k, **kw))
+    pairs = sum(min(i + 1, Skv, window or Skv) for i in range(Sq)) if causal else Sq * Skv
     flops = 4 * B * H * D * pairs
+    # Bytes: q read and o written, k and v read, the lse written.
+    bytes_ms = (2 * q.numel() + k.numel() + v.numel() + lse.numel()) * 4 / HBM_BYTES_PER_S * 1e3
+    tf32x3_ms = flops / TF32X3_FLOPS * 1e3
+    shape = (f"B={B} S={Sq} H={H} KV={KV} D={D}" if Sq == Skv else
+             f"B={B} Sq={Sq} Skv={Skv} H={H} KV={KV} D={D}")
     return {
-        "shape": f"B={B} S={S} H={H} KV={KV} D={D} ({label})",
+        "shape": shape + (f" window={window}" if window else "")
+                 + ("" if causal else " bidirectional") + f" ({label})",
+        "dtype": "float32",
         "max_abs_err": err,
-        "ms": time_ms(lambda: flash_attention_fwd(q, k, v)),
+        "lse_max_abs_err": lse_err,
+        "bitwise_repeat": torch.equal(out, again) and torch.equal(lse, lse_again),
+        "tol": TOL[torch.float32],
+        "ms": time_ms(lambda: flash_attention_fwd(q, k, v, **kw)),
+        "plain_ms": time_ms(plain),
         "library_ms": time_ms(library),
-        "bytes_ms": (2 * q.numel() + 2 * k.numel() + B * H * S) * 4 / HBM_BYTES_PER_S * 1e3,
-        "tf32x3_ms": flops / TF32X3_FLOPS * 1e3,
+        "bound_ms": max(bytes_ms, tf32x3_ms),
+        "bound_by": "bytes" if bytes_ms >= tf32x3_ms else "operations",
+        "bytes_ms": bytes_ms,
+        "tf32x3_ms": tf32x3_ms,
         "fp32_cuda_core_ms": flops / PEAK_FLOPS[torch.float32] * 1e3,
     }
 
@@ -3346,11 +3394,15 @@ def flash_bwd_phase(cuda: torch.device, report: dict | None = None) -> dict:
     assert wiring <= BWD_TOL, wiring
     forward = [flash_fwd_fp32_case(*c, gen) for c in FWD_SHAPES]
     for c in forward:
-        print(f"  flash_attention_fwd fp32, lse on, {c['shape']}: err {c['max_abs_err']:.3g}; "
-              f"kernel {c['ms']:.4f} ms SDPA forward {c['library_ms']:.4f} ms; bytes "
-              f"{c['bytes_ms']:.4f} ms, 3xTF32 operations {c['tf32x3_ms']:.4f} ms, fp32 on the "
-              f"CUDA cores {c['fp32_cuda_core_ms']:.4f} ms")
-    assert all(c["max_abs_err"] <= TOL[torch.float32] for c in forward), forward
+        print(f"  flash_attention_fwd fp32, lse on, {c['shape']}: err {c['max_abs_err']:.3g} "
+              f"(tol {c['tol']:g}), lse err {c['lse_max_abs_err']:.3g} (tol {LSE_TOL:g}); "
+              f"repeat bit for bit {c['bitwise_repeat']}; kernel {c['ms']:.4f} ms plain "
+              f"{c['plain_ms']:.4f} ms SDPA forward {c['library_ms']:.4f} ms; bound "
+              f"{c['bound_ms']:.4f} ms ({c['bound_by']}: bytes {c['bytes_ms']:.4f}, 3xTF32 "
+              f"operations {c['tf32x3_ms']:.4f}; fp32 on the CUDA cores "
+              f"{c['fp32_cuda_core_ms']:.4f})")
+    assert all(c["max_abs_err"] <= c["tol"] and c["lse_max_abs_err"] <= LSE_TOL
+               and c["bitwise_repeat"] for c in forward), forward
     return {"cases": cases, "tf32_sass": tf32, "nan_in_do": nan, "fp32_forward": forward}
 
 
@@ -3688,6 +3740,11 @@ def main() -> int:
               f"{r.get('static_smem')} B static smem, HGMMA {r.get('hgmma')}, HMMA {r.get('hmma')}, "
               f"MUFU.EX2 {r.get('mufu_ex2')}")
     tensor_core = _build.tensor_core_check(report)
+    tf32 = _build.tensor_core_check(report, _build.TF32_KERNELS, key="hmma_tf32")
+    for name in (n for kernel in tf32.values() for n in kernel):
+        r = report[name]
+        print(f"    {name}: HMMA on TF32 {r['hmma_tf32']} (of {r['hmma']} HMMA), FFMA "
+              f"{r['ffma']}, {r.get('registers')} registers, {r.get('spill_bytes')} spill bytes")
 
     print("[3] kernels vs plain versions", flush=True)
     results = check_kernels()
@@ -3868,6 +3925,8 @@ def main() -> int:
         }
         if name == "flash_attention":
             entry["tensor_core_sass"] = tensor_core["flash_fwd_tc_kernel"]
+            entry["tf32_sass"] = tf32["flash_fwd_kernel"]
+            entry["fp32_forward"] = bwd_entry["fp32_forward"]
             windowed = hybrid["served"]["flash_launches_by_route"]["windowed"]
             bidir, cross = (encdec_routes[name][r] for r in ("bidirectional", "cross"))
             entry["launches_by_route"] = {"full": launches[name] - windowed - bidir - cross,

@@ -1,17 +1,22 @@
 #!/usr/bin/env python3
-"""Time the port's selective-scan, paged-decode, dense-decode and rmsnorm
-CUDA kernels at the served and main-path shapes, for the ``repro_torch``
-under a given tree.
+"""Time the port's selective-scan, paged-decode, dense-decode, rmsnorm and
+fp32 flash-attention CUDA kernels at the served and main-path shapes, for
+the ``repro_torch`` under a given tree.
 
     python3 scripts/torch_kernel_times.py [--src TREE] [--label NAME] [--out FILE]
+        [--kernels scan paged dense rmsnorm flash]
 
 ``--src`` names the root of a checkout (default: this one); its kernels
 are built there (under TREE/build) and timed with ``chip_smoke.py``'s
 ``time_ms`` (CUDA events, median of 20 runs behind a device sleep). To
 compare two commits on one card, unpack the other into a directory that
 ``.gitignore`` lists and run the script on both in one call, in turns
-(A, B, B, A). Prints one JSON object per line, and appends them to
-``--out`` if given. Needs a CUDA device.
+(A, B, B, A). ``--kernels`` picks the groups to time (default all);
+``flash`` times the fp32 forward at ``chip_smoke.py`` phase 3's fp32 flash
+shapes (lse off) and phase 22's forward cases (lse on, SDPA's fp32 forward
+beside each), and the backward at phase 22's cases. Prints one JSON
+object per line, and appends them to ``--out`` if given. Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -110,11 +115,54 @@ def rmsnorm_times() -> list[dict]:
     return rows
 
 
+# chip_smoke.py phase 3's fp32 flash cases at head_dim 64 / 128: (B, S, H, KV, D).
+FLASH_FP32_SHAPES = [*((B, S, 32, 32, 64) for B in (1, 2, 3, 4) for S in (8, 128)),
+                     (1, 4096, 32, 32, 64), (1, 4096, 24, 8, 128)]
+
+
+def flash_times() -> list[dict]:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_fwd)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for B, S, H, KV, D in FLASH_FP32_SHAPES:
+        q = torch.randn(B, S, H, D, generator=gen, device="cuda")
+        k, v = (torch.randn(B, S, KV, D, generator=gen, device="cuda") for _ in range(2))
+        rows.append({"kernel": "flash_attention", "dtype": "float32", "lse": False, "B": B,
+                     "S": S, "H": H, "KV": KV, "D": D,
+                     "ms": chip_smoke.time_ms(lambda: flash_attention(q, k, v))})
+    for B, Sq, Skv, H, KV, D, causal, window, label in chip_smoke.FWD_SHAPES:
+        q = torch.randn(B, Sq, H, D, generator=gen, device="cuda")
+        k, v = (torch.randn(B, Skv, KV, D, generator=gen, device="cuda") for _ in range(2))
+        kw = dict(causal=causal, window=window)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        mask = (dict(is_causal=causal) if window is None else
+                dict(attn_mask=chip_smoke.band_mask(Sq, window)))
+        rows.append({"kernel": "flash_attention", "dtype": "float32", "lse": True, "case": label,
+                     "ms": chip_smoke.time_ms(lambda: flash_attention_fwd(q, k, v, **kw)),
+                     "sdpa_ms": chip_smoke.time_ms(lambda: F.scaled_dot_product_attention(
+                         qt, kt, vt, enable_gqa=H != KV, **mask))})
+    for *shape, label in chip_smoke.BWD_CASES:
+        q, k, v, do, o, lse, kw = chip_smoke.bwd_inputs(*shape, gen)
+        rows.append({"kernel": "flash_attention_bwd", "case": label, "ms": chip_smoke.time_ms(
+            lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw))})
+    return rows
+
+
+GROUPS = {"scan": scan_times, "paged": paged_times, "dense": dense_times,
+          "rmsnorm": rmsnorm_times, "flash": flash_times}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(ROOT), help="root of the checkout whose kernels to time")
     ap.add_argument("--label", default="this tree")
     ap.add_argument("--out", help="a file to append the JSON lines to")
+    ap.add_argument("--kernels", nargs="*", choices=sorted(GROUPS), default=list(GROUPS),
+                    help="the groups of kernels to time")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_kernel_times: no CUDA device available", file=sys.stderr)
@@ -129,7 +177,8 @@ def main() -> int:
         # every time below (launch and the two events).
         rows = [{"kernel": "empty (torch.cuda._sleep(0))",
                  "ms": chip_smoke.time_ms(lambda: torch.cuda._sleep(0))}]
-        rows += scan_times() + paged_times() + dense_times() + rmsnorm_times()
+        for group in args.kernels:
+            rows += GROUPS[group]()
     lines = [json.dumps({"label": args.label, "package": repro_torch.__file__, "card": card,
                          **row}) for row in rows]
     print("\n".join(lines))

@@ -38,155 +38,286 @@
 // fp32, every thread reading the same row at once (a broadcast). Bound:
 // bytes; the launch's fixed cost at the served shapes.
 //
-// fp32: the CUDA cores, the parity path (fp32 on the tensor cores would be
-// TF32, ~3 decimal digits). One block per (64 query rows, query head,
-// batch); each of the four warps owns 16 rows; a lane owns two score
-// columns of the current KV tile and D/32 output columns. Q, the K/V tile
-// and the tile's probabilities are staged in shared memory as fp32 (K
-// padded by one column so a warp reading 32 different K rows hits 32
-// banks). Bound: bytes at the serving shapes; at long prompts the fp32 FMAs
-// (67 TFLOP/s), which this design reaches only in part.
+// fp32, head_dim 64 and 128 (training's forward, with the lse, and the
+// parity path). One block of four warps per (64 rows, KV head, batch), rows
+// packed per KV head as in the bf16 kernel, so a group's heads share each
+// K/V tile; a warp owns 16 rows, a thread two of them. K/V tiles arrive by
+// cp.async in a 2-stage ring (tf32x3_tiles.cuh). S = Q K^T runs on the CUDA
+// cores as fp32 FMAs over d in order, Q scaled as the plain version scales
+// it, into the registers of an mma.sync accumulator; the online softmax
+// runs per fragment row, its exponentials on ex2; O += P V runs on the
+// tensor cores as 3xTF32 (tf32x3.cuh, mma.sync m16n8k8; one TF32 product
+// keeps ~3 decimal digits), P the A operand straight from S's registers.
+// S stays in fp32 because, as 3xTF32, its rounding parted from the plain
+// version's enough that a 3-layer full-width model carried the difference
+// past chip_smoke.py phase 25's gradient tolerance (PERF.md). Bound
+// on the H100: bytes at the trained shapes (B=4, S=256), about equal to the
+// products at 495 / 3 TFLOP/s; what holds the kernel above it is the fp32
+// FMAs of S and the instruction issue around the mma.sync.
 #include <algorithm>
 
 #include "attention_tc.cuh"
 #include "common.cuh"
+#include "tf32x3.cuh"
+#include "tf32x3_tiles.cuh"
 
 namespace repro {
 namespace {
 
-constexpr int kBQ = 64;         // query rows per block
-constexpr int kBKV = 64;        // KV rows per tile (two score columns per lane)
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = kBQ / kWarps;  // query rows per warp
+// ---- fp32, head_dim 64 / 128: P V as 3xTF32 on the tensor cores -----------
 
+using tf32x3::FragA;
+using tf32x3::FragB;
+using tf32x3::row_stride;
+
+namespace f32 {
+
+constexpr int kRows = 64;  // rows of a block: (query position, query head of the group) pairs
+constexpr int kWarps = 4;  // each owns 16 rows
+constexpr int kThreads = 32 * kWarps;
+
+// The choices per head width, from ptxas and timed runs (PERF.md):
+// K/V rows per tile (kKV) and the blocks an SM should hold, for the
+// register budget (kMinBlocks). At D = 64: 52.2 KB of shared memory and
+// 168 registers (8 bytes spilled; at two blocks an SM, 211 registers and
+// none, stablelm-1.6b's trained shape ran 6% slower); 64-row K/V tiles
+// were slower too. At D = 128: 101.4 KB, 255 registers, 24 bytes spilled.
+template <int D>
+struct Tiles;
+template <>
+struct Tiles<64> {
+  static constexpr int kKV = 32;
+  static constexpr int kMinBlocks = 3;
+};
+template <>
+struct Tiles<128> {
+  static constexpr int kKV = 32;
+  static constexpr int kMinBlocks = 2;
+};
+
+// Q and a 2-stage ring of K and V tiles.
 template <int D>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (kBQ * D + kBKV * (D + 1) + kBKV * D + kBQ * kBKV);
+  return sizeof(float) * row_stride<D>() * (kRows + 4 * Tiles<D>::kKV);
 }
 
+// The block's kRows rows of Q into dst [kRows][D + 4]: row r is query
+// position (r0 + r) / G of head kvh * G + (r0 + r) % G; rows past n_rows
+// are zero-filled.
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ o, float* __restrict__ lse, int Sq, int Skv, int G, Strides4 qs,
-    Strides4 ks, Strides4 vs, Strides4 os, int causal, int window, float scale) {
-  constexpr int NC = D / 32;  // output columns per lane
-  extern __shared__ float smem[];
-  float* sQ = smem;                  // [kBQ][D], pre-scaled
-  float* sK = sQ + kBQ * D;          // [kBKV][D + 1]
-  float* sV = sK + kBKV * (D + 1);   // [kBKV][D]
-  float* sP = sV + kBKV * D;         // [kBQ][kBKV] probabilities of the tile
-
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / G;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int row0 = warp * kRows;  // first tile row owned by this warp
-
-  const float* qb = q + b * qs.b + h * qs.h;
-  const float* kb = k + b * ks.b + kvh * ks.h;
-  const float* vb = v + b * vs.b + kvh * vs.h;
-
-  for (int i = tid; i < kBQ * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    const int qp = q0 + r;
-    sQ[i] = qp < Sq ? qb[qp * qs.s + d] * scale : 0.f;
+__device__ __forceinline__ void load_q(float* dst, const float* qb, const Strides4& qs, int r0,
+                                       int n_rows, int G, int kvh, bool vec16) {
+  constexpr int LD = row_stride<D>();
+  constexpr int W = 4;  // floats a 16-byte copy moves
+  const int per = vec16 ? D / W : D;
+  for (int i = threadIdx.x; i < kRows * per; i += kThreads) {
+    const int r = i / per, c = i % per, row = r0 + r;
+    const bool ok = row < n_rows;
+    const float* src = ok ? qb + (row / G) * qs.s + (kvh * G + row % G) * qs.h : qb;
+    if (vec16)
+      tf32x3::cp_async_16(tf32x3::smem_addr(dst + r * LD + W * c), src + (ok ? W * c : 0), ok);
+    else
+      tf32x3::cp_async_4(tf32x3::smem_addr(dst + r * LD + c), src + (ok ? c : 0), ok);
   }
+}
+
+}  // namespace f32
+
+// One block per (64 rows, KV head, batch) of a 1-D grid, row tile slowest
+// and reversed: under a causal mask the last rows see the most K/V tiles,
+// and their blocks launch first. A row is one (query position, query head
+// of the KV head's group) pair, position-major, so the G heads of a group
+// share every K/V tile, which is read from device memory once per group.
+template <int D>
+__global__ void __launch_bounds__(f32::kThreads, f32::Tiles<D>::kMinBlocks) flash_fwd_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    float* __restrict__ o, float* __restrict__ lse, int B, int Sq, int Skv, int H, int KV,
+    Strides4 qs, Strides4 ks, Strides4 vs, Strides4 os, int causal, int window, float scale,
+    bool vec16) {
+  using T = f32::Tiles<D>;
+  constexpr int LD = row_stride<D>();
+  constexpr int BKV = T::kKV;
+  constexpr int STILE = BKV * LD;
+  constexpr int NT = BKV / 8;  // n-tiles of S, k-steps of P V
+  constexpr int ND = D / 8;    // n-tiles of O
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;                      // Q * scale
+  float* ring = sQ + f32::kRows * LD;    // 2 stages of {K, V [BKV][LD]}
+
+  const int G = H / KV;
+  const int n_rows = Sq * G;
+  int idx = blockIdx.x;
+  const int kvh = idx % KV;
+  idx /= KV;
+  const int b = idx % B;
+  const int r0 = ((n_rows + f32::kRows - 1) / f32::kRows - 1 - idx / B) * f32::kRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int wr = 16 * warp;  // the warp's first row in the block
 
   int j_first, j_last;
-  kv_tile_range(q0, q0 + kBQ - 1, Skv, kBKV, causal, window, j_first, j_last);
+  kv_tile_range(r0 / G, (min(r0 + f32::kRows, n_rows) - 1) / G, Skv, BKV, causal, window,
+                j_first, j_last);
+  const int n_kv = max(j_last - j_first + 1, 0);
 
-  float m[kRows], l[kRows], acc[kRows][NC];
+  // This thread's rows, gid and gid + 8 of the warp's: position, head, and
+  // whether the row exists; and the positions of the warp's live rows.
+  int qp[2], head[2];
+  bool live[2];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    m[r] = NEG_INF;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + wr + gid + 8 * h;
+    live[h] = r < n_rows;
+    qp[h] = r / G;
+    head[h] = kvh * G + r % G;
   }
+  const bool warp_live = r0 + wr < n_rows;
+  const int wq_first = (r0 + wr) / G;
+  const int wq_last = (min(r0 + wr + 16, n_rows) - 1) / G;
 
-  for (int j = j_first; j <= j_last; ++j) {
-    const int kv0 = j * kBKV;
-    __syncthreads();  // Q staged (first tile) / previous tile fully consumed
-    for (int i = tid; i < kBKV * D; i += kThreads) {
-      const int r = i / D, d = i % D;
-      const int kp = kv0 + r;
-      float kx = 0.f, vx = 0.f;
-      if (kp < Skv) {
-        kx = kb[kp * ks.s + d];
-        vx = vb[kp * vs.s + d];
-      }
-      sK[r * (D + 1) + d] = kx;
-      sV[i] = vx;
-    }
+  const float* kb = k + b * ks.b + kvh * ks.h;
+  const float* vb = v + b * vs.b + kvh * vs.h;
+  auto issue = [&](int n) {  // K/V tile j_first + n into stage n % 2
+    float* st = ring + (n % 2) * 2 * STILE;
+    const int kv0 = (j_first + n) * BKV;
+    tf32x3::load_tile<D, BKV, f32::kThreads>(st, kb, ks.s, kv0, Skv, vec16);
+    tf32x3::load_tile<D, BKV, f32::kThreads>(st + STILE, vb, vs.s, kv0, Skv, vec16);
+  };
+
+  f32::load_q<D>(sQ, q + b * qs.b, qs, r0, n_rows, G, kvh, vec16);
+  tf32x3::cp_async_commit();
+  if (n_kv > 0) issue(0);
+  tf32x3::cp_async_commit();
+  tf32x3::cp_async_wait<1>();  // Q landed
+  __syncthreads();
+  // Each warp scales its own 16 rows of Q, as the plain version scales q.
+  for (int i = lane; i < 16 * D / 4; i += 32) {
+    float4* x = reinterpret_cast<float4*>(sQ + (wr + i / (D / 4)) * LD + 4 * (i % (D / 4)));
+    const float4 y = *x;
+    *x = make_float4(y.x * scale, y.y * scale, y.z * scale, y.w * scale);
+  }
+  __syncwarp();
+
+  float acc[ND][4] = {};
+  float m[2] = {NEG_INF, NEG_INF};  // running row max of the scores
+  float l[2] = {0.f, 0.f};          // this thread's part of the running row sum
+  const float* q_row[2] = {sQ + (wr + gid) * LD, sQ + (wr + gid + 8) * LD};
+  for (int n = 0; n < n_kv; ++n) {
+    if (n + 1 < n_kv) issue(n + 1);  // in flight while tile n computes
+    tf32x3::cp_async_commit();
+    tf32x3::cp_async_wait<1>();  // tile n landed
     __syncthreads();
-
-    float s[kRows][2];
+    const float* sK = ring + (n % 2) * 2 * STILE;
+    const float* sV = sK + STILE;
+    const int kv0 = (j_first + n) * BKV;
+    // A warp whose rows see none of the tile's keys skips it.
+    const bool sees = warp_live && !(causal && wq_last < kv0) &&
+                      !(window > 0 && wq_first - (kv0 + BKV - 1) >= window);
+    if (sees) {
+      // S = Q K^T for the warp's 16 rows x BKV keys, in the accumulator
+      // layout of mma.sync (rows gid and gid + 8, columns 8 t + 2 tig and
+      // + 1), by fp32 FMAs over d in order, as the plain version's matmul
+      // sums them; 16-byte shared reads, free of bank conflicts.
+      float s[NT][4] = {};
+#pragma unroll 4
+      for (int d = 0; d < D; d += 4) {
+        const float4 qa = *reinterpret_cast<const float4*>(q_row[0] + d);
+        const float4 qb = *reinterpret_cast<const float4*>(q_row[1] + d);
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) s[r][0] = s[r][1] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float k0 = sK[lane * (D + 1) + d];
-      const float k1 = sK[(lane + 32) * (D + 1) + d];
+        for (int t = 0; t < NT; ++t) {
+          const float4 ka = *reinterpret_cast<const float4*>(sK + (8 * t + 2 * tig) * LD + d);
+          const float4 kc = *reinterpret_cast<const float4*>(sK + (8 * t + 2 * tig + 1) * LD + d);
+          const float4 qq[2] = {qa, qb}, kk[2] = {ka, kc};
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float qv = sQ[(row0 + r) * D + d];
-        s[r][0] = fmaf(qv, k0, s[r][0]);
-        s[r][1] = fmaf(qv, k1, s[r][1]);
+          for (int e = 0; e < 4; ++e) {
+            const float4 x = qq[e >> 1], y = kk[e & 1];
+            s[t][e] = fmaf(x.x, y.x, s[t][e]);
+            s[t][e] = fmaf(x.y, y.y, s[t][e]);
+            s[t][e] = fmaf(x.z, y.z, s[t][e]);
+            s[t][e] = fmaf(x.w, y.w, s[t][e]);
+          }
+        }
+      }
+      // Masked scores to -inf (exp2 gives 0 against the finite running max).
+      if (!tf32x3::tile_visible(wq_first, wq_last - wq_first + 1, kv0, BKV, Sq, Skv, causal,
+                                window)) {
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int h = e >> 1, kp = kv0 + 8 * t + 2 * tig + (e & 1);
+            if (!(live[h] && attn_visible(qp[h], kp, Skv, causal, window))) s[t][e] = -INFINITY;
+          }
+      }
+      // The online softmax per row, the max over the row's quad of lanes,
+      // the exponentials on ex2 (base 2: the differences times log2 e).
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[t][0], s[t][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[t][2], s[t][3]));
+      }
+      float corr[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        corr[h] = exp2_ftz((m[h] - mx[h]) * LOG2E);
+        m[h] = mx[h];
+        l[h] *= corr[h];
+      }
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nd][e] *= corr[e >> 1];
+#pragma unroll
+      for (int t = 0; t < NT; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[t][e] = exp2_ftz((s[t][e] - m[e >> 1]) * LOG2E);
+          l[e >> 1] += s[t][e];
+        }
+      // O += P V over the tile's keys on the tensor cores, P the A operand
+      // straight from S's registers. Each 8-column slice of O sums the
+      // tile's products in fresh registers, the big product and the small
+      // ones apart, and adds them to O in fp32 (tf32x3::mma3_apart).
+      FragA ap[NT];
+#pragma unroll
+      for (int t = 0; t < NT; ++t) tf32x3::a_from_acc(ap[t], s[t]);
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd) {
+        float pv[4] = {}, pvc[4] = {};
+#pragma unroll
+        for (int t = 0; t < NT; ++t) {
+          FragB bv;
+          tf32x3::b_cols<D, true>(bv, sV, 8 * t, 8 * nd, gid, tig);
+          tf32x3::mma3_apart(pv, pvc, ap[t], bv);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nd][e] += pv[e] + pvc[e];
       }
     }
-
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int qp = q0 + row0 + r;
-      bool ok[2];
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const bool valid = qp < Sq && attn_visible(qp, kv0 + lane + 32 * c, Skv, causal, window);
-        ok[c] = valid;
-        if (!valid) s[r][c] = NEG_INF;
-      }
-      const float m_new = fmaxf(m[r], warp_max(fmaxf(s[r][0], s[r][1])));
-      const float p0 = ok[0] ? expf(s[r][0] - m_new) : 0.f;
-      const float p1 = ok[1] ? expf(s[r][1] - m_new) : 0.f;
-      const float corr = expf(m[r] - m_new);
-      l[r] = l[r] * corr + warp_sum(p0 + p1);
-      m[r] = m_new;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[r][c] *= corr;
-      sP[(row0 + r) * kBKV + lane] = p0;
-      sP[(row0 + r) * kBKV + lane + 32] = p1;
-    }
-    __syncwarp();
-
-    for (int c = 0; c < kBKV; ++c) {
-      float vv[NC];
-#pragma unroll
-      for (int i = 0; i < NC; ++i) vv[i] = sV[c * D + lane + 32 * i];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float p = sP[(row0 + r) * kBKV + c];
-#pragma unroll
-        for (int i = 0; i < NC; ++i) acc[r][i] = fmaf(p, vv[i], acc[r][i]);
-      }
-    }
+    __syncthreads();  // stage n % 2 consumed: tile n + 2 may land there
   }
+  tf32x3::cp_async_wait<0>();
 
-  float* ob = o + b * os.b + h * os.h;
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int qp = q0 + row0 + r;
-    if (qp >= Sq) continue;
-    const float denom = fmaxf(l[r], 1e-30f);
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    if (!live[h]) continue;
+    // A row that sees nothing has l = 0 and outputs 0.
+    const float inv = 1.f / fmaxf(l[h], 1e-30f);
+    float* orow = o + b * os.b + qp[h] * os.s + head[h] * os.h;
 #pragma unroll
-    for (int i = 0; i < NC; ++i) ob[qp * os.s + lane + 32 * i] = acc[r][i] / denom;
+    for (int nd = 0; nd < ND; ++nd)
+      *reinterpret_cast<float2*>(orow + 8 * nd + 2 * tig) =
+          make_float2(acc[nd][2 * h] * inv, acc[nd][2 * h + 1] * inv);
     // The row's log-sum-exp for the backward; a row that sees nothing gets
     // -NEG_INF, so that its recomputed probabilities exp(s - lse) are 0.
-    if (lse && lane == 0)
-      lse[(static_cast<long long>(b) * gridDim.y + h) * Sq + qp] =
-          l[r] > 0.f ? m[r] + logf(l[r]) : -NEG_INF;
+    if (lse && tig == 0)
+      lse[(static_cast<long long>(b) * H + head[h]) * Sq + qp[h]] =
+          l[h] > 0.f ? m[h] + logf(l[h]) : -NEG_INF;
   }
 }
 
@@ -195,14 +326,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
                    int Sq, int Skv, int H, int KV, Strides4 qs, Strides4 ks,
                    Strides4 vs, Strides4 os, int causal, int window, float scale,
                    cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
+  constexpr size_t smem = f32::smem_bytes<D>();
+  const long long blocks =
+      static_cast<long long>((Sq * (H / KV) + f32::kRows - 1) / f32::kRows) * KV * B;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), lse, Sq, Skv, H / KV, qs, ks, vs, os, causal, window, scale);
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  const bool vec16 =
+      tf32x3::rows_16b(qf, qs) && tf32x3::rows_16b(kf, ks) && tf32x3::rows_16b(vf, vs);
+  flash_fwd_kernel<D><<<static_cast<unsigned>(blocks), f32::kThreads, smem, stream>>>(
+      qf, kf, vf, static_cast<float*>(o), lse, B, Sq, Skv, H, KV, qs, ks, vs, os, causal,
+      window, scale, vec16);
   return cudaGetLastError();
 }
 

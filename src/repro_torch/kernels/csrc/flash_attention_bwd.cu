@@ -71,25 +71,31 @@
 // Q, K, V, O and dO are read in the model layout [B, S, heads, D] through
 // strides; dQ [B, Sq, H, D] and dK, dV [B, Skv, KV, D] are written through
 // theirs. The mask (attn_visible) and the tile ranges come from common.cuh,
-// shared with the forward; rows past S are zero-filled and masked.
+// the copies and the fragment reads from tf32x3_tiles.cuh, both shared with
+// the fp32 forward; rows past S are zero-filled and masked.
 #include "common.cuh"
 #include "tf32x3.cuh"
+#include "tf32x3_tiles.cuh"
 
 namespace repro {
 namespace {
 
+using tf32x3::a_rows;
+using tf32x3::b_cols;
+using tf32x3::b_rows;
+using tf32x3::cp_async_commit;
+using tf32x3::cp_async_wait;
 using tf32x3::FragA;
 using tf32x3::FragB;
+using tf32x3::row_stride;
+using tf32x3::rows_16b;
+using tf32x3::tile_visible;
 
 constexpr int kT = 64;          // rows of a block's own tile (KV in dK / dV, queries in dQ)
 constexpr int kS = 32;          // rows of a streamed tile (queries in dK / dV, KV in dQ)
 constexpr int kWarps = 4;       // each owns 16 rows of the block's tile
 constexpr int kThreads = 32 * kWarps;
 
-// Shared row stride in floats: rows start on 16 bytes and the fragment
-// reads are free of bank conflicts (D + 4 = 4 mod 32 at D = 64 and 128).
-template <int D>
-__host__ __device__ constexpr int row_stride() { return D + 4; }
 // Two fixed [64][D] tiles and a two-stage ring of two [32][D] tiles and two
 // 32-float row vectors (dQ keeps its two row vectors beside its fixed
 // tiles): 68.5 KB at D = 64, three blocks to an SM.
@@ -100,101 +106,6 @@ __host__ __device__ constexpr size_t bwd_smem_bytes() {
 // Blocks an SM should hold at once, for the register budget: three at D <= 64.
 template <int D>
 __host__ __device__ constexpr int min_blocks() { return D <= 64 ? 3 : 1; }
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-// Asynchronous global -> shared copies, zero-filled when !valid (the source
-// is then not read).
-__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// Wait until at most N of this thread's committed groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// ROWS rows from row0 of one head of a [B, S, heads, D] tensor (base points
-// at the batch and head) into dst [ROWS][D + 4]; rows past S are zero-filled.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(float* dst, const float* base, long long s_stride,
-                                          int row0, int S, bool vec16) {
-  constexpr int LD = row_stride<D>();
-  if (vec16) {
-    constexpr int C = D / 4;  // 16-byte chunks of a row
-    for (int i = threadIdx.x; i < ROWS * C; i += kThreads) {
-      const int r = i / C, c = i % C, p = row0 + r;
-      cp_async_16(smem_addr(dst + r * LD + 4 * c), p < S ? base + p * s_stride + 4 * c : base,
-                  p < S);
-    }
-  } else {
-    for (int i = threadIdx.x; i < ROWS * D; i += kThreads) {
-      const int r = i / D, d = i % D, p = row0 + r;
-      cp_async_4(smem_addr(dst + r * LD + d), p < S ? base + p * s_stride + d : base, p < S);
-    }
-  }
-}
-
-// ROWS values of a [B, H, Sq] row vector from row0 (rows past Sq read as 0).
-template <int ROWS>
-__device__ __forceinline__ void load_vec(float* dst, const float* src, int row0, int Sq) {
-  for (int i = threadIdx.x; i < ROWS; i += kThreads)
-    cp_async_4(smem_addr(dst + i), row0 + i < Sq ? src + row0 + i : src, row0 + i < Sq);
-}
-
-// The A operand of rows r0 + gid (+ 8) of a [rows][D + 4] shared tile at
-// columns k0 + tig (+ 4), split keeping its NaNs when kKeepNaN.
-template <int D, bool kKeepNaN = false>
-__device__ __forceinline__ void a_rows(FragA& f, const float* s, int r0, int k0, int gid,
-                                       int tig) {
-  constexpr int LD = row_stride<D>();
-  const float* p = s + (r0 + gid) * LD + k0 + tig;
-  const float x[4] = {p[0], p[8 * LD], p[4], p[8 * LD + 4]};
-  tf32x3::split_parts<kKeepNaN>(f, x);
-}
-
-// The B operand (k = column, n = row) of rows n0 + gid of a shared tile at
-// columns k0 + tig (+ 4): the transpose of the tile's rows, split keeping
-// its NaNs when kKeepNaN.
-template <int D, bool kKeepNaN = false>
-__device__ __forceinline__ void b_rows(FragB& f, const float* s, int n0, int k0, int gid,
-                                       int tig) {
-  constexpr int LD = row_stride<D>();
-  const float* p = s + (n0 + gid) * LD + k0 + tig;
-  const float x[2] = {p[0], p[4]};
-  tf32x3::split_parts<kKeepNaN>(f, x);
-}
-
-// The B operand (k = row, n = column) of a shared tile, rows k0 + 2 tig and
-// k0 + 2 tig + 1 (an accumulator's k order) at column n0 + gid, split
-// keeping its NaNs when kKeepNaN.
-template <int D, bool kKeepNaN = false>
-__device__ __forceinline__ void b_cols(FragB& f, const float* s, int k0, int n0, int gid,
-                                       int tig) {
-  constexpr int LD = row_stride<D>();
-  const float* p = s + (k0 + 2 * tig) * LD + n0 + gid;
-  const float x[2] = {p[0], p[LD]};
-  tf32x3::split_parts<kKeepNaN>(f, x);
-}
-
-// Whether every (query, key) pair of nq queries from q0 and nkv keys from
-// kv0 is visible: then the element-wise mask is skipped.
-__device__ __forceinline__ bool tile_visible(int q0, int nq, int kv0, int nkv, int Sq, int Skv,
-                                             int causal, int window) {
-  return q0 + nq <= Sq && kv0 + nkv <= Skv && (!causal || q0 >= kv0 + nkv - 1) &&
-         (window <= 0 || q0 + nq - 1 - kv0 < window);
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, min_blocks<D>()) flash_bwd_dkdv_kernel(
@@ -239,17 +150,18 @@ __global__ void __launch_bounds__(kThreads, min_blocks<D>()) flash_bwd_dkdv_kern
   auto issue = [&](int n) {  // pair n's tiles into stage n % 2
     const int h = kvh * G + g_first + n / n_q, q0 = (i_first + n % n_q) * kS;
     float* st = ring + (n % 2) * STAGE;
-    load_tile<D, kS>(st, q + b * qs.b + h * qs.h, qs.s, q0, Sq, vec16);
-    load_tile<D, kS>(st + STILE, dout + b * dos.b + h * dos.h, dos.s, q0, Sq, vec16);
+    tf32x3::load_tile<D, kS, kThreads>(st, q + b * qs.b + h * qs.h, qs.s, q0, Sq, vec16);
+    tf32x3::load_tile<D, kS, kThreads>(st + STILE, dout + b * dos.b + h * dos.h, dos.s, q0, Sq,
+                                       vec16);
     const long long row = (static_cast<long long>(b) * H + h) * Sq;
-    load_vec<kS>(st + 2 * STILE, lse + row, q0, Sq);
-    load_vec<kS>(st + 2 * STILE + kS, dvec + row, q0, Sq);
+    tf32x3::load_vec<kS, kThreads>(st + 2 * STILE, lse + row, q0, Sq);
+    tf32x3::load_vec<kS, kThreads>(st + 2 * STILE + kS, dvec + row, q0, Sq);
   };
 
   float dK[ND][4] = {}, dV[ND][4] = {};
   if (n_pairs > 0) {
-    load_tile<D, kT>(sK, k + b * ks.b + kvh * ks.h, ks.s, kv0, Skv, vec16);
-    load_tile<D, kT>(sV, v + b * vs.b + kvh * vs.h, vs.s, kv0, Skv, vec16);
+    tf32x3::load_tile<D, kT, kThreads>(sK, k + b * ks.b + kvh * ks.h, ks.s, kv0, Skv, vec16);
+    tf32x3::load_tile<D, kT, kThreads>(sV, v + b * vs.b + kvh * vs.h, vs.s, kv0, Skv, vec16);
     issue(0);
   }
   cp_async_commit();
@@ -413,14 +325,15 @@ __global__ void __launch_bounds__(kThreads, min_blocks<D>()) flash_bwd_dq_kernel
   auto issue = [&](int n) {  // KV tile j_first + n into stage n % 2
     float* st = ring + (n % 2) * 2 * STILE;
     const int kv0 = (j_first + n) * kS;
-    load_tile<D, kS>(st, k + b * ks.b + kvh * ks.h, ks.s, kv0, Skv, vec16);
-    load_tile<D, kS>(st + STILE, v + b * vs.b + kvh * vs.h, vs.s, kv0, Skv, vec16);
+    tf32x3::load_tile<D, kS, kThreads>(st, k + b * ks.b + kvh * ks.h, ks.s, kv0, Skv, vec16);
+    tf32x3::load_tile<D, kS, kThreads>(st + STILE, v + b * vs.b + kvh * vs.h, vs.s, kv0, Skv,
+                                       vec16);
   };
 
   const long long row = (static_cast<long long>(b) * H + h) * Sq;
-  load_tile<D, kT>(sQ, q + b * qs.b + h * qs.h, qs.s, q0, Sq, vec16);
-  load_tile<D, kT>(sdO, dout + b * dos.b + h * dos.h, dos.s, q0, Sq, vec16);
-  load_vec<kT>(sL, lse + row, q0, Sq);
+  tf32x3::load_tile<D, kT, kThreads>(sQ, q + b * qs.b + h * qs.h, qs.s, q0, Sq, vec16);
+  tf32x3::load_tile<D, kT, kThreads>(sdO, dout + b * dos.b + h * dos.h, dos.s, q0, Sq, vec16);
+  tf32x3::load_vec<kT, kThreads>(sL, lse + row, q0, Sq);
   cp_async_commit();
   if (n_kv > 0) issue(0);
   cp_async_commit();
@@ -519,13 +432,6 @@ __global__ void __launch_bounds__(kThreads, min_blocks<D>()) flash_bwd_dq_kernel
       *reinterpret_cast<float2*>(dqb + qp * dqs.s + 8 * nd + 2 * tig) =
           make_float2(dQ[nd][2 * half] * scale, dQ[nd][2 * half + 1] * scale);
   }
-}
-
-// Whether a [B, S, heads, D] fp32 tensor's rows can be copied 16 bytes at a
-// time: its pointer and its three strides on 16 bytes.
-bool rows_16b(const float* p, const Strides4& s) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && s.b % 4 == 0 && s.s % 4 == 0 &&
-         s.h % 4 == 0;
 }
 
 template <int D>

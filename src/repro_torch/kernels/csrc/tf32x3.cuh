@@ -95,5 +95,19 @@ __device__ __forceinline__ void mma3(float (&d)[4], const FragA& a, const FragB&
   mma(d, a.big, b.big);
 }
 
+// The same with the big product and the two small ones summed apart, into
+// big and small, for the caller to add in fp32. The tensor cores round each
+// product's sum toward zero, up to a unit in the last place of the
+// accumulator a product and always shrinking it: apart, the big sum takes
+// a third of those, and the small sum's are ~2^-11 as large. Summed into
+// the fp32 forward's O itself, tile after tile, they shrank O by ~1e-6 of
+// its size (PERF.md).
+__device__ __forceinline__ void mma3_apart(float (&big)[4], float (&small)[4], const FragA& a,
+                                           const FragB& b) {
+  mma(small, a.small, b.big);
+  mma(small, a.big, b.small);
+  mma(big, a.big, b.big);
+}
+
 }  // namespace tf32x3
 }  // namespace repro

@@ -29,6 +29,9 @@ adds in another order), its step loop reads nothing back to the host,
 and the semi-Markov analytics on the card equal the CPU's within 1e-9.
 A multi-process fleet (two worker processes on the card) streams the
 in-process server's tokens exactly, its workers launching the kernels.
+The fp32 flash forward (P V as 3xTF32 on the tensor cores) repeats bit for bit,
+its lse holds to the plain one within 2e-5, and a NaN in q, k or v reaches
+its output where it reaches the plain version's.
 """
 
 import dataclasses
@@ -366,7 +369,7 @@ def test_bf16_kernels_refuse_rows_off_16_bytes(gen):
     with pytest.raises(ValueError, match="16-byte"):
         paged_prefill_attention(q.contiguous(), pool[..., :64], v, bt, offs)
     assert (flash_attention.launches, paged_prefill_attention.launches) == before
-    # fp32 runs on the CUDA cores and takes such rows.
+    # fp32 copies such rows 4 bytes at a time and takes them.
     q32 = wide[..., :64]
     out = flash_attention(q32, q32, q32)
     torch.testing.assert_close(out, flash_attention_ref(q32, q32, q32),
@@ -1128,10 +1131,67 @@ def test_flash_backward_kernel_carries_a_non_finite_input(gen, name, bits):
         assert (g[finite] - w[finite]).abs().max() <= BWD_TOL * w[finite].abs().max(), grad
 
 
+# The fp32 forward kernel (flash_fwd_kernel, P V as 3xTF32): chip_smoke.py phase
+# 22's fp32 forward cases, B, Sq, Skv, H, KV, D, causal, window.
+FWD32_CASES = [
+    (4, 256, 256, 32, 32, 64, True, None),  # stablelm-1.6b trained
+    (4, 256, 256, 16, 8, 64, True, None),  # granite-moe-1b-a400m trained
+    (1, 1300, 1300, 25, 5, 64, True, 1024),  # hymba's window class, G=5
+    (4, 8, 1000, 16, 16, 64, False, None),  # seamless's cross packing
+    (2, 200, 200, 32, 4, 128, True, None),  # head_dim 128, GQA G=8
+]
+
+
+def _fwd32_inputs(gen, B, Sq, Skv, H, KV, D):
+    return (torch.randn(B, Sq, H, D, generator=gen, device="cuda"),
+            torch.randn(B, Skv, KV, D, generator=gen, device="cuda"),
+            torch.randn(B, Skv, KV, D, generator=gen, device="cuda"))
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,D,causal,window", FWD32_CASES)
+def test_flash_fp32_forward_matches_plain_and_repeats_bit_for_bit(gen, B, Sq, Skv, H, KV, D,
+                                                                    causal, window):
+    """The output within the fp32 tolerance and the lse within 2e-5 of the
+    plain versions (the windowed, cross and GQA classes among them), and a
+    second call equal bit for bit: no atomics."""
+    from repro_torch.kernels.flash_attention import attention_lse_ref, flash_attention_fwd
+
+    q, k, v = _fwd32_inputs(gen, B, Sq, Skv, H, KV, D)
+    kw = dict(causal=causal, window=window)
+    before = flash_attention.launches
+    out, lse = flash_attention_fwd(q, k, v, **kw)
+    again, lse_again = flash_attention_fwd(q, k, v, **kw)
+    assert flash_attention.launches == before + 2
+    assert torch.equal(out, again) and torch.equal(lse, lse_again)
+    torch.testing.assert_close(out, flash_attention_ref(q, k, v, **kw), atol=TOL[torch.float32],
+                               rtol=0)
+    torch.testing.assert_close(lse, attention_lse_ref(q, k, **kw), atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("name,bits", [(n, b) for n in ("q", "k", "v")
+                                       for b in (0x7FFFFFFF, 0x7FC00000)],
+                         ids=[f"{n}-{b:08x}" for n in ("q", "k", "v")
+                              for b in (0x7FFFFFFF, 0x7FC00000)])
+def test_flash_fp32_forward_carries_a_nan(gen, name, bits):
+    """A NaN (the card's 0x7fffffff, torch's 0x7fc00000) in the last row of
+    q or the first of k or v reaches the output exactly where it reaches
+    the plain version's, through S's fp32 FMAs and the 3xTF32 splits of P
+    and V; the finite rest agrees."""
+    t = dict(zip(("q", "k", "v"), _fwd32_inputs(gen, 1, 128, 128, 8, 2, 64)))
+    t[name].view(torch.int32)[0, -1 if name == "q" else 0, 1, 3] = bits
+    got = flash_attention(t["q"], t["k"], t["v"])
+    want = flash_attention_ref(t["q"], t["k"], t["v"])
+    finite = want.isfinite()
+    assert not bool(finite.all()) and bool(finite.any())
+    assert torch.equal(got.isfinite(), finite)
+    assert (got[finite] - want[finite]).abs().max() <= TOL[torch.float32]
+
+
 @pytest.mark.parametrize("kernel", sorted(_build.TF32_KERNELS))
-def test_flash_backward_products_run_as_tf32_on_the_tensor_cores(gen, kernel):
-    """The SASS of each head width's product kernels holds TF32 mma.sync
-    (HMMA ... TF32): the 3xTF32 products of csrc/tf32x3.cuh."""
+def test_flash_forward_and_backward_products_run_as_tf32_on_the_tensor_cores(gen, kernel):
+    """The SASS of each head width's fp32 forward kernel and backward
+    product kernels holds TF32 mma.sync (HMMA ... TF32): the 3xTF32
+    products of csrc/tf32x3.cuh."""
     counts = _build.sass_mma_counts(_build.build().path)
     found = _build.tensor_core_check(counts, _build.TF32_KERNELS, key="hmma_tf32")[kernel]
     assert len(found) == _build.TF32_KERNELS[kernel]
