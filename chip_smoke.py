@@ -332,24 +332,68 @@ Phases, in order; any failure exits non-zero:
 25. Training parity: a 3-layer full-width fp32 cut of stablelm-1.6b, the
    step-0 loss through the kernels within 1e-5 relative of the plain
    path's on the card, every parameter's gradient within 1e-3 of its own
-   scale.
+   scale (each gate widened only as phase 32 says), and every flash call
+   of the kernel run, forward and backward, within 1e-3 of its plain
+   version on the step's own operands.
 26. Checkpoints: stablelm's smoke config on the card, 6 steps with a
    checkpoint every 3, uninterrupted here, then in a process SIGKILLed
    right after its step-3 checkpoint and relaunched from it: steps 4-6
    give the uninterrupted losses bit for bit; the checkpoint's size on
    disk.
-27. A JSON line of per-kernel results (the six kernels and the backward;
-   training's launches of both flash kernels from phases 23-24; the paged-prefill
-   kernel's launches also by route: ``paged_chunk`` from phases 5, 15 and
-   16, ``verify`` and ``dense_chunk`` from phases 9, 10 and 16; flash's by
-   route: ``windowed`` from phase 13, ``bidirectional`` and ``cross`` from
-   phase 18, ``full`` from the rest; dense decode's ``cross`` from phase 18
-   and ``self`` from the rest; launches by run, the MoE runs of phases
-   15-16 and phases 18, 20 and 21 included — phase 21's are the workers'
-   (the live workers' last pings plus the killed worker's after wave 1);
-   rmsnorm's counter is read over phases 4-21 and must stay 0: no served
-   path launches it), then the
-   device line last.
+27. The selective scan's backward kernel (``csrc/selective_scan_bwd.cu``)
+   against its plain version (``selective_scan_bwd_ref``) per call, from
+   the forward kernel's state checkpoints: falcon-mamba-7b's trained shape
+   (B=4, S=256, Din 8192, N=16), hymba-1.5b's (B=2, S=1280, Din 3200) and a
+   ragged case (S=37, Din 100, N=5, h0 and dh_final given); every gradient
+   within 1e-4 of its scale, a second call equal bit for bit, a planted
+   fault (one dB element moved by 1% of dB's scale) caught; the kernel's
+   and the plain version's times beside the bound (bytes; fp32 and SFU
+   operations; no library call computes this gradient), and the forward's
+   time with and without the checkpoints. Then ``selective_scan`` under
+   autograd against autograd through the plain version.
+28. The flash backward at head_dim 8, paper-block's trained shape (B=4,
+   S=256, 100 heads of 8): its bidirectional encoder, causal decoder and a
+   cross-attention over 320 frames (Sq != Skv), phase 22's checks and
+   times with SDPA's fp32 backward beside; and the head_dim-8 forward
+   (``flash_small_kernel``) at the same three shapes beside SDPA's fp32
+   forward.
+29. hymba-1.5b trained at full width and depth, fp32, B=2, S=1280 (the
+   window of 1024 bites): 10 AdamW steps, then 20 on a 3-layer cut whose
+   loss must fall; s/step, peak memory, and exactly the launches of
+   ``step_launches`` per step: each layer's flash forward twice (remat)
+   and backward once, by route (``windowed`` / ``full``), and its scan
+   forward twice and backward once. The full-depth run's step-0 gradient
+   is described (norm summed in fp64, largest element, all finite).
+30. falcon-mamba-7b at full width cut to 24 of 64 layers (its 7.006 B
+   fp32 parameters with gradients and AdamW's moments need ~112 GB),
+   B=4, S=256, the same two runs.
+31. seamless-m4t-large-v2 and paper-block at full depth, fp32, B=4, S=256
+   tokens with 256 frames, the same two runs (3 + 3 layer cuts); flash
+   launches held per step and route (``bidirectional``, ``full``,
+   ``cross``).
+32. Training parity on the cuts of phases 29-31 at their trained shapes:
+   the step-0 loss and every parameter's gradient through the kernels
+   against the plain path's on the card, 1e-5 relative and 1e-3 of each
+   leaf's scale; a loss or a leaf whose own value moves by more than that
+   when every weight of the plain path moves one fp32 ulp is held to
+   twice its own widest move over 3 such moves, and is printed with it.
+   Every flash and scan call of the kernel run, forward and backward,
+   within 1e-3 of its plain version on the step's own operands.
+33. A JSON line of per-kernel results (the six kernels and the two
+   backwards; training's launches of both flash kernels from phases 23-24
+   and 29-31 and of the scan's two kernels from phases 29-31; the
+   paged-prefill kernel's launches also by route: ``paged_chunk`` from
+   phases 5, 15 and 16, ``verify`` and ``dense_chunk`` from phases 9, 10
+   and 16; flash's by route: ``windowed`` from phases 13 and 29,
+   ``bidirectional`` and ``cross`` from phases 18 and 31, ``full`` from
+   the rest, and the flash backward's likewise; dense decode's ``cross``
+   from phase 18 and ``self`` from the rest; launches by run, the MoE runs
+   of phases 15-16 and phases 18, 20 and 21 included — phase 21's are the
+   workers' (the live workers' last pings plus the killed worker's after
+   wave 1); rmsnorm's counter is read over phases 4-21 and must stay 0: no
+   served path launches it), then the script's seconds beside its
+   time before phases 27-32 were added,
+   then the device line last.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -362,6 +406,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -1568,13 +1613,14 @@ def kernel_wrappers() -> dict:
         decode_attention, paged_decode_attention, paged_prefill_attention)
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
     from repro_torch.kernels.rmsnorm import rmsnorm
-    from repro_torch.kernels.selective_scan import selective_scan
+    from repro_torch.kernels.selective_scan import selective_scan, selective_scan_bwd
 
     return {"flash_attention": flash_attention, "flash_attention_bwd": flash_attention_bwd,
             "decode_attention": decode_attention,
             "paged_decode_attention": paged_decode_attention,
             "paged_prefill_attention": paged_prefill_attention,
-            "selective_scan": selective_scan, "rmsnorm": rmsnorm}
+            "selective_scan": selective_scan, "selective_scan_bwd": selective_scan_bwd,
+            "rmsnorm": rmsnorm}
 
 
 def zero_counters() -> None:
@@ -3406,22 +3452,150 @@ def flash_bwd_phase(cuda: torch.device, report: dict | None = None) -> dict:
     return {"cases": cases, "tf32_sass": tf32, "nan_in_do": nan, "fp32_forward": forward}
 
 
-def train_run(cfg, cuda: torch.device) -> dict:
+@contextlib.contextmanager
+def training_calls_compared(worst: dict[str, float]):
+    """Inside the block (and inside :func:`flash_routes_recorded`, which
+    names each flash call's route), each flash and scan kernel call under
+    autograd, forward and backward, is also run through its plain version
+    on the same operands, and the worst difference relative to the plain
+    result's scale is recorded into ``worst`` per kernel and flash route;
+    the kernels' results go on, so the step runs through the kernels and
+    each comparison sees the step's own operands."""
+    from repro_torch.kernels.flash_attention import (
+        attention_lse_ref, flash_attention_bwd_ref, flash_attention_ref)
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.selective_scan import selective_scan_bwd_ref, selective_scan_ref
+    from repro_torch.kernels.selective_scan import ops as scan_ops
+
+    flash, scan = flash_ops._FlashAttention, scan_ops._SelectiveScan
+    saved = [(flash, flash.forward, flash.backward), (scan, scan.forward, scan.backward)]
+
+    def note(key, got, want):
+        pairs = [(g, w) for g, w in zip(got, want) if g is not None]
+        worst[key] = max(worst.get(key, 0.0), *(_rel_err(g, w) for g, w in pairs))
+
+    # The operands ride on the autograd context beside its saved tensors,
+    # which a checkpointed layer lets the backward unpack only once.
+    def flash_forward(ctx, q, k, v, causal, window):
+        out = saved[0][1](ctx, q, k, v, causal, window)
+        note(f"flash_attention {ctx.route}", (out,),
+             (flash_attention_ref(q, k, v, causal=causal, window=window),))
+        ctx.operands = q, k, v, out
+        return out
+
+    def flash_backward(ctx, do):
+        got = saved[0][2](ctx, do)
+        q, k, v, out = ctx.operands
+        kw = dict(causal=ctx.causal, window=ctx.window)
+        note(f"flash_attention_bwd {ctx.route}", got[:3], flash_attention_bwd_ref(
+            q, k, v, out, attention_lse_ref(q, k, **kw), do, **kw))
+        return got
+
+    def scan_forward(ctx, x, dt, Bmat, Cmat, A, h0):
+        got = saved[1][1](ctx, x, dt, Bmat, Cmat, A, h0)
+        note("selective_scan", got, selective_scan_ref(x, dt, Bmat, Cmat, A, h0))
+        ctx.operands = x, dt, Bmat, Cmat, A, h0
+        return got
+
+    def scan_backward(ctx, dy, dh_final):
+        got = saved[1][2](ctx, dy, dh_final)
+        note("selective_scan_bwd", got, selective_scan_bwd_ref(
+            *ctx.operands, torch.zeros_like(ctx.operands[0]) if dy is None else dy, dh_final))
+        return got
+
+    flash.forward, flash.backward = staticmethod(flash_forward), staticmethod(flash_backward)
+    scan.forward, scan.backward = staticmethod(scan_forward), staticmethod(scan_backward)
+    try:
+        yield
+    finally:
+        for cls, fwd, bwd in saved:
+            cls.forward, cls.backward = staticmethod(fwd), staticmethod(bwd)
+
+
+@contextlib.contextmanager
+def flash_routes_recorded():
+    """Count the flash kernels' launches made under grad by route, forward
+    and backward, for the duration of the block (inside ``cross_marked``
+    for the encoder-decoders' cross route): the yielded {"flash_attention":
+    Counter, "flash_attention_bwd": Counter}. The forward of
+    ``_FlashAttention`` stores its route (:func:`attention_route`) on the
+    autograd context, where its backward reads it."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    counts = {"flash_attention": collections.Counter(),
+              "flash_attention_bwd": collections.Counter()}
+    cls = flash_ops._FlashAttention
+    fwd, bwd = cls.forward, cls.backward
+
+    def forward(ctx, q, k, v, causal, window):
+        ctx.route = attention_route("flash_attention", dict(causal=causal, window=window))
+        counts["flash_attention"][ctx.route] += 1
+        return fwd(ctx, q, k, v, causal, window)
+
+    def backward(ctx, do):
+        counts["flash_attention_bwd"][ctx.route] += 1
+        return bwd(ctx, do)
+
+    cls.forward, cls.backward = staticmethod(forward), staticmethod(backward)
+    try:
+        yield counts
+    finally:
+        cls.forward, cls.backward = staticmethod(fwd), staticmethod(bwd)
+
+
+def step_launches(cfg) -> dict:
+    """The kernel launches of one train step (one ``loss_and_grad``) of
+    ``cfg`` under remat: each attention layer's flash forward twice (the
+    recompute) and its backward once, by route; each Mamba layer's scan
+    forward twice and its backward once."""
+    from repro_torch.models.transformer import layer_plan
+
+    routes = collections.Counter()
+    if cfg.is_encdec:
+        routes.update(bidirectional=cfg.encoder_layers, full=cfg.n_layers, cross=cfg.n_layers)
+    elif cfg.block in ("attn", "hymba"):
+        for c in layer_plan(cfg).classes:
+            routes["windowed" if c.window else "full"] += c.count
+    mamba = cfg.n_layers if cfg.block in ("mamba", "hymba") else 0
+    assert cfg.remat, cfg.name
+    return {"flash_attention": {r: 2 * n for r, n in routes.items()},
+            "flash_attention_bwd": dict(routes),
+            "selective_scan": 2 * mamba, "selective_scan_bwd": mamba}
+
+
+def check_step_launches(cfg, launches: dict, routes: dict, steps: int) -> None:
+    """Hold a run's launches (``read_counters``) and flash routes
+    (:func:`flash_routes_recorded`) to ``steps`` times :func:`step_launches`,
+    and every other kernel to none."""
+    want = step_launches(cfg)
+    for name in ("flash_attention", "flash_attention_bwd"):
+        got = {r: n for r, n in routes[name].items() if n}
+        assert got == {r: steps * n for r, n in want[name].items()}, (name, got, want)
+        assert launches[name] == sum(got.values()), (name, launches, got)
+    for name in ("selective_scan", "selective_scan_bwd"):
+        assert launches[name] == steps * want[name], (name, launches, want)
+    assert all(launches[k] == 0 for k in KERNELS if k not in want), launches
+
+
+def train_run(cfg, cuda: torch.device, *, steps: int = None, batch: int = None,
+              seq: int = None) -> dict:
     """``cfg`` trained through ``launch/train.py``'s ``train`` (fp32, from
-    seed 0): TRAIN_STEPS AdamW steps (lr TRAIN_LR, warmup 5) on B=4, S=256,
-    every attention layer's forward recomputed under remat. Returns the
-    run's report; asserts finite losses and exactly 2 forward and 1
-    backward flash launches per layer and step."""
+    seed 0): ``steps`` AdamW steps (default TRAIN_STEPS; lr TRAIN_LR,
+    warmup 5) on ``batch`` x ``seq`` tokens (default TRAIN_BATCH x
+    TRAIN_SEQ; an encoder-decoder's batches add as many frames), every
+    layer recomputed under remat. Returns the run's report; asserts finite
+    losses and exactly :func:`step_launches` per step, flash by route."""
     from repro_torch.launch.train import train
     from repro_torch.models import build_model, count_params
     from repro_torch.models.moe import moe_ffn
 
+    steps, batch, seq = steps or TRAIN_STEPS, batch or TRAIN_BATCH, seq or TRAIN_SEQ
     zero_counters()
     moe_ffn.routed, moe_ffn.dropped = 0, 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    history = train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR,
-                    device=cuda)
+    with cross_marked(), flash_routes_recorded() as routes:
+        history = train(cfg, steps=steps, batch=batch, seq=seq, lr=TRAIN_LR, device=cuda)
     seconds = time.perf_counter() - t0
     launches = read_counters()
     free_memory()
@@ -3430,6 +3604,7 @@ def train_run(cfg, cuda: torch.device) -> dict:
     report = {
         "layers": cfg.n_layers,
         "params": count_params(build_model(cfg).template),
+        "batch": batch, "seq": seq, "steps": steps,
         "losses": losses,
         "first3_mean": float(np.mean(losses[:3])),
         "last3_mean": float(np.mean(losses[-3:])),
@@ -3440,61 +3615,93 @@ def train_run(cfg, cuda: torch.device) -> dict:
         "seconds": seconds,
         "peak_gb": peak_gb(),
         "launches": launches,
-        "launches_per_step": {k: launches[k] / TRAIN_STEPS for k in
-                              ("flash_attention", "flash_attention_bwd")},
+        "launches_per_step": {k: launches[k] / steps for k in
+                              ("flash_attention", "flash_attention_bwd", "selective_scan",
+                               "selective_scan_bwd")},
+        "flash_routes": {k: dict(v) for k, v in routes.items()},
     }
+    if cfg.is_encdec:
+        report["encoder_layers"] = cfg.encoder_layers
     if cfg.is_moe:
         report["moe_routed"] = moe_ffn.routed
         report["moe_dropped"] = int(moe_ffn.dropped)
-    print(f"  {cfg.name}, {cfg.n_layers} layers: {report['params'] / 1e9:.3f} B params fp32; "
-          "losses " + " ".join(f"{x:.4f}" for x in losses)
+    layers = (f"{cfg.encoder_layers} + {cfg.n_layers}" if cfg.is_encdec else str(cfg.n_layers))
+    print(f"  {cfg.name}, {layers} layers, B={batch} S={seq}: {report['params'] / 1e9:.3f} B "
+          "params fp32; losses " + " ".join(f"{x:.4f}" for x in losses)
           + f" (mean of the first 3 {report['first3_mean']:.4f}, of the last 3 "
           f"{report['last3_mean']:.4f})")
     print("  grad_norm " + " ".join(f"{x:.4g}" for x in report["grad_norms"]))
     print(f"  {report['s_per_step_median']:.4f} s/step (median; first step "
           f"{report['s_first_step']:.3f} s), peak {report['peak_gb']:.2f} GB, launches per "
-          f"step {report['launches_per_step']}"
+          f"step {report['launches_per_step']}, flash routes {report['flash_routes']}"
           + (f", MoE routed {report['moe_routed']} dropped {report['moe_dropped']}"
              if cfg.is_moe else ""))
     assert all(np.isfinite(losses)), losses
-    per_step = 2 * cfg.n_layers, cfg.n_layers
-    assert (launches["flash_attention"], launches["flash_attention_bwd"]) == tuple(
-        n * TRAIN_STEPS for n in per_step), launches
+    check_step_launches(cfg, launches, routes, steps)
     return report
 
 
-def step0_gradients(cfg, cuda: torch.device, moved: bool = False):
-    """``cfg`` in fp32 drawn from seed 0 as ``launch/train.py`` draws it,
-    and the train loss with its gradient on batch 0 (B=4, S=256) through
-    the kernels and through the plain versions. Returns (kernel, plain,
-    the kernel run's launches, moved), each of kernel, plain and moved as
-    ``loss_and_grad`` returns it; ``moved`` is the plain path's again
-    after every weight is moved one fp32 ulp up or down (signs drawn from
-    seed 1), when asked, else None."""
+def step0_setup(cfg, cuda: torch.device, *, batch: int = None, seq: int = None):
+    """``cfg`` in fp32 as ``launch/train.py`` builds it, and batch 0
+    (default TRAIN_BATCH x TRAIN_SEQ): (model, draw, batch), ``draw(move)``
+    the weights drawn from seed 0 as ``launch/train.py`` draws them, and
+    with ``move`` a seed, every weight then moved one fp32 ulp up or down
+    (signs drawn from that seed)."""
     from repro_torch.models import build_model, init_from_template
     from repro_torch.models.common import tree_leaves
     from repro_torch.training import SyntheticLM, make_batch
-    from repro_torch.training.train_loop import loss_and_grad
 
     cfg = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
     model = build_model(cfg)
-    params = init_from_template(model.template, torch.Generator(device=cuda).manual_seed(0),
-                                "float32", device=cuda)
-    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
-    batch = make_batch(cfg, data, 0, device=cuda)
+
+    def draw(move: int | None = None):
+        params = init_from_template(model.template, torch.Generator(device=cuda).manual_seed(0),
+                                    "float32", device=cuda)
+        if move is not None:
+            gen = torch.Generator(device=cuda).manual_seed(move)
+            with torch.no_grad():
+                for t in tree_leaves(params):
+                    sign = torch.randint(0, 2, t.shape, generator=gen, device=cuda) * 2 - 1
+                    t.mul_(1 + 2.0**-23 * sign)
+        return params
+
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq or TRAIN_SEQ,
+                       global_batch=batch or TRAIN_BATCH)
+    return model, draw, make_batch(cfg, data, 0, device=cuda)
+
+
+def step0_gradients(cfg, cuda: torch.device, *, batch: int = None, seq: int = None,
+                    calls: dict | None = None):
+    """The train loss of ``cfg`` with its gradient on batch 0
+    (:func:`step0_setup`) through the kernels and through the plain
+    versions: (kernel, plain, the kernel run's launches and flash routes),
+    kernel and plain as ``loss_and_grad`` returns them. With ``calls``, the
+    kernel run's every flash and scan call is also held to its plain
+    version (:func:`training_calls_compared`)."""
+    from repro_torch.training.train_loop import loss_and_grad
+
+    model, draw, batch = step0_setup(cfg, cuda, batch=batch, seq=seq)
+    params = draw()
     zero_counters()
-    kernel = loss_and_grad(model, params, batch)
-    launched = read_counters()
+    with (cross_marked(), flash_routes_recorded() as routes,
+          training_calls_compared(calls) if calls is not None else contextlib.nullcontext()):
+        kernel = loss_and_grad(model, params, batch)
+    launched = {**read_counters(), "routes": routes}
     with plain_versions():
-        plain = loss_and_grad(model, params, batch)
-        if not moved:
-            return kernel, plain, launched, None
-        gen = torch.Generator(device=cuda).manual_seed(1)
-        with torch.no_grad():
-            for t in tree_leaves(params):
-                sign = torch.randint(0, 2, t.shape, generator=gen, device=cuda) * 2 - 1
-                t.mul_(1 + 2.0**-23 * sign)
-        return kernel, plain, launched, loss_and_grad(model, params, batch)
+        return kernel, loss_and_grad(model, params, batch), launched
+
+
+def plain_one_ulp(cfg, cuda: torch.device, moves: int, *, batch: int = None, seq: int = None):
+    """Yields, for seeds 1 .. ``moves``, the plain path's step-0 train loss
+    and gradient (as :func:`step0_gradients`) with every weight moved one
+    fp32 ulp, signs drawn from the seed: how far rounding alone moves the
+    model's own fp32 loss and gradient."""
+    from repro_torch.training.train_loop import loss_and_grad
+
+    model, draw, batch = step0_setup(cfg, cuda, batch=batch, seq=seq)
+    with plain_versions():
+        for seed in range(1, moves + 1):
+            yield loss_and_grad(model, draw(seed), batch)
 
 
 def layer_grad_norms(grads) -> list[float]:
@@ -3523,8 +3730,8 @@ def depth_witness(cfg, cuda: torch.device) -> dict:
     from repro_torch.training import AdamWConfig
     from repro_torch.training.optimizer import global_norm
 
-    ((_, _), grads_k), ((_, _), grads_p), _, ((_, _), grads_u) = step0_gradients(
-        cfg, cuda, moved=True)
+    ((_, _), grads_k), ((_, _), grads_p), _ = step0_gradients(cfg, cuda)
+    ((_, _), grads_u), = plain_one_ulp(cfg, cuda, 1)
     norm_k, norm_p = global_norm(grads_k).item(), global_norm(grads_p).item()
     layers_k, layers_p = layer_grad_norms(grads_k), layer_grad_norms(grads_p)
     layers_u = layer_grad_norms(grads_u)
@@ -3579,24 +3786,85 @@ def train_phase(name: str, cuda: torch.device) -> dict:
     return {"full_depth": full, "cut": cut}
 
 
+def train_parity(cfg, cuda: torch.device, *, batch: int = None, seq: int = None) -> dict:
+    """One train loss of ``cfg`` (fp32, a full-width cut) and its gradients
+    through the kernels against the same through the plain versions on the
+    card, the kernel run's launches exactly one step's
+    (:func:`step_launches`), and every flash and scan call of that run,
+    forward and backward, within MODEL_REL_TOL of its plain version on the
+    step's own operands (:func:`training_calls_compared`).
+
+    The loss is held within LOSS_REL_TOL relative and each parameter's
+    gradient within GRAD_REL_TOL of its own scale, or, where the model's
+    own fp32 value moves by more than that, within RESOLUTION_FACTOR times
+    that move: the widest of ULP_MOVES evaluations of the plain path with
+    every weight moved one fp32 ulp (:func:`plain_one_ulp`), taken for the
+    loss and for each leaf on its own. The moves are measured only when a
+    strict gate fails (the verdict is the same), and every leaf held to a
+    gate wider than GRAD_REL_TOL is printed with its move."""
+    from repro_torch.models.common import tree_flatten_with_names
+
+    calls = {}
+    ((loss_k, _), grads_k), ((loss_p, _), grads_p), launched = step0_gradients(
+        cfg, cuda, batch=batch, seq=seq, calls=calls)
+    loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    names = [n for n, _ in tree_flatten_with_names(grads_p)]
+    leaves_p = [g for _, g in tree_flatten_with_names(grads_p)]
+    errs = [_rel_err(g, w) for (_, g), w in zip(tree_flatten_with_names(grads_k), leaves_p)]
+    del grads_k
+    free_memory()
+    loss_gate, gates, moves = LOSS_REL_TOL, [GRAD_REL_TOL] * len(errs), None
+    if loss_rel > LOSS_REL_TOL or max(errs) > GRAD_REL_TOL:
+        loss_move, moves = 0.0, [0.0] * len(errs)
+        for (loss_u, _), grads_u in plain_one_ulp(cfg, cuda, ULP_MOVES, batch=batch, seq=seq):
+            loss_move = max(loss_move, abs(loss_u.item() - loss_p.item()) / abs(loss_p.item()))
+            moves = [max(m, _rel_err(g, w)) for m, (_, g), w in
+                     zip(moves, tree_flatten_with_names(grads_u), leaves_p)]
+            del grads_u
+            free_memory()
+        loss_gate = max(LOSS_REL_TOL, RESOLUTION_FACTOR * loss_move)
+        gates = [max(GRAD_REL_TOL, RESOLUTION_FACTOR * m) for m in moves]
+    worst, worst_leaf = max(zip(errs, names))
+    wide = [(n, e, m) for n, e, m in zip(names, errs, moves or errs) if e > GRAD_REL_TOL]
+    failed = [n for n, e, g in zip(names, errs, gates) if e > g]
+    report = {"loss_rel_err": loss_rel, "loss_gate": loss_gate, "worst_grad_rel_err": worst,
+              "worst_leaf": worst_leaf, "leaf_rel_err": dict(zip(names, errs)),
+              "plain_one_ulp_loss_rel": None if moves is None else loss_move,
+              "plain_one_ulp_leaf_rel": None if moves is None else dict(zip(names, moves)),
+              "leaves_past_grad_tol": [n for n, e in zip(names, errs) if e > GRAD_REL_TOL],
+              "leaves_failed": failed, "calls_rel_err": calls}
+    routes = launched.pop("routes")
+    layers = (f"{cfg.encoder_layers} + {cfg.n_layers}" if cfg.is_encdec else str(cfg.n_layers))
+    print(f"  {cfg.name}, {layers} layers, B={batch or TRAIN_BATCH} S={seq or TRAIN_SEQ}: "
+          f"step-0 loss kernel {loss_k.item()!r} plain {loss_p.item()!r} (rel {loss_rel:.3g}, "
+          f"gate {loss_gate:.3g}); worst leaf gradient err / its scale {worst:.3g} "
+          f"({worst_leaf}); {len(report['leaves_past_grad_tol'])} of {len(names)} leaves past "
+          f"{GRAD_REL_TOL:g}, {len(failed)} past their gates")
+    if moves is not None:
+        print(f"    the plain path with every weight moved one ulp ({ULP_MOVES} moves): loss rel "
+              f"{loss_move:.3g}; {sum(g > GRAD_REL_TOL for g in gates)} leaves held to "
+              f"{RESOLUTION_FACTOR:g}x their own move, those past {GRAD_REL_TOL:g} (err / own "
+              "move): " + ", ".join(f"{n} {e:.3g} / {m:.3g}" for n, e, m in wide))
+    print("    every kernel call vs its plain version on the step's operands, worst err / "
+          f"scale (tol {MODEL_REL_TOL:g}): " + ", ".join(f"{k} {v:.3g}" for k, v in calls.items()))
+    print(f"    kernel launches {launched}, flash routes "
+          f"{ {k: dict(v) for k, v in routes.items()} }")
+    del grads_p, leaves_p
+    free_memory()
+    check_step_launches(cfg, launched, routes, 1)
+    assert loss_rel <= loss_gate and not failed, (cfg.name, loss_rel, loss_gate, failed)
+    assert calls and max(calls.values()) <= MODEL_REL_TOL, (cfg.name, calls)
+    return report
+
+
 def train_parity_phase(cuda: torch.device) -> dict:
     """Phase 25: a 3-layer full-width fp32 cut of stablelm-1.6b, one train
     loss and its gradients through the kernels against the same through
     the plain versions on the card."""
     from repro_torch.configs import get_config
-    from repro_torch.models.common import tree_leaves
 
-    cfg = dataclasses.replace(get_config("stablelm-1.6b"), n_layers=TRAIN_CUT_LAYERS)
-    ((loss_k, _), grads_k), ((loss_p, _), grads_p), launched, _ = step0_gradients(cfg, cuda)
-    loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
-    worst = max(_rel_err(g, w) for g, w in zip(tree_leaves(grads_k), tree_leaves(grads_p)))
-    print(f"  step-0 loss kernel {loss_k.item()!r} plain {loss_p.item()!r} (rel {loss_rel:.3g}, "
-          f"tol {LOSS_REL_TOL:g}); worst leaf gradient err / its scale {worst:.3g} "
-          f"(tol {GRAD_REL_TOL:g}); kernel launches {launched}")
-    assert launched["flash_attention"] == 2 * TRAIN_CUT_LAYERS, launched
-    assert launched["flash_attention_bwd"] == TRAIN_CUT_LAYERS, launched
-    assert loss_rel <= LOSS_REL_TOL and worst <= GRAD_REL_TOL, (loss_rel, worst)
-    return {"loss_rel_err": loss_rel, "worst_grad_rel_err": worst}
+    return train_parity(dataclasses.replace(get_config("stablelm-1.6b"),
+                                            n_layers=TRAIN_CUT_LAYERS), cuda)
 
 
 # Runs launch/train.py's main in a fresh process and SIGKILLs that process
@@ -3713,6 +3981,284 @@ def training_phases(cuda: torch.device, report: dict | None = None) -> tuple[dic
         "checkpoint": ckpt,
     }
     return train_launches, entry
+
+
+# ---- training the SSM, hybrid and encoder-decoder families: phases 27-32 ---
+
+SCAN_BWD_TOL = 1e-4  # each scan gradient against the plain backward, of its own scale
+# Phase 27's cases: (B, S, Din, N, h0 given, dh_final given, label). The first
+# two are the trained shapes of phases 29-30.
+SCAN_BWD_CASES = (
+    (4, 256, 8192, 16, False, False, "falcon-mamba-7b trained"),
+    (2, 1280, 3200, 16, False, False, "hymba-1.5b trained"),
+    (2, 37, 100, 5, True, True, "ragged: S past a chunk, Din past a block, N = 5"),
+)
+# Phase 27's autograd wiring case: (B, S, Din, N).
+SCAN_GRAD_SHAPE = (2, 300, 1024, 16)
+# Phases 25 and 32: a loss or a gradient leaf whose own fp32 value moves by
+# more than its gate when every weight of the plain path moves one ulp is
+# held to this factor times the widest of ULP_MOVES such moves, measured for
+# that loss or leaf (the kernel path and the plain path part as two such
+# evaluations do).
+RESOLUTION_FACTOR, ULP_MOVES = 2.0, 3
+# Phases 29-31's runs at full (or 24-layer) depth take FAMILY_STEPS steps;
+# their 3-layer cuts, whose loss must fall, TRAIN_STEPS.
+FAMILY_STEPS = 10
+# Phase 28: paper-block's trained shape at head_dim 8 (B=4, S=256 tokens and
+# 256 frames, 100 heads of 8, KV = H), its three routes; the cross case with
+# 320 frames, Sq != Skv. Same fields as BWD_CASES.
+PAPER_BWD_CASES = (
+    (4, 256, 256, 100, 100, 8, False, None, "paper-block's encoder, trained"),
+    (4, 256, 256, 100, 100, 8, True, None, "paper-block's decoder, trained"),
+    (4, 256, 320, 100, 100, 8, False, None, "paper-block's cross, Sq != Skv"),
+)
+# Phases 29-31: (arch, B, S, layers at "full" depth, None = the config's).
+# falcon-mamba-7b's 64 layers do not fit: 7.006 B fp32 parameters with
+# their gradients and AdamW's two moments take ~112 GB of the card's 80.
+FAMILY_RUNS = (
+    (29, "hymba-1.5b", 2, 1280, None),
+    (30, "falcon-mamba-7b", 4, 256, 24),
+    (31, "seamless-m4t-large-v2", 4, 256, None),
+    (31, "paper-block", 4, 256, None),
+)
+
+
+def scan_bwd_bound(B, S, Din, N, with_h0, with_dh):
+    """(bound ms, what bounds it, bytes ms, fp32 ms, SFU ms) of one scan
+    backward. Bytes: x, dt, B, C, A, dy (h0, dh_final) read once; dx, ddt,
+    dB, dC, dA, dh0 written once (the forward's checkpoints, the kernel's
+    own, are not counted). Operations per (b, t, d, n): one exp(dt A) on the
+    SFUs (h rebuilt from the inputs and the reverse step share it); about
+    24 fp32 flops on the lanes (h's update, g, the dB, dC, dx, ddt and dA
+    terms, the carry and the sums over d)."""
+    elems = B * S * Din * N
+    n_bytes = 4 * (5 * B * S * Din + 4 * B * S * N + 2 * Din * N
+                   + (2 + int(with_h0) + int(with_dh)) * B * Din * N)
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    fp32_ms = 24 * elems / PEAK_FLOPS[torch.float32] * 1e3
+    sfu_ms = elems / SFU_PER_S * 1e3
+    b_ms, b_by = max((bytes_ms, "bytes"), (max(fp32_ms, sfu_ms), "operations"))
+    return b_ms, b_by, bytes_ms, fp32_ms, sfu_ms
+
+
+def scan_bwd_case(B, S, Din, N, with_h0, with_dh, label, gen) -> dict:
+    """The scan's backward kernel against its plain version on the same
+    operands (the forward kernel's checkpoints), a second call that must
+    give the same bits, a planted fault (one dB element moved by 1% of
+    dB's scale, the cross-block sum) that the check must catch, and the
+    times: the backward kernel and its plain version, and the forward with
+    and without the checkpoints it writes under grad."""
+    from repro_torch.kernels.selective_scan import (
+        selective_scan, selective_scan_bwd, selective_scan_bwd_ref, selective_scan_fwd)
+
+    ops = scan_operands(B, S, Din, N, with_h0, gen)
+    dy = torch.randn(B, S, Din, generator=gen, device="cuda")
+    dh = torch.randn(B, Din, N, generator=gen, device="cuda") if with_dh else None
+    _, _, ckpt = selective_scan_fwd(*ops)
+    got = selective_scan_bwd(*ops, ckpt, dy, dh)
+    again = selective_scan_bwd(*ops, ckpt, dy, dh)
+    torch.cuda.synchronize()
+    want = selective_scan_bwd_ref(*ops, dy, dh)
+    names = ("dx", "ddt", "dB", "dC", "dA", "dh0")
+    errs = {n: _rel_err(g, w) for n, g, w in zip(names, got, want)}
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    faulted = got[2].clone()
+    faulted.view(-1)[faulted.numel() // 2] += 0.01 * want[2].abs().max()
+    b_ms, b_by, bytes_ms, fp32_ms, sfu_ms = scan_bwd_bound(B, S, Din, N, with_h0, with_dh)
+    return {
+        "shape": f"B={B} S={S} Din={Din} N={N} h0={'given' if with_h0 else 'zero'} "
+                 f"dh_final={'given' if with_dh else 'zero'} ({label})",
+        "dtype": "float32",
+        "max_abs_err": max((g - w).abs().max().item() for g, w in zip(got, want)),
+        "max_rel_err": max(errs.values()) if finite else float("inf"),
+        "rel_err": errs,
+        "planted_fault_rel_err": _rel_err(faulted, want[2]),
+        "bitwise_repeat": all(torch.equal(a, b) for a, b in zip(got, again)),
+        "tol": SCAN_BWD_TOL,
+        "ms": time_ms(lambda: selective_scan_bwd(*ops, ckpt, dy, dh)),
+        "plain_ms": time_ms(lambda: selective_scan_bwd_ref(*ops, dy, dh)),
+        "library_ms": None,
+        "forward_ms": time_ms(lambda: selective_scan(*ops)),
+        "forward_with_checkpoints_ms": time_ms(lambda: selective_scan_fwd(*ops)),
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "bytes_ms": bytes_ms,
+        "fp32_ms": fp32_ms,
+        "sfu_ms": sfu_ms,
+    }
+
+
+def scan_bwd_phase(cuda: torch.device) -> dict:
+    """Phase 27: the scan's backward kernel per call at SCAN_BWD_CASES, and
+    ``selective_scan`` under autograd against autograd through the plain
+    version (every operand's gradient, h0 and dh_final given)."""
+    from repro_torch.kernels.selective_scan import selective_scan, selective_scan_ref
+
+    gen = torch.Generator(device=cuda).manual_seed(27)
+    cases = [scan_bwd_case(*c, gen) for c in SCAN_BWD_CASES]
+    for c in cases:
+        print(f"  selective_scan_bwd {c['shape']}: err / scale "
+              + " ".join(f"{n} {e:.3g}" for n, e in c["rel_err"].items())
+              + f" (tol {c['tol']:g}; planted fault {c['planted_fault_rel_err']:.3g}); repeat "
+              f"bit for bit {c['bitwise_repeat']}; kernel {c['ms']:.4f} ms plain "
+              f"{c['plain_ms']:.4f} ms, no library call; bound {c['bound_ms']:.4f} ms "
+              f"({c['bound_by']}: bytes {c['bytes_ms']:.4f}, fp32 {c['fp32_ms']:.4f}, SFU "
+              f"{c['sfu_ms']:.4f}); forward {c['forward_ms']:.4f} ms, with the backward's "
+              f"checkpoints {c['forward_with_checkpoints_ms']:.4f} ms")
+    bad = [c for c in cases if not (c["max_rel_err"] <= SCAN_BWD_TOL < c["planted_fault_rel_err"]
+                                    and c["bitwise_repeat"])]
+    assert not bad, f"the scan's backward kernel disagrees with its plain version: {bad}"
+    B, S, Din, N = SCAN_GRAD_SHAPE
+    leaves = [t.requires_grad_() for t in scan_operands(B, S, Din, N, True, gen)]
+    grads_out = (torch.randn(B, S, Din, generator=gen, device=cuda),
+                 torch.randn(B, Din, N, generator=gen, device=cuda))
+    got = torch.autograd.grad(selective_scan(*leaves), leaves, grads_out)
+    want = torch.autograd.grad(selective_scan_ref(*leaves), leaves, grads_out)
+    wiring = max(_rel_err(g, w) for g, w in zip(got, want))
+    print(f"  autograd through the kernels vs through the plain version (B={B} S={S} Din={Din} "
+          f"N={N}, h0 and dh_final given): err / scale {wiring:.3g}")
+    assert wiring <= SCAN_BWD_TOL, wiring
+    return {"cases": cases, "autograd_rel_err": wiring}
+
+
+def paper_flash_phase(cuda: torch.device) -> dict:
+    """Phase 28: the flash backward kernel at head_dim 8 per call at
+    paper-block's trained shape (phase 22's checks and times, SDPA's fp32
+    backward beside it), and the head_dim-8 forward (flash_small_kernel)
+    at the same shape, beside SDPA's fp32 forward."""
+    gen = torch.Generator(device=cuda).manual_seed(28)
+    cases = [flash_bwd_case(*c, gen) for c in PAPER_BWD_CASES]
+    for c in cases:
+        print(f"  flash_attention_bwd {c['shape']}: dq/dk/dv err / scale "
+              + "/".join(f"{e:.3g}" for e in c["rel_err"].values())
+              + f" (tol {c['tol']:g}; planted fault {c['planted_fault_rel_err']:.3g}), lse err "
+              f"{c['lse_max_abs_err']:.3g} (tol {LSE_TOL:g}); repeat bit for bit "
+              f"{c['bitwise_repeat']}; kernel {c['ms']:.4f} ms plain {c['plain_ms']:.4f} ms SDPA "
+              f"backward {c['library_ms']:.4f} ms ({c['library_backend']}), efficient backend "
+              f"alone {c['library_efficient_ms']:.4f} ms; bound {c['bound_ms']:.4f} ms "
+              f"({c['bound_by']}: bytes {c['bytes_ms']:.4f}, 3xTF32 operations "
+              f"{c['tf32x3_ms']:.4f})")
+    bad = [c for c in cases if not (c["max_rel_err"] <= BWD_TOL < c["planted_fault_rel_err"]
+                                    and c["lse_max_abs_err"] <= LSE_TOL
+                                    and c["bitwise_repeat"])]
+    assert not bad, f"the backward kernel at head_dim 8 disagrees with its plain version: {bad}"
+    forward = [flash_case(B, Sq, H, KV, D, torch.float32, gen, Skv=Skv, causal=causal,
+                          label=label)
+               for B, Sq, Skv, H, KV, D, causal, _, label in PAPER_BWD_CASES]
+    for c in forward:
+        print(f"  flash_attention fp32 {c['shape']}: err {c['max_abs_err']:.3g} (tol "
+              f"{c['tol']:g}); kernel {c['ms']:.4f} ms plain {c['plain_ms']:.4f} ms SDPA forward "
+              f"{c['library_ms']:.4f} ms; bound {c['bound_ms']:.4f} ms ({c['bound_by']})")
+    assert all(c["max_abs_err"] <= c["tol"] for c in forward), forward
+    return {"cases": cases, "forward": forward}
+
+
+def family_cfg(name: str, layers: int | None):
+    """``name``'s full-width config, its depth cut to ``layers`` (both
+    stacks of an encoder-decoder) when given."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(name)
+    if layers is None:
+        return cfg
+    return dataclasses.replace(cfg, n_layers=layers,
+                               **({"encoder_layers": layers} if cfg.is_encdec else {}))
+
+
+def deep_gradient(cfg, cuda: torch.device, *, batch: int, seq: int) -> dict:
+    """The deep run's step-0 gradient through the kernels, described: its
+    global norm summed in fp64 (the trainer's fp32 sum of squares passes
+    fp32's 3.4e38 once the norm passes ~1.8e19), its largest element, and
+    whether every element is finite."""
+    from repro_torch.models import build_model, init_from_template
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.training import SyntheticLM, make_batch
+    from repro_torch.training.train_loop import loss_and_grad
+
+    cfg = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    model = build_model(cfg)
+    params = init_from_template(model.template, torch.Generator(device=cuda).manual_seed(0),
+                                "float32", device=cuda)
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch)
+    (_, _), grads = loss_and_grad(model, params, make_batch(cfg, data, 0, device=cuda))
+    leaves = tree_leaves(grads)
+    report = {"norm_fp64": math.sqrt(sum(g.double().square().sum().item() for g in leaves)),
+              "max_abs": max(g.abs().max().item() for g in leaves),
+              "all_finite": all(bool(torch.isfinite(g).all()) for g in leaves)}
+    del params, grads, leaves
+    free_memory()
+    print(f"  step-0 gradient: norm {report['norm_fp64']:.4g} (summed in fp64), largest element "
+          f"{report['max_abs']:.4g}, every element finite {report['all_finite']}")
+    return report
+
+
+def family_train_phase(name: str, batch: int, seq: int, layers: int | None,
+                       cuda: torch.device) -> dict:
+    """Phases 29-31: ``name`` at full width, fp32, through
+    :func:`train_run` at ``layers`` (None: full depth), then cut to
+    TRAIN_CUT_LAYERS layers (both stacks of an encoder-decoder), whose
+    loss must fall (the mean of its last 3 steps below that of its first
+    3). The deep run is held for finite losses and its launches per step;
+    its loss is printed, not held (phases 23-24)."""
+    deep = train_run(family_cfg(name, layers), cuda, steps=FAMILY_STEPS, batch=batch, seq=seq)
+    deep["step0_gradient"] = deep_gradient(family_cfg(name, layers), cuda, batch=batch, seq=seq)
+    cut = train_run(family_cfg(name, TRAIN_CUT_LAYERS), cuda, batch=batch, seq=seq)
+    assert cut["last3_mean"] < cut["first3_mean"], cut["losses"]
+    return {"deep": deep, "cut": cut}
+
+
+def family_phases(cuda: torch.device) -> tuple[dict, dict, dict]:
+    """Phases 27-32. Returns the training runs' launches (phases 29-31, the
+    counts zeroed before each run), their flash forward launches by route,
+    and the scan backward kernel's entry of the kernels line, which also
+    carries phase 28's head_dim-8 cases and the runs' reports."""
+    print("[27] the selective scan's backward kernel vs its plain version, per call", flush=True)
+    scan = scan_bwd_phase(cuda)
+    print("[28] the flash-attention backward kernel at head_dim 8, paper-block's trained shape",
+          flush=True)
+    paper = paper_flash_phase(cuda)
+    reports = {}
+    for phase, name, batch, seq, layers in FAMILY_RUNS:
+        depth = "full depth" if layers is None else f"{layers} layers"
+        print(f"[{phase}] train {name} at full width, fp32, B={batch} S={seq}, through "
+              f"launch/train.py: {depth}, then cut to {TRAIN_CUT_LAYERS} layers", flush=True)
+        reports[name] = family_train_phase(name, batch, seq, layers, cuda)
+    print(f"[32] training parity: {TRAIN_CUT_LAYERS}-layer full-width fp32 cuts, kernels vs "
+          "plain versions on the card", flush=True)
+    parity = {name: train_parity(family_cfg(name, TRAIN_CUT_LAYERS), cuda, batch=batch, seq=seq)
+              for _, name, batch, seq, _ in FAMILY_RUNS}
+    runs = {f"{name} {run}": r[run] for name, r in reports.items() for run in r}
+    launches = {k: sum(run["launches"][k] for run in runs.values())
+                for k in ("flash_attention", "flash_attention_bwd", "selective_scan",
+                          "selective_scan_bwd")}
+    routes = {k: collections.Counter() for k in ("flash_attention", "flash_attention_bwd")}
+    for run in runs.values():
+        for k in routes:
+            routes[k].update(run["flash_routes"][k])
+    main_case = scan["cases"][0]  # falcon-mamba-7b's trained shape
+    entry = {
+        "name": "selective_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/selective_scan_bwd.cu",
+        "replaces": "src/repro/models/ssm.py:65",
+        "replaces_note": ("no TPU kernel: JAX's trainer differentiates its chunked XLA scan "
+                          "(models/ssm.py:selective_scan); this is the gradient of the port of "
+                          "src/repro/kernels/selective_scan/selective_scan.py:69"),
+        "launches": launches["selective_scan_bwd"],
+        **{k: main_case[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms")},
+        "main_case": f"{main_case['shape']} {main_case['dtype']}",
+        "library_note": "no PyTorch call computes the recurrence's gradient",
+        "bound_note": (f"bytes {main_case['bytes_ms']} ms; operations: fp32 "
+                       f"{main_case['fp32_ms']} ms, SFU exp {main_case['sfu_ms']} ms"),
+        "launches_by_run": {name: run["launches"]["selective_scan_bwd"]
+                            for name, run in runs.items()},
+        "cases": scan["cases"],
+        "autograd_rel_err": scan["autograd_rel_err"],
+        "flash_bwd_head_dim_8": paper,
+        "training": reports,
+        "train_parity": parity,
+    }
+    return launches, routes, entry
 
 
 def main() -> int:
@@ -3890,6 +4436,16 @@ def main() -> int:
     assert launches["rmsnorm"] == 0, f"a served path launched rmsnorm: {launches}"
     train_launches, bwd_entry = training_phases(cuda, report)
     launches["flash_attention"] += train_launches["flash_attention"]
+    family_launches, family_routes, scan_bwd_entry = family_phases(cuda)
+    launches["flash_attention"] += family_launches["flash_attention"]
+    launches["selective_scan"] += family_launches["selective_scan"]
+    bwd_entry["launches"] += family_launches["flash_attention_bwd"]
+    bwd_routes = family_routes["flash_attention_bwd"].copy()
+    bwd_routes["full"] += train_launches["flash_attention_bwd"]  # phases 23-24: full only
+    bwd_entry["launches_by_route"] = dict(bwd_routes)
+    for name, r in scan_bwd_entry["training"].items():
+        for run, rep in r.items():
+            bwd_entry["launches_by_run"][f"{name} {run}"] = rep["launches"]["flash_attention_bwd"]
     encdec_routes = {name: collections.Counter() for name in ("flash_attention",
                                                                "decode_attention")}
     for report in encdec.values():
@@ -3927,8 +4483,10 @@ def main() -> int:
             entry["tensor_core_sass"] = tensor_core["flash_fwd_tc_kernel"]
             entry["tf32_sass"] = tf32["flash_fwd_kernel"]
             entry["fp32_forward"] = bwd_entry["fp32_forward"]
-            windowed = hybrid["served"]["flash_launches_by_route"]["windowed"]
-            bidir, cross = (encdec_routes[name][r] for r in ("bidirectional", "cross"))
+            windowed = (hybrid["served"]["flash_launches_by_route"]["windowed"]
+                        + family_routes[name]["windowed"])
+            bidir, cross = (encdec_routes[name][r] + family_routes[name][r]
+                            for r in ("bidirectional", "cross"))
             entry["launches_by_route"] = {"full": launches[name] - windowed - bidir - cross,
                                           "windowed": windowed, "bidirectional": bidir,
                                           "cross": cross}
@@ -3941,6 +4499,10 @@ def main() -> int:
                                         "multiprocess": mp_launches[name]}
         if name == "flash_attention":
             entry["launches_by_run"]["training"] = train_launches[name]
+            entry["launches_by_run"]["training_families"] = family_launches[name]
+            entry["head_dim_8_trained"] = scan_bwd_entry["flash_bwd_head_dim_8"]["forward"]
+        if name == "selective_scan":
+            entry["launches_by_run"] = {"training_families": family_launches[name]}
         if name == "flash_attention":
             entry["served_encdec"] = encdec
             entry["encdec_parity"] = encdec_checks
@@ -3989,7 +4551,9 @@ def main() -> int:
                                       "rmsnorm (models/layers.py), as the JAX models do")
         kernels.append(entry)
     kernels.append(bwd_entry)
-    print(f"[27] all phases passed in {time.perf_counter() - t_start:.1f} s, build included")
+    kernels.append(scan_bwd_entry)
+    print(f"[33] all phases passed in {time.perf_counter() - t_start:.1f} s, build included "
+          f"(before phases 27-32 were added: 438.8 s on this card model, PERF.md)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -44,9 +44,9 @@ NVCC_FLAGS = (
 # (head width 64 / 128; paged also bf16 / int8 pools).
 TENSOR_CORE_KERNELS = {"flash_fwd_tc_kernel": 2, "paged_prefill_tc_kernel": 4}
 # The fp32 flash forward (head width 64 / 128; its P V) and the backward's
-# product kernels (16 / 64 / 128), which run their products as 3xTF32
+# product kernels (8 / 16 / 64 / 128), which run their products as 3xTF32
 # mma.sync (csrc/tf32x3.cuh): kernel name -> instantiations.
-TF32_KERNELS = {"flash_fwd_kernel": 2, "flash_bwd_dkdv_kernel": 3, "flash_bwd_dq_kernel": 3}
+TF32_KERNELS = {"flash_fwd_kernel": 2, "flash_bwd_dkdv_kernel": 4, "flash_bwd_dq_kernel": 4}
 
 _lib: ctypes.CDLL | None = None  # the process's loaded kernel library
 

@@ -68,6 +68,11 @@
 //    so both fragment reads (row r, column k: bank 4 r + k; and row k,
 //    column n: bank 8 k + n for the 2-row steps of B in an accumulator's
 //    order) hit 32 banks.
+//  * Head widths 8 (the paper's Sec. V block, paper-block), 16, 64 and 128.
+//    At D = 8 a product's depth is one m16n8k8 step and dK, dV, dQ one
+//    n-tile; shared rows of 12 floats start on 16 bytes, and the fragment
+//    reads stay free of bank conflicts (row r, column k in bank 12 r + k;
+//    rows 2 tig, column gid in bank 24 tig + gid).
 // Q, K, V, O and dO are read in the model layout [B, S, heads, D] through
 // strides; dQ [B, Sq, H, D] and dK, dV [B, Skv, KV, D] are written through
 // theirs. The mask (attn_visible) and the tile ranges come from common.cuh,
@@ -480,7 +485,7 @@ cudaError_t launch_bwd(const float* q, const float* k, const float* v, const flo
 // split, scratch is a contiguous fp32 [2, splits, B, Skv, KV, D] (else
 // unused). strides: 24 element strides, (batch, seq, head) of q, k, v, o,
 // dout, dq, dk, dv in that order (the head_dim stride is 1; dq, dk and dv
-// rows on 8 bytes). D is 16, 64 or 128; causal, window and scale as the
+// rows on 8 bytes). D is 8, 16, 64 or 128; causal, window and scale as the
 // forward's. Returns the first launch's error, else cudaGetLastError().
 extern "C" int repro_flash_attention_bwd(
     const float* q, const float* k, const float* v, const float* o, const float* dout,
@@ -501,6 +506,7 @@ extern "C" int repro_flash_attention_bwd(
 #define REPRO_FLASH_BWD(DIM)                                                                   \
   return launch_bwd<DIM>(q, k, v, o, dout, lse, dvec, dq, dk, dv, scratch, B, Sq, Skv, H, KV,  \
                          splits, per_split, st, causal, window, scale, s)
+  if (D == 8) REPRO_FLASH_BWD(8);
   if (D == 16) REPRO_FLASH_BWD(16);
   if (D == 64) REPRO_FLASH_BWD(64);
   if (D == 128) REPRO_FLASH_BWD(128);

@@ -41,12 +41,19 @@
 //   per step) is sequential.
 //
 // Lanes (b, d) past Din are masked; steps past S are never computed.
+//
+// Under grad the wrapper also passes `ckpt` [B, ceil(S / kChunk), Din, N]:
+// the state entering every kChunk-th step (h0 or zeros first), from which
+// the backward (selective_scan_bwd.cu) rebuilds each chunk's states. That
+// is a second instantiation (kCkpt), so the served forward runs the code
+// it ran before.
 #include "common.cuh"
+#include "selective_scan.cuh"
 
 namespace repro {
 namespace {
 
-constexpr int kSlots = 16;    // state slots per channel (N <= 16)
+constexpr int kSlots = scan::kSlots;  // state slots per channel (N <= 16)
 constexpr int kThreads = 128;
 constexpr int kTile = 64;     // steps of B_t / C_t per shared-memory stage
 
@@ -59,12 +66,13 @@ __device__ __forceinline__ void cp_async_4(float* dst, const float* src, bool va
                : "memory");
 }
 
-template <int K>
+template <int K, bool kCkpt>
 __global__ void __launch_bounds__(kThreads) selective_scan_kernel(
     const float* __restrict__ x, const float* __restrict__ dt,
     const float* __restrict__ Bm, const float* __restrict__ Cm,
     const float* __restrict__ A, const float* __restrict__ h0,
-    float* __restrict__ y, float* __restrict__ h_out, int S, int Din, int N) {
+    float* __restrict__ y, float* __restrict__ h_out, float* __restrict__ ckpt, int S, int Din,
+    int N) {
   constexpr int kPerChannel = kSlots / K;  // threads per channel
   constexpr int kChannels = 32 / kPerChannel;  // channels per warp
   constexpr int kAhead = 128 / K;  // steps per group of x / dt loads
@@ -83,7 +91,9 @@ __global__ void __launch_bounds__(kThreads) selective_scan_kernel(
   // A, h0 and h_out rows as float4 where they are 16-byte aligned.
   const bool vec = N % 4 == 0 && live && n0 < N &&
                    ((reinterpret_cast<uintptr_t>(A) | reinterpret_cast<uintptr_t>(h0) |
-                     reinterpret_cast<uintptr_t>(h_out)) % 16) == 0;
+                     reinterpret_cast<uintptr_t>(h_out) |
+                     (kCkpt ? reinterpret_cast<uintptr_t>(ckpt) : 0)) %
+                    16) == 0;
 
   float a2[K], h[K];
 #pragma unroll
@@ -124,6 +134,24 @@ __global__ void __launch_bounds__(kThreads) selective_scan_kernel(
       const bool ok = live && t0 + u < S;
       xr[u] = ok ? x[off + (long long)u * Din] : 0.f;
       dr[u] = ok ? dt[off + (long long)u * Din] : 0.f;
+    }
+  };
+  // The state entering step t into ckpt[b, t / kChunk, d, n0 ..], at every
+  // kChunk-th step (kCkpt only): (b (n_chunks - 1) + t / kChunk) Din N floats
+  // past h[b, d, n0]'s offset `state`.
+  auto checkpoint = [&](int t) {
+    if (!kCkpt || t % scan::kChunk != 0) return;
+    const int n_chunks = (S + scan::kChunk - 1) / scan::kChunk;
+    float* row = ckpt + ((long long)b * (n_chunks - 1) + t / scan::kChunk) * Din * N + state;
+#pragma unroll
+    for (int j = 0; j < K; j += 4) {
+      if (vec && n0 + j < N) {
+        *reinterpret_cast<float4*>(row + j) = make_float4(h[j], h[j + 1], h[j + 2], h[j + 3]);
+      } else if (!vec) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (live && n0 + j + i < N) row[j + i] = h[j + i];
+      }
     }
   };
   // One step: the state update, this thread's share of y_t, the sum over
@@ -177,11 +205,17 @@ __global__ void __launch_bounds__(kThreads) selective_scan_kernel(
       fetch(xr, dr, t0 + u0 + kAhead);
       if (u0 + kAhead <= T) {  // a full group: no branch between its steps
 #pragma unroll
-        for (int u = 0; u < kAhead; ++u) step(bs, cs, u0 + u, xc[u], dc[u]);
+        for (int u = 0; u < kAhead; ++u) {
+          checkpoint(t0 + u0 + u);
+          step(bs, cs, u0 + u, xc[u], dc[u]);
+        }
       } else {
 #pragma unroll
         for (int u = 0; u < kAhead; ++u)
-          if (u0 + u < T) step(bs, cs, u0 + u, xc[u], dc[u]);
+          if (u0 + u < T) {
+            checkpoint(t0 + u0 + u);
+            step(bs, cs, u0 + u, xc[u], dc[u]);
+          }
       }
     }
   }
@@ -199,12 +233,16 @@ __global__ void __launch_bounds__(kThreads) selective_scan_kernel(
 
 template <int K>
 cudaError_t launch(const float* x, const float* dt, const float* Bm, const float* Cm,
-                   const float* A, const float* h0, float* y, float* h_out, int B, int S,
-                   int Din, int N, cudaStream_t stream) {
+                   const float* A, const float* h0, float* y, float* h_out, float* ckpt, int B,
+                   int S, int Din, int N, cudaStream_t stream) {
   constexpr int kChannelsPerBlock = kThreads * K / kSlots;
   dim3 grid((Din + kChannelsPerBlock - 1) / kChannelsPerBlock, B);
-  selective_scan_kernel<K><<<grid, kThreads, 0, stream>>>(x, dt, Bm, Cm, A, h0, y, h_out, S,
-                                                           Din, N);
+  if (ckpt != nullptr)
+    selective_scan_kernel<K, true><<<grid, kThreads, 0, stream>>>(x, dt, Bm, Cm, A, h0, y, h_out,
+                                                                  ckpt, S, Din, N);
+  else
+    selective_scan_kernel<K, false><<<grid, kThreads, 0, stream>>>(x, dt, Bm, Cm, A, h0, y,
+                                                                   h_out, nullptr, S, Din, N);
   return cudaGetLastError();
 }
 
@@ -213,10 +251,13 @@ cudaError_t launch(const float* x, const float* dt, const float* Bm, const float
 
 // x, dt, y [B, S, Din]; Bm, Cm [B, S, N]; A [Din, N]; h0 (or null) and
 // h_out [B, Din, N]; all contiguous fp32, N <= 16. states_per_thread (16,
-// 8 or 4) is K above. Returns cudaGetLastError().
+// 8 or 4) is K above. ckpt (or null): a contiguous fp32 [B, ceil(S /
+// scan::kChunk), Din, N] (repro_selective_scan_sizes) that receives the state
+// entering every kChunk-th step, for the backward. Returns
+// cudaGetLastError().
 extern "C" int repro_selective_scan_fwd(const void* x, const void* dt, const void* Bm,
                                         const void* Cm, const void* A, const void* h0,
-                                        void* y, void* h_out, int B, int S, int Din,
+                                        void* y, void* h_out, void* ckpt, int B, int S, int Din,
                                         int N, int states_per_thread, void* stream) {
   using namespace repro;
   if (N < 1 || N > kSlots || B < 1 || B > 65535 || Din < 1 || S < 0)
@@ -229,9 +270,13 @@ extern "C" int repro_selective_scan_fwd(const void* x, const void* dt, const voi
   const auto* hf = static_cast<const float*>(h0);
   auto* yf = static_cast<float*>(y);
   auto* of = static_cast<float*>(h_out);
+  auto* kf = static_cast<float*>(ckpt);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (states_per_thread == 16) return launch<16>(xf, dtf, bf, cf, af, hf, yf, of, B, S, Din, N, st);
-  if (states_per_thread == 8) return launch<8>(xf, dtf, bf, cf, af, hf, yf, of, B, S, Din, N, st);
-  if (states_per_thread == 4) return launch<4>(xf, dtf, bf, cf, af, hf, yf, of, B, S, Din, N, st);
+  if (states_per_thread == 16)
+    return launch<16>(xf, dtf, bf, cf, af, hf, yf, of, kf, B, S, Din, N, st);
+  if (states_per_thread == 8)
+    return launch<8>(xf, dtf, bf, cf, af, hf, yf, of, kf, B, S, Din, N, st);
+  if (states_per_thread == 4)
+    return launch<4>(xf, dtf, bf, cf, af, hf, yf, of, kf, B, S, Din, N, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -26,8 +26,9 @@ __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
 # head_dims the kernel takes: 8 and 16 on the CUDA cores (the paper's Sec. V
 # block, the smoke configs), 64 and 128 on the tensor cores in bf16.
 HEAD_DIMS = (8, 16, 64, 128)
-# head_dims the backward takes, in fp32: the smoke configs' and the trained ones'.
-BWD_HEAD_DIMS = (16, 64, 128)
+# head_dims the backward takes, in fp32: the smoke configs', paper-block's 8
+# and the trained attention families' 64 / 128.
+BWD_HEAD_DIMS = (8, 16, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = (
     [ctypes.c_void_p] * 5

@@ -12,11 +12,12 @@ mid-run and relaunch. Every step prints one line with its loss at full
 precision.
 
 ``--mesh host`` is the only mesh: ``single`` and ``multi`` wait for the
-port's mesh (ROADMAP, Queue 1, "the mesh half") and exit with an error,
-as does an encoder-decoder, whose ``encdec.forward`` is not ported yet.
-Training goes through the flash-attention backward kernel on the card, so
-the attention families train there (dense, MoE, internvl2's backbone);
-a Mamba or hybrid model raises there, its scan kernel having no backward.
+port's mesh (ROADMAP, Queue 1, "the mesh half") and exit with an error.
+Every family of the registry trains on the card: the attention families
+(dense, MoE, internvl2's backbone, the encoder-decoders) through the
+flash-attention backward kernel, the Mamba and hybrid ones also through
+the selective-scan backward kernel. An encoder-decoder's batches carry
+frames (``make_batch``), as JAX's.
 """
 
 from __future__ import annotations
@@ -52,9 +53,6 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int, lr: float,
     ``lb_loss``, ``grad_norm``, ``lr``, and the step's wall ``seconds``
     (reading the metrics waits for the device)."""
     cfg = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
-    if cfg.is_encdec:
-        raise ValueError(f"{cfg.name}: encoder-decoder training needs encdec.forward, "
-                         "which is not ported yet")
     device = resolve_device(device)
     model = build_model(cfg)
     opt_cfg = AdamWConfig(lr=lr, warmup_steps=5, total_steps=steps)
@@ -102,11 +100,8 @@ def main(argv: list[str] | None = None) -> None:
         ap.error(f"--mesh {args.mesh}: the port has no production mesh yet "
                  "(ROADMAP, Queue 1, the mesh half); use --mesh host")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    try:
-        train(cfg, steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr,
-              ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every, device=args.device)
-    except ValueError as e:  # what the port cannot train, refused before any work
-        ap.error(str(e))
+    train(cfg, steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr,
+          ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every, device=args.device)
 
 
 if __name__ == "__main__":

@@ -23,7 +23,13 @@ package has no ragged encoder lengths either). :func:`prefill_into` and
 :func:`decode_step` take the ``lanes`` they write and update the cache in
 place, as the decoder entry points of :mod:`.transformer` do.
 
-``forward`` (teacher forcing) belongs to training and is not ported here.
+**Training.** :func:`forward` is teacher forcing, as JAX's: the frames
+through the encoder, the tokens through the decoder against the encoder's
+output, logits over every position. With ``cfg.remat`` every encoder and
+decoder layer runs under ``torch.utils.checkpoint`` (JAX's
+``jax.checkpoint`` around each scanned layer), so its attention kernels'
+forwards run twice a step: on the card through the flash kernel's
+bidirectional, causal and cross routes, each with its backward kernel.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.utils.checkpoint
 
 from .attention import attention_block, attn_template, cross_attention_block, project_kv
 from .common import ModelConfig, ParamSpec, tree_map
@@ -40,6 +47,7 @@ from .transformer import _embed, _ffn, _layer_params, _unembed
 __all__ = [
     "encdec_template",
     "encode",
+    "forward",
     "prefill",
     "prefill_into",
     "decode_step",
@@ -82,18 +90,31 @@ def encdec_template(cfg: ModelConfig) -> dict:
     }
 
 
-def encode(params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """frames [B, S_src, frontend_dim] -> encoder output [B, S_src, D]."""
+def _remat(fn, *args, remat: bool):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` when ``remat``."""
+    if remat:
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def encode(params, frames: torch.Tensor, cfg: ModelConfig, *, remat: bool = False
+           ) -> torch.Tensor:
+    """frames [B, S_src, frontend_dim] -> encoder output [B, S_src, D];
+    with ``remat`` each layer is recomputed in the backward."""
     dtype = cfg.compute_dtype
     x = frames.to(dtype) @ params["frontend_proj"].to(dtype)
     positions = torch.arange(x.shape[1], device=x.device)
     enc_cfg = _enc_cfg(cfg)
-    for l in range(cfg.encoder_layers):
+
+    def layer(x, l):
         p_layer = _layer_params(params["encoder"], l)
         h = rmsnorm(x, p_layer["ln1"], cfg.rms_eps)
         out, _ = attention_block(h, p_layer["attn"], enc_cfg, positions=positions, causal=False)
         x = x + out
-        x = x + _ffn(rmsnorm(x, p_layer["ln2"], cfg.rms_eps), p_layer, cfg, per_lane=True)[0]
+        return x + _ffn(rmsnorm(x, p_layer["ln2"], cfg.rms_eps), p_layer, cfg, per_lane=True)[0]
+
+    for l in range(cfg.encoder_layers):
+        x = _remat(layer, x, l, remat=remat)
     return rmsnorm(x, params["enc_final_norm"], cfg.rms_eps)
 
 
@@ -111,6 +132,31 @@ def _decoder_layer(x, p_layer, cfg: ModelConfig, *, positions, ckv, self_cache=N
     x = x + cross_attention_block(hc, ckv, p_layer["cross_attn"], cfg, lengths=cross_lengths)
     x = x + _ffn(rmsnorm(x, p_layer["ln2"], cfg.rms_eps), p_layer, cfg, per_lane=True)[0]
     return x, kv
+
+
+def forward(params, batch: dict, cfg: ModelConfig):
+    """Teacher forcing (the JAX ``forward``): batch {"frames": [B, S_src,
+    frontend_dim], "tokens": [B, S]} -> (logits [B, S, V], {"lb_loss": 0}).
+
+    The encoder runs over the frames; each decoder layer projects the
+    encoder's output to its cross K/V and runs causal self-attention,
+    cross-attention and the feed-forward over every token at once. With
+    ``cfg.remat`` each encoder and decoder layer is recomputed in the
+    backward, as JAX's ``jax.checkpoint`` around its scanned layers."""
+    enc_out = encode(params, batch["frames"], cfg, remat=cfg.remat)
+    tokens = batch["tokens"]
+    x = _embed(params, tokens, cfg)
+    positions = torch.arange(tokens.shape[1], device=x.device)
+
+    def layer(x, enc_out, l):
+        p_layer = _layer_params(params["decoder"], l)
+        ckv = project_kv(enc_out, p_layer["cross_attn"], cfg)
+        return _decoder_layer(x, p_layer, cfg, positions=positions, ckv=ckv)[0]
+
+    for l in range(cfg.n_layers):
+        x = _remat(layer, x, enc_out, l, remat=cfg.remat)
+    lb = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _unembed(params, x, cfg), {"lb_loss": lb}
 
 
 def init_cache_shapes(cfg: ModelConfig, batch: int, max_len: int, enc_len: int) -> dict:

@@ -2,8 +2,8 @@
 
 ``Model`` bundles the entry points so the serving engine and the
 launchers never branch on family. ``forward`` is the teacher-forcing
-entry point that training differentiates (``transformer.forward``); it is
-``None`` for an encoder-decoder until ``encdec.forward`` is ported. ``prefill_batch`` / ``decode_batch``
+entry point that training differentiates (``transformer.forward``, or
+``encdec.forward`` for an encoder-decoder). ``prefill_batch`` / ``decode_batch``
 are the serving engine's batched entry points over a slot cache
 (``{"len": [W], "c0": {...}, ...}``, one entry per layer class: K/V
 rows or sliding-window rings for attention layers, conv tails and SSM
@@ -75,6 +75,7 @@ class Model:
     init_cache: Callable  # (batch, max_len, device) -> zeroed cache
     prefill_batch: Callable  # (params, batch [N,S(,D)], cache, lanes [N]) -> out
     decode_batch: Callable  # (params, token [W,1(,D)], cache, lanes [N]) -> out
+    forward: Callable  # (params, batch) -> (logits, {"lb_loss"})
     decode_paged: Callable | None = None  # (params, token [W,1(,D)], pools,
     #   lengths [W] (-1 = masked lane), block_tables [W,NB]) -> out
     prefill_chunk: Callable | None = None  # (params, chunk [W,C(,D)], cache,
@@ -85,7 +86,6 @@ class Model:
     #   pools, offsets [W] (-1 = masked), valids [W], block_tables [W,NB]) -> out
     verify_step_paged: Callable | None = None  # speculative verify: as
     #   prefill_chunk_paged; lane w holds [last token, d_1..d_k]
-    forward: Callable | None = None  # (params, batch) -> (logits, {"lb_loss"})
 
     @property
     def name(self) -> str:
@@ -108,6 +108,7 @@ def build_model(cfg: ModelConfig) -> Model:
             ),
             prefill_batch=lambda p, b, c, lanes: encdec.prefill_into(p, b, c, lanes, cfg),
             decode_batch=lambda p, t, c, lanes: encdec.decode_step(p, t, c, cfg, lanes)[0],
+            forward=lambda p, b: encdec.forward(p, b, cfg),
         )
     decode_paged = prefill_chunk = prefill_chunk_batch = None
     prefill_chunk_paged = verify_step_paged = None

@@ -4,8 +4,13 @@ The port of the JAX package's ``models/ssm.py``. Prefill runs the whole
 prompt through the selective-scan kernel (:mod:`repro_torch.kernels.
 selective_scan`), as the JAX block's Pallas branch does; the JAX chunked
 associative scan is XLA's stand-in for that kernel and has no copy here.
-Decode is the O(1) single-step recurrence over ``(conv_state,
-ssm_state)`` in plain tensor ops, as in JAX, which runs no kernel there.
+Training runs the same block under grad: on the card the scan's gradient
+is the backward kernel (``csrc/selective_scan_bwd.cu``), where JAX
+differentiates its chunked scan, and the rest is autograd's; with
+``cfg.remat`` the block is recomputed in the backward like any layer
+(``transformer.forward``). Decode is the O(1) single-step recurrence over
+``(conv_state, ssm_state)`` in plain tensor ops, as in JAX, which runs no
+kernel there.
 """
 
 from __future__ import annotations

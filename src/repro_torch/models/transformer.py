@@ -384,7 +384,9 @@ def forward(params, batch: dict, cfg: ModelConfig):
         for rows in _remat_groups(run, cfg):
             runs_before = [0]  # a checkpointed group's second run is the recompute
 
-            def group(x, rows=rows, window=cls.window, runs_before=runs_before):
+            # Every name the group reads is bound here: the recompute runs in
+            # the backward, after this loop has moved on to later runs.
+            def group(x, rows=rows, window=cls.window, stack=stack, runs_before=runs_before):
                 recompute = runs_before[0] > 0
                 runs_before[0] += 1
                 lb = torch.zeros((), dtype=torch.float32, device=x.device)

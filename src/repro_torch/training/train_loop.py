@@ -4,11 +4,12 @@ and the step's metrics.
 
 The gradient is autograd's through ``Model.forward``; on the card the
 attention goes through the flash forward kernel and comes back through its
-backward kernel (:mod:`repro_torch.kernels.flash_attention`), and with
-``cfg.remat`` every layer is recomputed in the backward, as JAX's
-``jax.checkpoint`` does. A path through a kernel without a backward (the
-selective scan of the Mamba and hybrid families) raises on the card
-rather than train with a cut gradient.
+backward kernel (:mod:`repro_torch.kernels.flash_attention`), the Mamba
+scan likewise through its forward and backward kernels
+(:mod:`repro_torch.kernels.selective_scan`), and with ``cfg.remat`` every
+layer is recomputed in the backward, as JAX's ``jax.checkpoint`` does. A
+path through a kernel without a backward raises on the card rather than
+train with a cut gradient.
 """
 
 from __future__ import annotations
@@ -53,9 +54,6 @@ def loss_and_grad(model: Model, params: Any, batch: dict):
     """``jax.value_and_grad`` of the train loss with its aux: returns
     ((loss, {"ce", "lb_loss"}), grads), grads a tree like ``params``.
     Every parameter leaf is set to require grad."""
-    if model.forward is None:
-        raise ValueError(f"{model.name}: no teacher-forcing forward (encdec.forward is not "
-                         "ported yet)")
     leaves = tree_leaves(params)
     for t in leaves:
         t.requires_grad_(True)

@@ -31,7 +31,13 @@ A multi-process fleet (two worker processes on the card) streams the
 in-process server's tokens exactly, its workers launching the kernels.
 The fp32 flash forward (P V as 3xTF32 on the tensor cores) repeats bit for bit,
 its lse holds to the plain one within 2e-5, and a NaN in q, k or v reaches
-its output where it reaches the plain version's.
+its output where it reaches the plain version's. The flash backward also
+runs at paper-block's head_dim 8. The selective scan's backward kernel,
+from the forward's state checkpoints, holds every gradient within 1e-4 of
+its scale of the plain backward at falcon-mamba-7b's and hymba-1.5b's
+trained shapes and a ragged one, and repeats bit for bit; under autograd
+the scan's gradient flows through both kernels, and a falcon-mamba smoke
+model's train loss and gradients on the card match the plain path's.
 """
 
 import dataclasses
@@ -1027,7 +1033,9 @@ def test_multiprocess_fleet_on_the_card_equals_in_process(gen):
 # ---- training: the flash-attention backward and the gradient guard ---------
 
 BWD_CASES = [
-    # B, Sq, Skv, H, KV, D, causal, window: chip_smoke.py phase 22's shapes
+    # B, Sq, Skv, H, KV, D, causal, window: chip_smoke.py phase 22's shapes,
+    # then phase 28's: paper-block's trained shape at head_dim 8 (its
+    # encoder, decoder and a cross-attention with Sq != Skv)
     (4, 256, 256, 32, 32, 64, True, None),  # stablelm-1.6b trained
     (4, 256, 256, 16, 8, 64, True, None),  # granite-moe-1b-a400m trained
     (2, 300, 300, 8, 8, 64, True, 100),  # windowed, ragged
@@ -1037,6 +1045,9 @@ BWD_CASES = [
     (4, 64, 64, 4, 2, 16, True, None),  # head_dim 16
     (1, 1024, 1024, 16, 4, 64, True, None),  # many tiles through the ring
     (2, 256, 256, 32, 2, 64, True, None),  # GQA G=16, the widest head split
+    (4, 256, 256, 100, 100, 8, False, None),  # paper-block's encoder
+    (4, 256, 256, 100, 100, 8, True, None),  # paper-block's decoder
+    (4, 256, 320, 100, 100, 8, False, None),  # cross, Sq != Skv
 ]
 BWD_TOL = 1e-4  # of each gradient's scale: fp32, summed in another order
 
@@ -1215,13 +1226,6 @@ def test_flash_attention_carries_the_gradient_through_its_kernels(gen):
 
 def test_kernels_without_a_backward_raise_under_grad(gen):
     x = torch.randn(2, 8, 32, generator=gen, device="cuda", requires_grad=True)
-    dt = torch.rand(2, 8, 32, generator=gen, device="cuda")
-    bc = torch.randn(2, 8, 16, generator=gen, device="cuda")
-    A = -torch.rand(32, 16, generator=gen, device="cuda")
-    with pytest.raises(RuntimeError, match="selective_scan: the CUDA kernel has no backward"):
-        selective_scan(x, dt, bc, bc, A)
-    with torch.no_grad():
-        selective_scan(x, dt, bc, bc, A)
     q = torch.randn(2, 1, 4, 64, generator=gen, device="cuda", requires_grad=True)
     cache = torch.randn(2, 16, 4, 64, generator=gen, device="cuda")
     lengths = torch.tensor([5, 16], dtype=torch.int32, device="cuda")
@@ -1229,16 +1233,83 @@ def test_kernels_without_a_backward_raise_under_grad(gen):
         decode_attention(q, cache, cache, lengths)
     with pytest.raises(RuntimeError, match="rmsnorm: the CUDA kernel has no backward"):
         rmsnorm(x, torch.ones(32, device="cuda"))
-    # A Mamba model trains on the card only once its scan has a backward.
+
+
+def test_selective_scan_carries_the_gradient_through_its_kernels(gen):
+    """Under grad the scan launches its forward (with checkpoints) and, in
+    the backward, its backward kernel; the gradients of every operand
+    agree with autograd through the plain version. A falcon-mamba smoke
+    model's train loss and gradients on the card agree with the plain
+    path's there."""
+    from repro_torch.kernels.selective_scan import selective_scan_bwd
+    from repro_torch.models.common import tree_leaves
     from repro_torch.training.train_loop import loss_and_grad
+
+    ops = _scan_operands(gen, 2, 70, 96, 16, True)
+    leaves = [t.requires_grad_() for t in ops]
+    dy = torch.randn(2, 70, 96, generator=gen, device="cuda")
+    dh = torch.randn(2, 96, 16, generator=gen, device="cuda")
+    fwd, bwd = selective_scan.launches, selective_scan_bwd.launches
+    got = torch.autograd.grad(selective_scan(*leaves), leaves, (dy, dh))
+    assert (selective_scan.launches, selective_scan_bwd.launches) == (fwd + 1, bwd + 1)
+    want = torch.autograd.grad(selective_scan_ref(*leaves), leaves, (dy, dh))
+    for g, w in zip(got, want):
+        assert (g - w).abs().max() <= SCAN_BWD_TOL * w.abs().max()
 
     cfg = dataclasses.replace(get_smoke_config("falcon-mamba-7b"), dtype="float32",
                               param_dtype="float32")
     model = build_model(cfg)
     params = init_from_template(model.template, gen, "float32", device="cuda")
-    tokens = torch.randint(0, cfg.vocab_size, (2, 9), device="cuda", generator=gen)
-    with pytest.raises(RuntimeError, match="no backward"):
-        loss_and_grad(model, params, {"tokens": tokens[:, :8], "labels": tokens[:, 1:]})
+    tokens = torch.randint(0, cfg.vocab_size, (2, 33), device="cuda", generator=gen)
+    batch = {"tokens": tokens[:, :32], "labels": tokens[:, 1:]}
+    bwd = selective_scan_bwd.launches
+    (loss, _), grads = loss_and_grad(model, params, batch)
+    assert selective_scan_bwd.launches == bwd + cfg.n_layers
+    original = ssm.selective_scan
+    ssm.selective_scan = selective_scan_ref
+    try:
+        (loss_p, _), grads_p = loss_and_grad(model, params, batch)
+    finally:
+        ssm.selective_scan = original
+    assert abs(loss.item() - loss_p.item()) <= 1e-5 * abs(loss_p.item())
+    for g, w in zip(tree_leaves(grads), tree_leaves(grads_p)):
+        assert (g - w).abs().max() <= 1e-3 * w.abs().max()
+
+
+# The scan's backward kernel: chip_smoke.py phase 27's cases, B, S, Din, N,
+# h0 and dh_final given.
+SCAN_BWD_CASES = [
+    (4, 256, 8192, 16, False, False),  # falcon-mamba-7b trained
+    (2, 1280, 3200, 16, False, False),  # hymba-1.5b trained
+    (2, 37, 100, 5, True, True),  # ragged: S past a chunk, Din past a block, N = 5
+]
+SCAN_BWD_TOL = 1e-4  # of each gradient's scale: fp32, summed in another order
+
+
+@pytest.mark.parametrize("B,S,Din,N,with_h0,with_dh", SCAN_BWD_CASES)
+def test_selective_scan_backward_kernel_matches_plain(gen, B, S, Din, N, with_h0, with_dh):
+    """The backward kernel from the forward kernel's checkpoints against
+    the plain backward on the same operands, every gradient within
+    SCAN_BWD_TOL of its scale, and a second call equal bit for bit (no
+    atomics: the partial sums are added in a fixed order)."""
+    from repro_torch.kernels.selective_scan import (
+        selective_scan_bwd, selective_scan_bwd_ref, selective_scan_fwd)
+
+    ops = _scan_operands(gen, B, S, Din, N, with_h0)
+    dy = torch.randn(B, S, Din, generator=gen, device="cuda")
+    dh = torch.randn(B, Din, N, generator=gen, device="cuda") if with_dh else None
+    y, h_final, ckpt = selective_scan_fwd(*ops)
+    torch.testing.assert_close(y, selective_scan_ref(*ops)[0], atol=TOL[torch.float32] * max(
+        1.0, y.abs().max().item()), rtol=0)
+    before = selective_scan_bwd.launches
+    got = selective_scan_bwd(*ops, ckpt, dy, dh)
+    again = selective_scan_bwd(*ops, ckpt, dy, dh)
+    assert selective_scan_bwd.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = selective_scan_bwd_ref(*ops, dy, dh)
+    for name, g, w in zip(("dx", "ddt", "dB", "dC", "dA", "dh0"), got, want):
+        assert g.shape == w.shape, name
+        assert (g - w).abs().max() <= SCAN_BWD_TOL * w.abs().max(), name
 
 
 def test_smoke_training_on_the_card(gen):

@@ -7,21 +7,28 @@ to both packages as numpy.
   ``TestOptimizer`` / ``TestLoss`` cases on the port.
 * ``forward`` (logits and ``lb_loss``) against JAX's ``forward`` for the
   stablelm, granite-moe, falcon-mamba, hymba and internvl2 (with patch
-  embeddings) smoke configs, within 1e-5 of scale.
+  embeddings) smoke configs within 1e-5 of scale, and ``encdec.forward``
+  for seamless and paper-block (frames and tokens) within 1e-4.
 * The train loss's gradient (``loss_and_grad``) against ``jax.grad`` for
-  stablelm-smoke and granite-moe-smoke, every leaf within 1e-4 of its own
-  scale; 5 ``make_train_step`` steps with losses within 1e-4 relative.
+  the smoke configs of every family that trains, every leaf within 1e-4
+  of its own scale; 5 ``make_train_step`` steps with losses within 1e-4
+  relative. A leaf or a step's value that JAX itself resolves only
+  coarser (a one-ulp move of JAX's weights moves it by more: hymba,
+  seamless and paper-block) is held at JAX's own resolution, measured in
+  the test for that value.
   At 24 layers the gradient grows toward the input in both packages alike
   (each layer's norm within a factor 4 of JAX's).
 * Remat on, off and in blocks: equal losses and gradients; the MoE
   counters count each layer's forward once under remat.
 * ``flash_attention_bwd_ref`` (the backward kernel's plain version)
   against autograd through ``attention_ref`` and against ``jax.vjp`` of
-  JAX's attention oracle, with GQA, windows and Sq != Skv.
+  JAX's attention oracle, with GQA, windows and Sq != Skv, at head_dim 8
+  and 16 too. The scan's backward has its own file
+  (``test_torch_scan_bwd.py``).
 * The gradient guard of the kernels without a backward, the synthetic
   data, and ``launch/train.py --device cpu --smoke``: a run killed after
   its step-3 checkpoint and relaunched gives the uninterrupted run's
-  losses exactly.
+  losses exactly; an encoder-decoder trains through the CLI.
 """
 
 import dataclasses
@@ -94,6 +101,9 @@ FP32 = dict(dtype="float32", param_dtype="float32")
 OPT_TOL = 1e-6
 FWD_TOL = 1e-5  # of scale: two layers of fp32 matmuls summed in another order
 GRAD_TOL = 1e-4  # of each leaf's scale: the backward adds a second such chain
+# The encoder-decoders' logits, of scale, as tests/test_torch_encdec.py holds
+# their prefill: the two packages part by up to 3e-5 of scale in fp32.
+ENCDEC_TOL = 1e-4
 LOSS_TOL = 1e-4  # relative, over 5 steps
 GNORM_TOL = 1e-3  # relative: the norm sums the squares of every leaf's drift
 DEPTH_GROWTH = 1e3  # layer 0's gradient norm over the last layer's, at 24 layers
@@ -288,19 +298,67 @@ def _jax_loss_and_grad(jmodel, jparams, batch):
     return jax.value_and_grad(loss_fn)(jparams)
 
 
-@pytest.mark.parametrize("arch", ["stablelm-1.6b", "granite-moe-1b-a400m"])
+# The smoke configs of every family that trains. JAX resolves the fp32
+# gradient of some of them only coarser than GRAD_TOL: a one-ulp move of
+# JAX's own weights moves a leaf of its step-0 gradient by up to 4.8e-4
+# (hymba), 9.7e-4 (seamless) and 6.0e-4 (paper-block) of the leaf's scale
+# (stablelm 2.5e-5, granite-moe 4.4e-5, falcon-mamba 1.9e-6; the widest of
+# ULP_MOVES moves), and five
+# AdamW steps from the moved weights part from the unmoved ones' run by up
+# to 0.4%, 4.7% and 1.8% in loss and 19%, 50% and 53% in grad norm: AdamW's
+# first update moves every element by about lr whatever its gradient's size,
+# so an element whose gradient lies below the rounding takes either sign.
+# A value that JAX itself does not resolve to its tolerance is held to
+# RESOLUTION_FACTOR times JAX's own widest move over ULP_MOVES such moves,
+# measured in the test for that value alone.
+TRAIN_ARCHS = ["stablelm-1.6b", "granite-moe-1b-a400m", "falcon-mamba-7b", "hymba-1.5b",
+               "seamless-m4t-large-v2", "paper-block"]
+ULP_MOVES = 3  # one-ulp moves of JAX's weights that measure its resolution
+RESOLUTION_FACTOR = 2.0  # the port against JAX, over JAX against its widest move
+
+
+def _ulp_moved(jparams, seed):
+    """JAX's weights, each moved one fp32 ulp up or down (signs from seed)."""
+    rng = np.random.default_rng(seed)
+    return jax.tree.map(lambda a: jnp.asarray(np.asarray(a) * (
+        1 + 2.0**-23 * (rng.integers(0, 2, a.shape) * 2 - 1)).astype(np.float32)), jparams)
+
+
+def _leaf_err(got, want) -> float:
+    """A leaf's largest error relative to that leaf's scale."""
+    want = np.asarray(want)
+    return float(np.abs(_np(got) - want).max()) / max(float(np.abs(want).max()), 1e-30)
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
 def test_gradients_match_jax(arch):
+    """The train loss within LOSS_TOL of JAX's, and every leaf of its
+    gradient within GRAD_TOL of the leaf's scale, or, for a leaf past
+    GRAD_TOL, within RESOLUTION_FACTOR times the widest move of JAX's own
+    gradient of that leaf under ULP_MOVES one-ulp moves of JAX's weights.
+    Measured: no leaf of stablelm, granite-moe or falcon-mamba past
+    GRAD_TOL; hymba's 27 of 53, seamless's 24 of 25 and paper-block's 8 of
+    26 leaves past it, each at 0.29-1.15 of its own widest move."""
     jmodel, jparams, tmodel, tparams = _pair(arch)
     batch = _jax_batch(jmodel, 0)
-    jloss, jgrads = _jax_loss_and_grad(jmodel, jparams, jax.tree.map(jnp.asarray, batch))
+    jbatch = jax.tree.map(jnp.asarray, batch)
+    value_and_grad = jax.jit(lambda p: _jax_loss_and_grad(jmodel, p, jbatch))
+    jloss, jgrads = value_and_grad(jparams)
     (tloss, _), tgrads = loss_and_grad(tmodel, tparams, _torch_batch(batch))
     np.testing.assert_allclose(float(tloss), float(jloss), rtol=LOSS_TOL)
     names = [jax.tree_util.keystr(p) for p, _ in jax.tree_util.tree_flatten_with_path(jgrads)[0]]
-    for name, got, want in zip(names, tree_leaves(tgrads), jax.tree.leaves(jgrads)):
-        want = np.asarray(want)
-        assert got.shape == want.shape, name
-        scale = max(float(np.abs(want).max()), 1e-30)
-        assert float(np.abs(_np(got) - want).max()) <= GRAD_TOL * scale, name
+    want, got = jax.tree.leaves(jgrads), tree_leaves(tgrads)
+    assert [tuple(g.shape) for g in got] == [w.shape for w in want]
+    errs = [_leaf_err(g, w) for g, w in zip(got, want)]
+    past = [i for i, e in enumerate(errs) if e > GRAD_TOL]
+    if not past:
+        return
+    moves = np.zeros(len(want))
+    for seed in range(1, ULP_MOVES + 1):
+        moved = jax.tree.leaves(value_and_grad(_ulp_moved(jparams, seed))[1])
+        moves = np.maximum(moves, [_leaf_err(m, w) for m, w in zip(moved, want)])
+    for i in past:
+        assert errs[i] <= RESOLUTION_FACTOR * moves[i], (names[i], errs[i], moves[i])
 
 
 def _depth_gradients():
@@ -328,26 +386,53 @@ def test_gradient_explodes_toward_the_input_as_in_jax(arch):
     assert row["worst_layer_ratio"] <= DEPTH_SPREAD, row
 
 
-@pytest.mark.parametrize("arch", ["stablelm-1.6b", "granite-moe-1b-a400m"])
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
 def test_train_steps_match_jax(arch):
+    """5 ``make_train_step`` steps, each package from its own state. Each
+    step's lr within OPT_TOL of JAX's; its loss, ce and lb_loss within
+    LOSS_TOL, or within RESOLUTION_FACTOR times the widest move of JAX's
+    own value when JAX runs from its weights moved one ulp (ULP_MOVES
+    runs), where that is wider; its grad_norm likewise wherever JAX
+    resolves it (JAX's own widest move within GNORM_TOL), which every
+    config does at step 0 (seamless: JAX's move 7.8e-4). Measured: stablelm,
+    granite-moe and falcon-mamba resolve every step (JAX's moves at most
+    1.8e-6 in loss, 4.1e-4 in grad_norm); hymba, seamless and paper-block
+    part from JAX by up to 2.8e-3, 1.0e-2 and 7.7e-3 in loss by step 4,
+    where JAX's own runs part by up to 3.9e-3, 4.7e-2 and 1.8e-2, and
+    resolve the grad_norm at step 0 only."""
     jmodel, jparams, tmodel, tparams = _pair(arch)
     kw = dict(lr=3e-3, warmup_steps=2, total_steps=10)
-    jstate = jax_init_train_state(jmodel, jparams)
     jstep = jax.jit(jax_make_train_step(jmodel, JaxAdamWConfig(**kw)))
+    jstate = jax_init_train_state(jmodel, jparams)
+    jmoved = [jax_init_train_state(jmodel, _ulp_moved(jparams, seed))
+              for seed in range(1, ULP_MOVES + 1)]
     tstate = init_train_state(tmodel, tparams)
     tstep = make_train_step(tmodel, AdamWConfig(**kw))
     for i in range(5):
         batch = _jax_batch(jmodel, i, B=4, S=32)
-        jstate, jm = jstep(jstate, jax.tree.map(jnp.asarray, batch))
+        jbatch = jax.tree.map(jnp.asarray, batch)
+        jstate, jm = jstep(jstate, jbatch)
+        moved = [jstep(state, jbatch) for state in jmoved]
+        jmoved = [state for state, _ in moved]
         tstate, tm = tstep(tstate, _torch_batch(batch))
+
+        def own_move(name):
+            return max(abs(float(m[name]) - float(jm[name])) for _, m in moved)
+
         for name in ("loss", "ce", "lb_loss"):
-            np.testing.assert_allclose(float(tm[name]), float(jm[name]), rtol=LOSS_TOL,
-                                       atol=1e-6, err_msg=f"step {i} {name}")
+            tol = max(LOSS_TOL * abs(float(jm[name])) + 1e-6, RESOLUTION_FACTOR * own_move(name))
+            assert abs(float(tm[name]) - float(jm[name])) <= tol, (i, name, float(tm[name]),
+                                                                   float(jm[name]), tol)
         np.testing.assert_allclose(float(tm["lr"]), float(jm["lr"]), rtol=OPT_TOL)
-        # The global norm of a gradient taken after i AdamW steps on each
-        # side; the step-0 gradient is held leaf by leaf above.
-        np.testing.assert_allclose(float(tm["grad_norm"]), float(jm["grad_norm"]),
-                                   rtol=GNORM_TOL, err_msg=f"step {i}")
+        norm = float(jm["grad_norm"])
+        move = own_move("grad_norm") / norm
+        assert move <= GNORM_TOL or i > 0, (i, move)
+        if move <= GNORM_TOL:
+            # The global norm of a gradient taken after i AdamW steps on
+            # each side; the step-0 gradient is held leaf by leaf above.
+            np.testing.assert_allclose(float(tm["grad_norm"]), norm,
+                                       rtol=max(GNORM_TOL, RESOLUTION_FACTOR * move),
+                                       err_msg=f"step {i}")
     assert int(tstate.step) == int(jstate.step) == 5
 
 
@@ -359,7 +444,7 @@ def _remat_grads(arch, **over):
     return loss, tree_leaves(grads), moe.moe_ffn.routed
 
 
-@pytest.mark.parametrize("arch", ["stablelm-1.6b", "granite-moe-1b-a400m"])
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
 def test_remat_changes_nothing(arch):
     loss, grads, routed = _remat_grads(arch, remat=False)
     cfg = get_smoke_config(arch)
@@ -372,11 +457,28 @@ def test_remat_changes_nothing(arch):
             assert torch.equal(a, b), over
 
 
-def test_encdec_has_no_forward_yet():
-    model = build_model(dataclasses.replace(get_smoke_config("seamless-m4t-large-v2"), **FP32))
-    assert model.forward is None
-    with pytest.raises(ValueError, match="encdec.forward"):
-        loss_and_grad(model, {}, {})
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "paper-block"])
+def test_encdec_forward_matches_jax(arch):
+    """``encdec.forward`` (teacher forcing: JAX's frames through the
+    encoder, the tokens through the decoder) gives JAX's logits within
+    ENCDEC_TOL of scale and an lb_loss of 0, with remat on and off alike,
+    and its last position equals the port's own prefill; the gradients are
+    held in ``test_gradients_match_jax``."""
+    jmodel, jparams, tmodel, tparams = _pair(arch)
+    batch = _jax_batch(jmodel, 2)
+    assert batch["frames"].shape == (2, 16, jmodel.cfg.frontend_dim)
+    want, _ = jmodel.forward(jparams, jax.tree.map(jnp.asarray, batch))
+    with torch.no_grad():
+        got, taux = tmodel.forward(tparams, _torch_batch(batch))
+        plain, _ = build_model(dataclasses.replace(tmodel.cfg, remat=False)).forward(
+            tparams, _torch_batch(batch))
+    assert tuple(got.shape) == want.shape == (2, 16, jmodel.cfg.vocab_size)
+    _close(got, want, ENCDEC_TOL, arch)
+    assert torch.equal(got, plain)
+    with torch.no_grad():
+        last, _ = tmodel.prefill(tparams, _torch_batch(batch), 16)
+    _close(got[:, -1:], last, FWD_TOL, f"{arch} forward's last position vs prefill")
+    assert float(taux["lb_loss"]) == 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -389,6 +491,13 @@ BWD_CASES = [
     (1, 40, 40, 4, 2, 16, True, 9),  # windowed, GQA G=2
     (2, 24, 24, 8, 2, 8, True, None),  # GQA G=4
     (2, 7, 19, 4, 2, 16, False, None),  # bidirectional, Sq != Skv
+    # paper-block's head_dim 8 (100 heads, KV = H): its encoder, decoder and
+    # cross-attention; the encoder-decoder smoke configs' head_dim 16.
+    (2, 21, 21, 10, 10, 8, False, None),  # bidirectional encoder
+    (2, 21, 21, 10, 10, 8, True, None),  # causal decoder
+    (2, 13, 29, 10, 10, 8, False, None),  # cross, Sq != Skv
+    (2, 16, 16, 4, 4, 16, False, None),  # seamless-smoke's encoder
+    (2, 16, 11, 4, 4, 16, False, None),  # cross, Sq > Skv
 ]
 
 
@@ -447,17 +556,18 @@ def test_flash_attention_on_cpu_is_differentiable():
 
 def test_refuse_grad_raises_only_when_a_gradient_would_be_cut():
     x = torch.ones(3, requires_grad=True)
-    with pytest.raises(RuntimeError, match="selective_scan: the CUDA kernel has no backward"):
-        _build.refuse_grad("selective_scan", torch.ones(3), x, None)
+    with pytest.raises(RuntimeError, match="decode_attention: the CUDA kernel has no backward"):
+        _build.refuse_grad("decode_attention", torch.ones(3), x, None)
     with torch.no_grad():
-        _build.refuse_grad("selective_scan", x)
+        _build.refuse_grad("decode_attention", x)
     _build.refuse_grad("rmsnorm", torch.ones(3), None)
 
 
 def test_wrappers_refuse_grad_before_they_launch(monkeypatch):
     """Each kernel wrapper without a backward checks for grad on its CUDA
     path, before anything reaches the device: a tensor that claims to be
-    on CUDA takes that path here."""
+    on CUDA takes that path here. The scan and flash wrappers, whose
+    kernels have a backward, do not call the guard."""
     calls = []
     monkeypatch.setattr(_build, "refuse_grad", lambda name, *t: calls.append(name)
                         or (_ for _ in ()).throw(RuntimeError(name)))
@@ -469,7 +579,6 @@ def test_wrappers_refuse_grad_before_they_launch(monkeypatch):
 
     x = torch.ones(1, 4, 8).as_subclass(Fake)
     wrappers = {
-        "selective_scan": (selective_scan, (x, x, x, x, x)),
         "rmsnorm": (rmsnorm, (x, x)),
         "decode_attention": (decode_attention, (x, x, x, x)),
         "paged_decode_attention": (paged_decode_attention, (x, x, x, x, x)),
@@ -477,6 +586,10 @@ def test_wrappers_refuse_grad_before_they_launch(monkeypatch):
     }
     for fn, args in wrappers.values():
         with pytest.raises(RuntimeError):
+            fn(*args)
+    assert calls == list(wrappers)
+    for fn, args in ((selective_scan, (x, x, x, x, x)), (flash_attention, (x, x, x))):
+        with pytest.raises(ValueError):  # the shape checks, past any guard
             fn(*args)
     assert calls == list(wrappers)
 
@@ -551,9 +664,15 @@ def test_cli_refuses_what_the_port_cannot_train(capsys):
     with pytest.raises(SystemExit):
         train_cli.main(["--smoke", "--device", "cpu", "--mesh", "single"])
     assert "ROADMAP" in capsys.readouterr().err
-    with pytest.raises(SystemExit):
-        train_cli.main(["--smoke", "--device", "cpu", "--arch", "seamless-m4t-large-v2"])
-    assert "encdec.forward" in capsys.readouterr().err
+
+
+def test_cli_trains_an_encoder_decoder_on_the_cpu(capsys):
+    """``--arch seamless-m4t-large-v2 --smoke --device cpu``: batches with
+    frames through ``encdec.forward``, a finite loss every step."""
+    train_cli.main(["--smoke", "--device", "cpu", "--arch", "seamless-m4t-large-v2",
+                    "--steps", "3", "--batch", "2", "--seq", "16"])
+    losses = _losses(capsys.readouterr().out)
+    assert sorted(losses) == [1, 2, 3] and all(np.isfinite(list(losses.values())))
 
 
 def test_cli_runs_on_the_card_by_default():
