@@ -13,7 +13,8 @@ Phases, in order; any failure exits non-zero:
    special-function-unit exponentials (``MUFU.EX2``) in its SASS
    (``cuobjdump -sass`` of the built library). The bf16 instantiations of
    the two prefill-attention kernels must hold ``HGMMA``; every
-   instantiation of the fp32 flash forward (head_dim 64 / 128, its P V)
+   instantiation of the fp32-compute flash forward (its P V; fp32 at
+   head_dim 64 / 128, fp32 and bf16 at 8 / 16 in one- and four-warp blocks)
    and of the backward's product kernels must hold TF32 ``HMMA`` (3xTF32,
    ``_build.TF32_KERNELS``), printed with its registers and spill bytes.
 3. Kernels: each kernel against its plain PyTorch version on the card at
@@ -83,7 +84,9 @@ Phases, in order; any failure exits non-zero:
    costs) and ``gather_pages`` (K and V) + ``scaled_dot_product_attention``;
    ``torch.nn.functional.rms_norm`` for rmsnorm; none for the selective
    scan (no PyTorch call computes the recurrence), whose bound counts its
-   exponentials on the special-function units.
+   exponentials on the special-function units. An fp32 flash case's bound
+   takes its products as 3xTF32 on the tensor cores (the kernel's P V),
+   the fp32 CUDA-core figure printed beside it.
 4. Serve dense: full-width stablelm-1.6b (24 layers, d_model 2048, vocab
    100352, bf16, random weights from a seeded ``torch.Generator``) through
    ``PipelineServer`` at G=3 x R=3, max_batch 4, max_len 128, async depth
@@ -343,8 +346,10 @@ Phases, in order; any failure exits non-zero:
 27. The selective scan's backward kernel (``csrc/selective_scan_bwd.cu``)
    against its plain version (``selective_scan_bwd_ref``) per call, from
    the forward kernel's state checkpoints: falcon-mamba-7b's trained shape
-   (B=4, S=256, Din 8192, N=16), hymba-1.5b's (B=2, S=1280, Din 3200) and a
-   ragged case (S=37, Din 100, N=5, h0 and dh_final given); every gradient
+   (B=4, S=256, Din 8192, N=16), hymba-1.5b's (B=2, S=1280, Din 3200), at
+   the segment lengths the wrapper picks, a ragged case (S=37, Din 100,
+   N=5, h0 and dh_final given) and the boundaries of 64-step segments (S =
+   63, 64, 65; five segments at S=300 with N=5 and A at -1e4); every gradient
    within 1e-4 of its scale, a second call equal bit for bit, a planted
    fault (one dB element moved by 1% of dB's scale) caught; the kernel's
    and the plain version's times beside the bound (bytes; fp32 and SFU
@@ -355,8 +360,9 @@ Phases, in order; any failure exits non-zero:
    S=256, 100 heads of 8): its bidirectional encoder, causal decoder and a
    cross-attention over 320 frames (Sq != Skv), phase 22's checks and
    times with SDPA's fp32 backward beside; and the head_dim-8 forward
-   (``flash_small_kernel``) at the same three shapes beside SDPA's fp32
-   forward.
+   (``flash_fwd_kernel<8, float, 4>``, the fp32-compute tile kernel) at the
+   same three shapes beside SDPA's fp32 forward and the bound, max(bytes,
+   3xTF32 operations), with the fp32 CUDA-core figure.
 29. hymba-1.5b trained at full width and depth, fp32, B=2, S=1280 (the
    window of 1024 bites): 10 AdamW steps, then 20 on a 3-layer cut whose
    loss must fall; s/step, peak memory, and exactly the launches of
@@ -429,8 +435,8 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense; fp32 witho
 # instruction throughput) against 128 fp32 FMA lanes of 2 flops each.
 SFU_PER_S = PEAK_FLOPS[torch.float32] * 16 / 256
 # 3xTF32: three TF32 tensor-core products per product (csrc/tf32x3.cuh), at
-# the H100's dense TF32 rate: the fp32 flash forward at head_dim 64 / 128 and
-# the flash backward.
+# the H100's dense TF32 rate: the fp32 flash forward at every head_dim and the
+# flash backward.
 TF32X3_FLOPS = 495e12 / 3
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 N_TIMED = 20
@@ -505,9 +511,9 @@ def flash_case(B, S, H, KV, D, dtype, gen, window=None, *, Skv=None, causal=True
     bytes_moved = (2 * q.numel() + k.numel() + v.numel()) * item
     b_ms, b_by = bound(bytes_moved, flops, dtype)
     extra = {}
-    if dtype == torch.float32 and D >= 64:
-        # fp32 at head_dim 64 / 128: the least time takes the products as
-        # 3xTF32 on the tensor cores; the CUDA-core figure beside it.
+    if dtype == torch.float32:
+        # fp32 (flash_fwd_kernel at every head_dim): the least time takes the
+        # products as 3xTF32 on the tensor cores; the CUDA-core figure beside it.
         extra["fp32_cuda_core_ms"] = flops / PEAK_FLOPS[torch.float32] * 1e3
         mem_ms, op_ms = bytes_moved / HBM_BYTES_PER_S * 1e3, flops / TF32X3_FLOPS * 1e3
         b_ms, b_by = (mem_ms, "bytes") if mem_ms >= op_ms else (op_ms, "operations")
@@ -2753,7 +2759,8 @@ def serve_encdec(params, model, device: torch.device, *, n_req: int, n_frames: i
     report = {"requests": n_req, "frames": n_frames, "prompt": prompt, "tokens": n_gen,
               "decode_steps": step, "wall_s": wall, "tokens_per_s": n_gen / wall,
               "prefill_s": prefill_s, "prefill_wall_s": statistics.median(warm),
-              "peak_gb": peak_gb(), "launches_by_route": routes}
+              "peak_gb": peak_gb(), "launches_by_route": routes,
+              "flash_launches": launches["flash_attention"]}
     print(f"  {cfg.name}: {n_req} requests of {n_frames} frames x {cfg.frontend_dim} and "
           f"{prompt}-token prompts, {n_tokens} greedy tokens each: {n_gen} tokens, {step} "
           f"decode steps in {wall:.3f} s ({n_gen / wall:.2f} tokens/s); prefills "
@@ -3986,12 +3993,19 @@ def training_phases(cuda: torch.device, report: dict | None = None) -> tuple[dic
 # ---- training the SSM, hybrid and encoder-decoder families: phases 27-32 ---
 
 SCAN_BWD_TOL = 1e-4  # each scan gradient against the plain backward, of its own scale
-# Phase 27's cases: (B, S, Din, N, h0 given, dh_final given, label). The first
-# two are the trained shapes of phases 29-30.
+# Phase 27's cases: (B, S, Din, N, h0 given, dh_final given, steps a segment
+# (None: the wrapper's choice), slot 0 of A at -1e4, label). The first two are
+# the trained shapes of phases 29-30; the last four cross the boundaries of
+# 64-step segments.
 SCAN_BWD_CASES = (
-    (4, 256, 8192, 16, False, False, "falcon-mamba-7b trained"),
-    (2, 1280, 3200, 16, False, False, "hymba-1.5b trained"),
-    (2, 37, 100, 5, True, True, "ragged: S past a chunk, Din past a block, N = 5"),
+    (4, 256, 8192, 16, False, False, None, False, "falcon-mamba-7b trained"),
+    (2, 1280, 3200, 16, False, False, None, False, "hymba-1.5b trained"),
+    (2, 37, 100, 5, True, True, None, False, "ragged: S past a chunk, Din past a block, N = 5"),
+    (2, 63, 100, 16, True, True, 64, False, "S = L - 1, one segment of L = 64"),
+    (2, 64, 100, 16, True, True, 64, False, "S = L"),
+    (2, 65, 100, 16, True, True, 64, False, "S = L + 1, two segments"),
+    (3, 300, 100, 5, True, True, 64, True,
+     "five segments, the last ragged, Din past a block, N = 5, A at -1e4"),
 )
 # Phase 27's autograd wiring case: (B, S, Din, N).
 SCAN_GRAD_SHAPE = (2, 300, 1024, 16)
@@ -4041,22 +4055,30 @@ def scan_bwd_bound(B, S, Din, N, with_h0, with_dh):
     return b_ms, b_by, bytes_ms, fp32_ms, sfu_ms
 
 
-def scan_bwd_case(B, S, Din, N, with_h0, with_dh, label, gen) -> dict:
+def scan_bwd_case(B, S, Din, N, with_h0, with_dh, seg_steps, strong_decay, label,
+                  gen) -> dict:
     """The scan's backward kernel against its plain version on the same
     operands (the forward kernel's checkpoints), a second call that must
     give the same bits, a planted fault (one dB element moved by 1% of
     dB's scale, the cross-block sum) that the check must catch, and the
     times: the backward kernel and its plain version, and the forward with
-    and without the checkpoints it writes under grad."""
+    and without the checkpoints it writes under grad. ``seg_steps``: the
+    backward's segment length (None: the wrapper's choice);
+    ``strong_decay``: slot 0 of A at -1e4, whose exp(dt A) underflows."""
     from repro_torch.kernels.selective_scan import (
         selective_scan, selective_scan_bwd, selective_scan_bwd_ref, selective_scan_fwd)
+    from repro_torch.kernels.selective_scan.ops import _bwd_segment_steps
 
     ops = scan_operands(B, S, Din, N, with_h0, gen)
+    if strong_decay:
+        ops[4][:, 0] = -1e4
     dy = torch.randn(B, S, Din, generator=gen, device="cuda")
     dh = torch.randn(B, Din, N, generator=gen, device="cuda") if with_dh else None
+    if seg_steps is None:
+        seg_steps = _bwd_segment_steps(B, S, Din, N, torch.device("cuda"))
     _, _, ckpt = selective_scan_fwd(*ops)
-    got = selective_scan_bwd(*ops, ckpt, dy, dh)
-    again = selective_scan_bwd(*ops, ckpt, dy, dh)
+    got = selective_scan_bwd(*ops, ckpt, dy, dh, _seg_steps=seg_steps)
+    again = selective_scan_bwd(*ops, ckpt, dy, dh, _seg_steps=seg_steps)
     torch.cuda.synchronize()
     want = selective_scan_bwd_ref(*ops, dy, dh)
     names = ("dx", "ddt", "dB", "dC", "dA", "dh0")
@@ -4067,7 +4089,9 @@ def scan_bwd_case(B, S, Din, N, with_h0, with_dh, label, gen) -> dict:
     b_ms, b_by, bytes_ms, fp32_ms, sfu_ms = scan_bwd_bound(B, S, Din, N, with_h0, with_dh)
     return {
         "shape": f"B={B} S={S} Din={Din} N={N} h0={'given' if with_h0 else 'zero'} "
-                 f"dh_final={'given' if with_dh else 'zero'} ({label})",
+                 f"dh_final={'given' if with_dh else 'zero'} segments of {seg_steps or S} "
+                 f"steps ({label})",
+        "seg_steps": seg_steps,
         "dtype": "float32",
         "max_abs_err": max((g - w).abs().max().item() for g, w in zip(got, want)),
         "max_rel_err": max(errs.values()) if finite else float("inf"),
@@ -4075,7 +4099,7 @@ def scan_bwd_case(B, S, Din, N, with_h0, with_dh, label, gen) -> dict:
         "planted_fault_rel_err": _rel_err(faulted, want[2]),
         "bitwise_repeat": all(torch.equal(a, b) for a, b in zip(got, again)),
         "tol": SCAN_BWD_TOL,
-        "ms": time_ms(lambda: selective_scan_bwd(*ops, ckpt, dy, dh)),
+        "ms": time_ms(lambda: selective_scan_bwd(*ops, ckpt, dy, dh, _seg_steps=seg_steps)),
         "plain_ms": time_ms(lambda: selective_scan_bwd_ref(*ops, dy, dh)),
         "library_ms": None,
         "forward_ms": time_ms(lambda: selective_scan(*ops)),
@@ -4124,7 +4148,7 @@ def scan_bwd_phase(cuda: torch.device) -> dict:
 def paper_flash_phase(cuda: torch.device) -> dict:
     """Phase 28: the flash backward kernel at head_dim 8 per call at
     paper-block's trained shape (phase 22's checks and times, SDPA's fp32
-    backward beside it), and the head_dim-8 forward (flash_small_kernel)
+    backward beside it), and the head_dim-8 forward (flash_fwd_kernel<8, float, 4>)
     at the same shape, beside SDPA's fp32 forward."""
     gen = torch.Generator(device=cuda).manual_seed(28)
     cases = [flash_bwd_case(*c, gen) for c in PAPER_BWD_CASES]
@@ -4148,7 +4172,8 @@ def paper_flash_phase(cuda: torch.device) -> dict:
     for c in forward:
         print(f"  flash_attention fp32 {c['shape']}: err {c['max_abs_err']:.3g} (tol "
               f"{c['tol']:g}); kernel {c['ms']:.4f} ms plain {c['plain_ms']:.4f} ms SDPA forward "
-              f"{c['library_ms']:.4f} ms; bound {c['bound_ms']:.4f} ms ({c['bound_by']})")
+              f"{c['library_ms']:.4f} ms; bound {c['bound_ms']:.4f} ms ({c['bound_by']}; fp32 on "
+              f"the CUDA cores {c['fp32_cuda_core_ms']:.4f} ms)")
     assert all(c["max_abs_err"] <= c["tol"] for c in forward), forward
     return {"cases": cases, "forward": forward}
 
@@ -4501,6 +4526,20 @@ def main() -> int:
             entry["launches_by_run"]["training"] = train_launches[name]
             entry["launches_by_run"]["training_families"] = family_launches[name]
             entry["head_dim_8_trained"] = scan_bwd_entry["flash_bwd_head_dim_8"]["forward"]
+            # paper-block is the one model at head_dim 8 (phases 18 and 31);
+            # none on the main path has head_dim 16.
+            head8 = encdec["paper-block"]["flash_launches"] + sum(
+                run["launches"][name]
+                for run in scan_bwd_entry["training"]["paper-block"].values())
+            entry["head_dim_8_16"] = {
+                "kernel": "flash_fwd_kernel<D, T, W> at D = 8 / 16, fp32 and bf16 (fp32 compute, "
+                          "P V as 3xTF32; one-warp blocks where a KV head has at most 16 rows), "
+                          "in place of flash_small_kernel",
+                "launches": head8,
+                "launches_by_run": {"encdec paper-block": encdec["paper-block"]["flash_launches"],
+                                    **{f"paper-block {run}": rep["launches"][name] for run, rep
+                                       in scan_bwd_entry["training"]["paper-block"].items()}}}
+            entry["launches_by_head_dim"] = {"8": head8, "64 / 128": launches[name] - head8}
         if name == "selective_scan":
             entry["launches_by_run"] = {"training_families": family_launches[name]}
         if name == "flash_attention":

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Time the port's selective-scan, paged-decode, dense-decode, rmsnorm and
-fp32 flash-attention CUDA kernels at the served and main-path shapes, for
-the ``repro_torch`` under a given tree.
+"""Time the port's selective-scan (forward and backward), paged-decode,
+dense-decode, rmsnorm and fp32-compute flash-attention CUDA kernels at the
+served and main-path shapes, for the ``repro_torch`` under a given tree.
 
     python3 scripts/torch_kernel_times.py [--src TREE] [--label NAME] [--out FILE]
-        [--kernels scan paged dense rmsnorm flash]
+        [--kernels scan scan_bwd paged dense rmsnorm flash flash_small]
+        [--scan-seg STEPS ...]
 
 ``--src`` names the root of a checkout (default: this one); its kernels
 are built there (under TREE/build) and timed with ``chip_smoke.py``'s
@@ -14,7 +15,13 @@ compare two commits on one card, unpack the other into a directory that
 (A, B, B, A). ``--kernels`` picks the groups to time (default all);
 ``flash`` times the fp32 forward at ``chip_smoke.py`` phase 3's fp32 flash
 shapes (lse off) and phase 22's forward cases (lse on, SDPA's fp32 forward
-beside each), and the backward at phase 22's cases. Prints one JSON
+beside each), and the backward at phase 22's cases. ``scan_bwd`` times
+the scan's backward kernel at ``chip_smoke.py`` phase 27's cases (its
+trained shapes also at each ``--scan-seg`` segment length, where the
+tree's wrapper takes one; 0 = one segment); ``flash_small`` the head_dim-8
+forward at phase 28's paper-block trained shapes (lse off and on) and at
+paper-block's served shape (B=64, S=16, 100 heads of 8; bidirectional and
+causal, fp32 and bf16), SDPA's forward beside each. Prints one JSON
 object per line, and appends them to ``--out`` if given. Needs a CUDA
 device.
 """
@@ -22,6 +29,7 @@ device.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import subprocess
 import sys
@@ -152,8 +160,66 @@ def flash_times() -> list[dict]:
     return rows
 
 
-GROUPS = {"scan": scan_times, "paged": paged_times, "dense": dense_times,
-          "rmsnorm": rmsnorm_times, "flash": flash_times}
+def scan_bwd_times(seg_list: list[int]) -> list[dict]:
+    from repro_torch.kernels.selective_scan import selective_scan_bwd, selective_scan_fwd
+
+    takes_seg = "_seg_steps" in inspect.signature(selective_scan_bwd).parameters
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    rows = []
+    for B, S, Din, N, with_h0, with_dh, seg, _, label in chip_smoke.SCAN_BWD_CASES:
+        if seg is not None:  # the segment-boundary cases: correctness, not time
+            continue
+        ops = chip_smoke.scan_operands(B, S, Din, N, with_h0, gen)
+        dy = torch.randn(B, S, Din, generator=gen, device="cuda")
+        dh = torch.randn(B, Din, N, generator=gen, device="cuda") if with_dh else None
+        _, _, ckpt = selective_scan_fwd(*ops)
+        row = {"kernel": "selective_scan_bwd", "case": label, "B": B, "S": S, "Din": Din, "N": N}
+        rows.append({**row, "ms": chip_smoke.time_ms(
+            lambda: selective_scan_bwd(*ops, ckpt, dy, dh))})
+        if takes_seg and "trained" in label:
+            for L in seg_list:
+                rows.append({**row, "seg_steps": L, "ms": chip_smoke.time_ms(
+                    lambda: selective_scan_bwd(*ops, ckpt, dy, dh, _seg_steps=L))})
+    return rows
+
+
+# paper-block's served shape (chip_smoke.py phase 3): B=64, S=16, 100 heads of 8.
+PAPER_SERVED = (64, 16, 16, *chip_smoke.PAPER_HEADS)
+
+
+def flash_small_times() -> list[dict]:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_fwd
+
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    rows = []
+    cases = [(B, Sq, Skv, H, KV, D, causal, torch.float32, label)
+             for B, Sq, Skv, H, KV, D, causal, _, label in chip_smoke.PAPER_BWD_CASES]
+    cases += [(*PAPER_SERVED, causal, dtype, "paper-block served, "
+               + ("prompt" if causal else "encoder / cross"))
+              for dtype in (torch.float32, torch.bfloat16) for causal in (False, True)]
+    for B, Sq, Skv, H, KV, D, causal, dtype, label in cases:
+        q = torch.randn(B, Sq, H, D, generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn(B, Skv, KV, D, generator=gen, device="cuda").to(dtype)
+                for _ in range(2))
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        row = {"kernel": "flash_attention", "dtype": str(dtype).removeprefix("torch."),
+               "case": label, "B": B, "Sq": Sq, "Skv": Skv, "H": H, "KV": KV, "D": D,
+               "causal": causal,
+               "sdpa_ms": chip_smoke.time_ms(lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=causal, enable_gqa=H != KV))}
+        rows.append({**row, "lse": False, "ms": chip_smoke.time_ms(
+            lambda: flash_attention(q, k, v, causal=causal))})
+        if dtype == torch.float32:
+            rows.append({**row, "lse": True, "ms": chip_smoke.time_ms(
+                lambda: flash_attention_fwd(q, k, v, causal=causal))})
+    return rows
+
+
+GROUPS = {"scan": scan_times, "scan_bwd": scan_bwd_times, "paged": paged_times,
+          "dense": dense_times, "rmsnorm": rmsnorm_times, "flash": flash_times,
+          "flash_small": flash_small_times}
 
 
 def main() -> int:
@@ -163,6 +229,8 @@ def main() -> int:
     ap.add_argument("--out", help="a file to append the JSON lines to")
     ap.add_argument("--kernels", nargs="*", choices=sorted(GROUPS), default=list(GROUPS),
                     help="the groups of kernels to time")
+    ap.add_argument("--scan-seg", nargs="*", type=int, default=[],
+                    help="segment lengths at which to time the scan backward's trained shapes")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_kernel_times: no CUDA device available", file=sys.stderr)
@@ -178,7 +246,7 @@ def main() -> int:
         rows = [{"kernel": "empty (torch.cuda._sleep(0))",
                  "ms": chip_smoke.time_ms(lambda: torch.cuda._sleep(0))}]
         for group in args.kernels:
-            rows += GROUPS[group]()
+            rows += GROUPS[group](args.scan_seg) if group == "scan_bwd" else GROUPS[group]()
     lines = [json.dumps({"label": args.label, "package": repro_torch.__file__, "card": card,
                          **row}) for row in rows]
     print("\n".join(lines))

@@ -43,10 +43,11 @@ NVCC_FLAGS = (
 # the tensor cores (csrc/attention_tc.cuh): kernel name -> instantiations
 # (head width 64 / 128; paged also bf16 / int8 pools).
 TENSOR_CORE_KERNELS = {"flash_fwd_tc_kernel": 2, "paged_prefill_tc_kernel": 4}
-# The fp32 flash forward (head width 64 / 128; its P V) and the backward's
-# product kernels (8 / 16 / 64 / 128), which run their products as 3xTF32
-# mma.sync (csrc/tf32x3.cuh): kernel name -> instantiations.
-TF32_KERNELS = {"flash_fwd_kernel": 2, "flash_bwd_dkdv_kernel": 4, "flash_bwd_dq_kernel": 4}
+# The fp32-compute flash forward (its P V; fp32 at head width 64 / 128, fp32
+# and bf16 at 8 / 16 in one- and four-warp blocks) and the backward's product
+# kernels (8 / 16 / 64 / 128), which run their products as 3xTF32 mma.sync
+# (csrc/tf32x3.cuh): kernel name -> instantiations.
+TF32_KERNELS = {"flash_fwd_kernel": 10, "flash_bwd_dkdv_kernel": 4, "flash_bwd_dq_kernel": 4}
 
 _lib: ctypes.CDLL | None = None  # the process's loaded kernel library
 

@@ -8,7 +8,10 @@
 // on 16 bytes and, at D = 64 and 128 (D + 4 = 4 mod 32), the fragment reads
 // below are free of bank conflicts: row r, column k sits in bank 4 r + k for
 // the operands read along rows, and row k, column n in bank 8 k + n for B
-// read down the columns, two rows a step in an accumulator's k order.
+// read down the columns, two rows a step in an accumulator's k order. At
+// D = 8 and 16 (rows of 12 and 20 floats) the rows 2 tig and 2 tig + 1 that
+// a step reads start on banks 24 tig and 40 tig (mod 32) plus 12 or 20:
+// distinct for the four tig, so those reads are free of conflicts too.
 #pragma once
 
 #include <cstdint>

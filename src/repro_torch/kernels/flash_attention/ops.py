@@ -23,8 +23,9 @@ from .ref import attention_lse_ref, flash_attention_bwd_ref, flash_attention_ref
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "check_rows_16b_aligned", "bwd_head_splits", "HEAD_DIMS", "BWD_HEAD_DIMS"]
 
-# head_dims the kernel takes: 8 and 16 on the CUDA cores (the paper's Sec. V
-# block, the smoke configs), 64 and 128 on the tensor cores in bf16.
+# head_dims the kernel takes: 8 and 16 (the paper's Sec. V block, the smoke
+# configs) and 64 and 128, bf16 at 64 / 128 on wgmma, the rest in fp32 with
+# P V as 3xTF32.
 HEAD_DIMS = (8, 16, 64, 128)
 # head_dims the backward takes, in fp32: the smoke configs', paper-block's 8
 # and the trained attention families' 64 / 128.

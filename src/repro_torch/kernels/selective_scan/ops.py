@@ -7,7 +7,9 @@ under grad, ``csrc/selective_scan_bwd.cu`` in the backward, through a
 ``torch.autograd.Function``) or raises. ``selective_scan.launches`` and
 ``selective_scan_bwd.launches`` count the kernels' launches;
 :func:`states_per_thread` picks how many of a channel's state slots each
-forward thread carries.
+forward thread carries. How long a segment of the sequence each backward
+block walks is the kernel source's choice (``default_seg_steps`` in
+``csrc/selective_scan_bwd.cu``).
 """
 
 from __future__ import annotations
@@ -24,9 +26,10 @@ __all__ = ["selective_scan", "selective_scan_fwd", "selective_scan_bwd", "states
 
 MAX_STATE = 16  # state slots per channel in the kernel
 _ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_longlong] + [ctypes.c_int] * 4
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_longlong] + [ctypes.c_int] * 5
                  + [ctypes.c_void_p])
-_SIZES_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)] * 2
+_SIZES_ARGTYPES = ([ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_longlong)] * 2
+                   + [ctypes.POINTER(ctypes.c_int)])
 # Threads the grid needs per SM before a thread may carry more slots of
 # its channel: two warps. Measured on the H100 at Din 8192, N 16: one lane
 # runs best at 8 slots per thread (16 384 threads), 2-4 lanes at 16.
@@ -77,13 +80,26 @@ def _check(x, dt, Bmat, Cmat, A, h0, **extra) -> None:
         raise ValueError(f"selective_scan: empty batch or channels, x={tuple(x.shape)}")
 
 
-def _sizes(B: int, S: int, Din: int, N: int) -> tuple[int, int]:
-    """(checkpoints a batch row, floats of the backward's scratch), as the
-    kernels' source defines them (``repro_selective_scan_sizes``)."""
-    chunks, part = ctypes.c_longlong(), ctypes.c_longlong()
+def _sizes(B: int, S: int, Din: int, N: int, seg_steps: int = 0,
+           device: torch.device | None = None) -> tuple[int, int, int]:
+    """(checkpoints a batch row, floats of the backward's scratch, steps a
+    segment) for segments of ``seg_steps`` (-1: the kernel source's default
+    on ``device``'s card), as the kernels' source defines them
+    (``repro_selective_scan_sizes``)."""
+    n_sms = 0 if device is None else _sm_count(device.index or 0)
+    chunks, part, seg = ctypes.c_longlong(), ctypes.c_longlong(), ctypes.c_int()
     fn = _build.kernel_function("repro_selective_scan_sizes", _SIZES_ARGTYPES)
-    _build.check(fn(B, S, Din, N, ctypes.byref(chunks), ctypes.byref(part)), "selective_scan")
-    return chunks.value, part.value
+    _build.check(fn(B, S, Din, N, seg_steps, n_sms, ctypes.byref(chunks), ctypes.byref(part),
+                    ctypes.byref(seg)), "selective_scan")
+    return chunks.value, part.value, seg.value
+
+
+def _bwd_segment_steps(B: int, S: int, Din: int, N: int, device: torch.device) -> int:
+    """Steps per segment of the sequence that each block of the backward
+    kernel walks on ``device``'s card (0: one segment), as the kernel's
+    source chooses (``default_seg_steps`` in ``csrc/selective_scan_bwd.cu``).
+    For tests and timing scripts; needs the card."""
+    return _sizes(B, S, Din, N, -1, device)[2]
 
 
 def _launch_fwd(x, dt, Bmat, Cmat, A, h0, ckpt: bool):
@@ -119,15 +135,18 @@ def selective_scan_fwd(x, dt, Bmat, Cmat, A, h0=None):
     return _launch_fwd(x, dt, Bmat, Cmat, A, h0, ckpt=True)
 
 
-def selective_scan_bwd(x, dt, Bmat, Cmat, A, h0, ckpt, dy, dh_final=None):
+def selective_scan_bwd(x, dt, Bmat, Cmat, A, h0, ckpt, dy, dh_final=None, *, _seg_steps=None):
     """The backward kernel: (dx, ddt [B, S, Din], dB, dC [B, S, N], dA [Din,
     N], dh0 [B, Din, N]) from the forward's operands, its ``ckpt``
     (:func:`selective_scan_fwd`), ``dy`` and ``dh_final`` (None: zeros); dh0
     is the gradient of the initial state, zeros or ``h0``. Contiguous fp32;
-    the plain version on the CPU. On CUDA one call is one count of
-    ``launches``, whatever it launches inside (the reverse scan, and the
-    sum of its blocks' and batch rows' partials). No atomics: a second call
-    gives the same bits."""
+    the plain version on the CPU. ``_seg_steps``, for tests and timing
+    scripts, overrides the kernel source's segment length: a multiple of the
+    checkpoints' 8 steps, 0 for one segment (the kernel refuses others).
+    On CUDA one call is one count of ``launches``, whatever it launches inside (the segments' carries when
+    there are several, the reverse scan, and the sum of its blocks',
+    segments' and batch rows' partials). No atomics: a second call gives
+    the same bits."""
     if x.device.type == "cpu":
         return selective_scan_bwd_ref(x, dt, Bmat, Cmat, A, h0, dy, dh_final)
     if ckpt is None:
@@ -135,7 +154,10 @@ def selective_scan_bwd(x, dt, Bmat, Cmat, A, h0, ckpt, dy, dh_final=None):
                          "(selective_scan_fwd)")
     B, S, Din = x.shape
     N = A.shape[1]
-    n_chunks, part_floats = _sizes(B, S, Din, N)
+    if _seg_steps is not None and _seg_steps < 0:
+        raise ValueError(f"selective_scan_bwd: _seg_steps {_seg_steps} is negative")
+    seg = -1 if _seg_steps is None else _seg_steps
+    n_chunks, part_floats, seg_steps = _sizes(B, S, Din, N, seg, x.device)
     _check(x, dt, Bmat, Cmat, A, h0, dy=(dy, (B, S, Din)), dh_final=(dh_final, (B, Din, N)),
            ckpt=(ckpt, (B, n_chunks, Din, N)))
     dx, ddt = torch.empty_like(x), torch.empty_like(x)
@@ -148,7 +170,7 @@ def selective_scan_bwd(x, dt, Bmat, Cmat, A, h0, ckpt, dy, dh_final=None):
     err = fn(
         *(ptr(t) for t in (x, dt, Bmat, Cmat, A, ckpt, dy, dh_final, dx, ddt, dB, dC, dA, dh0,
                            part)),
-        part.numel(), B, S, Din, N, torch.cuda.current_stream(x.device).cuda_stream,
+        part.numel(), B, S, Din, N, seg_steps, torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "selective_scan_bwd")
     selective_scan_bwd.launches += 1

@@ -32,10 +32,13 @@ in-process server's tokens exactly, its workers launching the kernels.
 The fp32 flash forward (P V as 3xTF32 on the tensor cores) repeats bit for bit,
 its lse holds to the plain one within 2e-5, and a NaN in q, k or v reaches
 its output where it reaches the plain version's. The flash backward also
-runs at paper-block's head_dim 8. The selective scan's backward kernel,
-from the forward's state checkpoints, holds every gradient within 1e-4 of
-its scale of the plain backward at falcon-mamba-7b's and hymba-1.5b's
-trained shapes and a ragged one, and repeats bit for bit; under autograd
+runs at paper-block's head_dim 8, and so does the fp32-compute forward
+(also bf16 there, in one-warp blocks where a KV head has at most 16 rows),
+its lse within 2e-5 and its bits repeated. The selective scan's backward
+kernel, from the forward's state checkpoints, holds every gradient within
+1e-4 of its scale of the plain backward at falcon-mamba-7b's and
+hymba-1.5b's trained shapes, a ragged one and across the boundaries of
+the segments its blocks walk, and repeats bit for bit; under autograd
 the scan's gradient flows through both kernels, and a falcon-mamba smoke
 model's train loss and gradients on the card match the plain path's.
 """
@@ -236,7 +239,7 @@ def test_decode_kernel_refuses_cache_rows_off_16_bytes(gen, dtype):
     ],
 )
 def test_flash_kernel_cross_and_small_head_dims(gen, dtype, B, Sq, Skv, H, KV, D, causal):
-    """head_dim 8 and 16 (the CUDA-core kernel), and queries against a
+    """head_dim 8 and 16 (the fp32-compute kernel), and queries against a
     K/V sequence of another length (cross-attention), against the plain
     version."""
     q = torch.randn(B, Sq, H, D, generator=gen, device="cuda").to(dtype)
@@ -1310,6 +1313,114 @@ def test_selective_scan_backward_kernel_matches_plain(gen, B, S, Din, N, with_h0
     for name, g, w in zip(("dx", "ddt", "dB", "dC", "dA", "dh0"), got, want):
         assert g.shape == w.shape, name
         assert (g - w).abs().max() <= SCAN_BWD_TOL * w.abs().max(), name
+
+
+# The scan's backward across the boundaries of its segments (chip_smoke.py
+# phase 27's): B, S, Din, N, h0 and dh_final given, steps a segment, slot 0
+# of A at -1e4.
+SCAN_SEG_CASES = [
+    (2, 63, 100, 16, True, True, 64, False),  # S = L - 1: one segment
+    (2, 64, 100, 16, True, True, 64, False),  # S = L
+    (2, 65, 100, 16, True, True, 64, False),  # S = L + 1: a one-step second segment
+    (3, 300, 100, 5, True, True, 64, True),  # five segments, the last ragged; A at -1e4
+    (1, 100, 40, 16, False, True, 8, False),  # one chunk a segment
+    (2, 1280, 3200, 16, False, False, 128, False),  # hymba-1.5b trained, ten segments
+]
+
+
+@pytest.mark.parametrize("B,S,Din,N,with_h0,with_dh,seg_steps,strong", SCAN_SEG_CASES)
+def test_selective_scan_backward_kernel_across_segments(gen, B, S, Din, N, with_h0, with_dh,
+                                                        seg_steps, strong):
+    """The backward kernel with the sequence cut into segments of
+    ``seg_steps``, their carries found with a zero carry in and folded from
+    the last, against the plain backward (every gradient within
+    SCAN_BWD_TOL of its scale, finite also where exp(dt A) underflows), a
+    second call equal bit for bit, and the same within the tolerance as one
+    segment."""
+    from repro_torch.kernels.selective_scan import (
+        selective_scan_bwd, selective_scan_bwd_ref, selective_scan_fwd)
+
+    ops = _scan_operands(gen, B, S, Din, N, with_h0)
+    if strong:
+        ops[4][:, 0] = -1e4
+    dy = torch.randn(B, S, Din, generator=gen, device="cuda")
+    dh = torch.randn(B, Din, N, generator=gen, device="cuda") if with_dh else None
+    _, _, ckpt = selective_scan_fwd(*ops)
+    got = selective_scan_bwd(*ops, ckpt, dy, dh, _seg_steps=seg_steps)
+    again = selective_scan_bwd(*ops, ckpt, dy, dh, _seg_steps=seg_steps)
+    whole = selective_scan_bwd(*ops, ckpt, dy, dh, _seg_steps=0)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = selective_scan_bwd_ref(*ops, dy, dh)
+    for name, g, w, o in zip(("dx", "ddt", "dB", "dC", "dA", "dh0"), got, want, whole):
+        assert bool(torch.isfinite(g).all()), name
+        assert (g - w).abs().max() <= SCAN_BWD_TOL * w.abs().max(), name
+        assert (g - o).abs().max() <= SCAN_BWD_TOL * w.abs().max(), name
+    with pytest.raises(RuntimeError, match="invalid argument"):  # not a multiple of 8
+        selective_scan_bwd(*ops, ckpt, dy, dh, _seg_steps=12)
+
+
+@pytest.mark.parametrize("B,S,Din,N", [(4, 256, 8192, 16), (2, 1280, 3200, 16), (2, 37, 100, 5),
+                                       (1, 5, 8, 16)])
+def test_selective_scan_backward_default_segments(gen, B, S, Din, N):
+    """The backward's default segment length (the kernel source's choice
+    for this card) is 0 or a multiple of the 8-step chunk shorter than S,
+    and the wrapper takes it: the call without ``_seg_steps`` gives the same
+    bits as the call with it."""
+    from repro_torch.kernels.selective_scan import selective_scan_bwd, selective_scan_fwd
+    from repro_torch.kernels.selective_scan.ops import _bwd_segment_steps
+
+    L = _bwd_segment_steps(B, S, Din, N, torch.device("cuda"))
+    assert L >= 0 and L % 8 == 0 and (L == 0 or L < S)
+    ops = _scan_operands(gen, B, S, Din, N, False)
+    dy = torch.randn(B, S, Din, generator=gen, device="cuda")
+    _, _, ckpt = selective_scan_fwd(*ops)
+    got = selective_scan_bwd(*ops, ckpt, dy)
+    want = selective_scan_bwd(*ops, ckpt, dy, _seg_steps=L)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# head_dim 8 / 16 (flash_fwd_kernel's fp32-compute instantiations; blocks of
+# one warp when a KV head has at most 16 rows): B, Sq, Skv, H, KV, D, causal,
+# window.
+SMALL_HEAD_CASES = [
+    (3, 1, 1, 4, 4, 8, True, None),  # one query, one key
+    (2, 1, 40, 4, 2, 16, False, None),  # one query against two K/V tiles
+    (2, 16, 16, 6, 6, 8, True, None),  # 16 rows a head: one-warp blocks
+    (2, 8, 8, 8, 4, 16, True, None),  # G=2 x 8 positions: 16 rows, one-warp blocks
+    (2, 17, 17, 4, 4, 8, False, None),  # 17 rows: four warps, one row past the first
+    (2, 70, 100, 6, 2, 8, True, None),  # Sq < Skv, rows past a 64-row tile
+    (1, 300, 64, 4, 1, 16, False, None),  # Sq > Skv, G = 4 rows a position
+    (1, 200, 200, 4, 4, 8, True, 40),  # a window
+    (64, 16, 16, 100, 100, 8, False, None),  # paper-block served: encoder / cross
+    (64, 16, 16, 100, 100, 8, True, None),  # paper-block served: the prompt
+    (4, 256, 320, 100, 100, 8, False, None),  # paper-block trained: cross
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,D,causal,window", SMALL_HEAD_CASES)
+def test_flash_small_head_kernel_matches_plain(gen, dtype, B, Sq, Skv, H, KV, D, causal, window):
+    """head_dim 8 and 16 against the plain version (bf16 in fp32 on the same
+    bf16 inputs), one launch a call, a second call equal bit for bit; in
+    fp32 also with the lse (the training forward), within 2e-5 of the plain
+    lse."""
+    from repro_torch.kernels.flash_attention import attention_lse_ref, flash_attention_fwd
+
+    q = torch.randn(B, Sq, H, D, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(B, Skv, KV, D, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(B, Skv, KV, D, generator=gen, device="cuda").to(dtype)
+    kw = dict(causal=causal, window=window)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, **kw)
+    again = flash_attention(q, k, v, **kw)
+    assert flash_attention.launches == before + 2
+    assert torch.equal(out, again)
+    want = flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+    torch.testing.assert_close(out.float(), want, atol=TOL[dtype], rtol=0)
+    if dtype == torch.float32:
+        out2, lse = flash_attention_fwd(q, k, v, **kw)
+        assert torch.equal(out2, out)
+        torch.testing.assert_close(lse, attention_lse_ref(q, k, **kw), atol=2e-5, rtol=0)
 
 
 def test_smoke_training_on_the_card(gen):

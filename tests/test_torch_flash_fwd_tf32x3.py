@@ -12,8 +12,9 @@ cvt.rna.tf32.f32(x) and small = cvt.rna.tf32.f32(x - big), the NaNs of P
 and V kept); the row's lse is m + ln l. Here that walk runs with P V
 through the emulated 3xTF32 of ``test_torch_flash_bwd_tf32x3`` (the
 kernel's integer rounding) and, for contrast, through one TF32 product,
-at ``chip_smoke.py`` phase 22's fp32 forward cases with the batch cut to
-1. 3xTF32 must stay within ``TOL`` of
+at ``chip_smoke.py`` phase 22's fp32 forward cases and phase 28's
+head_dim-8 ones (paper-block's encoder, decoder and cross), with the batch
+cut to 1, and at head_dim 16. 3xTF32 must stay within ``TOL`` of
 ``flash_attention_ref`` (phase 3's and the GPU tests' fp32 tolerance), its
 lse within ``LSE_TOL`` of ``attention_lse_ref`` (phase 22's), and the
 output at least ``TF32_GAIN`` times closer than single TF32's. A NaN
@@ -58,6 +59,14 @@ CASES = [
     pytest.param(2, 1, 1300, 1300, 25, 5, 64, True, 1024, id="hymba-windowed"),
     pytest.param(3, 1, 8, 1000, 16, 16, 64, False, None, id="seamless-cross"),
     pytest.param(4, 1, 200, 200, 32, 4, 128, True, None, id="head-dim-128-gqa"),
+    # chip_smoke.py phase 28's head_dim-8 cases (paper-block trained: 100
+    # heads of 8, 256 frames and tokens, 320 frames for the cross), the
+    # batch cut to 1; and head_dim 16 (the smoke configs' width), GQA.
+    pytest.param(5, 1, 256, 256, 100, 100, 8, False, None, id="paper-block-encoder"),
+    pytest.param(6, 1, 256, 256, 100, 100, 8, True, None, id="paper-block-decoder"),
+    pytest.param(7, 1, 256, 320, 100, 100, 8, False, None, id="paper-block-cross"),
+    pytest.param(8, 1, 77, 77, 8, 2, 16, True, None, id="head-dim-16-gqa"),
+    pytest.param(9, 1, 5, 33, 4, 4, 16, False, None, id="head-dim-16-cross"),
 ]
 
 
@@ -149,6 +158,23 @@ def test_nan_input_reaches_the_output(name, bits):
     carry 0x7fffffff into -0), and the finite rest agrees."""
     t = dict(zip(("q", "k", "v"),
                  (torch.from_numpy(x) for x in _inputs(1, 96, 96, 4, 2, 64, 10))))
+    t[name].view(torch.int32)[0, -1 if name == "q" else 0, 1, 3] = bits
+    want = flash_attention_ref(t["q"], t["k"], t["v"])
+    got, _ = fwd_with(mm_3xtf32, t["q"], t["k"], t["v"], True, None)
+    finite = want.isfinite()
+    assert not bool(finite.all()) and bool(finite.any())
+    assert torch.equal(got.isfinite(), finite)
+    assert float((got[finite] - want[finite]).abs().max()) <= TOL
+
+
+@pytest.mark.parametrize("D", [8, 16])
+@pytest.mark.parametrize("name,bits", NANS)
+def test_nan_input_reaches_the_output_at_small_head_dims(name, bits, D):
+    """The same at head_dim 8 and 16, which run the same walk (the kernel's
+    fp32-compute instantiations at those widths): one K/V tile's n-tile of P
+    V, the NaN reaching the output where the plain version's does."""
+    t = dict(zip(("q", "k", "v"),
+                 (torch.from_numpy(x) for x in _inputs(1, 70, 70, 6, 2, D, 11))))
     t[name].view(torch.int32)[0, -1 if name == "q" else 0, 1, 3] = bits
     want = flash_attention_ref(t["q"], t["k"], t["v"])
     got, _ = fwd_with(mm_3xtf32, t["q"], t["k"], t["v"], True, None)

@@ -1,7 +1,11 @@
 """The selective scan's backward on the CPU: the plain version that the
 backward kernel (``csrc/selective_scan_bwd.cu``) is held to on the card,
 against torch autograd through the plain forward and against ``jax.vjp``
-of the JAX package's chunked scan (``models/ssm.py:selective_scan``).
+of the JAX package's chunked scan (``models/ssm.py:selective_scan``); and
+the kernel's walk emulated in torch (``segmented_bwd``: states rebuilt
+from checkpoints every ``CHUNK`` steps, the sequence cut into segments
+whose carries are found with a zero carry in and folded from the last),
+held to both at segment lengths that do and do not divide S.
 
 Inputs are numpy draws from a seed, formed as ``mamba_block`` forms them
 (dt a softplus, A = -exp(.)). Tolerance: every gradient within 1e-5 of
@@ -9,6 +13,9 @@ its own scale (largest magnitude) — fp32 on every side, the reverse
 recurrence summing in another order than autograd's graph, and JAX's
 associative scan multiplying the decay factors in another order still.
 """
+
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -26,6 +33,10 @@ from repro_torch.kernels.selective_scan import (
 )
 
 TOL = 1e-5  # of each gradient's scale
+CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels" / "csrc"
+# Steps per checkpoint of the forward under grad (scan::kChunk).
+CHUNK = int(re.search(r"constexpr int kChunk = (\d+);",
+                      (CSRC / "selective_scan.cuh").read_text()).group(1))
 NAMES = ("dx", "ddt", "dB", "dC", "dA", "dh0")
 
 
@@ -139,3 +150,123 @@ def test_scan_on_the_cpu_is_differentiable_and_launches_nothing():
     want = selective_scan_bwd_ref(*(_t(a) for a in (x, dt, Bm, Cm, A, h0, dy, dh)))
     for name, a, w in zip(NAMES, auto, want):
         _close(a.numpy(), w.numpy(), name)
+
+
+def segmented_bwd(x, dt, Bm, Cm, A, h0, dy, dh, seg_steps):
+    """The backward kernel's walk in fp32 torch: the forward writes the
+    state entering every CHUNK-th step; S is cut into segments of
+    ``seg_steps`` steps (0: one segment). (i) Each segment past the first
+    runs its reverse carry c = a_t (dy_t C_t + c) with a zero carry in,
+    giving its carry out and its decay product prod a_t. (ii) Each
+    segment's carry in is dh_final folded through the segments right of it,
+    from the last: c = P c + L. (iii) Each segment walks its chunks from the
+    last, rebuilding a chunk's states from its checkpoint, and runs the
+    chunk's reverse steps; dA is summed per (batch row, segment), then over
+    them in that order. Returns what ``selective_scan_bwd_ref`` returns."""
+    B, S, Din = x.shape
+    N = A.shape[-1]
+    decay = lambda t: torch.exp(dt[:, t, :, None] * A)  # noqa: E731
+    drive = lambda t: (dt[:, t] * x[:, t])[..., None] * Bm[:, t, None, :]  # noqa: E731
+    h = torch.zeros(B, Din, N) if h0 is None else h0
+    ckpt = []
+    for t in range(S):
+        if t % CHUNK == 0:
+            ckpt.append(h)
+        h = decay(t) * h + drive(t)
+    L = seg_steps or max(CHUNK, -(-S // CHUNK) * CHUNK)
+    n_seg = max(1, -(-S // L))
+    steps = lambda s: range(s * L, min(S, (s + 1) * L))  # noqa: E731
+    carry_out, prod = {}, {}
+    for s in range(1, n_seg):
+        c, p = torch.zeros(B, Din, N), torch.ones(B, Din, N)
+        for t in reversed(steps(s)):
+            a = decay(t)
+            c = a * (dy[:, t, :, None] * Cm[:, t, None, :] + c)
+            p = p * a
+        carry_out[s], prod[s] = c, p
+    dx, ddt = torch.zeros_like(x), torch.zeros_like(x)
+    dB, dC = torch.zeros_like(Bm), torch.zeros_like(Cm)
+    dA_part = []
+    for s in range(n_seg):
+        carry = torch.zeros(B, Din, N) if dh is None else dh
+        for s2 in range(n_seg - 1, s, -1):
+            carry = prod[s2] * carry + carry_out[s2]
+        dA_s = torch.zeros(B, Din, N)
+        seg = steps(s)
+        for c0 in reversed(range(seg.start, seg.stop, CHUNK)):
+            ts = range(c0, min(c0 + CHUNK, seg.stop))
+            hs = [ckpt[c0 // CHUNK]]
+            for t in ts:
+                hs.append(decay(t) * hs[-1] + drive(t))
+            for t in reversed(ts):
+                u = t - c0
+                a = decay(t)
+                g = dy[:, t, :, None] * Cm[:, t, None, :] + carry
+                a_h = a * hs[u]
+                dC[:, t] = torch.einsum("bd,bdn->bn", dy[:, t], hs[u + 1])
+                dB[:, t] = torch.einsum("bdn,bd->bn", g, dt[:, t] * x[:, t])
+                dx[:, t] = dt[:, t] * torch.einsum("bdn,bn->bd", g, Bm[:, t])
+                ddt[:, t] = (g * (A * a_h + x[:, t, :, None] * Bm[:, t, None, :])).sum(-1)
+                dA_s = dA_s + g * dt[:, t, :, None] * a_h
+                carry = a * g
+        dA_part.append(dA_s)
+        if s == 0:
+            dh0 = carry
+    dA = torch.zeros(Din, N)
+    for b in range(B):
+        for s in range(n_seg):
+            dA = dA + dA_part[s][b]
+    return dx, ddt, dB, dC, dA, dh0
+
+
+def _jax_vjp(x, dt, Bm, Cm, A, h0, dy, dh):
+    """jax.vjp of JAX's chunked scan at chunk 16; the initial state a
+    primal (zeros when h0 is absent)."""
+    B, _, Din = x.shape
+    N = A.shape[1]
+    h0_leaf = np.zeros((B, Din, N), np.float32) if h0 is None else h0
+
+    def jax_scan(x, dt, Bm, Cm, A, h0):
+        return jax_ssm.selective_scan(x, dt, Bm, Cm, A, h0, chunk=16)
+
+    _, vjp = jax.vjp(jax_scan, *(jnp.asarray(a) for a in (x, dt, Bm, Cm, A, h0_leaf)))
+    return vjp((jnp.asarray(dy), jnp.asarray(np.zeros_like(h0_leaf) if dh is None else dh)))
+
+
+# (N, h0 and dh_final given, S, steps a segment): 16 divides 48 and not 37;
+# 24 divides 48; 0 is one segment (the kernel's walk when B Din fills the card).
+SEG_CASES = [(N, given, S, L) for N in (5, 16) for given in (False, True)
+             for S, L in ((37, 16), (48, 16), (48, 24), (37, 0))]
+
+
+@pytest.mark.parametrize("N,given,S,seg_steps", SEG_CASES)
+def test_segmented_walk_matches_plain_and_jax_vjp(N, given, S, seg_steps):
+    """B=2, Din=12: the kernel's segmented reverse scan, with the carries
+    handed between segments, within 1e-5 of scale of the plain backward and
+    of jax.vjp, with h0 and dh_final both given or both absent."""
+    x, dt, Bm, Cm, A, h0, dy, dh = _inputs(S + N + 1000 * given, 2, S, 12, N, given, given)
+    t = lambda a: None if a is None else _t(a)  # noqa: E731
+    got = segmented_bwd(*(t(a) for a in (x, dt, Bm, Cm, A, h0, dy, dh)), seg_steps)
+    want = selective_scan_bwd_ref(*(t(a) for a in (x, dt, Bm, Cm, A, h0, dy, dh)))
+    jgrads = _jax_vjp(x, dt, Bm, Cm, A, h0, dy, dh)
+    for name, g, w, j in zip(NAMES, got, want, jgrads):
+        _close(g.numpy(), w.numpy(), f"{name} vs the plain backward")
+        _close(g.numpy(), np.asarray(j), f"{name} vs jax.vjp")
+
+
+@pytest.mark.parametrize("seg_steps", [8, 24])
+def test_segmented_walk_keeps_a_strongly_negative_decay_finite(seg_steps):
+    """A = -1e4 in one slot: exp(dt A) underflows to 0, so a segment's
+    decay product and the carries through it are 0; the walk multiplies and
+    never divides, every gradient stays finite and agrees with the plain
+    backward and jax.vjp, in segments that do (8) and do not (24) divide
+    S = 40."""
+    x, dt, Bm, Cm, A, h0, dy, dh = _inputs(8, 2, 40, 6, 5, True, True)
+    A[:, 0] = -1e4
+    got = segmented_bwd(*(_t(a) for a in (x, dt, Bm, Cm, A, h0, dy, dh)), seg_steps)
+    want = selective_scan_bwd_ref(*(_t(a) for a in (x, dt, Bm, Cm, A, h0, dy, dh)))
+    jgrads = _jax_vjp(x, dt, Bm, Cm, A, h0, dy, dh)
+    for name, g, w, j in zip(NAMES, got, want, jgrads):
+        assert bool(torch.isfinite(g).all()), name
+        _close(g.numpy(), w.numpy(), f"{name} vs the plain backward")
+        _close(g.numpy(), np.asarray(j), f"{name} vs jax.vjp")
