@@ -385,7 +385,42 @@ Phases, in order; any failure exits non-zero:
    twice its own widest move over 3 such moves, and is printed with it.
    Every flash and scan call of the kernel run, forward and backward,
    within 1e-3 of its plain version on the step's own operands.
-33. A JSON line of per-kernel results (the six kernels and the two
+33. Mesh serving (``PipelineServer(mesh=...)``; positions are the card
+   repeated, ``devices=[cuda] * n``): the attention kernels at each
+   position's heads (stablelm-1.6b at model 2, 16 / 16; qwen2.5-14b at
+   model 2, 20 / 4, also its verify, C = 5; granite-20b at model 4, 12 / 1;
+   an uneven GQA split, H=12, KV=3 at model 4: 3 / 1 and 3 / 3), flash,
+   dense decode, paged decode and paged prefill on bf16 and int8 pages,
+   and the scan at Din 4096 and 1600, each held to its plain version with
+   phase 3's tolerances and timed beside its bound.
+34. stablelm-1.6b at full width, bf16, G=3 x R=3 on a (data=2, model=2)
+   mesh: dense, then paged with int8 pages and 32-token chunks; tokens/s,
+   the weights and caches of every (slice, position), stage calls and
+   launches by route. Then the layer check: a prompt's whole prefill and
+   two decode steps through every stage's placed weights on slice 0, each
+   split layer held within 2e-2 of its output's scale to the unsplit
+   layer on the same input and cache (the check's own launches are not
+   counted; an MoE layer's kept and dropped assignments equal the unsplit
+   call's); then a 3-layer full-width fp32 cut served single-device and on
+   the mesh on one schedule, every request's first token equal.
+35. qwen2.5-14b (12 of 48 layers, full width) on a (1, 2) mesh, paged and
+   speculative with its stablelm-1.6b draft (k = 4), checked as phase 34.
+36. hymba-1.5b (16 of 32 layers, the global layers 0 and 15 kept) on a
+   (1, 2) mesh with 1100- and 1300-token prompts: sliding-window rings,
+   attention replicated (25 heads), the SSM split; checked as phase 34.
+37. falcon-mamba-7b (16 of 64 layers) on a (1, 2) mesh; checked as phase 34.
+38. granite-moe-1b-a400m on a (1, 4) mesh: experts split, routing global,
+   the vocabulary (49155) replicated; checked as phase 34, and the fp32
+   cut's routed and dropped assignments equal the single-device run's.
+39. ``MPPipelineServer(mesh_model=2)``: phase 21's stablelm-1.6b fleet,
+   four workers with two positions each on the card, beside the
+   in-process server on a (1, 2) mesh through the same SIGKILL of stage 0's
+   replica 0 and respawn: streams and counters equal; spawn and respawn
+   seconds and each worker's memory.
+40. ``pipeline_apply``: four stages x eight microbatches on four positions
+   of the card, equal bit for bit to the stages applied in sequence to
+   each microbatch.
+41. A JSON line of per-kernel results (the six kernels and the two
    backwards; training's launches of both flash kernels from phases 23-24
    and 29-31 and of the scan's two kernels from phases 29-31; the
    paged-prefill kernel's launches also by route: ``paged_chunk`` from
@@ -397,9 +432,10 @@ Phases, in order; any failure exits non-zero:
    of phases 15-16 and phases 18, 20 and 21 included — phase 21's are the
    workers' (the live workers' last pings plus the killed worker's after
    wave 1); rmsnorm's counter is read over phases 4-21 and must stay 0: no
-   served path launches it), then the script's seconds beside its
-   time before phases 27-32 were added,
-   then the device line last.
+   served path launches it; the mesh runs of phases 34-39 by run, and the
+   kernels' cases at the positions' shapes), then the script's seconds
+   beside its time before phases 33-40 were added, then the device line
+   last.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -1148,7 +1184,8 @@ def serve(params, model, device: torch.device, n_groups: int = 3) -> tuple[dict,
     assert all(0 <= t < V for r in direct if r is not None for t in r.generated)
     if device.type == "cuda":
         assert all(n > 0 for n in launches.values()), f"a kernel never ran: {launches}"
-    assert all(on_device(p, device) for _, p in server.stages), "a parameter is off the card"
+    assert all(on_device(p, device) for p in server._placed.values()), \
+        "a parameter is off the card"
     assert all(on_device(c, device) for c in server._caches.values()), \
         "a cache tensor is off the card"
     return launches, {"served_calls_by_lanes_and_length": {
@@ -1239,7 +1276,8 @@ def serve_paged(params, model, device: torch.device, kv_dtype,
     assert all(t.device.type == "cuda" and t.dtype == torch.int32 for t in tables), \
         "a block table is off the card"
     if kv_dtype == "int8":
-        assert all(c["k"].dtype == torch.int8 and "v_scale" in c for c in server._caches.values())
+        assert all(c["k"].dtype == torch.int8 and "v_scale" in c
+                   for pools in server._caches.values() for c in pools)
     for mgr in server.managers.values():
         mgr.check_conservation()
     return launches, {"served_calls_by_lanes_and_pages": {
@@ -1482,8 +1520,10 @@ def serve_ssm(params, model, device: torch.device) -> tuple[dict, dict]:
     assert all(0 <= t < V for r in direct if r is not None for t in r.generated)
     if device.type == "cuda":
         assert launches["selective_scan"] > 0, f"the selective scan never ran: {launches}"
-    assert all(on_device(p, device) for _, p in server.stages), "a parameter is off the card"
-    states = [c["c0"][name] for c in server._caches.values() for name in ("conv", "ssm")]
+    assert all(on_device(p, device) for p in server._placed.values()), \
+        "a parameter is off the card"
+    states = [c["c0"][name] for cache in server._caches.values() for c in cache
+              for name in ("conv", "ssm")]
     assert all(t.device.type == device.type for t in states), "a conv / SSM state is off the card"
     assert all(bool(torch.isfinite(t.float()).all()) for t in states), "a state is not finite"
     # One more prefill of a direct prompt on the whole model, outside the
@@ -1943,7 +1983,8 @@ def serve_dense_chunked(params, model, device: torch.device) -> tuple[dict, dict
     assert all(0 <= t < V for r in direct if r is not None for t in r.generated)
     assert routes.get("dense_chunk", 0) > 0 and launches["decode_attention"] > 0, \
         f"a kernel of the dense chunked path never ran: {launches} {routes}"
-    assert all(on_device(p, device) for _, p in server.stages), "a parameter is off the card"
+    assert all(on_device(p, device) for p in server._placed.values()), \
+        "a parameter is off the card"
     assert all(on_device(c, device) for c in server._caches.values()), \
         "a cache tensor is off the card"
     return launches, {"routes": routes, "chunk_launches_by_lanes_and_offset": {
@@ -1990,8 +2031,9 @@ def serve_spec(params, model, draft, draft_params, device: torch.device) -> tupl
     assert routes.get("verify", 0) > 0 and routes.get("dense_chunk", 0) > 0 \
         and launches["decode_attention"] > 0, \
         f"a kernel of the speculative path never ran: {launches} {routes}"
-    assert all(on_device(p, device) for _, p in server.stages), "a parameter is off the card"
-    assert on_device(server._spec.params, device), "a draft parameter is off the card"
+    assert all(on_device(p, device) for p in server._placed.values()), \
+        "a parameter is off the card"
+    assert on_device(server._spec.params_for(0), device), "a draft parameter is off the card"
     assert all(on_device(c, device) for c in [*server._caches.values(),
                                               *server._spec.caches.values()]), \
         "a pool or draft cache is off the card"
@@ -2159,10 +2201,11 @@ def serve_hybrid(params, model, device: torch.device) -> tuple[dict, dict]:
     assert launches["rmsnorm"] == 0, f"a served path launched rmsnorm: {launches}"
     assert any(k[1] == HYMBA_WINDOW and HYMBA_WINDOW in lens for _, k, lens, _ in served), \
         "no decode read a full ring"
-    assert all(on_device(p, device) for _, p in server.stages), "a parameter is off the card"
+    assert all(on_device(p, device) for p in server._placed.values()), \
+        "a parameter is off the card"
     assert all(on_device(c, device) for c in server._caches.values()), \
         "a cache tensor is off the card"
-    for (g, _), cache in server._caches.items():
+    for (g, _), (cache,) in server._caches.items():
         for i, cls in enumerate(layer_plan(server.stages[g][0].cfg).classes):
             rows = cache[f"c{i}"]["k"].shape[2]
             assert rows == (HYMBA_MAX_LEN if cls.window is None else HYMBA_WINDOW), (g, i, rows)
@@ -4286,6 +4329,573 @@ def family_phases(cuda: torch.device) -> tuple[dict, dict, dict]:
     return launches, routes, entry
 
 
+# ---- mesh serving: phases 33-40 ----------------------------------------------
+
+MESH_LAYER_TOL = TOL[torch.bfloat16]  # a bf16 layer on a mesh vs the unsplit one, of its scale
+MESH_CUT_LAYERS = 3  # the fp32 cut whose every first token must match the single-device port's
+# Phase 33's cases: the attention kernels at each position's heads, (label,
+# H, KV, D): stablelm-1.6b at model 2 (32 / 32 -> 16 / 16), qwen2.5-14b at
+# model 2 (40 / 8 -> 20 / 4, G=5), granite-20b at model 4 (48 / 1 -> 12 / 1,
+# KV replicated, G=12), and an uneven GQA split (H=12, KV=3 at model 4 of
+# head_dim 128): positions 0 and 3 read one KV head (G=3), positions 1 and 2
+# three, one per query head (G=1).
+MESH_HEADS = (("stablelm-1.6b model 2", 16, 16, 64), ("qwen2.5-14b model 2", 20, 4, 128),
+              ("granite-20b model 4", 12, 1, 128), ("uneven GQA, position 0", 3, 1, 128),
+              ("uneven GQA, position 1", 3, 3, 128))
+# The scan at each position's channels: falcon-mamba-7b (Din 8192 / 2) and
+# hymba-1.5b (3200 / 2), at phase 7's and phase 13's served shapes.
+MESH_SCANS = ((4, 128, 4096, 16), (1, 120, 4096, 16), (1, 1300, 1600, 16), (4, 8, 1600, 16))
+MESH_FLEET = dict(n_groups=3, n_replicas=3, async_depth=2, seed=0)
+# Depth cuts of the mesh phases (full width): the script's time limit.
+MESH_QWEN_LAYERS, MESH_HYMBA_LAYERS, MESH_MAMBA_LAYERS = 12, 16, 16
+MESH_MP_SPEC = {"arch": "stablelm-1.6b", "smoke": False, "seed": 0}  # phase 21's model
+
+
+def mesh_over(device: torch.device, data: int, model: int):
+    """A (data, model) serving mesh whose every position is ``device`` (a
+    card by its index)."""
+    from repro_torch.launch.mesh import make_serving_mesh
+
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_serving_mesh(model_axis=model, data_axis=data, devices=[device] * (data * model))
+    print(f"  mesh (data={data}, model={model}): positions "
+          f"{[[str(d) for d in row] for row in mesh.devices]}")
+    return mesh
+
+
+def mesh_kernels_phase() -> dict[str, list[dict]]:
+    """Phase 33: every kernel of the mesh path at the positions' shapes,
+    held against its plain version with phase 3's tolerances."""
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    out = {name: [] for name in ("flash_attention", "decode_attention", "paged_decode_attention",
+                                 "paged_prefill_attention", "selective_scan")}
+    for label, H, KV, D in MESH_HEADS:
+        out["flash_attention"].append(flash_case(2, 120, H, KV, D, torch.bfloat16, gen,
+                                                 label=label))
+        out["decode_attention"].append(decode_case(4, 128, H, KV, D, [9, 40, 77, 128],
+                                                   torch.bfloat16, gen, label=label))
+        for int8 in (False, True):
+            c = paged_decode_case(8, 16, H, KV, D, SERVE_LENGTHS, torch.bfloat16, int8, gen)
+            out["paged_decode_attention"].append({**c, "shape": f"{c['shape']} ({label})"})
+            c = paged_prefill_case(8, 32, 16, H, KV, D, PREFILL_OFFSETS, torch.bfloat16, int8, gen)
+            out["paged_prefill_attention"].append({**c, "shape": f"{c['shape']} ({label})"})
+    # qwen2.5-14b's speculative verify at model 2: C = k + 1 = 5.
+    c = paged_prefill_case(8, 5, 16, 20, 4, 128, [0, 16, 40, 77, 100, 150, 200, 231],
+                           torch.bfloat16, False, gen)
+    out["paged_prefill_attention"].append({**c, "shape": f"{c['shape']} (qwen2.5-14b verify, "
+                                                          "model 2)"})
+    for B, S, Din, N in MESH_SCANS:
+        out["selective_scan"].append(scan_case(B, S, Din, N, False, gen))
+    for name, cases in out.items():
+        for c in cases:
+            print(f"  {name} {c['dtype']} {c['shape']}: err {c['max_abs_err']:.3g} kernel "
+                  f"{c['ms']:.4f} ms plain {c['plain_ms']:.4f} ms library {c['library_ms']} "
+                  f"bound {c['bound_ms']:.4f} ms ({c['bound_by']})")
+    bad = [(n, c["shape"]) for n, cs in out.items() for c in cs
+           if not c.get("max_rel_err", c["max_abs_err"]) <= c["tol"]]
+    if bad:
+        raise AssertionError(f"kernels disagree with their plain versions at the positions' "
+                             f"shapes: {bad}")
+    print(f"  card: {card_name()}")
+    return out
+
+
+def _gathered(cache: list, tp, device) -> dict:
+    """One layer's unsplit cache views from a slice's per-position views:
+    each K/V head from a position that holds it and the SSM channels in
+    position order, or position 0's where the block is replicated;
+    copies, so the unsplit layer writes none of the slice's."""
+    out = {k: v.clone() for k, v in cache[0].items()}
+    if "k" in out and tp.plan.attn:
+        where = {}
+        for m, heads in enumerate(tp.kv_heads):
+            for i, h in enumerate(heads):
+                where.setdefault(h, (m, i))
+        for name in ("k", "v"):
+            out[name] = torch.stack([cache[m][name][..., i, :].to(device)
+                                     for m, i in (where[h] for h in sorted(where))], dim=-2)
+    for name, dim in (("conv", -1), ("ssm", -2)):
+        if name in out and tp.plan.ssm:
+            out[name] = torch.cat([c[name].to(device) for c in cache], dim=dim)
+    return out
+
+
+@contextlib.contextmanager
+def routing_recorded():
+    """Every MoE routing in the block: (experts chosen, kept) per token,
+    [tokens, k] each, in call order."""
+    from repro_torch.models import moe
+
+    route, calls = moe._route, []
+
+    def recorded(x, p, cfg, per_lane):
+        out = route(x, p, cfg, per_lane)
+        calls.append((out[3].reshape(-1, cfg.moe_top_k), out[6].reshape(-1, cfg.moe_top_k)))
+        return out
+
+    moe._route = recorded
+    try:
+        yield calls
+    finally:
+        moe._route = route
+
+
+@contextlib.contextmanager
+def mesh_layer_parity(params):
+    """Hold every split layer call in the block (``transformer._layer``
+    with several positions) against the unsplit layer on the same input
+    and cache state: the full model's layer from ``params`` (found by its
+    ``ln1`` row, which the placement shares), run after the split call
+    with the kernel counters and the MoE counters restored, so the check
+    adds no launch. An MoE layer's kept and dropped assignments must equal
+    its unsplit call's on the same input (the layer's ``ln2`` norm of its
+    input). Yields a report: calls, the worst error of each kind relative
+    to the output's scale."""
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import rmsnorm as rmsnorm_plain
+    from repro_torch.models.moe import moe_ffn, uncounted
+    from repro_torch.models.parallel import one_position
+
+    rows = {}
+    for c, stack in params["classes"].items():
+        for l in range(stack["ln1"].shape[0]):
+            rows[stack["ln1"][l].data_ptr()] = (c, l)
+    layer = transformer._layer
+    report = {"prefill_calls": 0, "decode_calls": 0, "prefill_worst": 0.0, "decode_worst": 0.0,
+              "moe_calls_equal": 0, "moe_worst": 0.0, "moe_tokens_moved": 0}
+
+    def checked(x, p_layer, cfg, **kw):
+        tp = kw["tp"]
+        if tp.count == 1:
+            return layer(x, p_layer, cfg, **kw)
+        c, l = rows[p_layer[0]["ln1"].data_ptr()]
+        full = transformer._layer_params(params["classes"][c], l)
+        one = one_position(full, x.device).positions  # the unsplit layer
+        cache = kw.get("cache")
+        views = None if cache is None else [_gathered(cache, tp, x.device)]
+        with routing_recorded() as split_routes:
+            out = layer(x, p_layer, cfg, **kw)
+        counts = read_counters()
+        with uncounted():
+            with routing_recorded() as routes:
+                want = layer(x, [full], cfg, **{**kw, "tp": one, "cache": views})[0]
+            # A token whose MoE routing moved (the split sum before the
+            # router moved a near tie) is left out of the layer's error and
+            # counted; the feed-forward is then held on one input below.
+            moved = torch.zeros(x.shape[:2], dtype=torch.bool, device=x.device)
+            for (e0, k0), (e1, k1) in zip(split_routes, routes):
+                moved |= ((e0 != e1) | (k0 != k1)).any(-1).reshape(x.shape[:2])
+            report["moe_tokens_moved"] += int(moved.sum())
+            if cfg.is_moe:
+                # The feed-forward alone on one input: the split call routes
+                # on it as the unsplit call does (the sum before it may
+                # move a near tie), so the kept and dropped assignments match.
+                h = rmsnorm_plain(x, full["ln2"], cfg.rms_eps)
+                moe = []
+                for p, t in (([full], one), (p_layer, tp)):
+                    r0, d0 = moe_ffn.routed, moe_ffn.dropped
+                    y = transformer._ffn(h, p, cfg, per_lane=kw.get("per_lane", True), tp=t)[0]
+                    moe.append((moe_ffn.routed - r0, int(moe_ffn.dropped - d0), y))
+                assert moe[0][:2] == moe[1][:2], (cfg.name, moe[0][:2], moe[1][:2])
+                report["moe_worst"] = max(report["moe_worst"], _rel_err(moe[1][2], moe[0][2]))
+                report["moe_calls_equal"] += 1
+        for name, fn in kernel_wrappers().items():
+            fn.launches = counts[name]
+        kept = ~moved[..., None]
+        err = _rel_err(torch.where(kept, out[0], 0.0), torch.where(kept, want, 0.0))
+        kind = "prefill" if cache is None else "decode"
+        report[f"{kind}_calls"] += 1
+        report[f"{kind}_worst"] = max(report[f"{kind}_worst"], err)
+        assert err <= MESH_LAYER_TOL, f"{cfg.name} layer {c}[{l}] {kind}: {err:.3g} of scale"
+        return out
+
+    transformer._layer = checked
+    try:
+        yield report
+    finally:
+        transformer._layer = layer
+
+
+def mesh_stage_parity(server, params, prompt_len: int = 96, n_decode: int = 2) -> dict:
+    """Phase 34-38's layer check: the first stage calls of a prompt on the
+    server's first slice — a whole-prompt prefill through every stage's
+    placed weights, then ``n_decode`` decode steps — each split layer held
+    to the unsplit layer (:func:`mesh_layer_parity`)."""
+    cfg = server.cfg
+    rng = np.random.default_rng(7)
+    device = server._device_of(0)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, prompt_len))).to(device)
+    max_len = prompt_len + n_decode + 1
+    with torch.no_grad(), mesh_layer_parity(params) as report:
+        caches, x = [], ids
+        for g, (model_g, _) in enumerate(server.stages):
+            out, cache = model_g.prefill(server._placed[(g, 0)],
+                                         {"tokens" if g == 0 else "hidden": x}, max_len)
+            caches.append(cache)
+            x = out
+        for _ in range(n_decode):
+            x = x[:, -1].argmax(dim=-1, keepdim=True)
+            for g, (model_g, _) in enumerate(server.stages):
+                x, caches[g] = model_g.decode_step(server._placed[(g, 0)], x, caches[g])
+        torch.cuda.synchronize()
+    print(f"  layer check, {len(server.stages)} stages on slice 0: {report['prefill_calls']} "
+          f"prefill and {report['decode_calls']} decode layer calls, worst "
+          f"{report['prefill_worst']:.3g} / {report['decode_worst']:.3g} of scale (limit "
+          f"{MESH_LAYER_TOL}); MoE calls with the unsplit kept and dropped assignments: "
+          f"{report['moe_calls_equal']} (outputs within {report['moe_worst']:.3g} of scale); "
+          f"tokens whose routing moved, left out of the layer error: "
+          f"{report['moe_tokens_moved']}")
+    assert report["moe_worst"] <= MESH_LAYER_TOL, report
+    assert report["prefill_calls"] > 0 and report["decode_calls"] > 0, report
+    return report
+
+
+def position_memory(server) -> dict:
+    """Bytes per (slice, position): its weight shards over every stage
+    (replicated leaves at position 0, where they live) and its replicas'
+    caches or pools."""
+    out = collections.defaultdict(lambda: {"weights_gb": 0.0, "cache_gb": 0.0})
+    gb = lambda tree: sum(t.numel() * t.element_size() for t in _leaves(tree)) / 1e9  # noqa: E731
+    for (g, d), placed in server._placed.items():
+        for m, shard in enumerate(placed.shards):
+            out[f"{d},{m}"]["weights_gb"] += gb(shard)
+    for (g, r), cache in server._caches.items():
+        for m, tree in enumerate(cache):
+            out[f"{server._slice_of[r]},{m}"]["cache_gb"] += gb(tree)
+    return dict(out)
+
+
+def serve_on_mesh(label: str, model, params, mesh, *, prompts, n_slots: int, kernels,
+                  draft=None, **kw) -> tuple[object, dict, dict]:
+    """One full-width mesh run: the server placed, counters zeroed, the
+    direct prompts and ``run(n_slots)`` served, counters read. Fails if a
+    kernel of ``kernels`` never launched, a token is out of the
+    vocabulary, or a cache left the card. Returns the server, the
+    launches and a report."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import attention
+    from repro_torch.serving import PipelineServer
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    server = PipelineServer(model, params, mesh=mesh, spec_draft=draft, **MESH_FLEET, **kw)
+    torch.cuda.synchronize()
+    place_s = time.perf_counter() - t0
+    rng = np.random.default_rng(1)
+    V = model.cfg.vocab_size
+    flash_key = lambda q, k, v, causal=True, window=None: "windowed" if window else "full"  # noqa: E731
+    zero_counters()
+    t0 = time.perf_counter()
+    with torch.no_grad(), routes_recorded() as routes, \
+            calls_recorded(attention, "flash_attention", flash_key) as flash_calls:
+        direct = [server.submit(rng.integers(0, V, size=L), n_tokens=8) for L in prompts]
+        stats = server.run(n_slots, arrival_p=0.5)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    assert flash_attention.launches == launches["flash_attention"]
+    memory = position_memory(server)
+    calls = {"prefill_calls": stats.prefill_calls, "chunk_prefill_calls":
+             stats.chunk_prefill_calls, "decode_calls": stats.decode_calls,
+             "verify_calls": stats.verify_calls, "draft_calls": stats.draft_calls}
+    by_route = {"paged_prefill_attention": dict(routes),
+                "flash_attention": dict(collections.Counter(flash_calls))}
+    report = {"label": label, "tokens": stats.tokens_generated, "wall_s": wall,
+              "tokens_per_s": stats.tokens_generated / wall, "place_s": place_s,
+              "completed": stats.completed_jobs, "slots": stats.slots, **calls,
+              "spec_accepted": stats.spec_accepted, "spec_proposed": stats.spec_proposed,
+              "peak_gb": peak_gb(), "positions": memory, "launches": launches,
+              "launches_by_route": by_route}
+    print(f"  {label}: tokens={stats.tokens_generated} completed={stats.completed_jobs} "
+          f"wall_s={wall:.3f} tokens_per_s={report['tokens_per_s']:.2f} (placing the weights "
+          f"{place_s:.2f} s) peak_gb={report['peak_gb']:.2f}; stage calls {calls}")
+    print(f"  launches {launches}; by route {by_route}")
+    print("  per (slice, position): " + "; ".join(
+        f"{k} weights {v['weights_gb']:.2f} GB cache {v['cache_gb']:.3f} GB"
+        for k, v in sorted(memory.items())))
+    assert stats.tokens_generated > 0 and stats.completed_jobs >= 1, f"{label}: nothing served"
+    assert all(0 <= t < V for r in direct if r is not None for t in r.generated)
+    if server.device.type == "cuda":
+        assert all(launches[k] > 0 for k in kernels), f"{label}: a kernel never ran: {launches}"
+    assert launches["rmsnorm"] == 0, f"{label}: a served path launched rmsnorm"
+    assert all(t.device.type == server.device.type for c in server._caches.values()
+               for t in _leaves(c)), f"{label}: a cache left the card"
+    return server, launches, report
+
+
+def mesh_first_tokens(name: str, mesh_shape, cuda, *, prompts, n_slots: int, **kw) -> dict:
+    """A 3-layer full-width fp32 cut of ``name`` served by the single-device
+    port and by the mesh server on one schedule: every request's first
+    token must be equal (whole streams are counted, not held: PERF.md
+    section 7 question 5), and for MoE the routed and dropped assignments."""
+    from repro_torch.models import build_model, init_from_template
+    from repro_torch.models.moe import moe_ffn
+    from repro_torch.serving import PipelineServer
+
+    cfg = family_cfg(name, MESH_CUT_LAYERS)
+    cfg = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    model = build_model(cfg)
+    params = init_from_template(model.template, torch.Generator(device=cuda).manual_seed(0),
+                                "float32", device=cuda)
+    runs = []
+    for mesh in (None, mesh_over(cuda, *mesh_shape)):
+        server = PipelineServer(model, params, mesh=mesh, device=None if mesh else cuda,
+                                **MESH_FLEET, **kw)
+        reqs = []
+        submit = server.submit
+        server.submit = lambda *a, **k: reqs.append(submit(*a, **k)) or reqs[-1]
+        rng = np.random.default_rng(1)
+        moe_ffn.routed, moe_ffn.dropped = 0, 0
+        saved = read_counters()
+        with torch.no_grad():
+            for L in prompts:
+                server.submit(rng.integers(0, cfg.vocab_size, size=L), n_tokens=4)
+            server.run(n_slots, arrival_p=0.5)
+        for fn_name, fn in kernel_wrappers().items():
+            fn.launches = saved[fn_name]  # a check: its launches do not count
+        runs.append(([list(r.generated) if r is not None else None for r in reqs],
+                     (moe_ffn.routed, int(moe_ffn.dropped))))
+        del server
+    (want, want_moe), (got, got_moe) = runs
+    firsts = [(a[0] if a else None, b[0] if b else None) for a, b in zip(want, got)
+              if a is not None and b is not None]
+    assert len(want) == len(got) and firsts and all(a == b for a, b in firsts), \
+        f"{name}: first tokens differ on the fp32 cut: {firsts}"
+    equal_streams = sum(a == b for a, b in zip(want, got))
+    if cfg.is_moe:
+        assert want_moe == got_moe, (want_moe, got_moe)
+    print(f"  fp32 {MESH_CUT_LAYERS}-layer cut: {len(firsts)} first tokens equal to the "
+          f"single-device port's; whole streams equal {equal_streams} of {len(want)}"
+          + (f"; MoE routed / dropped {got_moe} both" if cfg.is_moe else ""))
+    del params
+    free_memory()
+    return {"first_tokens_equal": len(firsts), "streams_equal": equal_streams,
+            "requests": len(want), **({"moe_routed_dropped": got_moe} if cfg.is_moe else {})}
+
+
+def mesh_model(name: str, layers: int | None, cuda):
+    """``name`` at full width, cut to ``layers`` layers (None: all), bf16,
+    seed 0."""
+    from repro_torch.models import build_model, count_params, init_from_template
+
+    cfg = family_cfg(name, layers)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = init_from_template(model.template, torch.Generator(device=cuda).manual_seed(0),
+                                cfg.param_dtype, device=cuda)
+    torch.cuda.synchronize()
+    print(f"  {name}: {cfg.n_layers} of {family_cfg(name, None).n_layers} layers at full width "
+          f"(d_model {cfg.d_model}), {count_params(model.template) / 1e9:.3f} B params, drawn in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return model, params
+
+
+def mesh_serve_phase(phase: str, name: str, layers, shape, cuda, runs: dict, *, kernels,
+                     prompts, n_slots: int, cut_kw=None, draft: str | None = None,
+                     variants=(("dense", {}),)) -> dict:
+    """One model's mesh phase: the full-width runs of ``variants`` (their
+    launches into ``runs``), the layer check on the first stage calls,
+    and the fp32 cut's first tokens against the single-device port."""
+    model, params = mesh_model(name, layers, cuda)
+    mesh = mesh_over(cuda, *shape)
+    draft_pair = None
+    if draft is not None:
+        draft_pair = load_model(draft, 1, cuda)
+    report = {"layers": model.cfg.n_layers, "mesh": {"data": shape[0], "model": shape[1]}}
+    server = None
+    for variant, kw in variants:
+        server = None
+        free_memory()
+        server, launches, rep = serve_on_mesh(
+            f"{name} {variant} on (data={shape[0]}, model={shape[1]})", model, params, mesh,
+            prompts=prompts, n_slots=n_slots, kernels=kernels[variant],
+            draft=draft_pair if "spec_k" in kw else None, **kw)
+        runs[f"mesh {name} {variant}"] = launches
+        report[variant] = rep
+    report["plan"] = dataclasses.asdict(server._placed[(0, 0)].positions.plan)
+    report["layer_check"] = mesh_stage_parity(server, params)
+    del server, params, draft_pair
+    free_memory()
+    report["fp32_cut"] = mesh_first_tokens(name, shape, cuda, prompts=prompts[:2],
+                                           n_slots=min(n_slots, 12), **(cut_kw or {}))
+    return report
+
+
+def mesh_multiprocess_phase(cuda: torch.device) -> tuple[dict, dict]:
+    """Phase 39: phase 21's fleet with ``mesh_model=2``: stablelm-1.6b at
+    full width, G=2 x R=2, four workers with two positions each on the
+    card, beside the in-process mesh server on a (1, 2) mesh over the same
+    card, through a SIGKILL of stage 0's replica 0 and a respawn; streams
+    and counters must be equal. Returns the workers' launches and a
+    report."""
+    from repro_torch.core.network import DeviceSpec
+    from repro_torch.ft import ElasticController
+    from repro_torch.serving import MPPipelineServer, PipelineServer
+
+    model, params = load_model("stablelm-1.6b", 0, cuda)
+    V = model.cfg.vocab_size
+    ref = PipelineServer(model, params, mesh=mesh_over(cuda, 1, 2), **MP_FLEET)
+    specs = [[DeviceSpec(6, 10, ref.pm_policy) for _ in range(ref.R)] for _ in range(ref.G)]
+    ref.elastic = ElasticController(ref.router, specs, device=cuda)
+    saved = read_counters()
+    with torch.no_grad():
+        want = mp_waves(ref, V,
+                        lambda: (ref.fail_replica(0, 0), ref._abort_ring(0, 0)),
+                        lambda: (ref.scheduler.evict_stage_residents(0, 0),
+                                 ref.recover_replica(0, 0)))
+    for name, fn in kernel_wrappers().items():
+        fn.launches = saved[name]  # the reference's launches do not count
+    ref_stats = {k: getattr(ref.stats, k) for k in STAT_COUNTERS}
+    del ref, params, model
+    free_memory()
+
+    t0 = time.perf_counter()
+    mp = MPPipelineServer(MESH_MP_SPEC, device=cuda, mesh_model=2, **MP_FLEET)
+    procs = [w.proc for w in mp._workers.values()]
+    seen = {}
+    try:
+        spawn_s = time.perf_counter() - t0
+        boot = mp.ping()
+
+        def fault():
+            w = mp._workers[(0, 0)]
+            w.proc.kill()
+            w.proc.wait()
+
+        def recover():
+            t = time.perf_counter()
+            mp.recover_replica(0, 0)
+            seen["respawn_s"] = time.perf_counter() - t
+            procs.append(mp._workers[(0, 0)].proc)
+
+        def after_wave(wave):
+            if wave == 0:
+                seen["killed"] = mp.ping()[(0, 0)]["launches"]
+
+        with torch.no_grad():
+            got = mp_waves(mp, V, fault, recover, after_wave)
+        final = mp.ping()
+        mp_stats = {k: getattr(mp.stats, k) for k in STAT_COUNTERS}
+    finally:
+        mp.close()
+    assert all(p.poll() is not None for p in procs), "a worker outlived the server"
+    for i, (a, b) in enumerate(zip(want, got)):
+        assert a["streams"] == b["streams"], f"wave {i + 1}: the streams differ"
+    assert mp_stats == ref_stats, (mp_stats, ref_stats)
+    assert all(p["mesh_model"] == 2 for p in {**boot, **final}.values())
+    if cuda.type == "cuda":
+        assert all(p["launches"][k] > 0 for p in final.values() for k in MP_KERNELS)
+    launches = {k: sum(p["launches"][k] for p in final.values()) + seen["killed"][k]
+                for k in KERNELS}
+    gb = 1e9
+    workers = {f"{g},{r}": {k: (p[f"{k[:-3]}_bytes"] or 0) / gb
+                            for k in ("build_peak_gb", "peak_gb", "reserved_gb")}
+               | {"launches": p["launches"]} for (g, r), p in final.items()}
+    tps = lambda waves: sum(w["tokens"] for w in waves) / sum(w["wall_s"] for w in waves)  # noqa: E731
+    report = {"spawn_s": spawn_s, "respawn_s": seen["respawn_s"], "workers": workers,
+              "in_process_tokens_per_s": tps(want), "multiprocess_tokens_per_s": tps(got),
+              "stats": mp_stats, "launches": launches}
+    print(f"  spawn {spawn_s:.2f} s (4 workers x 2 positions), respawn "
+          f"{seen['respawn_s']:.2f} s; tokens/s in process (1, 2) mesh {tps(want):.2f}, "
+          f"multi-process {tps(got):.2f}; streams and stats equal {mp_stats}")
+    for key, w in workers.items():
+        print(f"  worker {key}: build peak {w['build_peak_gb']:.2f} GB, serve peak "
+              f"{w['peak_gb']:.2f} GB, reserved {w['reserved_gb']:.2f} GB; launches "
+              f"{w['launches']}")
+    return launches, report
+
+
+def pipeline_phase(cuda: torch.device) -> dict:
+    """Phase 40: ``pipeline_apply``, four stages x eight microbatches on
+    four positions of the card, against the stages applied in sequence to
+    each microbatch (the same products: equal bit for bit) and to the
+    whole batch (within fp32 rounding)."""
+    from repro_torch.distributed import Mesh, pipeline_apply
+
+    gen = torch.Generator(device=cuda).manual_seed(40)
+    w = torch.randn(4, 1024, 1024, generator=gen, device=cuda) * 0.03
+    x = torch.randn(64, 1024, generator=gen, device=cuda)
+    mesh = Mesh(np.array([cuda] * 4, dtype=object), ("stage",))
+    stage = lambda p, h: torch.tanh(h @ p)  # noqa: E731
+    t0 = time.perf_counter()
+    got = pipeline_apply(mesh, stage, w, x, n_micro=8)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    per_micro, whole = list(x.split(8)), x
+    for s in range(4):
+        per_micro = [stage(w[s], h) for h in per_micro]
+        whole = stage(w[s], whole)
+    exact = (got - torch.cat(per_micro)).abs().max().item()
+    err = (got - whole).abs().max().item()
+    print(f"  4 stages x 8 microbatches of 8 x 1024: max |pipeline - sequential| {exact:.3g} "
+          f"per microbatch (0 expected), {err:.3g} against the whole batch; {wall * 1e3:.2f} ms")
+    assert exact == 0.0 and err <= TOL[torch.float32], (exact, err)
+    return {"max_abs_err_per_microbatch": exact, "max_abs_err": err, "wall_ms": wall * 1e3}
+
+
+def mesh_phases(cuda: torch.device) -> tuple[dict, dict, dict]:
+    """Phases 33-40. Returns the kernels' cases at the positions' shapes,
+    the mesh runs' launches by run, and the report."""
+    print("[33] kernels at the mesh positions' shapes vs plain versions", flush=True)
+    cases = mesh_kernels_phase()
+    runs: dict = {}
+    report: dict = {"card": card_name()}
+    attn = ("flash_attention", "decode_attention")
+    paged = ("paged_decode_attention", "paged_prefill_attention")
+    print("[34] serve full-width stablelm-1.6b on a (data=2, model=2) mesh, G=3 x R=3: dense, "
+          "then paged with int8 pages and chunked prefill (phase 4's and 5's schedules)",
+          flush=True)
+    report["stablelm-1.6b"] = mesh_serve_phase(
+        "34", "stablelm-1.6b", None, (2, 2), cuda, runs, prompts=(64, 88, 104, 120), n_slots=60,
+        kernels={"dense": attn, "paged int8 chunked": paged},
+        variants=(("dense", dict(max_batch=4, max_len=128)),
+                  ("paged int8 chunked", dict(paged=True, page_size=16, max_pages=32,
+                                              max_batch=8, max_len=256, prefill_chunk=32,
+                                              kv_dtype="int8"))),
+        cut_kw=dict(max_batch=4, max_len=128))
+    print(f"[35] serve qwen2.5-14b at full width ({MESH_QWEN_LAYERS} of 48 layers) on a "
+          "(1, 2) mesh, paged, speculative with its stablelm-1.6b draft", flush=True)
+    report["qwen2.5-14b"] = mesh_serve_phase(
+        "35", "qwen2.5-14b", MESH_QWEN_LAYERS, (1, 2), cuda, runs, prompts=(64, 112, 160, 200),
+        n_slots=30, draft="stablelm-1.6b",
+        # Every decode is a verify (paged prefill) and the draft's steps
+        # (dense decode): the paged-decode kernel has no call, as in phase 10.
+        kernels={"paged speculative": attn + ("paged_prefill_attention",)},
+        variants=(("paged speculative", dict(paged=True, page_size=16, max_batch=8,
+                                             max_len=256, spec_k=4)),),
+        cut_kw=dict(paged=True, page_size=16, max_batch=8, max_len=256))
+    print(f"[36] serve hymba-1.5b at full width ({MESH_HYMBA_LAYERS} of 32 layers) on a (1, 2) "
+          "mesh: rings, replicated attention, split SSM", flush=True)
+    report["hymba-1.5b"] = mesh_serve_phase(
+        "36", "hymba-1.5b", MESH_HYMBA_LAYERS, (1, 2), cuda, runs, prompts=(1100, 1300),
+        n_slots=30, kernels={"dense": attn + ("selective_scan",)},
+        variants=(("dense", dict(max_batch=4, max_len=HYMBA_MAX_LEN)),),
+        cut_kw=dict(max_batch=4, max_len=HYMBA_MAX_LEN))
+    print(f"[37] serve falcon-mamba-7b at full width ({MESH_MAMBA_LAYERS} of 64 layers) on a "
+          "(1, 2) mesh", flush=True)
+    report["falcon-mamba-7b"] = mesh_serve_phase(
+        "37", "falcon-mamba-7b", MESH_MAMBA_LAYERS, (1, 2), cuda, runs,
+        prompts=(64, 88, 104, 120), n_slots=30, kernels={"dense": ("selective_scan",)},
+        variants=(("dense", dict(max_batch=4, max_len=128)),),
+        cut_kw=dict(max_batch=4, max_len=128))
+    print("[38] serve granite-moe-1b-a400m at full width on a (1, 4) mesh: experts split, "
+          "routing global", flush=True)
+    report["granite-moe-1b-a400m"] = mesh_serve_phase(
+        "38", "granite-moe-1b-a400m", None, (1, 4), cuda, runs, prompts=(64, 88, 104, 120),
+        n_slots=30, kernels={"dense": attn},
+        variants=(("dense", dict(max_batch=4, max_len=128)),),
+        cut_kw=dict(max_batch=4, max_len=128))
+    print("[39] serve full-width stablelm-1.6b through four worker processes with mesh_model=2, "
+          "a SIGKILL failover and a respawn", flush=True)
+    runs["mesh multiprocess"], report["multiprocess"] = mesh_multiprocess_phase(cuda)
+    print("[40] pipeline_apply: four stages on the card against the sequential result",
+          flush=True)
+    report["pipeline"] = pipeline_phase(cuda)
+    free_memory()
+    return cases, runs, report
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4464,6 +5074,20 @@ def main() -> int:
     family_launches, family_routes, scan_bwd_entry = family_phases(cuda)
     launches["flash_attention"] += family_launches["flash_attention"]
     launches["selective_scan"] += family_launches["selective_scan"]
+    mesh_cases, mesh_runs, mesh_report = mesh_phases(cuda)
+    mesh_routes = {"flash_attention": collections.Counter(),
+                   "paged_prefill_attention": collections.Counter()}
+    for name, run in mesh_runs.items():
+        for kernel in KERNELS:
+            launches[kernel] += run[kernel]
+    for model_report in (v for v in mesh_report.values() if isinstance(v, dict)):
+        for rep in (v for v in model_report.values() if isinstance(v, dict) and "launches" in v
+                    and "launches_by_route" in v):
+            for kernel, counts in rep["launches_by_route"].items():
+                mesh_routes[kernel].update(counts)
+    for route in routes:
+        routes[route] += mesh_routes["paged_prefill_attention"][route]
+    assert launches["rmsnorm"] == 0, f"a served path launched rmsnorm: {launches}"
     bwd_entry["launches"] += family_launches["flash_attention_bwd"]
     bwd_routes = family_routes["flash_attention_bwd"].copy()
     bwd_routes["full"] += train_launches["flash_attention_bwd"]  # phases 23-24: full only
@@ -4509,7 +5133,7 @@ def main() -> int:
             entry["tf32_sass"] = tf32["flash_fwd_kernel"]
             entry["fp32_forward"] = bwd_entry["fp32_forward"]
             windowed = (hybrid["served"]["flash_launches_by_route"]["windowed"]
-                        + family_routes[name]["windowed"])
+                        + family_routes[name]["windowed"] + mesh_routes[name]["windowed"])
             bidir, cross = (encdec_routes[name][r] + family_routes[name][r]
                             for r in ("bidirectional", "cross"))
             entry["launches_by_route"] = {"full": launches[name] - windowed - bidir - cross,
@@ -4584,6 +5208,11 @@ def main() -> int:
                 **{run: {k: v for k, v in out.items() if k != "launches"}
                    for run, (_, out) in moe_runs.items()}}
             entry["moe_parity"] = moe_checks
+        entry["launches_by_run"].update({run: counts[name] for run, counts in mesh_runs.items()})
+        if name in mesh_cases:
+            entry["mesh_cases"] = mesh_cases[name]
+        if name == "flash_attention":
+            entry["served_mesh"] = mesh_report
         if name == "rmsnorm":
             entry["library_note"] = "torch.nn.functional.rms_norm"
             entry["launches_note"] = ("no served path launches it: the models call their plain "
@@ -4591,8 +5220,8 @@ def main() -> int:
         kernels.append(entry)
     kernels.append(bwd_entry)
     kernels.append(scan_bwd_entry)
-    print(f"[33] all phases passed in {time.perf_counter() - t_start:.1f} s, build included "
-          f"(before phases 27-32 were added: 438.8 s on this card model, PERF.md)")
+    print(f"[41] all phases passed in {time.perf_counter() - t_start:.1f} s, build included "
+          f"(before phases 33-40 were added: 600.7 s on this card model, PERF.md)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -4601,8 +5230,12 @@ def main() -> int:
 
 
 def _leaves(tree):
+    if hasattr(tree, "shards"):  # a stage's weights placed on a slice
+        return _leaves(tree.shards)
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, list):  # a mesh slice's caches, one tree per position
+        return [x for v in tree for x in _leaves(v)]
     return [tree]
 
 

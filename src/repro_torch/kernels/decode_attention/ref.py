@@ -58,7 +58,8 @@ def decode_attention_ref_model(q, k_cache, v_cache, lengths, *, window: int | No
     ).transpose(1, 2)
 
 
-def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_kv(x: torch.Tensor, amax: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-row int8 quantization of K/V cache entries.
 
     ``x[..., KV, D]`` -> (int8 values, fp32 scales ``[...]``): one amax
@@ -67,9 +68,13 @@ def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     operation order is the JAX package's — ``amax / 127``, then
     ``x / scale``, then round half to even and clip — so both give the
     same int8 values. All-zero rows get scale 1 so they dequantize to 0.
+    ``amax`` ``[...]`` gives each row's amax where ``x`` holds only some
+    of its heads (one mesh position's): the whole row's, so every
+    position's slice quantizes as the unsplit row does.
     """
     xf = x.float()
-    amax = xf.abs().amax(dim=(-2, -1))
+    if amax is None:
+        amax = xf.abs().amax(dim=(-2, -1))
     scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
     q = torch.clamp(torch.round(xf / scale[..., None, None]), -127, 127)
     return q.to(torch.int8), scale

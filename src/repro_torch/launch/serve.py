@@ -9,14 +9,23 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b --smoke
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b --smoke
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --multiprocess
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+        --mesh-model 2 --mesh-data 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+        --multiprocess --mesh-model 2
 
 Hosts G pipeline groups x R replicas of the (partitioned) model on one
 device (CUDA unless ``--device`` says otherwise), routes requests with
 the energy-aware scheduler, and prints throughput and downtime.
 ``--multiprocess`` runs every (group, replica) stage in its own worker
-process on that device (dense whole-prompt mode). Like the
-JAX CLI it serves in float32 with random weights drawn from seed 0 (a
-speculative draft's from seed 1).
+process on that device (dense whole-prompt mode). ``--mesh-model M
+--mesh-data D`` serves on a ``(D, M)`` mesh: replicas go to the D data
+slices round-robin, and each stage runs tensor-parallel over its slice's
+M positions (with ``--multiprocess``: over M positions inside each
+worker). ``--device cpu`` or an indexed card (``cuda:0``) puts every
+position on that device; a bare ``cuda`` takes the visible cards and
+needs ``M * D`` of them. Like the JAX CLI it serves in float32 with
+random weights drawn from seed 0 (a speculative draft's from seed 1).
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ import torch
 
 from ..configs import ARCH_NAMES, get_config, get_smoke_config
 from ..device import resolve_device
+from ..launch.mesh import make_serving_mesh
 from ..models import build_model, init_from_template
 from ..models.registry import default_draft_for
 from ..serving import MPPipelineServer, PipelineServer
@@ -82,10 +92,20 @@ def main(argv: list[str] | None = None) -> None:
                          "reads results back from the completion queue; "
                          "1 = commit-time readback without pipelining, "
                          "0 = synchronous engine (readback at dispatch)")
+    ap.add_argument("--mesh-model", type=int, default=None,
+                    help="tensor-parallel width: cut each stage's weights over "
+                         "a 'model' mesh axis (SERVE_RULES); every split block "
+                         "runs once per position and its partials are summed")
+    ap.add_argument("--mesh-data", type=int, default=1,
+                    help="replica slices of the serving mesh: replicas are "
+                         "assigned round-robin to mesh-data disjoint "
+                         "(1, mesh-model) slices")
     ap.add_argument("--multiprocess", action="store_true",
                     help="one OS process per (group, replica) stage cell "
                          "(dense whole-prompt mode): handoffs cross process "
-                         "boundaries, process death is a live membership leave")
+                         "boundaries, process death is a live membership "
+                         "leave. --mesh-model then gives each worker its own "
+                         "(1, mesh-model) mesh")
     ap.add_argument("--arrival-p", type=float, default=0.5)
     ap.add_argument("--harvest", type=float, nargs=2, default=(6.0, 10.0))
     ap.add_argument("--seed", type=int, default=0)
@@ -119,12 +139,19 @@ def main(argv: list[str] | None = None) -> None:
         seed=args.seed,
         device=device,
     )
+    positions = (args.mesh_model or 1) * (1 if args.multiprocess else args.mesh_data)
+    if args.mesh_model is not None or args.multiprocess:
+        substrate = (f"substrate: {'multiprocess' if args.multiprocess else 'mesh'} "
+                     f"model_axis={args.mesh_model or 1} data_axis={args.mesh_data} "
+                     f"devices={positions}")
     if args.multiprocess:
         spec = {"arch": args.arch, "smoke": args.smoke, "seed": 0,
                 "overrides": {"dtype": "float32", "param_dtype": "float32"}}
-        with MPPipelineServer(spec, **common) as server:
+        with MPPipelineServer(spec, mesh_model=args.mesh_model or 1, **common) as server:
             print(f"substrate: multiprocess workers={args.groups * args.replicas} "
                   f"device={device}")
+            if args.mesh_model is not None:
+                print(substrate)
             stats = server.run(args.slots, arrival_p=args.arrival_p)
     else:
         cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
@@ -132,9 +159,18 @@ def main(argv: list[str] | None = None) -> None:
         model = build_model(cfg)
         gen = torch.Generator(device=device).manual_seed(0)
         params = init_from_template(model.template, gen, cfg.param_dtype, device=device)
+        mesh = None
+        if args.mesh_model is not None:
+            # A named device (cpu, cuda:0) stands at every position.
+            repeat = device.type != "cuda" or device.index is not None
+            mesh = make_serving_mesh(model_axis=args.mesh_model, data_axis=args.mesh_data,
+                                     devices=[device] * positions if repeat else None)
+            common.pop("device")
+            print(substrate)
         server = PipelineServer(
             model,
             params,
+            mesh=mesh,
             paged=args.paged,
             page_size=args.page_size,
             max_pages=args.max_pages,

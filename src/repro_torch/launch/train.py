@@ -11,8 +11,11 @@ of :class:`~repro_torch.training.SyntheticLM`. Checkpoints land every
 mid-run and relaunch. Every step prints one line with its loss at full
 precision.
 
-``--mesh host`` is the only mesh: ``single`` and ``multi`` wait for the
-port's mesh (ROADMAP, Queue 1, "the mesh half") and exit with an error.
+``--mesh host`` is the only mesh: ``single`` and ``multi`` exit with an
+error. The port serves on a mesh (``launch/serve.py --mesh-model``), but
+training on one (``TRAIN_RULES`` / ``TRAIN_RULES_SEQ``: FSDP over
+``data``, tensor and sequence parallelism over ``model``) is the next
+item of ROADMAP Queue 1, "the training mesh".
 Every family of the registry trains on the card: the attention families
 (dense, MoE, internvl2's backbone, the encoder-decoders) through the
 flash-attention backward kernel, the Mamba and hybrid ones also through
@@ -97,8 +100,8 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     if args.mesh != "host":
-        ap.error(f"--mesh {args.mesh}: the port has no production mesh yet "
-                 "(ROADMAP, Queue 1, the mesh half); use --mesh host")
+        ap.error(f"--mesh {args.mesh}: the port serves on a mesh but does not train on "
+                 "one yet (ROADMAP, Queue 1, the training mesh); use --mesh host")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     train(cfg, steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr,
           ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every, device=args.device)

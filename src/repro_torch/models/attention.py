@@ -34,6 +34,7 @@ from .layers import apply_rope, rmsnorm
 
 __all__ = [
     "attn_template",
+    "project_qkv",
     "attention_block",
     "cross_attention_block",
     "project_kv",
@@ -69,7 +70,7 @@ def _proj(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return (x @ w.to(dtype).reshape(D, n * Dh)).view(*x.shape[:-1], n, Dh)
 
 
-def _project_qkv(x, p, cfg: ModelConfig, positions):
+def project_qkv(x, p, cfg: ModelConfig, positions):
     """x [B,S,D] -> q [B,S,H,Dh], k/v [B,S,KV,Dh] with RoPE applied."""
     dtype = cfg.compute_dtype
     q = _proj(x, p["wq"], dtype)
@@ -126,7 +127,7 @@ def attention_block(
     (k_cache, v_cache)).
     """
     dtype = cfg.compute_dtype
-    q, k, v = _project_qkv(x, p, cfg, positions)
+    q, k, v = project_qkv(x, p, cfg, positions)
     if cache is None:
         out = flash_attention(q, k, v, causal=causal, window=window)
         return _out_proj(out, p["wo"], dtype), (k, v)
@@ -179,7 +180,8 @@ def cross_attention_block(
     return _out_proj(out, p["wo"], dtype)
 
 
-def _scatter_kv_pages(pages: dict, k, v, write_pages, write_offs, write_src) -> None:
+def _scatter_kv_pages(pages: dict, k, v, write_pages, write_offs, write_src,
+                      kv_amax=None) -> None:
     """Write K/V rows into one layer's pool views at (write_pages,
     write_offs), in place (the JAX version returns updated copies).
 
@@ -191,13 +193,16 @@ def _scatter_kv_pages(pages: dict, k, v, write_pages, write_offs, write_src) -> 
     Masked lanes' coordinates point at the scratch page, where several
     writes of one call can meet: every write of a row takes the values of
     its last write, ``write_src`` (:func:`last_writes`), so the row ends
-    as XLA's in-order scatter leaves it, on any device.
+    as XLA's in-order scatter leaves it, on any device. ``kv_amax`` holds
+    each K and V row's amax over all its heads where k / v hold one mesh
+    position's (int8 pools only).
     """
     k = k.flatten(0, -3)[write_src]
     v = v.flatten(0, -3)[write_src]
     if "k_scale" in pages:
-        qk, ks = quantize_kv(k)
-        qv, vs = quantize_kv(v)
+        ka, va = (None, None) if kv_amax is None else (a.flatten()[write_src] for a in kv_amax)
+        qk, ks = quantize_kv(k, ka)
+        qv, vs = quantize_kv(v, va)
         pages["k"][write_pages, write_offs] = qk
         pages["v"][write_pages, write_offs] = qv
         pages["k_scale"][write_pages, write_offs] = ks
@@ -231,6 +236,8 @@ def paged_attention_block(
     write_pages: torch.Tensor,
     write_offs: torch.Tensor,
     write_src: torch.Tensor,
+    qkv: tuple | None = None,
+    kv_amax: tuple | None = None,
 ):
     """Single-token attention sub-block against a paged KV pool.
 
@@ -240,11 +247,14 @@ def paged_attention_block(
     block_tables [W, NB] int32; write_pages / write_offs / write_src [W],
     precomputed by :func:`repro_torch.models.transformer.decode_step_paged`. The new
     token's K/V are written in place, then every lane attends through
-    the paged-decode kernel. Returns out [W, 1, D].
+    the paged-decode kernel. ``qkv`` are the projections when the caller
+    made them (and ``kv_amax`` the rows' amax over every mesh position's
+    heads, for int8 pools). Returns out [W, 1, D].
     """
     dtype = cfg.compute_dtype
-    q, k, v = _project_qkv(x, p, cfg, positions)
-    _scatter_kv_pages(pages, k[:, 0], v[:, 0], write_pages, write_offs, write_src)
+    q, k, v = project_qkv(x, p, cfg, positions) if qkv is None else qkv
+    _scatter_kv_pages(pages, k[:, 0], v[:, 0], write_pages, write_offs, write_src,
+                      None if kv_amax is None else [a[:, 0] for a in kv_amax])
     attn_len = positions[:, 0] + 1  # valid entries incl. the new token
     out = paged_decode_attention(
         q, pages["k"], pages["v"], block_tables, attn_len,
@@ -264,6 +274,8 @@ def paged_chunk_attention_block(
     write_pages: torch.Tensor,
     write_offs: torch.Tensor,
     write_src: torch.Tensor,
+    qkv: tuple | None = None,
+    kv_amax: tuple | None = None,
 ):
     """Chunked-prefill sub-block against a paged KV pool.
 
@@ -272,12 +284,12 @@ def paged_chunk_attention_block(
     positions point at the scratch page, precomputed by
     :func:`repro_torch.models.transformer.prefill_chunk_paged`). The
     chunk's K/V are written in place, then the chunk attends causally
-    over the paged prefix through the paged-prefill kernel. Returns
-    out [W, C, D].
+    over the paged prefix through the paged-prefill kernel. ``qkv`` and
+    ``kv_amax`` as :func:`paged_attention_block`. Returns out [W, C, D].
     """
     dtype = cfg.compute_dtype
-    q, k, v = _project_qkv(x, p, cfg, positions)
-    _scatter_kv_pages(pages, k, v, write_pages, write_offs, write_src)
+    q, k, v = project_qkv(x, p, cfg, positions) if qkv is None else qkv
+    _scatter_kv_pages(pages, k, v, write_pages, write_offs, write_src, kv_amax)
     out = paged_prefill_attention(
         q, pages["k"], pages["v"], block_tables, positions[:, 0].contiguous(),
         k_scales=pages.get("k_scale"), v_scales=pages.get("v_scale"),
@@ -317,7 +329,7 @@ def chunk_attention_block(
     ``lanes`` are garbage the caller discards. Returns out [W, C, D].
     """
     dtype = cfg.compute_dtype
-    q, k, v = _project_qkv(x, p, cfg, positions)
+    q, k, v = project_qkv(x, p, cfg, positions)
     rows = lanes[:, None]
     for cache, new in ((k_cache, k), (v_cache, v)):
         cache[rows, write_pos] = new[rows, write_src].to(cache.dtype)  # [N, C, KV, Dh]

@@ -42,6 +42,7 @@ import torch.utils.checkpoint
 from .attention import attention_block, attn_template, cross_attention_block, project_kv
 from .common import ModelConfig, ParamSpec, tree_map
 from .layers import embed_template, mlp_template, rmsnorm
+from .parallel import one_position
 from .transformer import _embed, _ffn, _layer_params, _unembed
 
 __all__ = [
@@ -111,11 +112,16 @@ def encode(params, frames: torch.Tensor, cfg: ModelConfig, *, remat: bool = Fals
         h = rmsnorm(x, p_layer["ln1"], cfg.rms_eps)
         out, _ = attention_block(h, p_layer["attn"], enc_cfg, positions=positions, causal=False)
         x = x + out
-        return x + _ffn(rmsnorm(x, p_layer["ln2"], cfg.rms_eps), p_layer, cfg, per_lane=True)[0]
+        return x + _mlp(rmsnorm(x, p_layer["ln2"], cfg.rms_eps), p_layer, cfg)
 
     for l in range(cfg.encoder_layers):
         x = _remat(layer, x, l, remat=remat)
     return rmsnorm(x, params["enc_final_norm"], cfg.rms_eps)
+
+
+def _mlp(x, p_layer, cfg: ModelConfig) -> torch.Tensor:
+    """One layer's feed-forward; an encoder-decoder runs on one position."""
+    return _ffn(x, [p_layer], cfg, per_lane=True, tp=one_position(p_layer, x.device).positions)[0]
 
 
 def _decoder_layer(x, p_layer, cfg: ModelConfig, *, positions, ckv, self_cache=None,
@@ -130,7 +136,7 @@ def _decoder_layer(x, p_layer, cfg: ModelConfig, *, positions, ckv, self_cache=N
     x = x + out
     hc = rmsnorm(x, p_layer["ln_cross"], cfg.rms_eps)
     x = x + cross_attention_block(hc, ckv, p_layer["cross_attn"], cfg, lengths=cross_lengths)
-    x = x + _ffn(rmsnorm(x, p_layer["ln2"], cfg.rms_eps), p_layer, cfg, per_lane=True)[0]
+    x = x + _mlp(rmsnorm(x, p_layer["ln2"], cfg.rms_eps), p_layer, cfg)
     return x, kv
 
 
@@ -145,7 +151,7 @@ def forward(params, batch: dict, cfg: ModelConfig):
     backward, as JAX's ``jax.checkpoint`` around its scanned layers."""
     enc_out = encode(params, batch["frames"], cfg, remat=cfg.remat)
     tokens = batch["tokens"]
-    x = _embed(params, tokens, cfg)
+    x = _embed(one_position(params, tokens.device), tokens, cfg)
     positions = torch.arange(tokens.shape[1], device=x.device)
 
     def layer(x, enc_out, l):
@@ -156,7 +162,7 @@ def forward(params, batch: dict, cfg: ModelConfig):
     for l in range(cfg.n_layers):
         x = _remat(layer, x, enc_out, l, remat=cfg.remat)
     lb = torch.zeros((), dtype=torch.float32, device=x.device)
-    return _unembed(params, x, cfg), {"lb_loss": lb}
+    return _unembed(one_position(params, x.device), x, cfg), {"lb_loss": lb}
 
 
 def init_cache_shapes(cfg: ModelConfig, batch: int, max_len: int, enc_len: int) -> dict:
@@ -199,7 +205,7 @@ def prefill_into(params, batch: dict, cache: dict, lanes: torch.Tensor, cfg: Mod
         raise ValueError(f"{frames.shape[1]} frames for a cross cache of {enc_len} rows: "
                          "every lane's encoder output fills its cross cache")
     enc_out = encode(params, frames, cfg)
-    x = _embed(params, tokens, cfg)
+    x = _embed(one_position(params, tokens.device), tokens, cfg)
     positions = torch.arange(S, device=x.device)
     for l in range(cfg.n_layers):
         p_layer = _layer_params(params["decoder"], l)
@@ -209,7 +215,7 @@ def prefill_into(params, batch: dict, cache: dict, lanes: torch.Tensor, cfg: Mod
             dst = cache[name]
             dst[l, lanes, : new.shape[1]] = new.to(dst.dtype)
     cache["len"][lanes] = S
-    return _unembed(params, x[:, -1:], cfg)
+    return _unembed(one_position(params, x.device), x[:, -1:], cfg)
 
 
 def prefill(params, batch: dict, cfg: ModelConfig, *, max_len: int):
@@ -236,7 +242,7 @@ def decode_step(params, token: torch.Tensor, cache: dict, cfg: ModelConfig,
     place; the other lanes compute garbage the caller drops (the JAX
     engine's masked merge). Returns (logits [B, 1, V], cache).
     """
-    x = _embed(params, token, cfg)
+    x = _embed(one_position(params, token.device), token, cfg)
     B = x.shape[0]
     lengths = cache["len"]
     if lanes is None:
@@ -253,4 +259,4 @@ def decode_step(params, token: torch.Tensor, cache: dict, cfg: ModelConfig,
             cross_lengths=cross_lengths,
         )
     cache["len"][lanes] += 1
-    return _unembed(params, x, cfg), cache
+    return _unembed(one_position(params, x.device), x, cfg), cache

@@ -4,6 +4,11 @@ Numerics follow the JAX package's ``models/layers.py``: RMSNorm and the
 activations run in fp32 and cast back, RoPE rotates the two halves of the
 head dim (not interleaved pairs), and GELU is the tanh approximation
 (``jax.nn.gelu`` defaults to ``approximate=True``).
+
+On a mesh (:mod:`.parallel`) the MLP splits on ``ff`` and runs per
+position as it is, its ``wo`` partials summed by the caller; the
+embedding's rows and the output head's columns split on ``vocab``
+(:func:`embed_lookup_split`, :func:`unembed_split`).
 """
 
 from __future__ import annotations
@@ -11,6 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..distributed.collectives import reduce_partials
 from .common import ModelConfig, ParamSpec
 
 __all__ = [
@@ -21,6 +27,8 @@ __all__ = [
     "gelu_mlp",
     "mlp_template",
     "embed_template",
+    "embed_lookup_split",
+    "unembed_split",
 ]
 
 
@@ -94,3 +102,30 @@ def embed_template(cfg: ModelConfig) -> dict:
     if not cfg.tie_embeddings:
         t["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab_size), ("embed_fsdp", "vocab"))
     return t
+
+
+def embed_lookup_split(ids: torch.Tensor, toks: list, ranges: tuple, devices: tuple,
+                       dtype: torch.dtype) -> torch.Tensor:
+    """Token embedding over a vocab split: ``toks[m]`` holds rows
+    ``ranges[m] = (lo, hi)`` on ``devices[m]``. Each position takes the
+    rows of the ids in its range and zeros elsewhere; the sum (one
+    nonzero term per id) is the replicated lookup, on the ids' device.
+    Ids past the vocabulary read its last row, as the unsplit lookup
+    clamps them."""
+    ids = ids.long().clamp(0, ranges[-1][1] - 1)
+    partials = []
+    for tok, (lo, hi), dev in zip(toks, ranges, devices):
+        local = ids.to(dev) - lo
+        mine = (local >= 0) & (local < hi - lo)
+        rows = tok[local.clamp(0, hi - lo - 1)].to(dtype)
+        partials.append(torch.where(mine[..., None], rows, rows.new_zeros(())))
+    return reduce_partials(partials, ids.device)
+
+
+def unembed_split(x: torch.Tensor, heads: list, devices: tuple, dtype: torch.dtype,
+                  tied: bool) -> torch.Tensor:
+    """Logits over a vocab split: position ``m``'s columns from
+    ``heads[m]`` (``lm_head`` [D, V_m], or the tied embedding's rows [V_m,
+    D]), gathered in position order on x's device."""
+    cols = [x.to(dev) @ (w.to(dtype).T if tied else w.to(dtype)) for w, dev in zip(heads, devices)]
+    return torch.cat([c.to(x.device) for c in cols], dim=-1)

@@ -36,6 +36,12 @@ to 0 to start a count. Calls inside :func:`uncounted` add nothing:
 training's ``forward`` counts only the first run of a checkpointed layer,
 not the recompute in the backward.
 
+**On a mesh** the experts split over the positions (:mod:`.parallel`):
+routing, capacity and the dispatch tables are computed once, on the
+first position, so the kept and dropped assignments are the unsplit
+call's; each position runs its own experts' buffers, and their partial
+combines are summed in position order.
+
 **Gradients** reach the router through the renormalized gate values and
 through ``lb_loss``'s mean probabilities; the choices, capacity slots and
 one-hots are integer decisions and carry none, as in JAX.
@@ -48,6 +54,7 @@ import contextlib
 import torch
 import torch.nn.functional as F
 
+from ..distributed.collectives import on, reduce_partials
 from .common import ModelConfig, ParamSpec
 
 __all__ = ["moe_template", "moe_ffn", "load_balance_loss", "uncounted"]
@@ -117,19 +124,28 @@ def _expert_ffn(expert_in: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Ten
     return out.reshape(E, G, C, D).transpose(0, 1)
 
 
-def moe_ffn(x: torch.Tensor, p: dict, cfg: ModelConfig, *, per_lane: bool = False):
+def moe_ffn(x: torch.Tensor, p: dict, cfg: ModelConfig, *, per_lane: bool = False,
+            experts: list | None = None):
     """x [B, S, D] -> (out [B, S, D], aux).
 
     ``p`` leaves are one layer's: router [D, E], wi_* [E, D, Fe], wo
     [E, Fe, D]. ``per_lane`` chooses the routing groups (module
     docstring). ``aux`` holds ``lb_loss`` and ``dropped_frac``, scalars
     for one group and [B] per lane (JAX's ``vmap`` stacks them so).
+
+    ``experts`` splits the experts over mesh positions: one ``(p_m,
+    device_m, (lo, hi))`` per position, ``p_m`` holding experts ``[lo,
+    hi)``. Routing, capacity and the dispatch tables stay global, computed
+    once on x's device from ``p``'s router; each position runs its
+    experts' buffers, and the positions' partial combines are summed.
     """
     B, S, D = x.shape
     dtype = cfg.compute_dtype
     xt, probs, gate_vals, expert_idx, onehot, pos, keep, capacity = _route(x, p, cfg, per_lane)
     G, T = xt.shape[:2]
     E, k = cfg.n_experts, cfg.moe_top_k
+    if experts is None:
+        experts = [(p, x.device, (0, E))]
 
     if cfg.moe_impl == "gather":
         # Slot tables: slot (e, c) -> source token (T = the empty slot).
@@ -147,13 +163,17 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg: ModelConfig, *, per_lane: bool = Fals
         slot_tok, slot_gate = slot_tok[..., :capacity], slot_gate[..., :capacity]
 
         x_pad = torch.cat([xt, xt.new_zeros(G, 1, D)], dim=1)  # [G, T+1, D]
-        rows = slot_tok.reshape(G, E * capacity)
-        expert_in = torch.gather(x_pad, 1, rows[..., None].expand(-1, -1, D))
-        expert_out = _expert_ffn(expert_in.reshape(G, E, capacity, D), p, cfg)
-        weighted = expert_out.float() * slot_gate[..., None]
-        y = torch.zeros((G, T + 1, D), dtype=torch.float32, device=x.device)
-        y.scatter_add_(1, rows[..., None].expand(-1, -1, D), weighted.reshape(G, E * capacity, D))
-        out = y[:, :T].to(dtype)
+        partials = []
+        for p_m, dev, (lo, hi) in experts:
+            rows = on(slot_tok[:, lo:hi].reshape(G, (hi - lo) * capacity), dev)
+            expert_in = torch.gather(on(x_pad, dev), 1, rows[..., None].expand(-1, -1, D))
+            expert_out = _expert_ffn(expert_in.reshape(G, hi - lo, capacity, D), p_m, cfg)
+            weighted = expert_out.float() * on(slot_gate[:, lo:hi], dev)[..., None]
+            y = torch.zeros((G, T + 1, D), dtype=torch.float32, device=rows.device)
+            y.scatter_add_(1, rows[..., None].expand(-1, -1, D),
+                           weighted.reshape(G, (hi - lo) * capacity, D))
+            partials.append(y[:, :T])
+        out = reduce_partials(partials, x.device).to(dtype)
     else:
         pos_clip = pos.clamp(max=capacity - 1).long()
         pos_onehot = F.one_hot(pos_clip, capacity).float()  # [G, T, k, C]
@@ -161,8 +181,11 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg: ModelConfig, *, per_lane: bool = Fals
         dispatch = torch.einsum("gtke,gtkc->gtec", onehot * keep[..., None].float(), pos_onehot)
         combine = torch.einsum("gtke,gtkc,gtk->gtec", onehot, pos_onehot, gate_vals)
         expert_in = torch.einsum("gtec,gtd->gecd", dispatch.to(dtype), xt)
-        expert_out = _expert_ffn(expert_in, p, cfg)
-        out = torch.einsum("gtec,gecd->gtd", combine.to(dtype), expert_out)
+        combine = combine.to(dtype)
+        out = reduce_partials([
+            torch.einsum("gtec,gecd->gtd", on(combine[:, :, lo:hi], dev),
+                         _expert_ffn(on(expert_in[:, lo:hi], dev), p_m, cfg))
+            for p_m, dev, (lo, hi) in experts], x.device)
 
     moe_ffn.routed += keep.numel()
     moe_ffn.dropped = moe_ffn.dropped + (~keep).sum()

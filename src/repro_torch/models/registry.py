@@ -29,6 +29,11 @@ only: its cache adds cross-attention K/V of ``enc_len`` rows
 ``max_len``, as JAX's), and its batches carry ``"frames"``. The JAX fleet
 does not serve it (``serving.partition.stage_configs`` raises).
 
+The serving entry points also take a stage's weights placed on a replica
+slice (:class:`.parallel.SliceParams`) with the slice's per-position
+caches or pools, and then run tensor-parallel (:mod:`.parallel`).
+``cache_axes`` names the serving cache's dims, as JAX's does.
+
 ``SPEC_DRAFT_PAIRS`` / :func:`default_draft_for` are the JAX registry's
 draft pairings for speculative decoding, copied.
 """
@@ -86,6 +91,9 @@ class Model:
     #   pools, offsets [W] (-1 = masked), valids [W], block_tables [W,NB]) -> out
     verify_step_paged: Callable | None = None  # speculative verify: as
     #   prefill_chunk_paged; lane w holds [last token, d_1..d_k]
+    cache_axes: Callable | None = None  # () -> logical axis names of the
+    #   batched serving cache, cache_shapes' tree leaf for leaf
+    #   (transformer.batched_cache_logical_axes); None for an encoder-decoder
 
     @property
     def name(self) -> str:
@@ -145,4 +153,5 @@ def build_model(cfg: ModelConfig) -> Model:
         prefill_chunk_paged=prefill_chunk_paged,
         verify_step_paged=verify_step_paged,
         forward=lambda p, b: transformer.forward(p, b, cfg),
+        cache_axes=lambda: transformer.batched_cache_logical_axes(cfg),
     )

@@ -58,6 +58,15 @@ holds ``"patch_embeds"`` [B, P, frontend_dim] takes the projected patches
 at its first P positions in place of their token embeddings. The serving
 engine passes tokens only, as the JAX one does. Encoder-decoder models
 live in :mod:`.encdec`.
+
+**Mesh.** The serving entry points also take a stage's weights placed on
+a replica slice (:class:`.parallel.SliceParams`) with one cache or pool
+tree per position: each layer then runs its split blocks once per
+position and sums their partials on the first position, where the
+residual stream, the norms and the replicated blocks stay
+(:mod:`.parallel`). A plain stage tree and cache is a slice of one
+position (:func:`.parallel.as_slice`, at each entry point): below the
+entry points the code sees the slice form only.
 """
 
 from __future__ import annotations
@@ -69,6 +78,7 @@ import functools
 import torch
 import torch.utils.checkpoint
 
+from ..distributed.collectives import on, reduce_max, reduce_partials
 from .attention import (
     attention_block,
     attn_template,
@@ -76,11 +86,21 @@ from .attention import (
     last_writes,
     paged_attention_block,
     paged_chunk_attention_block,
+    project_qkv,
 )
 from .common import ModelConfig, ParamSpec, tree_map
-from .layers import embed_template, gelu_mlp, mlp_template, rmsnorm, swiglu_mlp
+from .layers import (
+    embed_lookup_split,
+    embed_template,
+    gelu_mlp,
+    mlp_template,
+    rmsnorm,
+    swiglu_mlp,
+    unembed_split,
+)
 from .moe import moe_ffn, moe_template, uncounted
-from .ssm import mamba_block, mamba_decode_step, ssm_template
+from .parallel import Positions, SliceParams, as_slice, slice_cache
+from .ssm import mamba_block_split, mamba_decode_split, ssm_template
 
 __all__ = [
     "lm_template",
@@ -95,6 +115,9 @@ __all__ = [
     "verify_step_paged",
     "init_cache",
     "init_cache_shapes",
+    "cache_logical_axes",
+    "slot_cache_logical_axes",
+    "batched_cache_logical_axes",
     "layer_plan",
     "LayerPlan",
 ]
@@ -203,7 +226,7 @@ def lm_template(cfg: ModelConfig) -> dict:
 # Shared pieces
 # ---------------------------------------------------------------------------
 
-def _embed(params, x_in: torch.Tensor, cfg: ModelConfig, batch: dict | None = None
+def _embed(sp: SliceParams, x_in: torch.Tensor, cfg: ModelConfig, batch: dict | None = None
            ) -> torch.Tensor:
     """First stage: token embedding, and for a patches frontend the
     projected ``batch["patch_embeds"]`` [B, P, frontend_dim] in place of
@@ -214,47 +237,67 @@ def _embed(params, x_in: torch.Tensor, cfg: ModelConfig, batch: dict | None = No
     dtype = cfg.compute_dtype
     if not cfg.stage_embed:
         return x_in.to(dtype)
-    tok = params["embed"]["tok"]
-    x = tok[x_in.long().clamp(0, tok.shape[0] - 1)].to(dtype)
+    shards, tp = sp.shards, sp.positions
+    if tp.plan.tok:
+        x = embed_lookup_split(x_in, [p["embed"]["tok"] for p in shards], tp.vocab,
+                               tp.devices, dtype)
+    else:
+        tok = shards[0]["embed"]["tok"]
+        x = tok[x_in.long().clamp(0, tok.shape[0] - 1)].to(dtype)
     if cfg.frontend == "patches" and batch is not None and "patch_embeds" in batch:
-        proj = batch["patch_embeds"].to(dtype) @ params["vision_proj"].to(dtype)
+        proj = batch["patch_embeds"].to(dtype) @ shards[0]["vision_proj"].to(dtype)
         x = torch.cat([proj, x[:, proj.shape[1]:]], dim=1)
     return x
 
 
-def _unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _unembed(sp: SliceParams, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Last stage: logits; a middle stage returns raw hidden states."""
     if not cfg.stage_unembed:
         return x
     dtype = cfg.compute_dtype
-    x = rmsnorm(x, params["final_norm"], cfg.rms_eps)
-    if cfg.tie_embeddings:
-        return x @ params["embed"]["tok"].to(dtype).T
-    return x @ params["embed"]["lm_head"].to(dtype)
+    shards, tp = sp.shards, sp.positions
+    x = rmsnorm(x, shards[0]["final_norm"], cfg.rms_eps)
+    name = "tok" if cfg.tie_embeddings else "lm_head"
+    if tp.plan.head:
+        return unembed_split(x, [p["embed"][name] for p in shards], tp.devices, dtype,
+                             cfg.tie_embeddings)
+    w = shards[0]["embed"][name].to(dtype)
+    return x @ (w.T if cfg.tie_embeddings else w)
 
 
-def _ffn(x, p_layer, cfg: ModelConfig, *, per_lane: bool):
+def _ffn(x, ps: list, cfg: ModelConfig, *, per_lane: bool, tp: Positions):
     """The feed-forward: (out, aux). ``per_lane`` is an MoE layer's routing
     group: each lane of ``x`` alone, or the whole call (:func:`~.moe.moe_ffn`);
     ``aux`` holds the routing's ``lb_loss`` (empty for a dense feed-forward),
-    which serving drops, as JAX does."""
+    which serving drops, as JAX does. ``ps`` holds one layer's tree per
+    mesh position (``tp``): a split MLP's partials are summed, a split MoE
+    runs each position's experts."""
     if cfg.is_moe:
-        return moe_ffn(x, p_layer["moe"], cfg, per_lane=per_lane)
-    if cfg.act == "swiglu":
-        return swiglu_mlp(x, p_layer["mlp"], cfg.compute_dtype), {}
-    return gelu_mlp(x, p_layer["mlp"], cfg.compute_dtype), {}
+        if not tp.plan.ffn:
+            return moe_ffn(x, ps[0]["moe"], cfg, per_lane=per_lane)
+        return moe_ffn(x, ps[0]["moe"], cfg, per_lane=per_lane, experts=[
+            (ps[m]["moe"], tp.devices[m], tp.experts[m]) for m in range(tp.count)])
+    mlp = swiglu_mlp if cfg.act == "swiglu" else gelu_mlp
+    return reduce_partials([mlp(on(x, tp.devices[m]), ps[m]["mlp"], cfg.compute_dtype)
+                            for m in tp.split("ffn")], x.device), {}
 
 
 def _layer_params(stack: dict, l: int) -> dict:
     return tree_map(lambda a: a[l], stack)
 
 
-def _layer(x, p_layer, cfg: ModelConfig, *, positions, window=None, cache=None, lanes=None,
-           per_lane: bool = True):
+def _layer(x, p_layer: list, cfg: ModelConfig, *, positions, window=None, cache=None,
+           lanes=None, per_lane: bool = True, tp: Positions):
     """One layer of any family (the JAX ``_layer_body`` with ``_mixer``):
     (x, parts, aux), ``aux`` the feed-forward's (:func:`_ffn`, whose
     ``per_lane`` it takes: serving routes each lane alone, :func:`forward`
     the whole batch).
+
+    ``p_layer`` holds the layer's tree per mesh position (``tp``; one
+    without a mesh), ``cache`` its cache views per position, and ``parts`` comes
+    back per position. A split block runs on every position and its
+    partials are summed on x's device; a replicated one runs on position
+    0 (:mod:`.parallel`).
 
     Prefill (``cache`` None) returns parts with the new rows ``"k",
     "v"`` of an attention layer and the final ``"conv", "ssm"`` state of a
@@ -263,30 +306,41 @@ def _layer(x, p_layer, cfg: ModelConfig, *, positions, window=None, cache=None, 
     the lanes in ``lanes`` are written in place, and the new conv / SSM
     state of every lane is returned in ``parts`` for the caller to store.
     """
-    h = rmsnorm(x, p_layer["ln1"], cfg.rms_eps)
-    parts: dict = {}
+    p0 = p_layer[0]
+    h = rmsnorm(x, p0["ln1"], cfg.rms_eps)
+    parts: list[dict] = [{} for _ in range(tp.count)]
     if cfg.block in ("attn", "hymba"):
-        kv = None if cache is None else (
-            cache["k"], cache["v"], cache["attn_len"], cache["write_idx"])
-        mix, (parts["k"], parts["v"]) = attention_block(
-            h, p_layer["attn"], cfg, positions=positions, window=window, cache=kv, lanes=lanes
-        )
+        partials = []
+        for m in tp.split("attn"):
+            d = tp.devices[m]
+            kv = None if cache is None else (
+                cache[m]["k"], cache[m]["v"], on(cache[m]["attn_len"], d),
+                on(cache[m]["write_idx"], d))
+            out, (parts[m]["k"], parts[m]["v"]) = attention_block(
+                on(h, d), p_layer[m]["attn"], cfg, positions=on(positions, d), window=window,
+                cache=kv, lanes=on(lanes, d))
+            partials.append(out)
+        mix = reduce_partials(partials, x.device)
     if cfg.block in ("mamba", "hymba"):
+        ms = tp.split("ssm")
+        ps = [p_layer[m]["ssm"] for m in ms]
+        devs = [tp.devices[m] for m in ms]
         if cache is None:
-            m, (parts["conv"], parts["ssm"]) = mamba_block(h, p_layer["ssm"], cfg)
+            m_out, states = mamba_block_split(h, ps, devs, cfg)
         else:
-            m, (parts["conv"], parts["ssm"]) = mamba_decode_step(
-                h, p_layer["ssm"], cfg, (cache["conv"], cache["ssm"])
-            )
+            m_out, states = mamba_decode_split(
+                h, ps, devs, cfg, [(cache[m]["conv"], cache[m]["ssm"]) for m in ms])
+        for m, (conv, ssm) in zip(ms, states):
+            parts[m]["conv"], parts[m]["ssm"] = conv, ssm
         if cfg.block == "mamba":
-            return x + m, parts, {}
+            return x + m_out, parts, {}
         # hymba fusion: per-branch norm and learned gain, averaged.
-        a = rmsnorm(mix, p_layer["norm_attn"], cfg.rms_eps) * p_layer["beta_attn"].to(mix.dtype)
-        m = rmsnorm(m, p_layer["norm_ssm"], cfg.rms_eps) * p_layer["beta_ssm"].to(m.dtype)
-        mix = 0.5 * (a + m)
+        a = rmsnorm(mix, p0["norm_attn"], cfg.rms_eps) * p0["beta_attn"].to(mix.dtype)
+        m_out = rmsnorm(m_out, p0["norm_ssm"], cfg.rms_eps) * p0["beta_ssm"].to(m_out.dtype)
+        mix = 0.5 * (a + m_out)
     x = x + mix
-    h2 = rmsnorm(x, p_layer["ln2"], cfg.rms_eps)
-    ff, aux = _ffn(h2, p_layer, cfg, per_lane=per_lane)
+    h2 = rmsnorm(x, p0["ln2"], cfg.rms_eps)
+    ff, aux = _ffn(h2, p_layer, cfg, per_lane=per_lane, tp=tp)
     return x + ff, parts, aux
 
 
@@ -329,19 +383,62 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
     )
 
 
+def cache_logical_axes(cfg: ModelConfig) -> dict:
+    """Logical axis names of one request's cache, as the JAX package names
+    them (``len`` a scalar there)."""
+    c: dict = {"len": ()}
+    for i, _ in enumerate(layer_plan(cfg).classes):
+        entry: dict = {}
+        if cfg.block in ("attn", "hymba"):
+            entry["k"] = entry["v"] = ("layers", "cache_batch", "cache_seq", "kv_heads",
+                                       "head_dim")
+        if cfg.block in ("mamba", "hymba"):
+            entry["conv"] = ("layers", "cache_batch", "conv", "ssm_inner")
+            entry["ssm"] = ("layers", "cache_batch", "ssm_inner", "ssm_state")
+        c[f"c{i}"] = entry
+    return c
+
+
+def slot_cache_logical_axes(cfg: ModelConfig) -> dict:
+    """Axis names of the JAX engine's slot-stacked cache: a leading slot
+    axis (``cache_batch``) over per-request caches whose batch dim of 1
+    drops to None. The JAX engine zips it with its cache leaf for leaf."""
+    out: dict = {"len": ("cache_batch",)}
+    for key, entry in cache_logical_axes(cfg).items():
+        if key != "len":
+            out[key] = {name: ("cache_batch",) + tuple(None if a == "cache_batch" else a
+                                                       for a in axes)
+                        for name, axes in entry.items()}
+    return out
+
+
+def batched_cache_logical_axes(cfg: ModelConfig) -> dict:
+    """Axis names of the port's natively batched cache
+    (:func:`init_cache_shapes`, leaf for leaf): the request axis is the
+    cache's own batch dim, and ``len`` is per lane."""
+    return {**cache_logical_axes(cfg), "len": ("cache_batch",)}
+
+
 def _classes(cache: dict, cfg: ModelConfig):
     """(class index, class spec, class cache entry) of every class."""
     return [(i, cls, cache[f"c{i}"]) for i, cls in enumerate(layer_plan(cfg).classes)]
 
 
-def _runs(params, cache: dict, cfg: ModelConfig):
-    """(class index, class spec, class params, class cache, layer row) of
-    every layer, in the original layer order."""
+def _runs(shards: list, caches: list, cfg: ModelConfig):
+    """(class index, class spec, class params per position, class cache
+    per position, layer row) of every layer, in the original layer
+    order."""
     plan = layer_plan(cfg)
     for run in plan.runs:
         i = run.class_idx
         for row in range(run.offset, run.offset + run.count):
-            yield i, plan.classes[i], params["classes"][f"c{i}"], cache[f"c{i}"], row
+            yield (i, plan.classes[i], [p["classes"][f"c{i}"] for p in shards],
+                   [c[f"c{i}"] for c in caches], row)
+
+
+def _layer_rows(stacks: list, row: int) -> list:
+    """One layer's tree per position, from the class stacks."""
+    return [_layer_params(s, row) for s in stacks]
 
 
 # ---------------------------------------------------------------------------
@@ -374,13 +471,14 @@ def forward(params, batch: dict, cfg: ModelConfig):
     forward a second time; the recompute adds nothing to the MoE counters.
     """
     x_in = _stage_input(batch, cfg)
-    x = _embed(params, x_in, cfg, batch)
+    sp, _ = as_slice(params, None, x_in.device)
+    x = _embed(sp, x_in, cfg, batch)
     positions = torch.arange(x_in.shape[1], device=x.device)
     plan = layer_plan(cfg)
     lb_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for run in plan.runs:
         cls = plan.classes[run.class_idx]
-        stack = params["classes"][f"c{run.class_idx}"]
+        stack = sp.shards[0]["classes"][f"c{run.class_idx}"]
         for rows in _remat_groups(run, cfg):
             runs_before = [0]  # a checkpointed group's second run is the recompute
 
@@ -392,8 +490,9 @@ def forward(params, batch: dict, cfg: ModelConfig):
                 lb = torch.zeros((), dtype=torch.float32, device=x.device)
                 with uncounted() if recompute else contextlib.nullcontext():
                     for row in rows:
-                        x, _, aux = _layer(x, _layer_params(stack, row), cfg,
-                                           positions=positions, window=window, per_lane=False)
+                        x, _, aux = _layer(x, [_layer_params(stack, row)], cfg,
+                                           positions=positions, window=window, per_lane=False,
+                                           tp=sp.positions)
                         if "lb_loss" in aux:
                             lb = lb + aux["lb_loss"]
                 return x, lb
@@ -403,7 +502,7 @@ def forward(params, batch: dict, cfg: ModelConfig):
             else:
                 x, lb = group(x)
             lb_total = lb_total + lb
-    return _unembed(params, x, cfg), {"lb_loss": lb_total / max(cfg.n_layers, 1)}
+    return _unembed(sp, x, cfg), {"lb_loss": lb_total / max(cfg.n_layers, 1)}
 
 
 def prefill_into(params, batch: dict, cache: dict, lanes: torch.Tensor, cfg: ModelConfig):
@@ -421,38 +520,45 @@ def prefill_into(params, batch: dict, cache: dict, lanes: torch.Tensor, cfg: Mod
     """
     x_in = _stage_input(batch, cfg)
     S = x_in.shape[1]
-    for _, cls, entry in _classes(cache, cfg):
+    sp, caches = as_slice(params, cache, x_in.device)
+    tp = sp.positions
+    for _, cls, entry in _classes(caches[0], cfg):
         if cls.window is None and "k" in entry and S > entry["k"].shape[2]:
             raise ValueError(
                 f"prompt of {S} tokens exceeds the cache's max_len {entry['k'].shape[2]}")
-    x = _embed(params, x_in, cfg, batch)
+    x = _embed(sp, x_in, cfg, batch)
     positions = torch.arange(S, device=x.device)
-    for _, cls, stack, entry, row in _runs(params, cache, cfg):
-        x, parts, _ = _layer(x, _layer_params(stack, row), cfg, positions=positions,
-                             window=cls.window)
-        for name, new in parts.items():
-            dst = entry[name]
-            if name in ("k", "v"):
-                Lc = dst.shape[2]
-                if S > Lc:  # a window class: the ring of the last Lc positions
-                    new = torch.roll(new[:, S - Lc:], S % Lc, dims=1)
-                dst[row, lanes, : new.shape[1]] = new.to(dst.dtype)
-            else:
-                dst[row, lanes] = new.to(dst.dtype)
-    cache["len"][lanes] = S
-    return _unembed(params, x[:, -1:] if cfg.stage_unembed else x, cfg)
+    for _, cls, stacks, entries, row in _runs(sp.shards, caches, cfg):
+        x, parts, _ = _layer(x, _layer_rows(stacks, row), cfg, positions=positions,
+                             window=cls.window, tp=tp)
+        for entry, part, d in zip(entries, parts, tp.devices):
+            ln = on(lanes, d)
+            for name, new in part.items():
+                dst = entry[name]
+                if name in ("k", "v"):
+                    Lc = dst.shape[2]
+                    if S > Lc:  # a window class: the ring of the last Lc positions
+                        new = torch.roll(new[:, S - Lc:], S % Lc, dims=1)
+                    dst[row, ln, : new.shape[1]] = new.to(dst.dtype)
+                else:
+                    dst[row, ln] = new.to(dst.dtype)
+    caches[0]["len"][lanes] = S
+    return _unembed(sp, x[:, -1:] if cfg.stage_unembed else x, cfg)
 
 
 def prefill(params, batch: dict, cfg: ModelConfig, *, max_len: int):
     """Forward over a batch of prompts, building a fresh cache of
     ``max_len`` rows per lane (rings of ``min(max_len, window)``).
-    Returns (logits [B, 1, V] | hidden [B, S, D], cache)."""
+    Returns (logits [B, 1, V] | hidden [B, S, D], cache): the plain tree,
+    or for a slice's weights one tree per position."""
     x_in = _stage_input(batch, cfg)
     if max_len < x_in.shape[1]:
         raise ValueError("max_len must cover the prompt")
-    cache = init_cache(cfg, x_in.shape[0], max_len, x_in.device)
+    sp, _ = as_slice(params, None, x_in.device)
+    caches = slice_cache(cfg, init_cache_shapes(cfg, x_in.shape[0], max_len), sp)
     lanes = torch.arange(x_in.shape[0], device=x_in.device)
-    return prefill_into(params, batch, cache, lanes, cfg), cache
+    out = prefill_into(sp, batch, caches, lanes, cfg)
+    return out, caches if sp is params else caches[0]
 
 
 def decode_step(params, token: torch.Tensor, cache: dict, cfg: ModelConfig,
@@ -469,14 +575,16 @@ def decode_step(params, token: torch.Tensor, cache: dict, cfg: ModelConfig,
     caller drops (the JAX engine's masked merge).
     Returns (logits [B, 1, V] | hidden [B, 1, D], cache).
     """
-    x = _embed(params, token, cfg)
-    lengths = cache["len"]
+    sp, caches = as_slice(params, cache, token.device)
+    tp = sp.positions
+    x = _embed(sp, token, cfg)
+    lengths = caches[0]["len"]
     if lanes is None:
         lanes = torch.arange(x.shape[0], device=x.device)
     positions = lengths[:, None]
     # Valid rows and write rows per class, the same for every layer of it.
     rows: dict[int, dict] = {}
-    for i, cls, entry in _classes(cache, cfg):
+    for i, cls, entry in _classes(caches[0], cfg):
         if "k" in entry:
             Lc = entry["k"].shape[2]
             ring = cls.window is not None
@@ -484,16 +592,18 @@ def decode_step(params, token: torch.Tensor, cache: dict, cfg: ModelConfig,
                 "attn_len": (lengths + 1).clamp(max=Lc) if ring else lengths + 1,
                 "write_idx": lengths % Lc if ring else lengths,
             }
-    for i, cls, stack, entry, row in _runs(params, cache, cfg):
-        views = {name: t[row] for name, t in entry.items()}
-        x, parts, _ = _layer(x, _layer_params(stack, row), cfg, positions=positions,
-                             window=cls.window, cache={**views, **rows.get(i, {})},
-                             lanes=lanes)
-        for name in ("conv", "ssm"):
-            if name in parts:
-                entry[name][row, lanes] = parts[name][lanes].to(entry[name].dtype)
-    cache["len"][lanes] += 1
-    return _unembed(params, x, cfg), cache
+    for i, cls, stacks, entries, row in _runs(sp.shards, caches, cfg):
+        views = [{**{name: t[row] for name, t in entry.items()}, **rows.get(i, {})}
+                 for entry in entries]
+        x, parts, _ = _layer(x, _layer_rows(stacks, row), cfg, positions=positions,
+                             window=cls.window, cache=views, lanes=lanes, tp=tp)
+        for entry, part, d in zip(entries, parts, tp.devices):
+            ln = on(lanes, d)
+            for name in ("conv", "ssm"):
+                if name in part:
+                    entry[name][row, ln] = part[name][ln].to(entry[name].dtype)
+    caches[0]["len"][lanes] += 1
+    return _unembed(sp, x, cfg), cache
 
 
 def prefill_chunk(params, chunk, cache: dict, offsets, valids, cfg: ModelConfig,
@@ -518,14 +628,16 @@ def prefill_chunk(params, chunk, cache: dict, offsets, valids, cfg: ModelConfig,
     """
     if not supports_paged(cfg):
         raise ValueError(f"{cfg.name}: chunked prefill needs uniform full attention")
-    x = _embed(params, chunk, cfg)
+    sp, caches = as_slice(params, cache, chunk.device)
+    tp = sp.positions
+    x = _embed(sp, chunk, cfg)
     W, C = x.shape[:2]
     dev = x.device
     offsets = torch.as_tensor(offsets, dtype=torch.int32, device=dev).expand(W)
     valids = torch.as_tensor(valids, dtype=torch.int32, device=dev).expand(W)
     if lanes is None:
         lanes = torch.arange(W, device=dev)
-    k_all, v_all = cache["c0"]["k"], cache["c0"]["v"]
+    k_all = caches[0]["c0"]["k"]
     L = k_all.shape[2]
     steps = torch.arange(C, dtype=torch.int32, device=dev)
     positions = offsets[:, None] + steps  # [W, C]
@@ -534,18 +646,20 @@ def prefill_chunk(params, chunk, cache: dict, offsets, valids, cfg: ModelConfig,
     write_src = torch.where(pos < L, steps, 0).long()
     write_pos = (pos[:, :1] + write_src).clamp(max=L - 1).long()
     lane_table = torch.arange(W, dtype=torch.int32, device=dev)[:, None]
-    stack = params["classes"]["c0"]
+    stacks = [p["classes"]["c0"] for p in sp.shards]
     for l in range(k_all.shape[0]):
-        p_layer = _layer_params(stack, l)
-        h = rmsnorm(x, p_layer["ln1"], cfg.rms_eps)
-        x = x + chunk_attention_block(
-            h, p_layer["attn"], cfg, positions=positions, k_cache=k_all[l], v_cache=v_all[l],
-            lane_table=lane_table, lanes=lanes, write_src=write_src, write_pos=write_pos,
-        )
-        h2 = rmsnorm(x, p_layer["ln2"], cfg.rms_eps)
-        x = x + _ffn(h2, p_layer, cfg, per_lane=True)[0]
-    cache["len"][lanes] = (offsets + valids)[lanes].to(cache["len"].dtype)
-    return _unembed(params, x, cfg), cache
+        p_layer = _layer_rows(stacks, l)
+        h = rmsnorm(x, p_layer[0]["ln1"], cfg.rms_eps)
+        x = x + _split_attention(tp, h, lambda m, d: chunk_attention_block(
+            on(h, d), p_layer[m]["attn"], cfg, positions=on(positions, d),
+            k_cache=caches[m]["c0"]["k"][l], v_cache=caches[m]["c0"]["v"][l],
+            lane_table=on(lane_table, d), lanes=on(lanes, d), write_src=on(write_src, d),
+            write_pos=on(write_pos, d),
+        ))
+        h2 = rmsnorm(x, p_layer[0]["ln2"], cfg.rms_eps)
+        x = x + _ffn(h2, p_layer, cfg, per_lane=True, tp=tp)[0]
+    caches[0]["len"][lanes] = (offsets + valids)[lanes].to(caches[0]["len"].dtype)
+    return _unembed(sp, x, cfg), cache
 
 
 # ---------------------------------------------------------------------------
@@ -567,18 +681,40 @@ def supports_paged(cfg: ModelConfig) -> bool:
     return len(plan.classes) == 1 and plan.classes[0].window is None
 
 
-def _paged_layers(x, params, cfg: ModelConfig, pools: dict, block, **kw):
+def _split_attention(tp: Positions, h: torch.Tensor, block) -> torch.Tensor:
+    """An attention sub-block on every position that computes it,
+    ``block(m, device)``, its partials summed on h's device."""
+    return reduce_partials([block(m, tp.devices[m]) for m in tp.split("attn")], h.device)
+
+
+def _paged_layers(x, sp: SliceParams, cfg: ModelConfig, pools: list, block, **kw):
     """Run the layer stack over per-layer pool views (the JAX layer scan
-    as a Python loop); ``block`` is the paged attention sub-block."""
-    stack = params["classes"]["c0"]
-    for l in range(pools["k"].shape[0]):
-        p_layer = _layer_params(stack, l)
-        h = rmsnorm(x, p_layer["ln1"], cfg.rms_eps)
-        pages = {name: t[l] for name, t in pools.items()}
-        x = x + block(h, p_layer["attn"], cfg, pages=pages, **kw)
-        h2 = rmsnorm(x, p_layer["ln2"], cfg.rms_eps)
-        x = x + _ffn(h2, p_layer, cfg, per_lane=False)[0]
-    return _unembed(params, x, cfg)
+    as a Python loop); ``block`` is the paged attention sub-block, run on
+    each position's pools (one pool tree per position)."""
+    tp = sp.positions
+    stacks = [p["classes"]["c0"] for p in sp.shards]
+    ms = tp.split("attn")
+    shared_scale = "k_scale" in pools[0] and len(ms) > 1
+    for l in range(pools[0]["k"].shape[0]):
+        p_layer = _layer_rows(stacks, l)
+        h = rmsnorm(x, p_layer[0]["ln1"], cfg.rms_eps)
+        qkv, amax = {}, None
+        if shared_scale:
+            # An int8 row's scale is its amax over every KV head, and the
+            # heads are spread over the positions: project first, take the
+            # max of the positions' row amaxes, then write.
+            qkv = {m: project_qkv(on(h, tp.devices[m]), p_layer[m]["attn"], cfg,
+                                  on(kw["positions"], tp.devices[m])) for m in ms}
+            amax = [reduce_max([qkv[m][i].float().abs().amax(dim=(-2, -1)) for m in ms],
+                               h.device) for i in (1, 2)]
+        x = x + _split_attention(tp, h, lambda m, d: block(
+            on(h, d), p_layer[m]["attn"], cfg,
+            pages={name: t[l] for name, t in pools[m].items()},
+            qkv=qkv.get(m), kv_amax=None if amax is None else [on(a, d) for a in amax],
+            **{k: on(v, d) for k, v in kw.items()}))
+        h2 = rmsnorm(x, p_layer[0]["ln2"], cfg.rms_eps)
+        x = x + _ffn(h2, p_layer, cfg, per_lane=False, tp=tp)[0]
+    return _unembed(sp, x, cfg)
 
 
 def decode_step_paged(params, token, pools: dict, lengths, block_tables, cfg: ModelConfig):
@@ -596,24 +732,26 @@ def decode_step_paged(params, token, pools: dict, lengths, block_tables, cfg: Mo
     """
     if not supports_paged(cfg):
         raise ValueError(f"{cfg.name}: paged decode needs uniform full attention")
-    x = _embed(params, token, cfg)
+    sp, pools = as_slice(params, pools, token.device)
+    x = _embed(sp, token, cfg)
     lengths = lengths.to(torch.int32)
     active = lengths >= 0
     pos = lengths.clamp(min=0)
     # Write coordinates are layer-invariant: derive them once. Masked
     # lanes go to the scratch page.
     W = pos.shape[0]
-    page = pools["k"].shape[2]
-    scratch = pools["k"].shape[1] - 1
+    k_pool = pools[0]["k"]
+    page = k_pool.shape[2]
+    scratch = k_pool.shape[1] - 1
     lanes = torch.arange(W, device=pos.device)
     blk = (pos // page).long()
     write_pages = torch.where(active, block_tables[lanes, blk].long(), scratch)
     write_offs = (pos % page).long()
     return _paged_layers(
-        x, params, cfg, pools, paged_attention_block,
+        x, sp, cfg, pools, paged_attention_block,
         positions=pos[:, None], block_tables=block_tables,
         write_pages=write_pages, write_offs=write_offs,
-        write_src=last_writes(write_pages, write_offs, pools["k"].shape[1:]),
+        write_src=last_writes(write_pages, write_offs, k_pool.shape[1:]),
     )
 
 
@@ -633,7 +771,8 @@ def prefill_chunk_paged(params, chunk, pools: dict, offsets, valids, block_table
     """
     if not supports_paged(cfg):
         raise ValueError(f"{cfg.name}: chunked prefill needs uniform full attention")
-    x = _embed(params, chunk, cfg)
+    sp, pools = as_slice(params, pools, chunk.device)
+    x = _embed(sp, chunk, cfg)
     offsets = offsets.to(torch.int32)
     valids = valids.to(torch.int32)
     active = offsets >= 0
@@ -643,18 +782,19 @@ def prefill_chunk_paged(params, chunk, pools: dict, offsets, valids, block_table
     positions = pos0[:, None] + steps  # [W, C]
     # Write coordinates once for every layer: only real chunk tokens of
     # active lanes touch reserved pages.
-    page = pools["k"].shape[2]
-    scratch = pools["k"].shape[1] - 1
+    k_pool = pools[0]["k"]
+    page = k_pool.shape[2]
+    scratch = k_pool.shape[1] - 1
     writable = active[:, None] & (steps[None, :] < valids[:, None])
     rows = torch.arange(W, device=x.device)[:, None]
     blk = (positions // page).clamp(max=block_tables.shape[1] - 1).long()
     write_pages = torch.where(writable, block_tables[rows, blk].long(), scratch)
     write_offs = (positions % page).long()
     return _paged_layers(
-        x, params, cfg, pools, paged_chunk_attention_block,
+        x, sp, cfg, pools, paged_chunk_attention_block,
         positions=positions, block_tables=block_tables,
         write_pages=write_pages, write_offs=write_offs,
-        write_src=last_writes(write_pages, write_offs, pools["k"].shape[1:]),
+        write_src=last_writes(write_pages, write_offs, k_pool.shape[1:]),
     )
 
 

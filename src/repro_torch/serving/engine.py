@@ -90,13 +90,32 @@ match the reference draw for draw.
 
 Execution substrate. The stage executors come from :meth:`_build_exec`,
 their per-replica state from ``init_cache(r)``, the weights they read
-from :meth:`_place_params`; a dead replica's discarded ring reaches
+from :meth:`_place`; a dead replica's discarded ring reaches
 :meth:`_on_ring_abort`, and :meth:`_finalize` drains a call's readbacks.
 :mod:`.mpserve` overrides these to run every stage cell in a worker
 process. ``elastic`` (an :class:`..ft.elastic.ElasticController`) turns
 ``fail_replica`` / ``recover_replica`` into membership events that
-re-solve the router's long-term rates. Mesh (tensor-parallel) serving is
-not ported yet.
+re-solve the router's long-term rates.
+
+Mesh-sharded execution (``mesh=...``). With a ``(data, model)`` serving
+mesh (:func:`..launch.mesh.make_serving_mesh`) each replica owns a
+tensor-parallel slice: the mesh's data axis is carved into per-replica
+device sets (:func:`..distributed.replica_submeshes`, round-robin when
+replicas outnumber slices), and every stage's weights are cut once per
+slice under ``SERVE_RULES`` (:func:`..models.parallel.place_stage`). One
+controller drives every position, as JAX's engine does: a stage call runs
+each split block once per position of the replica's slice and sums the
+partials in position order (:func:`..distributed.reduce_partials`); no
+process group or NCCL is involved, so several positions may share one
+card. A replica's caches and page pools live on its own slice's positions
+(each holding the K/V heads and SSM channels it reads), and its block
+tables where its pool lives; a handoff from a replica on another slice
+moves to the consumer's first position when the consuming call is
+assembled, with no host copy. The speculative draft runs unpartitioned on
+the stage-0 replica's slice. Failover, preemption and the async ring are
+the single-device engine's. Without a mesh the server runs the same code
+over a 1x1 mesh on ``device``: one slice of one position, weights,
+caches and pools in the slice form (:mod:`..models.parallel`).
 """
 
 from __future__ import annotations
@@ -110,7 +129,9 @@ import torch
 
 from ..core.power import PowerModePolicy, dynamic_policy
 from ..device import resolve_device
-from ..models.common import tree_map
+from ..distributed.sharding import Mesh, replica_submeshes
+from ..launch.mesh import make_host_mesh
+from ..models.parallel import SliceParams, place_stage, slice_cache, slice_pools
 from ..models.registry import Model
 from .budget import ReplicaBudget
 from .cache import DenseSlotCache, KVCacheManager, PagedKVCache
@@ -223,12 +244,13 @@ def _group_by_len(jobs) -> dict[int, list]:
     return by_len
 
 
-def _stack_inputs(server, g: int, inps) -> torch.Tensor:
-    """Stage inputs of one launch: [N, S] token ids (numpy, first stage)
-    or [N, S, D] hidden from [1, S(, D)] each."""
+def _stack_inputs(device, g: int, inps) -> torch.Tensor:
+    """Stage inputs of one launch on ``device``: [N, S] token ids (numpy,
+    first stage) or [N, S, D] hidden from [1, S(, D)] each (a handoff from
+    another replica slice moves here)."""
     if g == 0:
-        return torch.from_numpy(np.concatenate(inps)).to(server.device)
-    return torch.cat(inps)
+        return torch.from_numpy(np.concatenate(inps)).to(device)
+    return torch.cat([h.to(device) for h in inps])
 
 
 def _emit_whole_outputs(server, g, grp, out, outputs, mgr, length, readbacks):
@@ -281,34 +303,36 @@ def _emit_chunk_outputs(server, g, jobs, outputs, mgr, argmax, hidden_at, readba
 
 def _chunk_input(server, g: int, jobs, C: int, lanes: torch.Tensor) -> torch.Tensor:
     """The [W, C] token ids (first stage) or [W, C, D] hidden of one chunk
-    launch over the slot width: each job's ``valid`` tokens from ``pos``,
-    zero-padded; lanes outside the call are 0."""
-    W = server.max_batch
+    launch over the slot width, on the lanes' device: each job's
+    ``valid`` tokens from ``pos``, zero-padded; lanes outside the call
+    are 0."""
+    W, device = server.max_batch, lanes.device
     if g == 0:
         buf = np.zeros((W, C), np.int64)
         for _, m, seq, pos, valid in jobs:
             buf[m.slot_ids[g], :valid] = seq[0, pos : pos + valid]
-        return torch.from_numpy(buf).to(server.device)
-    hs = torch.cat([_pad_tail(seq[:, pos : pos + valid], C)
+        return torch.from_numpy(buf).to(device)
+    hs = torch.cat([_pad_tail(seq[:, pos : pos + valid], C).to(device)
                     for _, _, seq, pos, valid in jobs])  # [N, C, D]
-    inp = torch.zeros((W, C, server.cfg.d_model), dtype=hs.dtype, device=server.device)
+    inp = torch.zeros((W, C, server.cfg.d_model), dtype=hs.dtype, device=device)
     inp[lanes] = hs
     return inp
 
 
 def _decode_input(server, g: int, jobs, lanes: torch.Tensor):
     """The [W, 1] token ids (first stage) or [W, 1, D] hidden of one
-    decode launch over the full slot width; non-member lanes are 0."""
-    W = server.max_batch
+    decode launch over the full slot width, on the lanes' device;
+    non-member lanes are 0."""
+    W, device = server.max_batch, lanes.device
     if g == 0:
         buf = np.zeros((W, 1), np.int64)
         for _, m in jobs:
             buf[m.slot_ids[g], 0] = m.generated[-1]
-        return torch.from_numpy(buf).to(server.device)
+        return torch.from_numpy(buf).to(device)
     # After an upstream re-prefill the handoff carries the whole prefix;
     # a caching stage only consumes the newest position.
-    hs = torch.cat([m.hidden[:, -1:] for _, m in jobs])  # [N, 1, D]
-    inp = torch.zeros((W, 1, server.cfg.d_model), dtype=hs.dtype, device=server.device)
+    hs = torch.cat([m.hidden[:, -1:].to(device) for _, m in jobs])  # [N, 1, D]
+    inp = torch.zeros((W, 1, server.cfg.d_model), dtype=hs.dtype, device=device)
     inp[lanes] = hs
     return inp
 
@@ -337,24 +361,31 @@ def _emit_decode_outputs(server, g, jobs, out, outputs, mgr, readbacks):
 
 class _StageExec:
     """What both execution backends hold: the server, the stage index and
-    the stage's model and parameters."""
+    the stage's model. Replica ``r``'s weights are ``server._params_for(g,
+    r)`` and its inputs go to ``server._device_of(r)``."""
 
     def __init__(self, server: "PipelineServer", g: int):
         self.server = server
         self.g = g
-        self.model_g, self.params_g = server.stages[g]
+        self.model_g = server.stages[g][0]
 
-    def _lanes(self, slots: list[int]) -> torch.Tensor:
-        return torch.tensor(slots, dtype=torch.long, device=self.server.device)
+    def _lanes(self, r: int, slots: list[int]) -> torch.Tensor:
+        return torch.tensor(slots, dtype=torch.long, device=self.server._device_of(r))
+
+    def _tensor(self, r: int, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.server._device_of(r))
 
 
 class _DenseExec(_StageExec):
     """Dense execution backend for one stage: the slot cache of each
     replica and the batched prefill / masked decode launches."""
 
-    def init_cache(self, r: int) -> dict:
+    def init_cache(self, r: int):
+        """The replica's slot cache: one tree per position of its slice
+        (:func:`..models.parallel.slice_cache`)."""
         s = self.server
-        return self.model_g.init_cache(s.max_batch, s.max_len, s.device)
+        return slice_cache(self.model_g.cfg, self.model_g.cache_shapes(s.max_batch, s.max_len),
+                           s._params_for(self.g, r))
 
     def run_prefill_whole(self, r, jobs, outputs, mgr: KVCacheManager, readbacks):
         """jobs: [(out_idx, member, inp)], inp [1, S] token ids (numpy)
@@ -363,9 +394,9 @@ class _DenseExec(_StageExec):
         cache = s._caches[(g, r)]
         key = "tokens" if g == 0 else "hidden"
         for length, grp in sorted(_group_by_len(jobs).items()):
-            batch = {key: _stack_inputs(s, g, [inp for _, _, inp in grp])}
-            lanes = self._lanes([m.slot_ids[g] for _, m, _ in grp])
-            out = self.model_g.prefill_batch(self.params_g, batch, cache, lanes)
+            batch = {key: _stack_inputs(s._device_of(r), g, [inp for _, _, inp in grp])}
+            lanes = self._lanes(r, [m.slot_ids[g] for _, m, _ in grp])
+            out = self.model_g.prefill_batch(s._params_for(g, r), batch, cache, lanes)
             s.stats.prefill_calls += 1
             _emit_whole_outputs(s, g, grp, out, outputs, mgr, length, readbacks)
 
@@ -382,10 +413,10 @@ class _DenseExec(_StageExec):
             offs[m.slot_ids[g]] = pos
             valids[m.slot_ids[g]] = valid
         assert offs.max() < s.max_len, "a dense chunk must start inside the cache"
-        lanes = self._lanes([m.slot_ids[g] for _, m, _, _, _ in jobs])
+        lanes = self._lanes(r, [m.slot_ids[g] for _, m, _, _, _ in jobs])
         out = self.model_g.prefill_chunk_batch(
-            self.params_g, _chunk_input(s, g, jobs, C, lanes), s._caches[(g, r)],
-            torch.from_numpy(offs).to(s.device), torch.from_numpy(valids).to(s.device), lanes,
+            s._params_for(g, r), _chunk_input(s, g, jobs, C, lanes), s._caches[(g, r)],
+            self._tensor(r, offs), self._tensor(r, valids), lanes,
         )
         s.stats.chunk_prefill_calls += 1
         argmax = out.argmax(dim=-1) if g == s.G - 1 else None
@@ -399,9 +430,9 @@ class _DenseExec(_StageExec):
         """jobs: [(out_idx, member)] — one masked launch over the full
         static slot width; only member slots are written."""
         s, g = self.server, self.g
-        lanes = self._lanes([m.slot_ids[g] for _, m in jobs])
+        lanes = self._lanes(r, [m.slot_ids[g] for _, m in jobs])
         inp = _decode_input(s, g, jobs, lanes)
-        out = self.model_g.decode_batch(self.params_g, inp, s._caches[(g, r)], lanes)
+        out = self.model_g.decode_batch(s._params_for(g, r), inp, s._caches[(g, r)], lanes)
         s.stats.decode_calls += 1
         _emit_decode_outputs(s, g, jobs, out, outputs, mgr, readbacks)
 
@@ -411,26 +442,21 @@ class _PagedExec(_StageExec):
     each replica, block tables from its manager, natively batched
     decode / chunk launches through the paged kernels."""
 
-    def init_cache(self, r: int) -> dict:
+    def init_cache(self, r: int):
         """Shared page pool: [n_layers, P+1, page, KV, Dh] (page P is the
         scratch page of masked lanes). int8 pools add one fp32 scale per
-        page row, ones at start so untouched rows dequantize to 0."""
+        page row, ones at start so untouched rows dequantize to 0. One pool
+        per position of the replica's slice, with the K/V heads that
+        position reads (:func:`..models.parallel.slice_pools`)."""
         s = self.server
         c = self.model_g.cfg
         shape = (c.n_layers, s.max_pages + 1, s.page_size, c.n_kv_heads, c.head_dim)
-        pools = {
-            "k": torch.zeros(shape, dtype=s.kv_dtype, device=s.device),
-            "v": torch.zeros(shape, dtype=s.kv_dtype, device=s.device),
-        }
-        if s.kv_dtype == torch.int8:
-            pools["k_scale"] = torch.ones(shape[:3], dtype=torch.float32, device=s.device)
-            pools["v_scale"] = torch.ones(shape[:3], dtype=torch.float32, device=s.device)
-        return pools
+        return slice_pools(shape, s.kv_dtype, s._params_for(self.g, r))
 
-    def _page_ids(self, mgr: PagedKVCache, grp, nbs: int) -> torch.Tensor:
+    def _page_ids(self, r: int, mgr: PagedKVCache, grp, nbs: int) -> torch.Tensor:
         """[N, nbs] int32 leading pages of each member, on the device."""
         ids = np.asarray([mgr.pages[m.rid][:nbs] for _, m, _ in grp], np.int32)
-        return torch.from_numpy(ids).to(self.server.device)
+        return self._tensor(r, ids)
 
     def run_prefill_whole(self, r, jobs, outputs, mgr: PagedKVCache, readbacks):
         """Compute-dtype pools: the dense flash prefill of each same-length
@@ -438,21 +464,22 @@ class _PagedExec(_StageExec):
         one scatter of those rows into the members' first ``nbs`` pages."""
         s, g = self.server, self.g
         pools = s._caches[(g, r)]
-        if "k_scale" in pools:
+        if "k_scale" in pools[0]:
             return self._run_prefill_whole_quant(r, jobs, outputs, mgr, readbacks)
         key = "tokens" if g == 0 else "hidden"
         ps = s.page_size
         for length, grp in sorted(_group_by_len(jobs).items()):
-            batch = {key: _stack_inputs(s, g, [inp for _, _, inp in grp])}
+            batch = {key: _stack_inputs(s._device_of(r), g, [inp for _, _, inp in grp])}
             nbs = mgr.pool.blocks_for(length)
-            flat = self._page_ids(mgr, grp, nbs).reshape(-1).long()
-            out, cache = self.model_g.prefill(self.params_g, batch, nbs * ps)
-            for name in ("k", "v"):
-                rows = cache["c0"][name]  # [n_layers, N, nbs*ps, KV, Dh]
-                n_layers, N = rows.shape[:2]
-                pools[name][:, flat] = rows.reshape(n_layers, N * nbs, ps, *rows.shape[3:]).to(
-                    pools[name].dtype
-                )
+            flat = self._page_ids(r, mgr, grp, nbs).reshape(-1).long()
+            out, cache = self.model_g.prefill(s._params_for(g, r), batch, nbs * ps)
+            # One pool per mesh position, each with its own heads' rows.
+            for pool, part in zip(pools, cache):
+                for name in ("k", "v") if pool else ():
+                    rows = part["c0"][name]  # [n_layers, N, nbs*ps, KV, Dh]
+                    n_layers, N = rows.shape[:2]
+                    pool[name][:, flat.to(rows.device)] = rows.reshape(
+                        n_layers, N * nbs, ps, *rows.shape[3:]).to(pool[name].dtype)
             s.stats.prefill_calls += 1
             _emit_whole_outputs(s, g, grp, out, outputs, mgr, length, readbacks)
 
@@ -464,13 +491,15 @@ class _PagedExec(_StageExec):
         token-exact)."""
         s, g = self.server, self.g
         pools = s._caches[(g, r)]
+        device = s._device_of(r)
         for length, grp in sorted(_group_by_len(jobs).items()):
             N = len(grp)
-            page_ids = self._page_ids(mgr, grp, mgr.pool.blocks_for(length))
-            offs = torch.zeros((N,), dtype=torch.int32, device=s.device)
-            valids = torch.full((N,), length, dtype=torch.int32, device=s.device)
-            inp = _stack_inputs(s, g, [inp for _, _, inp in grp])
-            out = self.model_g.prefill_chunk_paged(self.params_g, inp, pools, offs, valids, page_ids)
+            page_ids = self._page_ids(r, mgr, grp, mgr.pool.blocks_for(length))
+            offs = torch.zeros((N,), dtype=torch.int32, device=device)
+            valids = torch.full((N,), length, dtype=torch.int32, device=device)
+            inp = _stack_inputs(device, g, [inp for _, _, inp in grp])
+            out = self.model_g.prefill_chunk_paged(s._params_for(g, r), inp, pools, offs, valids,
+                                                   page_ids)
             s.stats.prefill_calls += 1
             # The launch's last position is the prompt's: _emit_whole_outputs
             # reads out[:, -1] (logits) or the whole [N, S, D] hidden.
@@ -487,11 +516,10 @@ class _PagedExec(_StageExec):
         for _, m, _, pos, valid in jobs:
             offs[m.slot_ids[g]] = pos
             valids[m.slot_ids[g]] = valid
-        inp = _chunk_input(s, g, jobs, C, self._lanes([m.slot_ids[g] for _, m, _, _, _ in jobs]))
+        inp = _chunk_input(s, g, jobs, C, self._lanes(r, [m.slot_ids[g] for _, m, _, _, _ in jobs]))
         out = self.model_g.prefill_chunk_paged(
-            self.params_g, inp, s._caches[(g, r)],
-            torch.from_numpy(offs).to(s.device), torch.from_numpy(valids).to(s.device),
-            mgr.device_block_table(),
+            s._params_for(g, r), inp, s._caches[(g, r)],
+            self._tensor(r, offs), self._tensor(r, valids), mgr.device_block_table(),
         )
         s.stats.chunk_prefill_calls += 1
         argmax = out.argmax(dim=-1) if g == s.G - 1 else None
@@ -509,10 +537,10 @@ class _PagedExec(_StageExec):
         lens = np.full((s.max_batch,), -1, np.int32)
         for _, m in jobs:
             lens[m.slot_ids[g]] = mgr.lengths[m.slot_ids[g]]
-        inp = _decode_input(s, g, jobs, self._lanes([m.slot_ids[g] for _, m in jobs]))
+        inp = _decode_input(s, g, jobs, self._lanes(r, [m.slot_ids[g] for _, m in jobs]))
         out = self.model_g.decode_paged(
-            self.params_g, inp, s._caches[(g, r)],
-            torch.from_numpy(lens).to(s.device), mgr.device_block_table(),
+            s._params_for(g, r), inp, s._caches[(g, r)],
+            self._tensor(r, lens), mgr.device_block_table(),
         )
         s.stats.decode_calls += 1
         _emit_decode_outputs(s, g, jobs, out, outputs, mgr, readbacks)
@@ -535,11 +563,10 @@ class _PagedExec(_StageExec):
         # A mid stage's seq is the upstream verify hidden, [1, valid, D].
         inp = tok_dev if g == 0 else _chunk_input(
             s, g, [(i, m, seq, 0, valid) for i, m, seq, _, valid in jobs], C,
-            self._lanes([m.slot_ids[g] for _, m, _, _, _ in jobs]))
+            self._lanes(r, [m.slot_ids[g] for _, m, _, _, _ in jobs]))
         out = self.model_g.verify_step_paged(
-            self.params_g, inp, s._caches[(g, r)],
-            torch.from_numpy(offs).to(s.device), torch.from_numpy(valids).to(s.device),
-            mgr.device_block_table(),
+            s._params_for(g, r), inp, s._caches[(g, r)],
+            self._tensor(r, offs), self._tensor(r, valids), mgr.device_block_table(),
         )
         s.stats.verify_calls += 1
         for _, m, _, pos, valid in jobs:
@@ -582,29 +609,37 @@ class _SpecState:
 
     def __init__(self, server: "PipelineServer", draft: Model, draft_params, k: int):
         self.model = draft
-        self.params = tree_map(lambda t: t.to(server.device), draft_params)
         self.k = k
         W = server.max_batch
+        # Unpartitioned, on each stage-0 replica's device (on a mesh, its
+        # slice's first position): one copy of the weights per device, a
+        # slice of one position there.
+        self.devices = {r: server._device_of(r) for r in range(server.R)}
+        self._params = {d: place_stage(draft.cfg, draft.template, draft_params, make_host_mesh(d))
+                        for d in dict.fromkeys(self.devices.values())}
         # Rows past the target's max_len are never read (requests complete
         # within it), but a catch-up ingest and the k draft steps write up
         # to k rows past the committed context: JAX's headroom, kept.
         self.rows = server.max_len + k + 1
-        self.caches = {r: draft.init_cache(W, self.rows, server.device) for r in range(server.R)}
+        self.caches = {r: slice_cache(draft.cfg, draft.cache_shapes(W, self.rows),
+                                      self.params_for(r)) for r in self.devices}
         self.rid = {r: np.full((W,), -1, np.int64) for r in range(server.R)}
         self.lens = {r: np.zeros((W,), np.int64) for r in range(server.R)}
-        self.device = server.device
 
-    def _tensors(self, *arrays):
-        return [torch.from_numpy(np.asarray(a)).to(self.device) for a in arrays]
+    def params_for(self, r: int):
+        return self._params[self.devices[r]]
+
+    def _tensors(self, r: int, *arrays):
+        return [torch.from_numpy(np.asarray(a)).to(self.devices[r]) for a in arrays]
 
     def ingest(self, r: int, buf, offs, valids, lanes) -> None:
         """One catch-up chunk launch: lanes ``lanes`` ingest ``valids``
         tokens of ``buf`` [W, C] at ``offs``; the other lanes keep their
         cache."""
         assert offs.max() < self.rows, "a draft ingest must start inside the cache"
-        buf_t, offs_t, valids_t, lanes_t = self._tensors(buf, offs, valids, lanes)
-        self.model.prefill_chunk_batch(self.params, buf_t, self.caches[r], offs_t, valids_t,
-                                       lanes_t)
+        buf_t, offs_t, valids_t, lanes_t = self._tensors(r, buf, offs, valids, lanes)
+        self.model.prefill_chunk_batch(self.params_for(r), buf_t, self.caches[r], offs_t,
+                                       valids_t, lanes_t)
 
     def round(self, r: int, buf, offs, valids, tok0: torch.Tensor, lanes) -> torch.Tensor:
         """One round's draft work: ingest the tokens the draft has not
@@ -618,16 +653,17 @@ class _SpecState:
         ``lanes``' cache, such a lane drafts from ``tok0`` alone at
         position 0. Its rows ``[0, k)`` and length are restored after."""
         self.ingest(r, buf, offs, valids, lanes)
-        cache = self.caches[r]
+        (cache,) = self.caches[r]
         W = cache["len"].shape[0]
-        (idle,) = self._tensors(np.setdiff1d(np.arange(W), lanes))
+        (idle,) = self._tensors(r, np.setdiff1d(np.arange(W), lanes))
         kept = {name: t[:, idle, : self.k].clone() for name, t in cache["c0"].items()}
         kept_len = cache["len"][idle].clone()
         cache["len"][idle] = 0
-        every = torch.arange(W, device=self.device)
+        every = torch.arange(W, device=self.devices[r])
         tok, drafts = tok0, []
         for _ in range(self.k):
-            logits = self.model.decode_batch(self.params, tok[:, None], cache, every)
+            logits = self.model.decode_batch(self.params_for(r), tok[:, None], self.caches[r],
+                                             every)
             tok = logits[:, -1].argmax(dim=-1)
             drafts.append(tok)
         for name, t in kept.items():
@@ -679,9 +715,19 @@ class PipelineServer:
         seed: int = 0,
         device: str | torch.device | None = None,
         elastic=None,
+        mesh: Mesh | None = None,
     ):
         """``device``: where the weights, caches and compute live (CUDA
         unless the caller asks otherwise); ``params`` are moved there.
+
+        ``mesh``: a ``(data, model)`` serving mesh
+        (:func:`..launch.mesh.make_serving_mesh`) in place of ``device``.
+        Replicas go to its data slices round-robin
+        (:func:`..distributed.replica_submeshes`); every stage's weights
+        are cut once per (stage, slice) over the slice's ``model``
+        positions (:func:`..models.parallel.place_stage`), and the
+        server keeps only those copies. A replica's caches live on its
+        slice's positions, its inputs on the slice's first one.
 
         ``paged``: a page pool per (group, replica) instead of dense slot
         caches; ``page_size`` entries per page; ``max_pages`` pool pages
@@ -698,11 +744,26 @@ class PipelineServer:
         ``elastic``: an :class:`..ft.elastic.ElasticController` over this
         server's router; failing or recovering a replica then zeroes or
         restores its long-term rate."""
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is None:
+            self.device = resolve_device(device)
+        else:
+            devices = [resolve_device(d) for d in mesh.devices.flat]
+            if device is not None and resolve_device(device).type != devices[0].type:
+                raise ValueError(f"device={device} disagrees with the mesh's {devices[0]}")
+            self.device = devices[0]
         self.cfg = model.cfg
         self.elastic = elastic
-        self.stages = partition_model(model.cfg, self._place_params(params), n_groups)
+        self.stages = partition_model(model.cfg, params, n_groups)
         self.G, self.R = n_groups, n_replicas
+        # Without a mesh: a 1x1 mesh on ``device``, one slice of one position.
+        slices, self._slice_of = replica_submeshes(mesh or make_host_mesh(self.device), n_replicas)
+        self._placed: dict[tuple[int, int], SliceParams] = {
+            (g, d): self._place(m, p, sub)
+            for g, (m, p) in enumerate(self.stages) for d, sub in enumerate(slices)}
+        self._slice_devices = [sub.devices.flat[0] for sub in slices]
+        # Only the placed copies stay: the caller may free its weights.
+        self.stages = [(m, None) for m, _ in self.stages]
         self.max_len = max_len
         self.max_batch = max_batch
         self.paged = paged
@@ -771,7 +832,9 @@ class PipelineServer:
                     # One snapshot per possible in-flight call plus the one
                     # being built.
                     table_buffers=self._depth + 1,
-                    device=self.device,
+                    # Where the replica's pool lives (its slice's first
+                    # position on a mesh).
+                    device=self._device_of(r),
                 )
                 for g in range(n_groups)
                 for r in range(n_replicas)
@@ -810,9 +873,23 @@ class PipelineServer:
     # ------------------------------------------------------------------
     # Execution substrate (:mod:`.mpserve` proxies it to worker processes)
     # ------------------------------------------------------------------
-    def _place_params(self, params):
-        """The weights as the stage executors read them: on ``device``."""
-        return tree_map(lambda t: t.to(self.device), params)
+    def _place(self, model_g: Model, params_g, sub: Mesh):
+        """Stage weights as the stage executors read them: cut over the
+        positions of slice ``sub`` (one position on ``device`` without a
+        mesh), each shard copied to its device
+        (:func:`..models.parallel.place_stage`)."""
+        return place_stage(model_g.cfg, model_g.template, params_g, sub)
+
+    def _params_for(self, g: int, r: int):
+        """Stage ``g``'s weights as replica ``r``'s launches read them: the
+        copy placed on ``r``'s slice."""
+        return self._placed[(g, self._slice_of[r])]
+
+    def _device_of(self, r: int) -> torch.device:
+        """Where replica ``r``'s stage inputs and outputs live: its slice's
+        first position (``device`` without a mesh; a handoff from another
+        slice moves there when the consuming call is assembled)."""
+        return self._slice_devices[self._slice_of[r]]
 
     def _build_exec(self) -> list:
         """One execution backend per stage."""
@@ -885,7 +962,7 @@ class PipelineServer:
                 spec.lens[r][slot] = 0
             entries.append([m, slot, ctx, int(spec.lens[r][slot]), L])
             dr_entries.append((m, slot, valid - 1))
-        tok0_dev = torch.from_numpy(tok0).to(self.device)
+        tok0_dev = torch.from_numpy(tok0).to(self._device_of(r))
         if not entries:
             return torch.cat([tok0_dev[:, None], tok0_dev.new_zeros((W, k))], dim=1)
         # Catch-up: a rebuilt lane may be far behind; feed fixed C-wide

@@ -43,10 +43,17 @@ The port of the JAX package's ``serving/mpserve.py``. Design points:
   CUDA the coordinator builds the kernel library once before spawning,
   so the workers only load it.
 
+* **Per-worker tensor parallelism.** ``mesh_model > 1`` makes each
+  worker its own ``(1, mesh_model)`` mesh over its device, repeated
+  (:func:`..launch.mesh.make_serving_mesh` with explicit ``devices``):
+  the stage's weights are cut over the positions as the in-process mesh
+  server cuts them (:func:`..models.parallel.place_stage`), so a
+  pipeline handoff crosses processes while the tensor parallelism stays
+  inside one.
+
 Scope: dense whole-prompt mode only. Paged KV, chunked prefill and
 speculative decoding run in-process; requesting them here raises
-``ValueError``. Per-worker tensor parallelism (``mesh_model > 1``) waits
-for the port's mesh serving.
+``ValueError``.
 """
 
 from __future__ import annotations
@@ -73,7 +80,9 @@ from ..core.network import DeviceSpec
 from ..device import resolve_device
 from ..ft.elastic import ElasticController
 from ..ft.health import ProcessMonitor
+from ..launch.mesh import make_serving_mesh
 from ..models.common import ModelConfig, init_from_template, torch_dtype, tree_map
+from ..models.parallel import place_stage
 from ..models.registry import build_model
 from .cache import DenseSlotCache
 from .engine import PipelineServer, ServerStats, _DenseExec, _group_by_len
@@ -238,11 +247,14 @@ class StageHost:
     (``_DenseExec``), standing in for the server it reads — ``device``,
     ``max_batch``, ``max_len``, ``stats``, the stage weights and one slot
     cache — so the multi-process token stream equals the in-process one.
-    Also usable in-process (the tests drive it without a subprocess).
+    The weights are cut over ``mesh_model`` positions on ``device`` (one
+    position, nothing cut, at 1) and the cache is one tree per position,
+    as the in-process server holds them. Also usable in-process (the
+    tests drive it without a subprocess).
     """
 
     def __init__(self, spec: dict, g: int, n_groups: int, max_batch: int, max_len: int,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, mesh_model: int = 1):
         self.device = resolve_device(device)
         cuda = self.device.type == "cuda"
         cfg, _, params = build_from_spec(spec, self.device)
@@ -251,6 +263,8 @@ class StageHost:
         # them, so the other stages' weights are freed.
         params_g = tree_map(lambda t: t.clone(), params_g)
         del params
+        mesh = make_serving_mesh(model_axis=mesh_model, devices=[self.device] * mesh_model)
+        params_g = place_stage(model_g.cfg, model_g.template, params_g, mesh)
         self.build_peak_bytes = None
         if cuda:
             torch.cuda.synchronize(self.device)
@@ -261,11 +275,18 @@ class StageHost:
         self.g, self.G = g, n_groups
         self.last = g == n_groups - 1
         self.max_batch, self.max_len = max_batch, max_len
+        self.mesh_model = mesh_model
         self.stats = ServerStats()
         self.stages = {g: (model_g, params_g)}
         self._exec = _DenseExec(self, g)
         self._caches = {(g, 0): self._exec.init_cache(0)}
         self._mgr = DenseSlotCache(max_batch, max_len)  # the backend's length mirror
+
+    def _params_for(self, g: int, r: int):
+        return self.stages[g][1]
+
+    def _device_of(self, r: int) -> torch.device:
+        return self.device
 
     # -- ops -------------------------------------------------------------
     def handle(self, msg: tuple) -> dict:
@@ -284,6 +305,7 @@ class StageHost:
             "ok": True,
             "pid": os.getpid(),
             "device": torch.cuda.get_device_name(self.device) if cuda else str(self.device),
+            "mesh_model": self.mesh_model,
             "launches": _kernel_launches(),
             "prefill_calls": self.stats.prefill_calls,
             "decode_calls": self.stats.decode_calls,
@@ -330,7 +352,7 @@ def worker_main(args) -> int:
     replies = os.fdopen(os.dup(1), "wb")
     os.dup2(2, 1)
     host = StageHost(json.loads(args.spec), args.group, args.n_groups, args.max_batch,
-                     args.max_len, device=args.device)
+                     args.max_len, device=args.device, mesh_model=args.mesh_model)
     stdin = sys.stdin.buffer
     while True:
         try:
@@ -358,7 +380,8 @@ class WorkerHandle:
     """Coordinator-side endpoint of one worker process."""
 
     def __init__(self, g: int, r: int, spec: dict, *, n_groups: int, max_batch: int,
-                 max_len: int, device: torch.device, monitor: ProcessMonitor | None = None):
+                 max_len: int, device: torch.device, mesh_model: int = 1,
+                 monitor: ProcessMonitor | None = None):
         self.key = (g, r)
         self.monitor = monitor
         self.pending = 0  # requests written whose reply is still unread
@@ -373,7 +396,8 @@ class WorkerHandle:
             "sys.exit(main(sys.argv[1:]))",
             "--worker", "--group", str(g), "--n-groups", str(n_groups),
             "--max-batch", str(max_batch), "--max-len", str(max_len),
-            "--device", str(device), "--spec", json.dumps(spec),
+            "--device", str(device), "--mesh-model", str(mesh_model),
+            "--spec", json.dumps(spec),
         ]
         self.proc = subprocess.Popen(cmd, stdin=subprocess.PIPE, stdout=subprocess.PIPE, env=env)
         _widen_pipe(self.proc.stdin)
@@ -542,7 +566,8 @@ class MPPipelineServer(PipelineServer):
 
     ``model_spec`` replaces the ``(model, params)`` pair (see
     :func:`build_from_spec`); ``device`` is where every worker runs
-    (``None`` means CUDA). The elastic controller is wired by default,
+    (``None`` means CUDA); ``mesh_model`` the tensor-parallel positions
+    of each worker, all on that device. The elastic controller is wired by default,
     so a worker death flows process exit -> ``ProcessMonitor`` ->
     ``fail_replica`` -> ``ElasticController.fail`` ->
     ``Router.on_membership_change``. Close it (``with`` or
@@ -557,11 +582,9 @@ class MPPipelineServer(PipelineServer):
                     "multi-process serving runs dense whole-prompt stages "
                     f"only; {bad!r} is unsupported (use PipelineServer)"
                 )
-        if mesh_model > 1:
-            raise NotImplementedError(
-                "mesh_model > 1 (tensor parallelism inside a worker) waits for the "
-                "port's mesh serving: ROADMAP.md, Queue 1, item 6"
-            )
+        if mesh_model < 1:
+            raise ValueError(f"mesh_model must be >= 1, got {mesh_model}")
+        self.mesh_model = int(mesh_model)
         self.model_spec = dict(model_spec)
         self.monitor = ProcessMonitor()
         self._workers: dict[tuple[int, int], WorkerHandle] = {}
@@ -581,8 +604,8 @@ class MPPipelineServer(PipelineServer):
             raise
 
     # -- substrate -------------------------------------------------------
-    def _place_params(self, params):
-        return params  # shapes only: the weights live in the workers
+    def _place(self, model_g, params_g, sub):
+        return None  # the weights live in the workers
 
     def _build_exec(self):
         if self.device.type == "cuda":
@@ -596,7 +619,8 @@ class MPPipelineServer(PipelineServer):
 
     def _spawn(self, g: int, r: int) -> WorkerHandle:
         w = WorkerHandle(g, r, self.model_spec, n_groups=self.G, max_batch=self.max_batch,
-                         max_len=self.max_len, device=self.device, monitor=self.monitor)
+                         max_len=self.max_len, device=self.device, mesh_model=self.mesh_model,
+                         monitor=self.monitor)
         self.monitor.register((g, r), w.proc)
         return w
 
@@ -675,6 +699,7 @@ def main(argv=None) -> int:
     ap.add_argument("--max-batch", type=int, required=True)
     ap.add_argument("--max-len", type=int, required=True)
     ap.add_argument("--device", type=str, required=True)
+    ap.add_argument("--mesh-model", type=int, default=1)
     ap.add_argument("--spec", type=str, required=True)
     return worker_main(ap.parse_args(argv))
 

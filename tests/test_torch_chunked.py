@@ -225,7 +225,7 @@ def test_dense_chunked_server_writes_only_joining_lanes(weights):
     first = server.submit(prompt, n_tokens=40)
     while not first.cache_ready[1]:
         server.step()
-    cache = server._caches[(0, 0)]
+    (cache,) = server._caches[(0, 0)]  # one tree per mesh position; one without a mesh
     slot = first.slot_ids[0]
     before = cache["c0"]["k"][:, slot].clone()
     length = int(cache["len"][slot])

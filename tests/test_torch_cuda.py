@@ -928,7 +928,7 @@ def test_mamba_server_runs_through_the_scan_kernel(gen, monkeypatch):
     assert req.done and len(req.generated) == 6
     assert selective_scan.launches > before
     assert server.host_readback.counts["dispatch"] == 0
-    for cache in server._caches.values():
+    for (cache,) in server._caches.values():  # one tree per mesh position; one without a mesh
         for t in cache["c0"].values():
             assert t.device.type == "cuda" and bool(torch.isfinite(t.float()).all())
     # The server's first token is the monolithic kernel path's.

@@ -428,7 +428,7 @@ def test_server_matches_reference_through_a_failover(weights, G, async_depth):
     _assert_same_run(ref, ref_reqs, ours, our_reqs)
     st = ours.stats
     assert st.completed_jobs > 0 and st.rerouted_stages > 0
-    for cache in ours._caches.values():
+    for (cache,) in ours._caches.values():  # one tree per mesh position; one without a mesh
         for key, entry in cache.items():
             if key != "len":
                 assert set(entry) == {"k", "v", "conv", "ssm"}

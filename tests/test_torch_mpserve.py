@@ -391,7 +391,9 @@ def test_fleet_differential_kill_and_recover(jax_weights):
         assert sorted(pings) == [(0, 0), (0, 1), (1, 0), (1, 1)]
         assert len({p["pid"] for p in pings.values()} | {os.getpid()}) == 5
         assert all(p["device"] == "cpu" for p in pings.values())
-        assert all(t.is_meta for _, stage in mp.stages for t in jax.tree_util.tree_leaves(stage))
+        # The coordinator holds no weights: they live in the workers.
+        assert all(stage is None for _, stage in mp.stages)
+        assert all(placed is None for placed in mp._placed.values())
 
         # wave 1: plain differential
         assert _drain(mp, [mp.submit(p, n_tokens=6) for p in prompts]) == ref_a
@@ -434,11 +436,6 @@ def test_fleet_differential_kill_and_recover(jax_weights):
 def test_unsupported_modes_raise(bad):
     with pytest.raises(ValueError, match="dense whole-prompt"):
         MPPipelineServer(SPEC, device="cpu", **bad)
-
-
-def test_mesh_model_waits_for_the_mesh_slice():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        MPPipelineServer(SPEC, device="cpu", mesh_model=2)
 
 
 def test_worker_that_dies_at_start_fails_the_constructor(tmp_path):

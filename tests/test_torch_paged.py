@@ -455,7 +455,7 @@ def test_paged_server_matches_reference(weights, prefill_chunk, async_depth):
 @pytest.mark.parametrize("prefill_chunk", [None, 4])
 def test_paged_int8_server_matches_reference(weights, prefill_chunk):
     ours = _run_pair(weights, kv_dtype="int8", prefill_chunk=prefill_chunk)
-    pools = ours._caches[(0, 0)]
+    (pools,) = ours._caches[(0, 0)]  # one tree per mesh position; one without a mesh
     assert pools["k"].dtype == torch.int8 and pools["k_scale"].dtype == torch.float32
     assert ours.stats.tokens_generated > 0
 

@@ -210,8 +210,10 @@ def test_server_keeps_state_on_its_device(weights):
     _, (tmodel, tparams) = weights
     ours = PipelineServer(tmodel, tparams, device="cpu", **SERVER_KW)
     ours.run(5, arrival_p=1.0)
-    tensors = [c["c0"]["k"] for c in ours._caches.values()]
-    tensors += [t for _, p in ours.stages for t in p["classes"]["c0"]["attn"].values()]
+    # One cache tree and one placed stage tree per mesh position; one without a mesh.
+    tensors = [c["c0"]["k"] for cache in ours._caches.values() for c in cache]
+    tensors += [t for p in ours._placed.values() for shard in p.shards
+                for t in shard["classes"]["c0"]["attn"].values()]
     assert all(t.device == torch.device("cpu") for t in tensors)
     if not torch.cuda.is_available():  # no silent fallback to the CPU
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -354,7 +354,7 @@ def test_server_keeps_ssm_state_in_its_cache(weights):
     _, (tmodel, tparams) = weights
     ours = PipelineServer(tmodel, tparams, device="cpu", **SERVER_KW)
     ours.run(5, arrival_p=1.0)
-    for cache in ours._caches.values():
+    for (cache,) in ours._caches.values():  # one tree per mesh position; one without a mesh
         assert set(cache["c0"]) == {"conv", "ssm"}
         assert cache["c0"]["ssm"].dtype == torch.float32
         assert cache["c0"]["ssm"].device == torch.device("cpu")

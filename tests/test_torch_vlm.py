@@ -210,4 +210,5 @@ def test_server_matches_reference(weights, async_depth):
         else:
             assert value == getattr(ref.stats, name), name
     assert ours.stats.tokens_generated > 0
-    assert "vision_proj" in ours.stages[0][1] and "vision_proj" not in ours.stages[1][1]
+    first, second = (ours._params_for(g, 0).shards[0] for g in (0, 1))  # placed stage trees
+    assert "vision_proj" in first and "vision_proj" not in second
