@@ -420,9 +420,30 @@ Phases, in order; any failure exits non-zero:
 40. ``pipeline_apply``: four stages x eight microbatches on four positions
    of the card, equal bit for bit to the stages applied in sequence to
    each microbatch.
-41. A JSON line of per-kernel results (the six kernels and the two
-   backwards; training's launches of both flash kernels from phases 23-24
-   and 29-31 and of the scan's two kernels from phases 29-31; the
+41. The training mesh (``TRAIN_RULES``; ``train(..., mesh=)``; positions
+   are the card repeated): the flash forward (lse on) and backward and the
+   scan's forward under grad and backward at the shapes a (2, 2) position
+   gives them (TRAIN_MESH_FLASH, TRAIN_MESH_SCANS), held against their
+   plain versions with phases 22's and 27's tolerances, timed beside
+   SDPA's fp32 forward and backward.
+42. stablelm-1.6b at full width and depth on a (2, 2) mesh, fp32, remat,
+   B=4, S=256, 5 steps: s/step beside phase 23's, params and moments bytes
+   per position against the unsharded 12 B a parameter, peak memory, and
+   exactly four positions' worth of phase 23's launches per step.
+43. Training parity on a (2, 2) mesh: every family's 3-layer full-width
+   fp32 cut (3 + 3 for the encoder-decoders) at its trained shape, 3 steps
+   on the mesh and on one position through the kernels from the same
+   weights: every loss, and every gathered leaf of step 1's gradient,
+   within phase 32's gate; the mesh's step-1 gradient twice bit for bit;
+   launches four positions' worth of one step's.
+44. Phase 26's kill and relaunch through ``python -m
+   repro_torch.launch.train --mesh single --positions 4 --device
+   cuda:<card>`` (stablelm's smoke config), against the uninterrupted run
+   on the same mesh.
+45. A JSON line of per-kernel results (the six kernels and the two
+   backwards; training's launches of both flash kernels from phases 23-24,
+   29-31 and 42-43 and of the scan's two kernels from phases 29-31 and 43;
+   the
    paged-prefill kernel's launches also by route: ``paged_chunk`` from
    phases 5, 15 and 16, ``verify`` and ``dense_chunk`` from phases 9, 10
    and 16; flash's by route: ``windowed`` from phases 13 and 29,
@@ -433,9 +454,9 @@ Phases, in order; any failure exits non-zero:
    workers' (the live workers' last pings plus the killed worker's after
    wave 1); rmsnorm's counter is read over phases 4-21 and must stay 0: no
    served path launches it; the mesh runs of phases 34-39 by run, and the
-   kernels' cases at the positions' shapes), then the script's seconds
-   beside its time before phases 33-40 were added, then the device line
-   last.
+   kernels' cases at the positions' shapes, serving's and training's),
+   then the script's seconds beside its time before phases 41-44 were
+   added, then the device line last.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -2669,8 +2690,8 @@ def cross_marked():
     """Mark the attention calls made inside ``cross_attention_block`` (a
     prompt's flash call, a decode step's decode call) for the duration of
     the block: ``encdec`` looks the block up in its own module at call
-    time."""
-    from repro_torch.models import encdec
+    time, and a training mesh's ``attention_rows`` in ``attention``."""
+    from repro_torch.models import attention, encdec
 
     fn = encdec.cross_attention_block
 
@@ -2681,11 +2702,11 @@ def cross_marked():
         finally:
             _cross.pop()
 
-    encdec.cross_attention_block = marked
+    encdec.cross_attention_block = attention.cross_attention_block = marked
     try:
         yield
     finally:
-        encdec.cross_attention_block = fn
+        encdec.cross_attention_block = attention.cross_attention_block = fn
 
 
 def attention_route(name: str, kwargs: dict) -> str:
@@ -3628,13 +3649,14 @@ def check_step_launches(cfg, launches: dict, routes: dict, steps: int) -> None:
 
 
 def train_run(cfg, cuda: torch.device, *, steps: int = None, batch: int = None,
-              seq: int = None) -> dict:
+              seq: int = None, mesh=None) -> dict:
     """``cfg`` trained through ``launch/train.py``'s ``train`` (fp32, from
     seed 0): ``steps`` AdamW steps (default TRAIN_STEPS; lr TRAIN_LR,
     warmup 5) on ``batch`` x ``seq`` tokens (default TRAIN_BATCH x
     TRAIN_SEQ; an encoder-decoder's batches add as many frames), every
-    layer recomputed under remat. Returns the run's report; asserts finite
-    losses and exactly :func:`step_launches` per step, flash by route."""
+    layer recomputed under remat; on a training ``mesh`` if given. Returns
+    the run's report; asserts finite losses and exactly
+    :func:`step_launches` per step and mesh position, flash by route."""
     from repro_torch.launch.train import train
     from repro_torch.models import build_model, count_params
     from repro_torch.models.moe import moe_ffn
@@ -3644,9 +3666,12 @@ def train_run(cfg, cuda: torch.device, *, steps: int = None, batch: int = None,
     moe_ffn.routed, moe_ffn.dropped = 0, 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
+    placed: dict = {}
     with cross_marked(), flash_routes_recorded() as routes:
-        history = train(cfg, steps=steps, batch=batch, seq=seq, lr=TRAIN_LR, device=cuda)
+        history = train(cfg, steps=steps, batch=batch, seq=seq, lr=TRAIN_LR, device=cuda,
+                        mesh=mesh, report=placed)
     seconds = time.perf_counter() - t0
+    positions = 1 if mesh is None else mesh.size
     launches = read_counters()
     free_memory()
     losses = [h["loss"] for h in history]
@@ -3670,6 +3695,9 @@ def train_run(cfg, cuda: torch.device, *, steps: int = None, batch: int = None,
                                "selective_scan_bwd")},
         "flash_routes": {k: dict(v) for k, v in routes.items()},
     }
+    if mesh is not None:
+        report["mesh"] = mesh.shape
+        report["position_bytes"] = placed["position_bytes"]
     if cfg.is_encdec:
         report["encoder_layers"] = cfg.encoder_layers
     if cfg.is_moe:
@@ -3687,7 +3715,7 @@ def train_run(cfg, cuda: torch.device, *, steps: int = None, batch: int = None,
           + (f", MoE routed {report['moe_routed']} dropped {report['moe_dropped']}"
              if cfg.is_moe else ""))
     assert all(np.isfinite(losses)), losses
-    check_step_launches(cfg, launches, routes, steps)
+    check_step_launches(cfg, launches, routes, steps * positions)
     return report
 
 
@@ -3940,12 +3968,15 @@ def step_losses(stdout: str) -> dict[int, float]:
             for m in re.finditer(r"^step\s+(\d+) loss=(\S+)", stdout, re.M)}
 
 
-def checkpoint_phase(cuda: torch.device) -> dict:
+def checkpoint_phase(cuda: torch.device, mesh_positions: int | None = None) -> dict:
     """Phase 26: stablelm's smoke config on the card, 6 steps with a
     checkpoint every 3: uninterrupted here, then in a process killed after
     step 3's checkpoint and relaunched from it. Steps 4-6 must give the
-    same losses, bit for bit."""
+    same losses, bit for bit. With ``mesh_positions`` (phase 44) every run
+    trains on ``--mesh single --positions N --device cuda:<index>``, the
+    uninterrupted one through ``train(..., mesh=)`` on the same mesh."""
     from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.launch.train import train
 
     out = Path(__file__).resolve().parent / "build" / "train_ckpt"
@@ -3953,8 +3984,13 @@ def checkpoint_phase(cuda: torch.device) -> dict:
     out.mkdir(parents=True)
     argv = ["--arch", "stablelm-1.6b", "--smoke", "--steps", "6", "--ckpt-every", "3",
             "--seq", "64", "--ckpt-dir", str(out / "killed")]
+    mesh = None
+    if mesh_positions is not None:
+        card = torch.device("cuda", torch.cuda.current_device())
+        argv += ["--mesh", "single", "--positions", str(mesh_positions), "--device", str(card)]
+        mesh = make_production_mesh(devices=[card] * mesh_positions)
     whole = train(get_smoke_config("stablelm-1.6b"), steps=6, batch=4, seq=64, lr=3e-3,
-                  ckpt_dir=str(out / "whole"), ckpt_every=3, device=cuda)
+                  ckpt_dir=str(out / "whole"), ckpt_every=3, device=cuda, mesh=mesh)
     root = str(Path(__file__).resolve().parent)
     killed = subprocess.run([sys.executable, "-c", KILLED_RUN.format(kill_at=3, argv=argv)],
                             capture_output=True, text=True, timeout=600, cwd=root)
@@ -3967,11 +4003,14 @@ def checkpoint_phase(cuda: torch.device) -> dict:
     before, after = step_losses(killed.stdout), step_losses(relaunched.stdout)
     expected = {h["step"]: h["loss"] for h in whole}
     print(f"  killed after step 3 (exit {killed.returncode}) having run steps {sorted(before)}; "
-          f"relaunched: {relaunched.stdout.splitlines()[0]!r}, steps {sorted(after)}; "
+          f"relaunched: {relaunched.stdout.splitlines()[int(mesh is not None)]!r}, steps "
+          f"{sorted(after)}; "
           f"checkpoint of step 3 on disk: {size} bytes")
     print(f"  losses uninterrupted {[expected[s] for s in (4, 5, 6)]} resumed "
           f"{[after.get(s) for s in (4, 5, 6)]}")
     assert "restored checkpoint at step 3" in relaunched.stdout, relaunched.stdout
+    if mesh is not None:
+        assert f"mesh: {mesh.shape}" in relaunched.stdout, relaunched.stdout
     assert sorted(after) == [4, 5, 6], after
     assert all(after[s] == expected[s] for s in (4, 5, 6)), (after, expected)
     assert all(before[s] == expected[s] for s in (1, 2, 3)), (before, expected)
@@ -4896,6 +4935,259 @@ def mesh_phases(cuda: torch.device) -> tuple[dict, dict, dict]:
     return cases, runs, report
 
 
+# ---- the training mesh: phases 41-44 ---------------------------------------
+
+# Phase 41: the training kernels at the shapes each position of a (2, 2)
+# mesh gives them (B / 2 rows; the heads / 2 where they split): (B, Sq, Skv,
+# H, KV, D, causal, window, label), as BWD_CASES. hymba's 25 heads do not
+# split: every position runs them on its one batch row. The encoder-decoders'
+# encoder and cross-attention have one shape (S_src = S = 256).
+TRAIN_MESH_FLASH = (
+    (2, 256, 256, 16, 16, 64, True, None, "stablelm-1.6b on (2, 2)"),
+    (2, 256, 256, 8, 4, 64, True, None, "granite-moe-1b-a400m on (2, 2)"),
+    (1, 1280, 1280, 25, 5, 64, True, 1024, "hymba-1.5b on (2, 2), window class"),
+    (1, 1280, 1280, 25, 5, 64, True, None, "hymba-1.5b on (2, 2), global class"),
+    (2, 256, 256, 8, 8, 64, False, None, "seamless-m4t-large-v2 on (2, 2), encoder and cross"),
+    (2, 256, 256, 8, 8, 64, True, None, "seamless-m4t-large-v2 on (2, 2), decoder"),
+    (2, 256, 256, 50, 50, 8, False, None, "paper-block on (2, 2), encoder and cross"),
+    (2, 256, 256, 50, 50, 8, True, None, "paper-block on (2, 2), decoder"),
+)
+# The scan at each position's channels (Din / 2): (B, S, Din, N, label).
+TRAIN_MESH_SCANS = ((2, 256, 4096, 16, "falcon-mamba-7b on (2, 2)"),
+                    (1, 1280, 1600, 16, "hymba-1.5b on (2, 2)"))
+SCAN_FWD_TOL = 1e-4  # the forward under grad (y, h_final) against the plain scan, of scale
+TRAIN_MESH_SHAPE = (2, 2)
+TRAIN_MESH_STEPS = 5
+# Phase 43: (arch, B, S) of each family's 3-layer cut (3 + 3 for the
+# encoder-decoders), at the trained shapes of phases 23-24 and 29-31.
+TRAIN_MESH_PARITY = (("stablelm-1.6b", TRAIN_BATCH, TRAIN_SEQ),
+                     ("granite-moe-1b-a400m", TRAIN_BATCH, TRAIN_SEQ),
+                     ("falcon-mamba-7b", 4, 256), ("hymba-1.5b", 2, 1280),
+                     ("seamless-m4t-large-v2", 4, 256), ("paper-block", 4, 256))
+PARITY_STEPS = 3
+
+
+def train_mesh_over(device: torch.device, shape=TRAIN_MESH_SHAPE):
+    """A training mesh of ``shape`` whose every position is ``device``."""
+    from repro_torch.launch.mesh import make_production_mesh
+
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return make_production_mesh(shape=shape, devices=[device] * math.prod(shape))
+
+
+def train_mesh_kernels_phase(cuda: torch.device) -> dict:
+    """Phase 41: the flash forward (lse on) and backward and the scan's
+    forward under grad (with its checkpoints) and backward at the shapes a
+    (2, 2) position gives them, each held against its plain version with
+    phases 22's and 27's tolerances and timed beside SDPA's fp32 forward
+    and backward."""
+    from repro_torch.kernels.selective_scan import selective_scan_fwd, selective_scan_ref
+
+    gen = torch.Generator(device=cuda).manual_seed(41)
+    fwd = [flash_fwd_fp32_case(*c, gen) for c in TRAIN_MESH_FLASH]
+    bwd = [flash_bwd_case(*c, gen) for c in TRAIN_MESH_FLASH]
+    for f, b in zip(fwd, bwd):
+        print(f"  flash {f['shape']}: forward err {f['max_abs_err']:.3g} (tol {f['tol']:g}) lse "
+              f"{f['lse_max_abs_err']:.3g}, {f['ms']:.4f} ms (plain {f['plain_ms']:.4f}, SDPA "
+              f"{f['library_ms']:.4f}, bound {f['bound_ms']:.4f} {f['bound_by']}); backward "
+              "dq/dk/dv err / scale " + "/".join(f"{e:.3g}" for e in b["rel_err"].values())
+              + f" (tol {b['tol']:g}; planted fault {b['planted_fault_rel_err']:.3g}), "
+              f"{b['ms']:.4f} ms (plain {b['plain_ms']:.4f}, SDPA {b['library_ms']:.4f} "
+              f"{b['library_backend']}, bound {b['bound_ms']:.4f} {b['bound_by']}); repeats bit "
+              f"for bit {f['bitwise_repeat'] and b['bitwise_repeat']}")
+    assert all(c["max_abs_err"] <= c["tol"] and c["lse_max_abs_err"] <= LSE_TOL
+               and c["bitwise_repeat"] for c in fwd), fwd
+    assert all(c["max_rel_err"] <= BWD_TOL < c["planted_fault_rel_err"]
+               and c["lse_max_abs_err"] <= LSE_TOL and c["bitwise_repeat"] for c in bwd), bwd
+    scans = []
+    for B, S, Din, N, label in TRAIN_MESH_SCANS:
+        case = scan_bwd_case(B, S, Din, N, False, False, None, False, label, gen)
+        ops = scan_operands(B, S, Din, N, False, gen)
+        y, h, _ = selective_scan_fwd(*ops)
+        want = selective_scan_ref(*ops)
+        case["forward_rel_err"] = max(_rel_err(y, want[0]), _rel_err(h, want[1]))
+        print(f"  selective_scan {case['shape']}: forward under grad err / scale "
+              f"{case['forward_rel_err']:.3g} (tol {SCAN_FWD_TOL:g}), "
+              f"{case['forward_with_checkpoints_ms']:.4f} ms; backward err / scale "
+              f"{case['max_rel_err']:.3g} (tol {case['tol']:g}; planted fault "
+              f"{case['planted_fault_rel_err']:.3g}), {case['ms']:.4f} ms (plain "
+              f"{case['plain_ms']:.4f}, bound {case['bound_ms']:.4f} {case['bound_by']}); repeat "
+              f"bit for bit {case['bitwise_repeat']}")
+        scans.append(case)
+    assert all(c["forward_rel_err"] <= SCAN_FWD_TOL and c["bitwise_repeat"]
+               and c["max_rel_err"] <= SCAN_BWD_TOL < c["planted_fault_rel_err"]
+               for c in scans), scans
+    return {"flash_fwd": fwd, "flash_bwd": bwd, "scan": scans}
+
+
+def train_mesh_full_phase(cuda: torch.device, single: dict) -> dict:
+    """Phase 42: full-width, full-depth stablelm-1.6b on a (2, 2) mesh of
+    the card's positions through ``train(..., mesh=)``: TRAIN_MESH_STEPS
+    steps (fp32, remat, B = TRAIN_BATCH, S = TRAIN_SEQ), each position's
+    params and moments in bytes against the unsharded 12 B a parameter,
+    s/step beside phase 23's single-device figure (``single``), the peak
+    memory, and the launches: every position launches a step's kernels."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("stablelm-1.6b")
+    mesh = train_mesh_over(cuda)
+    print(f"  mesh {mesh.shape}: positions {[str(d) for d in mesh.devices.flat]}")
+    run = train_run(cfg, cuda, steps=TRAIN_MESH_STEPS, mesh=mesh)
+    whole = 12 * run["params"]
+    run["unsharded_bytes"] = whole
+    run["single_device_s_per_step_median"] = single["s_per_step_median"]
+    print(f"  params + both moments per position (GB): "
+          + " ".join(f"{b / 1e9:.3f}" for b in run["position_bytes"])
+          + f" against {whole / 1e9:.3f} unsharded ({max(run['position_bytes']) / whole:.3f}x); "
+          f"{run['s_per_step_median']:.4f} s/step against {single['s_per_step_median']:.4f} on "
+          f"one position (phase 23, {run['s_per_step_median'] / single['s_per_step_median']:.2f}"
+          f"x); peak {run['peak_gb']:.2f} GB")
+    assert max(run["position_bytes"]) < whole / 2, run["position_bytes"]
+    return run
+
+
+def _cut_state(cfg, cuda, mesh=None, move: int | None = None):
+    """``cfg``'s train state from seed 0 as launch/train.py draws it
+    (:func:`step0_setup`; with ``move``, every weight moved one ulp), on
+    ``mesh`` if given."""
+    from repro_torch.models.parallel import place_train
+    from repro_torch.training import init_train_state
+
+    model, draw, _ = step0_setup(cfg, cuda)
+    params = draw(move)
+    if mesh is not None:
+        params = place_train(model.cfg, model.template, params, mesh)
+    return model, init_train_state(model, params)
+
+
+def train_mesh_parity(name: str, batch: int, seq: int, cuda: torch.device) -> dict:
+    """One family's 3-layer full-width fp32 cut (3 + 3 for an
+    encoder-decoder) trained PARITY_STEPS steps on a (2, 2) mesh and on one
+    position, both through the kernels, from the same weights: every
+    step's loss within LOSS_REL_TOL, and every gathered leaf of step 1's
+    gradient within GRAD_REL_TOL of its scale, or within RESOLUTION_FACTOR
+    times the model's own widest move under ULP_MOVES one-ulp moves of
+    every weight (phase 32's gate; the moves are measured only when a
+    strict gate fails). The mesh's step-1 gradient twice is bit-identical,
+    and its launches are one step's times the positions."""
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_flatten_with_names, tree_leaves
+    from repro_torch.models.parallel import gather_train
+    from repro_torch.training import AdamWConfig, SyntheticLM, make_batch, make_train_step
+    from repro_torch.training.train_loop import loss_and_grad
+
+    cfg = dataclasses.replace(family_cfg(name, TRAIN_CUT_LAYERS), dtype="float32",
+                              param_dtype="float32")
+    mesh = train_mesh_over(cuda)
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch)
+    batches = [make_batch(cfg, data, i, device=cuda) for i in range(PARITY_STEPS)]
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=5, total_steps=TRAIN_STEPS)
+
+    def run(mesh, move=None, record=False):
+        model, state = _cut_state(cfg, cuda, mesh, move)
+        zero_counters()
+        with cross_marked(), flash_routes_recorded() as routes:
+            (_, _), grads = loss_and_grad(model, state.params, batches[0])
+        launched = {**read_counters(), "routes": routes}
+        leaves = [g.detach() for g in tree_leaves(
+            gather_train(grads) if mesh is not None else grads)]
+        repeat = None
+        if record:
+            (_, _), again = loss_and_grad(model, state.params, batches[0])
+            repeat = all(torch.equal(a, b) for a, b in zip(grads.all_shards(),
+                                                           again.all_shards()))
+            del again
+        del grads
+        step = make_train_step(model, opt)
+        losses = []
+        for b in batches:
+            state, m = step(state, b)
+            losses.append(m["loss"].item())
+        del state, model
+        free_memory()
+        return losses, leaves, launched, repeat
+
+    names = [n for n, _ in tree_flatten_with_names(build_model(cfg).template)]
+    t0 = time.perf_counter()
+    losses_m, leaves_m, launched, repeat = run(mesh, record=True)
+    seconds = time.perf_counter() - t0
+    losses_s, leaves_s, _, _ = run(None)
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses_m, losses_s)]
+    errs = [_rel_err(g, w) for g, w in zip(leaves_m, leaves_s)]
+    del leaves_m
+    loss_gates, gates, moves = [LOSS_REL_TOL] * PARITY_STEPS, [GRAD_REL_TOL] * len(errs), None
+    if max(loss_rel) > LOSS_REL_TOL or max(errs) > GRAD_REL_TOL:
+        loss_moves, moves = [0.0] * PARITY_STEPS, [0.0] * len(errs)
+        for seed in range(1, ULP_MOVES + 1):
+            losses_u, leaves_u, _, _ = run(None, move=seed)
+            loss_moves = [max(m, abs(a - b) / abs(b))
+                          for m, a, b in zip(loss_moves, losses_u, losses_s)]
+            moves = [max(m, _rel_err(g, w)) for m, g, w in zip(moves, leaves_u, leaves_s)]
+            del leaves_u
+            free_memory()
+        loss_gates = [max(LOSS_REL_TOL, RESOLUTION_FACTOR * m) for m in loss_moves]
+        gates = [max(GRAD_REL_TOL, RESOLUTION_FACTOR * m) for m in moves]
+    del leaves_s
+    free_memory()
+    routes = launched.pop("routes")
+    check_step_launches(cfg, launched, routes, mesh.size)
+    failed = [n for n, e, g in zip(names, errs, gates) if e > g]
+    worst, worst_leaf = max(zip(errs, names))
+    report = {"batch": batch, "seq": seq, "mesh": mesh.shape, "losses_mesh": losses_m,
+              "losses_single": losses_s, "loss_rel_err": loss_rel, "loss_gates": loss_gates,
+              "worst_grad_rel_err": worst, "worst_leaf": worst_leaf,
+              "leaves_past_grad_tol": [n for n, e in zip(names, errs) if e > GRAD_REL_TOL],
+              "leaves_failed": failed, "own_moves": None if moves is None else
+              dict(zip(names, moves)), "bitwise_repeat": repeat,
+              "launches": launched, "flash_routes": {k: dict(v) for k, v in routes.items()},
+              "mesh_seconds": seconds}
+    layers = f"{cfg.encoder_layers} + {cfg.n_layers}" if cfg.is_encdec else str(cfg.n_layers)
+    print(f"  {name}, {layers} layers, B={batch} S={seq}: losses mesh "
+          + " ".join(f"{x!r}" for x in losses_m) + " one position "
+          + " ".join(f"{x!r}" for x in losses_s) + " (rel "
+          + " ".join(f"{x:.3g}" for x in loss_rel) + ", gates "
+          + " ".join(f"{x:.3g}" for x in loss_gates) + f"); worst leaf gradient err / scale "
+          f"{worst:.3g} ({worst_leaf}), {len(report['leaves_past_grad_tol'])} of {len(names)} "
+          f"past {GRAD_REL_TOL:g}, {len(failed)} past their gates; repeat bit for bit {repeat}; "
+          f"launches {launched}")
+    assert repeat and not failed, (name, failed, repeat)
+    assert all(r <= g for r, g in zip(loss_rel, loss_gates)), (name, loss_rel, loss_gates)
+    return report
+
+
+def train_mesh_phases(cuda: torch.device, single: dict) -> tuple[dict, dict]:
+    """Phases 41-44 (``single``: phase 23's full-depth stablelm report).
+    Returns the training-mesh runs' launches (phases 42-43, the counts
+    zeroed before each) and the report."""
+    print("[41] the training kernels at the (2, 2) mesh positions' shapes vs plain versions",
+          flush=True)
+    report = {"card": card_name(), "kernels": train_mesh_kernels_phase(cuda)}
+    print(f"[42] train full-width stablelm-1.6b at full depth on a {TRAIN_MESH_SHAPE} mesh, fp32, "
+          f"B={TRAIN_BATCH} S={TRAIN_SEQ}, {TRAIN_MESH_STEPS} steps, through launch/train.py",
+          flush=True)
+    report["stablelm-1.6b"] = train_mesh_full_phase(cuda, single)
+    print(f"[43] training parity on a {TRAIN_MESH_SHAPE} mesh: every family's "
+          f"{TRAIN_CUT_LAYERS}-layer full-width fp32 cut, mesh vs one position, both through the "
+          "kernels", flush=True)
+    report["parity"] = {name: train_mesh_parity(name, batch, seq, cuda)
+                        for name, batch, seq in TRAIN_MESH_PARITY}
+    print("[44] checkpoint kill and relaunch on a mesh: python -m repro_torch.launch.train "
+          "--mesh single --positions 4 --device cuda:<card>, stablelm's smoke config", flush=True)
+    report["checkpoint"] = checkpoint_phase(cuda, mesh_positions=4)
+    runs = {"stablelm-1.6b full depth": report["stablelm-1.6b"]["launches"],
+            **{f"{name} cut": r["launches"] for name, r in report["parity"].items()}}
+    launches = {k: sum(run[k] for run in runs.values()) for k in
+                ("flash_attention", "flash_attention_bwd", "selective_scan",
+                 "selective_scan_bwd")}
+    routes = {k: collections.Counter() for k in ("flash_attention", "flash_attention_bwd")}
+    for r in [report["stablelm-1.6b"], *report["parity"].values()]:
+        for k in routes:
+            routes[k].update(r["flash_routes"][k])
+    report["launches_by_run"] = runs
+    return {"launches": launches, "routes": routes}, report
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5088,10 +5380,22 @@ def main() -> int:
     for route in routes:
         routes[route] += mesh_routes["paged_prefill_attention"][route]
     assert launches["rmsnorm"] == 0, f"a served path launched rmsnorm: {launches}"
-    bwd_entry["launches"] += family_launches["flash_attention_bwd"]
+    train_mesh, train_mesh_report = train_mesh_phases(
+        cuda, bwd_entry["training"]["stablelm-1.6b"]["full_depth"])
+    tm_launches, tm_routes = train_mesh["launches"], train_mesh["routes"]
+    launches["flash_attention"] += tm_launches["flash_attention"]
+    launches["selective_scan"] += tm_launches["selective_scan"]
+    bwd_entry["launches"] += family_launches["flash_attention_bwd"] \
+        + tm_launches["flash_attention_bwd"]
+    scan_bwd_entry["launches"] += tm_launches["selective_scan_bwd"]
     bwd_routes = family_routes["flash_attention_bwd"].copy()
     bwd_routes["full"] += train_launches["flash_attention_bwd"]  # phases 23-24: full only
+    bwd_routes.update(tm_routes["flash_attention_bwd"])
     bwd_entry["launches_by_route"] = dict(bwd_routes)
+    bwd_entry["launches_by_run"]["training_mesh"] = tm_launches["flash_attention_bwd"]
+    bwd_entry["train_mesh_cases"] = train_mesh_report["kernels"]["flash_bwd"]
+    scan_bwd_entry["launches_by_run"]["training_mesh"] = tm_launches["selective_scan_bwd"]
+    scan_bwd_entry["train_mesh_cases"] = train_mesh_report["kernels"]["scan"]
     for name, r in scan_bwd_entry["training"].items():
         for run, rep in r.items():
             bwd_entry["launches_by_run"][f"{name} {run}"] = rep["launches"]["flash_attention_bwd"]
@@ -5133,9 +5437,10 @@ def main() -> int:
             entry["tf32_sass"] = tf32["flash_fwd_kernel"]
             entry["fp32_forward"] = bwd_entry["fp32_forward"]
             windowed = (hybrid["served"]["flash_launches_by_route"]["windowed"]
-                        + family_routes[name]["windowed"] + mesh_routes[name]["windowed"])
+                        + family_routes[name]["windowed"] + mesh_routes[name]["windowed"]
+                        + tm_routes[name]["windowed"])
             bidir, cross = (encdec_routes[name][r] + family_routes[name][r]
-                            for r in ("bidirectional", "cross"))
+                            + tm_routes[name][r] for r in ("bidirectional", "cross"))
             entry["launches_by_route"] = {"full": launches[name] - windowed - bidir - cross,
                                           "windowed": windowed, "bidirectional": bidir,
                                           "cross": cross}
@@ -5149,6 +5454,9 @@ def main() -> int:
         if name == "flash_attention":
             entry["launches_by_run"]["training"] = train_launches[name]
             entry["launches_by_run"]["training_families"] = family_launches[name]
+            entry["launches_by_run"]["training_mesh"] = tm_launches[name]
+            entry["train_mesh_cases"] = train_mesh_report["kernels"]["flash_fwd"]
+            entry["trained_mesh"] = {k: v for k, v in train_mesh_report.items() if k != "kernels"}
             entry["head_dim_8_trained"] = scan_bwd_entry["flash_bwd_head_dim_8"]["forward"]
             # paper-block is the one model at head_dim 8 (phases 18 and 31);
             # none on the main path has head_dim 16.
@@ -5165,7 +5473,8 @@ def main() -> int:
                                        in scan_bwd_entry["training"]["paper-block"].items()}}}
             entry["launches_by_head_dim"] = {"8": head8, "64 / 128": launches[name] - head8}
         if name == "selective_scan":
-            entry["launches_by_run"] = {"training_families": family_launches[name]}
+            entry["launches_by_run"] = {"training_families": family_launches[name],
+                                        "training_mesh": tm_launches[name]}
         if name == "flash_attention":
             entry["served_encdec"] = encdec
             entry["encdec_parity"] = encdec_checks
@@ -5220,8 +5529,8 @@ def main() -> int:
         kernels.append(entry)
     kernels.append(bwd_entry)
     kernels.append(scan_bwd_entry)
-    print(f"[41] all phases passed in {time.perf_counter() - t_start:.1f} s, build included "
-          f"(before phases 33-40 were added: 600.7 s on this card model, PERF.md)")
+    print(f"[45] all phases passed in {time.perf_counter() - t_start:.1f} s, build included "
+          f"(before phases 41-44 were added: 800.1 s on this card model, PERF.md)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

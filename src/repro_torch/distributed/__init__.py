@@ -1,7 +1,8 @@
 """Distribution substrate: mesh axes, logical sharding rules, pipeline
-parallelism and the tensor-parallel reduction."""
+parallelism, the tensor-parallel reduction, and the training mesh's
+collectives."""
 
-from .collectives import reduce_max, reduce_partials
+from .collectives import gather_rows, gather_shards, reduce_max, reduce_partials, reduce_rows
 from .pipeline import gpipe, pipeline_apply
 from .sharding import (
     DECODE_RULES,
@@ -26,10 +27,13 @@ from .sharding import (
 )
 
 __all__ = [
+    "gather_rows",
+    "gather_shards",
     "gpipe",
     "pipeline_apply",
     "reduce_max",
     "reduce_partials",
+    "reduce_rows",
     "AxisRules",
     "DECODE_RULES",
     "DEFAULT_RULES",

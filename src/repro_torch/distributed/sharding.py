@@ -15,7 +15,9 @@ an array of ``torch.device``\\ s, where one device may stand at several
 positions. The serving engine reads the resolved specs to cut each
 stage's weights into per-position shards (:mod:`..models.parallel`), and
 the model code sums the partials of a split contraction itself
-(:func:`.collectives.reduce_partials`). :func:`logical` is therefore the
+(:func:`.collectives.reduce_partials`); a train state is cut by
+``TRAIN_RULES`` the same way (``place_train``), its collectives
+autograd functions (:mod:`.collectives`). :func:`logical` is therefore the
 identity, and no model of the port calls it; it, :func:`use_mesh_rules`
 and :func:`logical_sharding` are the JAX API's names, kept with their
 semantics.
@@ -80,7 +82,7 @@ DEFAULT_RULES: AxisRules = {
 }
 
 # Training: FSDP over data, TP over model, sequence parallelism on the
-# residual stream. Resolved here; not yet executed by the port.
+# residual stream (executed by models/parallel.place_train).
 TRAIN_RULES: AxisRules = {
     **DEFAULT_RULES,
     "act_seq": "model",

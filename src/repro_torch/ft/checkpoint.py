@@ -14,10 +14,18 @@ manifest, as numpy writes ``ml_dtypes.bfloat16``, which JAX's reader views
 back. Writes go to ``<dir>/.tmp_step_<N>`` and are atomically renamed: a
 crashed writer never corrupts the newest checkpoint. Retention keeps the
 newest ``keep``.
+
+A tree placed on a training mesh (:class:`~repro_torch.models.parallel.
+TrainShards`, the params and both moments of a ``TrainState``) is saved
+as its logical, gathered tree under the single-device names, as JAX's
+``np.asarray`` saves a sharded array, and a restore into a placed tree
+cuts the logical one by the same placement: a checkpoint written on a
+mesh restores on one device, and the reverse.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import os
@@ -26,7 +34,8 @@ import shutil
 import numpy as np
 import torch
 
-from ..models.common import tree_flatten_with_names, tree_unflatten
+from ..models.common import _is_node, tree_flatten_with_names, tree_unflatten
+from ..models.parallel import TrainShards, gather_train
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step", "list_steps"]
 
@@ -54,8 +63,9 @@ def _from_numpy(arr: np.ndarray, dtype: str) -> torch.Tensor:
 
 
 def save_checkpoint(directory: str, step: int, tree, *, keep: int = 3) -> str:
-    """Atomically persist ``tree`` (nested dicts / dataclasses of tensors)
-    at ``step``. Returns the final path."""
+    """Atomically persist ``tree`` (nested dicts / dataclasses of tensors,
+    placed trees gathered) at ``step``. Returns the final path."""
+    tree = _map_placed(tree, tree, lambda ts, _: gather_train(ts))
     os.makedirs(directory, exist_ok=True)
     final = os.path.join(directory, f"step_{step:010d}")
     tmp = os.path.join(directory, f".tmp_step_{step:010d}")
@@ -100,7 +110,29 @@ def latest_step(directory: str) -> int | None:
 def restore_checkpoint(directory: str, tree_like, step: int | None = None):
     """Restore into the structure of ``tree_like``: (tree, step). Each leaf
     keeps the dtype it was saved in and lands on the device of its
-    counterpart in ``tree_like``. ``step`` defaults to the newest."""
+    counterpart in ``tree_like``; a placed tree in ``tree_like`` is
+    restored logically and cut as it is. ``step`` defaults to the
+    newest."""
+    logical_like = _map_placed(tree_like, tree_like, lambda ts, _: ts.shards[0])
+    tree, step = _restore(directory, logical_like, step)
+    return _map_placed(tree, tree_like, lambda ts, sub: ts.placed(sub)), step
+
+
+def _map_placed(tree, like, fn):
+    """``tree`` with each subtree that stands where ``like`` (a tree of the
+    same structure, or ``tree`` itself) holds a :class:`TrainShards`
+    replaced by ``fn(that placed tree, the subtree)``."""
+    if isinstance(like, TrainShards):
+        return fn(like, tree)
+    if _is_node(like):
+        return dataclasses.replace(tree, **{f.name: _map_placed(
+            getattr(tree, f.name), getattr(like, f.name), fn) for f in dataclasses.fields(like)})
+    if isinstance(like, dict):
+        return {k: _map_placed(tree[k], like[k], fn) for k in like}
+    return tree
+
+
+def _restore(directory: str, tree_like, step: int | None):
     if step is None:
         step = latest_step(directory)
         if step is None:

@@ -11,11 +11,20 @@ of :class:`~repro_torch.training.SyntheticLM`. Checkpoints land every
 mid-run and relaunch. Every step prints one line with its loss at full
 precision.
 
-``--mesh host`` is the only mesh: ``single`` and ``multi`` exit with an
-error. The port serves on a mesh (``launch/serve.py --mesh-model``), but
-training on one (``TRAIN_RULES`` / ``TRAIN_RULES_SEQ``: FSDP over
-``data``, tensor and sequence parallelism over ``model``) is the next
-item of ROADMAP Queue 1, "the training mesh".
+``--mesh single`` trains on ``make_production_mesh()``'s ``(data,
+model)`` mesh, ``--mesh multi`` on its ``(pod=2, data, model)`` one, under
+``TRAIN_RULES`` (:func:`~repro_torch.models.parallel.place_train`: FSDP
+over ``data``, tensor parallelism over ``model``, sequence parallelism on
+the residual stream), as the JAX driver's ``use_mesh_rules(mesh,
+TRAIN_RULES)``; ``--mesh host`` (the default) on one device. The mesh's
+positions are the visible cards, or, with ``--positions N``, the named
+``--device`` repeated N times (``--device cpu --positions 4``, or
+``cuda:0``; a bare ``cuda`` takes the first N visible cards): the
+counterpart of the JAX driver under
+``XLA_FLAGS=--xla_force_host_platform_device_count=N``. Four positions
+give ``single`` (data 2, model 2) and ``multi`` (pod 2, data 2, model 1),
+by the mesh's square-root rule. A checkpoint holds the logical tree, so
+it restores on any mesh.
 Every family of the registry trains on the card: the attention families
 (dense, MoE, internvl2's backbone, the encoder-decoders) through the
 flash-attention backward kernel, the Mamba and hybrid ones also through
@@ -33,9 +42,12 @@ import torch
 
 from ..configs import ARCH_NAMES, get_config, get_smoke_config
 from ..device import resolve_device
+from ..distributed.sharding import Mesh
 from ..ft.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from ..models import build_model, init_from_template
 from ..models.common import ModelConfig
+from ..models.parallel import place_train
+from .mesh import make_production_mesh
 from ..training import (
     AdamWConfig,
     SyntheticLM,
@@ -49,21 +61,35 @@ __all__ = ["main", "train"]
 
 def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int, lr: float,
           ckpt_dir: str | None = None, ckpt_every: int = 20,
-          device: str | torch.device | None = None) -> list[dict]:
+          device: str | torch.device | None = None, mesh: Mesh | None = None,
+          report: dict | None = None) -> list[dict]:
     """Train ``cfg`` (forced to float32) from seed 0 for ``steps`` steps,
     resuming from the newest checkpoint in ``ckpt_dir``. Returns one dict of
     floats per step run here: ``step`` (1-based), ``loss``, ``ce``,
     ``lb_loss``, ``grad_norm``, ``lr``, and the step's wall ``seconds``
-    (reading the metrics waits for the device)."""
+    (reading the metrics waits for the device).
+
+    With ``mesh`` (a training mesh, :func:`.mesh.make_production_mesh`)
+    the weights drawn on its first position's device are placed by
+    ``TRAIN_RULES`` and every step runs on the mesh; ``device`` is then
+    that first position's. ``report``, if given, receives
+    ``position_bytes``: per position, the bytes of its params and both
+    moments."""
     cfg = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
-    device = resolve_device(device)
+    device = resolve_device(mesh.devices.flat[0] if mesh is not None else device)
     model = build_model(cfg)
     opt_cfg = AdamWConfig(lr=lr, warmup_steps=5, total_steps=steps)
     data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch)
 
     gen = torch.Generator(device=device).manual_seed(0)
     params = init_from_template(model.template, gen, cfg.param_dtype, device=device)
+    if mesh is not None:
+        params = place_train(cfg, model.template, params, mesh)
     state = init_train_state(model, params)
+    if mesh is not None and report is not None:
+        report["position_bytes"] = [sum(parts) for parts in zip(
+            params.position_bytes(), state.opt["m"].position_bytes(),
+            state.opt["v"].position_bytes())]
     start = 0
     if ckpt_dir and latest_step(ckpt_dir) is not None:
         state, start = restore_checkpoint(ckpt_dir, state)
@@ -97,14 +123,26 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=20)
     ap.add_argument("--mesh", choices=["host", "single", "multi"], default="host")
+    ap.add_argument("--positions", type=int, default=None,
+                    help="mesh positions: --device repeated this many times (a bare cuda: "
+                         "the first N visible cards); default every visible card")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.mesh != "host":
-        ap.error(f"--mesh {args.mesh}: the port serves on a mesh but does not train on "
-                 "one yet (ROADMAP, Queue 1, the training mesh); use --mesh host")
+    if args.positions is not None and args.mesh == "host":
+        ap.error("--positions needs --mesh single or multi")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    mesh = None
+    if args.mesh != "host":
+        device = resolve_device(args.device)
+        devices = None  # every visible card
+        if device.type != "cuda" or device.index is not None:
+            devices = [device] * (args.positions or 1)  # a named device at every position
+        elif args.positions is not None:
+            devices = [torch.device("cuda", i) for i in range(args.positions)]
+        mesh = make_production_mesh(multi_pod=args.mesh == "multi", devices=devices)
+        print(f"mesh: {mesh.shape} over {[str(d) for d in mesh.devices.flat]}", flush=True)
     train(cfg, steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr,
-          ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every, device=args.device)
+          ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every, device=args.device, mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -42,6 +42,7 @@ __all__ = [
     "paged_chunk_attention_block",
     "chunk_attention_block",
     "last_writes",
+    "attention_rows",
 ]
 
 
@@ -137,6 +138,30 @@ def attention_block(
     v_cache[lanes, idx] = v[lanes, 0].to(v_cache.dtype)
     out = decode_attention(q, k_cache, v_cache, attn_len, window=window)
     return _out_proj(out, p["wo"], dtype), (k_cache, v_cache)
+
+
+def attention_rows(hs: list, ps: list, cfg: ModelConfig, lay, split: bool, *,
+                   window: int | None = None, causal: bool = True, enc: list | None = None
+                   ) -> list:
+    """Attention on a training mesh (:class:`~.parallel.RowLayout`): ``hs[p]``
+    are position ``p``'s normed rows and ``ps[p]`` its view of the block
+    (its heads where ``split``, each head otherwise). Each position reads
+    its batch rows over the whole sequence (gathered in model order), runs
+    the flash kernel on its heads, and the partials are reduce-scattered
+    back onto the positions' rows (where the heads do not split, each
+    position computes every head and keeps its own rows). With ``enc``
+    (each position's encoder output over the whole source sequence) it is
+    an encoder-decoder's cross-attention."""
+    hg = lay.seq_gather(hs)
+    partials = []
+    for p, (h, w) in enumerate(zip(hg, ps)):
+        if enc is None:
+            positions = torch.arange(lay.S, device=h.device)
+            out, _ = attention_block(h, w, cfg, positions=positions, window=window, causal=causal)
+        else:
+            out = cross_attention_block(h, project_kv(enc[p], w, cfg), w, cfg)
+        partials.append(out)
+    return lay.seq_reduce(partials, split)
 
 
 def project_kv(x: torch.Tensor, p: dict, cfg: ModelConfig):

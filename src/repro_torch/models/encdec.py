@@ -30,6 +30,12 @@ decoder layer runs under ``torch.utils.checkpoint`` (JAX's
 ``jax.checkpoint`` around each scanned layer), so its attention kernels'
 forwards run twice a step: on the card through the flash kernel's
 bidirectional, causal and cross routes, each with its backward kernel.
+On a training mesh (:class:`.parallel.TrainShards`) the encoder and the
+decoder run as the decoder-only models' layers do
+(:func:`.transformer._forward_mesh`): the encoder's residual rows split
+over the positions, its output gathered over the source sequence once for
+every decoder layer's cross-attention, whose K/V heads each position
+projects for its query heads.
 """
 
 from __future__ import annotations
@@ -37,13 +43,28 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-import torch.utils.checkpoint
 
-from .attention import attention_block, attn_template, cross_attention_block, project_kv
+from .attention import (
+    attention_block,
+    attention_rows,
+    attn_template,
+    cross_attention_block,
+    project_kv,
+)
 from .common import ModelConfig, ParamSpec, tree_map
 from .layers import embed_template, mlp_template, rmsnorm
-from .parallel import one_position
-from .transformer import _embed, _ffn, _layer_params, _unembed
+from .parallel import TrainShards, one_position, train_views
+from .transformer import (
+    _embed,
+    _ffn,
+    _layer_params,
+    _mesh_embed,
+    _mesh_ffn,
+    _mesh_layer,
+    _mesh_unembed,
+    _remat,
+    _unembed,
+)
 
 __all__ = [
     "encdec_template",
@@ -89,13 +110,6 @@ def encdec_template(cfg: ModelConfig) -> dict:
         "decoder": dec_layers,
         "final_norm": ParamSpec((D,), ("embed",), init="ones"),
     }
-
-
-def _remat(fn, *args, remat: bool):
-    """``fn(*args)``, under ``torch.utils.checkpoint`` when ``remat``."""
-    if remat:
-        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
-    return fn(*args)
 
 
 def encode(params, frames: torch.Tensor, cfg: ModelConfig, *, remat: bool = False
@@ -149,6 +163,8 @@ def forward(params, batch: dict, cfg: ModelConfig):
     cross-attention and the feed-forward over every token at once. With
     ``cfg.remat`` each encoder and decoder layer is recomputed in the
     backward, as JAX's ``jax.checkpoint`` around its scanned layers."""
+    if isinstance(params, TrainShards):
+        return _forward_mesh(params, batch, cfg)
     enc_out = encode(params, batch["frames"], cfg, remat=cfg.remat)
     tokens = batch["tokens"]
     x = _embed(one_position(params, tokens.device), tokens, cfg)
@@ -163,6 +179,50 @@ def forward(params, batch: dict, cfg: ModelConfig):
         x = _remat(layer, x, enc_out, l, remat=cfg.remat)
     lb = torch.zeros((), dtype=torch.float32, device=x.device)
     return _unembed(one_position(params, x.device), x, cfg), {"lb_loss": lb}
+
+
+def _forward_mesh(ts: TrainShards, batch: dict, cfg: ModelConfig):
+    """:func:`forward` on a training mesh (``TRAIN_RULES``): the JAX
+    ``logical`` sites of the encoder's and the decoder's residual streams
+    split their rows over the positions, every layer remats as
+    :func:`forward`'s, and the logits are :class:`.parallel.MeshLogits`."""
+    tp, dtype, eps = ts.positions, cfg.compute_dtype, cfg.rms_eps
+    frames, tokens = batch["frames"], batch["tokens"]
+    lay_src = tp.layout(*frames.shape[:2])
+    proj = train_views(ts, ("frontend_proj",))
+    xs = [lay_src.rows(frames, p).to(dtype) @ w.to(dtype) for p, w in enumerate(proj)]
+    enc_cfg = _enc_cfg(cfg)
+    for l in range(cfg.encoder_layers):
+        def enc_layer(*xs, l=l):
+            xs, _ = _mesh_layer(list(xs), train_views(ts, ("encoder",), l), enc_cfg, ts,
+                                lay_src, causal=False)
+            return tuple(xs)
+
+        xs = list(_remat(enc_layer, *xs, remat=cfg.remat))
+    enc = [rmsnorm(x, w, eps) for x, w in zip(xs, train_views(ts, ("enc_final_norm",)))]
+    enc = lay_src.seq_gather(enc)  # each position's batch rows over the source sequence
+
+    lay = tp.layout(*tokens.shape)
+    xs = _mesh_embed(ts, tokens, cfg, lay)
+    P = tp.count
+    for l in range(cfg.n_layers):
+        def dec_layer(*args, l=l):
+            xs, enc = list(args[:P]), list(args[P:])
+            views = train_views(ts, ("decoder",), l)
+            h = [rmsnorm(x, v["ln1"], eps) for x, v in zip(xs, views)]
+            out = attention_rows(h, [v["self_attn"] for v in views], cfg, lay, tp.plan.attn)
+            xs = [x + o for x, o in zip(xs, out)]
+            hc = [rmsnorm(x, v["ln_cross"], eps) for x, v in zip(xs, views)]
+            out = attention_rows(hc, [v["cross_attn"] for v in views], cfg, lay, tp.plan.attn,
+                                 enc=enc)
+            xs = [x + o for x, o in zip(xs, out)]
+            ff, _ = _mesh_ffn([rmsnorm(x, v["ln2"], eps) for x, v in zip(xs, views)], views,
+                              cfg, ts, lay)
+            return tuple(x + f for x, f in zip(xs, ff))
+
+        xs = list(_remat(dec_layer, *xs, *enc, remat=cfg.remat))
+    lb = torch.zeros((), dtype=torch.float32, device=lay.devices[0])
+    return _mesh_unembed(ts, xs, cfg, lay), {"lb_loss": lb}
 
 
 def init_cache_shapes(cfg: ModelConfig, batch: int, max_len: int, enc_len: int) -> dict:

@@ -8,7 +8,10 @@ head dim (not interleaved pairs), and GELU is the tanh approximation
 On a mesh (:mod:`.parallel`) the MLP splits on ``ff`` and runs per
 position as it is, its ``wo`` partials summed by the caller; the
 embedding's rows and the output head's columns split on ``vocab``
-(:func:`embed_lookup_split`, :func:`unembed_split`).
+(:func:`embed_lookup_split`, :func:`unembed_split`). On a training mesh
+the residual stream's rows are split too (``act_seq``): the embedding
+reduce-scatters onto each position's rows (:func:`embed_rows`) and the
+output head reads every row of its batch rows (:func:`unembed_rows`).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch.nn.functional as F
 
 from ..distributed.collectives import reduce_partials
 from .common import ModelConfig, ParamSpec
+from .parallel import MeshLogits, RowLayout, TrainPositions
 
 __all__ = [
     "rmsnorm",
@@ -29,6 +33,8 @@ __all__ = [
     "embed_template",
     "embed_lookup_split",
     "unembed_split",
+    "embed_rows",
+    "unembed_rows",
 ]
 
 
@@ -104,6 +110,15 @@ def embed_template(cfg: ModelConfig) -> dict:
     return t
 
 
+def _vocab_rows(ids: torch.Tensor, tok: torch.Tensor, lo: int, hi: int, dtype) -> torch.Tensor:
+    """The rows of ``ids`` that fall in ``[lo, hi)`` from ``tok`` (those
+    vocab rows), zeros for the others."""
+    local = ids - lo
+    mine = (local >= 0) & (local < hi - lo)
+    rows = tok[local.clamp(0, hi - lo - 1)].to(dtype)
+    return torch.where(mine[..., None], rows, rows.new_zeros(()))
+
+
 def embed_lookup_split(ids: torch.Tensor, toks: list, ranges: tuple, devices: tuple,
                        dtype: torch.dtype) -> torch.Tensor:
     """Token embedding over a vocab split: ``toks[m]`` holds rows
@@ -113,12 +128,8 @@ def embed_lookup_split(ids: torch.Tensor, toks: list, ranges: tuple, devices: tu
     Ids past the vocabulary read its last row, as the unsplit lookup
     clamps them."""
     ids = ids.long().clamp(0, ranges[-1][1] - 1)
-    partials = []
-    for tok, (lo, hi), dev in zip(toks, ranges, devices):
-        local = ids.to(dev) - lo
-        mine = (local >= 0) & (local < hi - lo)
-        rows = tok[local.clamp(0, hi - lo - 1)].to(dtype)
-        partials.append(torch.where(mine[..., None], rows, rows.new_zeros(())))
+    partials = [_vocab_rows(ids.to(dev), tok, lo, hi, dtype)
+                for tok, (lo, hi), dev in zip(toks, ranges, devices)]
     return reduce_partials(partials, ids.device)
 
 
@@ -129,3 +140,40 @@ def unembed_split(x: torch.Tensor, heads: list, devices: tuple, dtype: torch.dty
     D]), gathered in position order on x's device."""
     cols = [x.to(dev) @ (w.to(dtype).T if tied else w.to(dtype)) for w, dev in zip(heads, devices)]
     return torch.cat([c.to(x.device) for c in cols], dim=-1)
+
+
+def embed_rows(ids: torch.Tensor, toks: list, tp: TrainPositions, lay: RowLayout,
+               dtype: torch.dtype, vocab_size: int) -> list:
+    """Token embedding on a training mesh: each position's rows of the
+    residual stream from the global ``ids`` [B, S]. ``toks[p]`` is position
+    ``p``'s view of the table. Split on ``vocab``, each position looks up
+    its batch rows over the whole sequence in its vocab rows, and the
+    partials are reduce-scattered onto the positions' rows; else each
+    position looks up its own rows."""
+    ids = ids.long().clamp(0, vocab_size - 1)
+    if not tp.plan.tok:
+        return [tok[lay.rows(ids, p)].to(dtype) for p, tok in enumerate(toks)]
+    partials = [_vocab_rows(lay.rows(ids, p, whole_seq=True), tok, *tp.vocab[c[2]], dtype)
+                for p, (tok, c) in enumerate(zip(toks, tp.coords))]
+    return lay.seq_reduce(partials, split=True)
+
+
+def unembed_rows(xs: list, heads: list, tp: TrainPositions, lay: RowLayout,
+                 dtype: torch.dtype, tied: bool, vocab_size: int) -> MeshLogits:
+    """Logits on a training mesh from each position's final-normed rows
+    ``xs``; ``heads[p]`` is position ``p``'s view of ``lm_head`` [D, V_p]
+    or of the tied embedding [V_p, D]. Split on ``vocab``, each model
+    position computes its columns over its batch rows' whole sequence
+    (gathered); else each position computes every column of its own rows.
+    Only rows a position owns become pieces."""
+    def cols(x, w):
+        return x @ (w.to(dtype).T if tied else w.to(dtype))
+
+    if tp.plan.head:
+        xg = lay.seq_gather(xs)
+        pieces = [(cols(xg[p], heads[p]), lay.full(p), tp.vocab[tp.coords[p][2]])
+                  for p, own in enumerate(lay.group_owners) if own]
+    else:
+        pieces = [(cols(xs[p], heads[p]), lay.regions[p], (0, vocab_size))
+                  for p, own in enumerate(lay.owners) if own]
+    return MeshLogits(pieces=pieces, shape=(lay.B, lay.S, vocab_size))

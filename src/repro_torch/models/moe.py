@@ -40,7 +40,9 @@ not the recompute in the backward.
 routing, capacity and the dispatch tables are computed once, on the
 first position, so the kept and dropped assignments are the unsplit
 call's; each position runs its own experts' buffers, and their partial
-combines are summed in position order.
+combines are summed in position order. On a training mesh
+(:func:`moe_rows`) the whole global batch is routed so, and each
+position also takes a share of the capacity slots.
 
 **Gradients** reach the router through the renormalized gate values and
 through ``lb_loss``'s mean probabilities; the choices, capacity slots and
@@ -57,7 +59,7 @@ import torch.nn.functional as F
 from ..distributed.collectives import on, reduce_partials
 from .common import ModelConfig, ParamSpec
 
-__all__ = ["moe_template", "moe_ffn", "load_balance_loss", "uncounted"]
+__all__ = ["moe_template", "moe_ffn", "moe_rows", "load_balance_loss", "uncounted"]
 
 
 def moe_template(cfg: ModelConfig, n_layers: int | None = None) -> dict:
@@ -140,12 +142,53 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg: ModelConfig, *, per_lane: bool = Fals
     experts' buffers, and the positions' partial combines are summed.
     """
     B, S, D = x.shape
+    partials, aux = _moe_partials(x, p, cfg, per_lane, experts)
+    out = reduce_partials(partials, x.device).to(cfg.compute_dtype)
+    return out.reshape(B, S, D), aux
+
+
+def moe_rows(hs: list, ps: list, cfg: ModelConfig, tp, lay) -> tuple[list, dict]:
+    """MoE on a training mesh (:class:`~.parallel.RowLayout`): the rows of
+    every position are gathered, each from its owner, in global row order
+    onto the first position and routed there as one group, as
+    :func:`moe_ffn` routes ``forward``'s whole batch, so capacity and
+    ``lb_loss`` are the unsplit call's. The grid of experts x capacity
+    slots is cut into one cell per position: its model index's experts
+    (every expert where they do not split) and its share of the slots.
+    Each cell's partial combine is summed in position order onto every
+    position's rows. Returns (each position's rows, aux)."""
+    B, S = lay.B, lay.S
+    xg = lay.global_gather(hs, lay.devices[0])
+    if tp.plan.ffn:
+        n = tp.count // tp.model
+        cells = [(ps[q]["moe"], lay.devices[q], tp.experts[m], (pod * tp.data + d, n))
+                 for q, (pod, d, m) in enumerate(tp.coords)]
+    else:
+        cells = [(ps[q]["moe"], lay.devices[q], (0, cfg.n_experts), (q, tp.count))
+                 for q in range(tp.count)]
+    partials, aux = _moe_partials(xg, ps[0]["moe"], cfg, False, cells)
+    return lay.global_reduce([t.reshape(B, S, -1) for t in partials]), aux
+
+
+def _moe_partials(x: torch.Tensor, p: dict, cfg: ModelConfig, per_lane: bool,
+                  experts: list | None):
+    """The routing of ``x`` [B, S, D] and each expert cell's partial
+    combine [G, T, D] on its device (:func:`moe_ffn`): ``experts`` entries
+    ``(p_m, device, (lo, hi))`` run experts ``[lo, hi)`` on every slot, and
+    ``(p_m, device, (lo, hi), (i, n))`` on the ``i``-th of ``n`` even
+    shares of the capacity slots; a cell with no expert or slot is
+    skipped. Returns (partials, aux)."""
     dtype = cfg.compute_dtype
     xt, probs, gate_vals, expert_idx, onehot, pos, keep, capacity = _route(x, p, cfg, per_lane)
-    G, T = xt.shape[:2]
+    G, T, D = xt.shape
     E, k = cfg.n_experts, cfg.moe_top_k
-    if experts is None:
-        experts = [(p, x.device, (0, E))]
+    cells = []
+    for entry in experts if experts is not None else [(p, x.device, (0, E))]:
+        p_m, dev, (lo, hi) = entry[:3]
+        i, n = entry[3] if len(entry) > 3 else (0, 1)
+        c0, c1 = i * capacity // n, (i + 1) * capacity // n
+        if hi > lo and c1 > c0:
+            cells.append((p_m, dev, lo, hi, c0, c1))
 
     if cfg.moe_impl == "gather":
         # Slot tables: slot (e, c) -> source token (T = the empty slot).
@@ -164,16 +207,15 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg: ModelConfig, *, per_lane: bool = Fals
 
         x_pad = torch.cat([xt, xt.new_zeros(G, 1, D)], dim=1)  # [G, T+1, D]
         partials = []
-        for p_m, dev, (lo, hi) in experts:
-            rows = on(slot_tok[:, lo:hi].reshape(G, (hi - lo) * capacity), dev)
+        for p_m, dev, lo, hi, c0, c1 in cells:
+            n_slots = (hi - lo) * (c1 - c0)
+            rows = on(slot_tok[:, lo:hi, c0:c1].reshape(G, n_slots), dev)
             expert_in = torch.gather(on(x_pad, dev), 1, rows[..., None].expand(-1, -1, D))
-            expert_out = _expert_ffn(expert_in.reshape(G, hi - lo, capacity, D), p_m, cfg)
-            weighted = expert_out.float() * on(slot_gate[:, lo:hi], dev)[..., None]
+            expert_out = _expert_ffn(expert_in.reshape(G, hi - lo, c1 - c0, D), p_m, cfg)
+            weighted = expert_out.float() * on(slot_gate[:, lo:hi, c0:c1], dev)[..., None]
             y = torch.zeros((G, T + 1, D), dtype=torch.float32, device=rows.device)
-            y.scatter_add_(1, rows[..., None].expand(-1, -1, D),
-                           weighted.reshape(G, (hi - lo) * capacity, D))
+            y.scatter_add_(1, rows[..., None].expand(-1, -1, D), weighted.reshape(G, n_slots, D))
             partials.append(y[:, :T])
-        out = reduce_partials(partials, x.device).to(dtype)
     else:
         pos_clip = pos.clamp(max=capacity - 1).long()
         pos_onehot = F.one_hot(pos_clip, capacity).float()  # [G, T, k, C]
@@ -182,10 +224,10 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg: ModelConfig, *, per_lane: bool = Fals
         combine = torch.einsum("gtke,gtkc,gtk->gtec", onehot, pos_onehot, gate_vals)
         expert_in = torch.einsum("gtec,gtd->gecd", dispatch.to(dtype), xt)
         combine = combine.to(dtype)
-        out = reduce_partials([
-            torch.einsum("gtec,gecd->gtd", on(combine[:, :, lo:hi], dev),
-                         _expert_ffn(on(expert_in[:, lo:hi], dev), p_m, cfg))
-            for p_m, dev, (lo, hi) in experts], x.device)
+        partials = [
+            torch.einsum("gtec,gecd->gtd", on(combine[:, :, lo:hi, c0:c1], dev),
+                         _expert_ffn(on(expert_in[:, lo:hi, c0:c1], dev), p_m, cfg))
+            for p_m, dev, lo, hi, c0, c1 in cells]
 
     moe_ffn.routed += keep.numel()
     moe_ffn.dropped = moe_ffn.dropped + (~keep).sum()
@@ -196,7 +238,7 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg: ModelConfig, *, per_lane: bool = Fals
     }
     if not per_lane:
         aux = {name: v[0] for name, v in aux.items()}
-    return out.reshape(B, S, D), aux
+    return partials, aux
 
 
 moe_ffn.routed = 0

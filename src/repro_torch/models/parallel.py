@@ -46,12 +46,21 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
-from ..distributed.sharding import SERVE_RULES, Mesh, divisible_spec
-from .common import ModelConfig
+from ..distributed.collectives import gather_rows, gather_shards, reduce_rows
+from ..distributed.sharding import SERVE_RULES, TRAIN_RULES, Mesh, divisible_spec
+from .common import ModelConfig, tree_flatten_with_names, tree_map, tree_unflatten
 
 __all__ = [
+    "MeshLogits",
+    "RowLayout",
+    "TrainPositions",
+    "TrainShards",
+    "gather_train",
+    "place_train",
+    "train_views",
     "SplitPlan",
     "Positions",
     "SliceParams",
@@ -155,13 +164,16 @@ def _even(n: int, M: int, m: int) -> tuple[int, int]:
     return m * n // M, (m + 1) * n // M
 
 
-def _plan(cfg: ModelConfig, template: dict, mesh: Mesh) -> SplitPlan:
+def _plan(cfg: ModelConfig, template: dict, mesh: Mesh, rules=SERVE_RULES) -> SplitPlan:
     def splits(leaf, axis: str) -> bool:
-        spec = divisible_spec(leaf.shape, leaf.axes, mesh, SERVE_RULES)
+        spec = divisible_spec(leaf.shape, leaf.axes, mesh, rules)
         i = _split_dim(spec)
         return i is not None and leaf.axes[i] == axis
 
-    layers = next(iter(template["classes"].values()), {})
+    if "decoder" in template:  # an encoder-decoder: its decoder's blocks
+        layers = {"attn": template["decoder"]["self_attn"], "mlp": template["decoder"]["mlp"]}
+    else:
+        layers = next(iter(template["classes"].values()), {})
     plan = {}
     if "attn" in layers:
         plan["attn"] = splits(layers["attn"]["wq"], "heads")
@@ -296,3 +308,339 @@ def slice_pools(pools_shape: tuple, kv_dtype: torch.dtype, sp: SliceParams) -> l
                 pools[name] = torch.ones(shape[:3], dtype=torch.float32, device=dev)
         out.append(pools)
     return out
+
+
+# ---------------------------------------------------------------------------
+# The training mesh (TRAIN_RULES)
+# ---------------------------------------------------------------------------
+
+ATTN_BLOCKS = ("attn", "self_attn", "cross_attn")
+KV_LEAVES = ("wk", "wv", "bk", "bv")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainPositions:
+    """The positions of a ``(data, model)`` or ``(pod, data, model)``
+    training mesh, in row-major (position) order, and the blocks that
+    split over ``model`` under ``TRAIN_RULES``: ``coords[p] = (pod, data,
+    model)``; per model index the K/V heads its queries read (where the
+    attention splits on heads but not on ``kv_heads``), its vocab rows and
+    its experts."""
+
+    mesh: Mesh
+    devices: tuple
+    coords: tuple
+    data: int
+    model: int
+    plan: SplitPlan
+    kv_select: tuple = ()
+    vocab: tuple = ()
+    experts: tuple = ()
+
+    @property
+    def count(self) -> int:
+        return len(self.devices)
+
+    def index(self, pod: int, data: int, model: int) -> int:
+        return (pod * self.data + data) * self.model + model
+
+    def keys(self, spec) -> list:
+        """Per position, the piece of a leaf of ``spec`` that it holds:
+        (its data index if the leaf splits on ``data``, its model index if
+        on ``model``). Equal keys are equal copies."""
+        d_split, m_split = "data" in spec, "model" in spec
+        return [(c[1] if d_split else 0, c[2] if m_split else 0) for c in self.coords]
+
+    def layout(self, B: int, S: int) -> "RowLayout":
+        """The rows of a ``[B, S, ...]`` activation (``("batch",
+        "act_seq")``) that each position holds."""
+        spec = divisible_spec((B, S), ("batch", "act_seq"), self.mesh, TRAIN_RULES)
+        axes = spec[0] if isinstance(spec[0], tuple) else (spec[0],) if spec[0] else ()
+        sizes = self.mesh.shape
+        nb = int(np.prod([sizes[a] for a in axes])) if axes else 1
+        seq_split = spec[1] == "model"
+        regions, groups = [], []
+        for p, (pod, d, m) in enumerate(self.coords):
+            at = {"pod": pod, "data": d, "model": m}
+            b = 0
+            for a in axes:
+                b = b * sizes[a] + at[a]
+            b0, b1 = _even(B, nb, b)
+            s0, s1 = _even(S, self.model, m) if seq_split else (0, S)
+            regions.append((b0, b1, s0, s1))
+            groups.append(tuple(self.index(pod, d, mm) for mm in range(self.model)))
+        return RowLayout(B=B, S=S, devices=self.devices, regions=tuple(regions),
+                         groups=tuple(groups), seq_split=seq_split)
+
+
+def _first_seen(items) -> tuple:
+    seen, out = set(), []
+    for it in items:
+        out.append(it not in seen)
+        seen.add(it)
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class RowLayout:
+    """Which rows ``(b0, b1, s0, s1)`` of a ``[B, S, ...]`` activation each
+    position holds between blocks: batch rows over ``(pod, data)`` and
+    sequence rows over ``model`` (``act_seq``), a dim the axes do not
+    divide replicated. ``groups[p]`` are the positions of ``p``'s batch
+    rows, in model order (a tensor-parallel block's peers). A position
+    *owns* its rows if no earlier position holds the same: the loss and
+    MoE's global routing read each row once, from its owner."""
+
+    B: int
+    S: int
+    devices: tuple
+    regions: tuple
+    groups: tuple
+    seq_split: bool
+
+    @property
+    def owners(self) -> tuple:
+        return _first_seen(self.regions)
+
+    def full(self, p: int) -> tuple:
+        """Position ``p``'s batch rows over the whole sequence."""
+        b0, b1 = self.regions[p][:2]
+        return (b0, b1, 0, self.S)
+
+    @property
+    def group_owners(self) -> tuple:
+        """Per position: its group is the first to hold its batch rows."""
+        first: dict = {}
+        for p in range(len(self.regions)):
+            first.setdefault(self.full(p), self.groups[p])
+        return tuple(first[self.full(p)] == self.groups[p] for p in range(len(self.regions)))
+
+    def rows(self, t: torch.Tensor, p: int, whole_seq: bool = False) -> torch.Tensor:
+        """Position ``p``'s rows of a global ``[B, S, ...]`` input (its
+        batch rows over the whole sequence with ``whole_seq``) on its
+        device."""
+        b0, b1, s0, s1 = self.full(p) if whole_seq else self.regions[p]
+        return t[b0:b1, s0:s1].to(self.devices[p])
+
+    def seq_gather(self, xs: list) -> list:
+        """Each position's batch rows over the whole sequence, gathered
+        from its group in model order (its own rows where the sequence is
+        replicated)."""
+        P = len(xs)
+        srcs = [self.groups[p] if self.seq_split else (p,) for p in range(P)]
+        return gather_rows(xs, list(self.regions), [self.full(p) for p in range(P)], srcs,
+                           list(self.devices))
+
+    def seq_reduce(self, partials: list, split: bool) -> list:
+        """Back onto each position's rows from per-position partials over
+        its batch rows and the whole sequence: summed over the group in
+        model order where the block split (a reduce-scatter; an all-reduce
+        where the sequence is replicated), else the position's own."""
+        P = len(partials)
+        srcs = [self.groups[p] if split else (p,) for p in range(P)]
+        return reduce_rows(partials, [self.full(p) for p in range(P)], list(self.regions), srcs,
+                           list(self.devices))
+
+    def global_gather(self, xs: list, device) -> torch.Tensor:
+        """The whole ``[B, S, ...]`` tensor on ``device``, each row from its
+        owner."""
+        owners = tuple(p for p, own in enumerate(self.owners) if own)
+        return gather_rows(xs, list(self.regions), [(0, self.B, 0, self.S)], [owners],
+                           [device])[0]
+
+    def global_reduce(self, partials: list) -> list:
+        """Each position's rows of the sum, in list order, of whole-tensor
+        partials."""
+        P = len(self.regions)
+        whole = (0, self.B, 0, self.S)
+        return reduce_rows(partials, [whole] * len(partials), list(self.regions),
+                           [tuple(range(len(partials)))] * P, list(self.devices))
+
+
+@dataclasses.dataclass
+class MeshLogits:
+    """Logits on a training mesh: ``pieces`` of ``(logits, (b0, b1, s0,
+    s1), (v0, v1))``, each row of the ``shape = (B, S, V)`` batch once,
+    its vocab columns over one or more pieces (a vocab split's log-sum-exp
+    spans the model positions)."""
+
+    pieces: list
+    shape: tuple
+
+
+class TrainShards:
+    """A tree placed on a training mesh by ``TRAIN_RULES``: ``shards[p]`` is
+    position ``p``'s tree (the logical tree's structure, each leaf the
+    position's shard), ``specs`` the resolved spec of every leaf. Not a
+    tree node itself: trees that hold one (a ``TrainState``) hold it as a
+    leaf."""
+
+    def __init__(self, shards: list, specs: dict, positions: TrainPositions):
+        self.shards, self.specs, self.positions = shards, specs, positions
+
+    def names(self) -> list[str]:
+        return [n for n, _ in tree_flatten_with_names(self.shards[0])]
+
+    def leaf_shards(self) -> list[tuple[list, list]]:
+        """Per leaf (tree order): its shards in position order and their
+        piece keys (:meth:`TrainPositions.keys`)."""
+        specs = _spec_leaves(self.specs)
+        per_pos = [[t for _, t in tree_flatten_with_names(s)] for s in self.shards]
+        return [([pos[i] for pos in per_pos], self.positions.keys(spec))
+                for i, spec in enumerate(specs)]
+
+    def all_shards(self) -> list:
+        """Every shard, leaf by leaf, each leaf's in position order."""
+        return [t for shards, _ in self.leaf_shards() for t in shards]
+
+    def with_shards(self, flat: list) -> "TrainShards":
+        """The same placement holding ``flat`` (:meth:`all_shards` order)."""
+        n, P = len(self.names()), self.positions.count
+        per_pos = [[flat[i * P + p] for i in range(n)] for p in range(P)]
+        return TrainShards([tree_unflatten(self.shards[0], leaves) for leaves in per_pos],
+                           self.specs, self.positions)
+
+    def map(self, fn) -> "TrainShards":
+        return TrainShards([tree_map(fn, s) for s in self.shards], self.specs, self.positions)
+
+    def placed(self, tree) -> "TrainShards":
+        """A logical tree of this structure, cut as this one is."""
+        return TrainShards(_cut_all(tree, self.specs, self.positions), self.specs,
+                           self.positions)
+
+    def position_bytes(self) -> list[int]:
+        return [sum(t.numel() * t.element_size() for _, t in tree_flatten_with_names(s))
+                for s in self.shards]
+
+
+def _spec_leaves(specs) -> list:
+    """The specs of a spec tree in tree order (a spec is a tuple: a leaf)."""
+    if isinstance(specs, dict):
+        return [s for key in sorted(specs) for s in _spec_leaves(specs[key])]
+    return [specs]
+
+
+def _train_positions(cfg: ModelConfig, template: dict, mesh: Mesh) -> TrainPositions:
+    """The positions of ``mesh`` and the split plan ``TRAIN_RULES`` gives
+    ``template``'s blocks on it."""
+    names = tuple(mesh.axis_names)
+    if names not in (("data", "model"), ("pod", "data", "model")):
+        raise ValueError(f"a training mesh has axes ('data', 'model') or ('pod', 'data', "
+                         f"'model'), got {names!r} — build one with launch.mesh."
+                         "make_production_mesh")
+    grid = np.asarray(mesh.devices).reshape((-1,) + np.asarray(mesh.devices).shape[-2:])
+    _, data, model = grid.shape
+    coords = tuple(np.ndindex(grid.shape))
+    devices = tuple(grid[c] for c in coords)
+    plan = _plan(cfg, template, mesh, TRAIN_RULES) if model > 1 else SplitPlan()
+    kv_select = ()
+    if plan.attn and divisible_spec((cfg.n_kv_heads,), ("kv_heads",), mesh,
+                                    TRAIN_RULES)[0] is None:
+        kv_select = tuple(kv_heads_for(cfg.n_heads, cfg.n_kv_heads, model, m, False)
+                          for m in range(model))
+    vocab = (tuple(_even(cfg.vocab_size, model, m) for m in range(model))
+             if plan.tok or plan.head else ())
+    experts = (tuple(_even(cfg.n_experts, model, m) for m in range(model))
+               if cfg.is_moe and plan.ffn else ())
+    return TrainPositions(mesh=mesh, devices=devices, coords=coords, data=data, model=model, plan=plan, kv_select=kv_select, vocab=vocab,
+                          experts=experts)
+
+
+def _cut(t: torch.Tensor, spec, tp: TrainPositions, p: int) -> torch.Tensor:
+    """Position ``p``'s shard of leaf ``t``: a fresh contiguous copy on its
+    device (copies never share storage: the optimizer updates in place)."""
+    pod, d, m = tp.coords[p]
+    for i, part in enumerate(spec):
+        if part is None:
+            continue
+        if part not in ("data", "model"):
+            raise ValueError(f"a training leaf split over {part!r}: only TRAIN_RULES' "
+                             "'data' (embed_fsdp) and 'model' splits are executed")
+        n = tp.data if part == "data" else tp.model
+        lo, hi = _even(t.shape[i], n, d if part == "data" else m)
+        t = t.narrow(i, lo, hi - lo)
+    out = torch.empty(t.shape, dtype=t.dtype, device=tp.devices[p])
+    return out.copy_(t)
+
+
+def _cut_all(tree, specs, tp: TrainPositions) -> list:
+    return [tree_map(lambda t, spec: _cut(t.detach(), spec, tp, p), tree, specs)
+            for p in range(tp.count)]
+
+
+def place_train(cfg: ModelConfig, template: dict, params: dict, mesh: Mesh) -> TrainShards:
+    """Cut a logical tree (params, or a moment of them) over a training
+    mesh: every leaf by its ``divisible_spec(shape, axes, mesh,
+    TRAIN_RULES)`` — JAX's ``param_shardings(TRAIN_RULES)`` — its
+    ``embed_fsdp`` dim over ``data`` and its ``heads`` / ``kv_heads`` /
+    ``ff`` / ``experts`` / ``ssm_inner`` / ``vocab`` dim over ``model``,
+    a dim the axis does not divide replicated. Every position holds its
+    own copy of what it holds, replicated leaves included, as JAX does."""
+    tp = _train_positions(cfg, template, mesh)
+    specs = tree_map(lambda leaf: divisible_spec(leaf.shape, leaf.axes, mesh, TRAIN_RULES),
+                     template)
+    return TrainShards(_cut_all(params, specs, tp), specs, tp)
+
+
+def gather_train(ts: TrainShards) -> dict:
+    """The logical tree of a placed one, on the first position's device:
+    each piece read from its first holder."""
+    tp, dev = ts.positions, ts.positions.devices[0]
+    leaves = []
+    for (shards, keys), spec in zip(ts.leaf_shards(), _spec_leaves(ts.specs)):
+        shape = list(shards[0].shape)
+        for i, part in enumerate(spec):
+            if part is not None:
+                shape[i] *= tp.data if part == "data" else tp.model
+        full = torch.empty(shape, dtype=shards[0].dtype, device=dev)
+        for p, first in enumerate(_first_seen(keys)):
+            if not first:
+                continue
+            view = full
+            for i, part in enumerate(spec):
+                if part is not None:
+                    idx = keys[p][0] if part == "data" else keys[p][1]
+                    view = view.narrow(i, idx * shards[p].shape[i], shards[p].shape[i])
+            view.copy_(shards[p].detach())
+        leaves.append(full)
+    return tree_unflatten(ts.shards[0], leaves)
+
+
+def _leaf_views(tp: TrainPositions, shards: list, spec, select_dim: int | None) -> list:
+    dim = next((i for i, part in enumerate(spec) if part == "data"), None)
+    takes = [[tp.index(pod, dd, m) for dd in range(tp.data)] if dim is not None else [p]
+             for p, (pod, _, m) in enumerate(tp.coords)]
+    select = None
+    if select_dim is not None:
+        select = [(select_dim, tp.kv_select[m]) for _, _, m in tp.coords]
+    return gather_shards(shards, tp.keys(spec), takes, dim, list(tp.devices), select)
+
+
+def train_views(ts: TrainShards, path: tuple = (), row: int | None = None) -> list:
+    """Each position's view of the subtree at ``path`` (of layer ``row`` of
+    its stacks): its own shard with the ``embed_fsdp`` pieces of its data
+    peers gathered (:func:`~repro_torch.distributed.collectives.
+    gather_shards`), and where the attention splits on heads but not on
+    ``kv_heads``, the K/V heads its queries read selected. Made inside the
+    step, so the gradient of a selected head reaches its leaf."""
+    tp = ts.positions
+
+    def walk(shards: list, specs, name: str, block: str | None):
+        if isinstance(specs, dict):
+            outs = {k: walk([s[k] for s in shards], specs[k], k,
+                            k if k in ATTN_BLOCKS else block) for k in specs}
+            return [{k: v[p] for k, v in outs.items()} for p in range(tp.count)]
+        spec = specs
+        if row is not None:
+            shards, spec = [s[row] for s in shards], spec[1:]
+        select = (shards[0].ndim - 2 if tp.kv_select and block in ATTN_BLOCKS
+                  and name in KV_LEAVES else None)
+        return _leaf_views(tp, shards, spec, select)
+
+    specs = ts.specs
+    for k in path:
+        specs = specs[k]
+    shards = ts.shards
+    for k in path:
+        shards = [s[k] for s in shards]
+    return walk(shards, specs, path[-1] if path else "", None)

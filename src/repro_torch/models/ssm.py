@@ -30,7 +30,7 @@ from ..kernels.selective_scan.ops import selective_scan
 from .common import ModelConfig, ParamSpec
 
 __all__ = ["ssm_template", "mamba_block", "mamba_decode_step", "mamba_block_split",
-           "mamba_decode_split"]
+           "mamba_decode_split", "mamba_rows"]
 
 
 def ssm_template(cfg: ModelConfig, n_layers: int | None = None) -> dict:
@@ -99,8 +99,32 @@ def mamba_block_split(x: torch.Tensor, ps: list, devices: list, cfg: ModelConfig
     device, [(conv_tail [B, K-1, Din_m], h_final [B, Din_m, N])] per
     position): each position scans its channels through the
     selective-scan kernel; the output projection's partials are summed."""
+    outs, states = _mamba_partials([on(x, d) for d in devices], ps, devices, cfg)
+    return reduce_partials(outs, x.device), states
+
+
+def mamba_rows(hs: list, ps: list, cfg: ModelConfig, lay, split: bool) -> list:
+    """The Mamba block on a training mesh (:class:`~.parallel.RowLayout`):
+    each position's normed rows ``hs[p]`` are gathered into its batch rows
+    over the whole sequence; where the block splits on ``ssm_inner`` the
+    positions of each batch group scan their channels as
+    :func:`mamba_block_split`'s positions do (with the sums of dt, B and C
+    among them), else each position scans every channel; the output
+    partials are reduce-scattered back onto the positions' rows."""
+    hg = lay.seq_gather(hs)
+    partials = [None] * len(hs)
+    for group in dict.fromkeys(lay.groups if split else [(p,) for p in range(len(hs))]):
+        outs, _ = _mamba_partials([hg[q] for q in group], [ps[q] for q in group],
+                                  [lay.devices[q] for q in group], cfg)
+        for q, out in zip(group, outs):
+            partials[q] = out
+    return lay.seq_reduce(partials, split)
+
+
+def _mamba_partials(xs: list, ps: list, devices: list, cfg: ModelConfig):
+    """Each position's output partial [B, S, D] and final states from its
+    input ``xs[m]`` on ``devices[m]`` (:func:`mamba_block_split`)."""
     dtype = cfg.compute_dtype
-    xs = [on(x, d) for d in devices]
     x_ins = [xm @ p["in_proj_x"].to(dtype) for xm, p in zip(xs, ps)]
     zs = [xm @ p["in_proj_z"].to(dtype) for xm, p in zip(xs, ps)]
     x_acts = [F.silu(_causal_conv(xi, p["conv_w"], p["conv_b"], dtype).float()).to(dtype)
@@ -117,7 +141,7 @@ def mamba_block_split(x: torch.Tensor, ps: list, devices: list, cfg: ModelConfig
         else:  # short prompt: left-pad with zeros
             conv_tail = F.pad(x_in, (0, 0, K - 1 - S, 0))
         states.append((conv_tail, h_final))
-    return reduce_partials(outs, x.device), states
+    return outs, states
 
 
 def mamba_decode_split(x: torch.Tensor, ps: list, devices: list, cfg: ModelConfig,

@@ -66,7 +66,10 @@ position and sums their partials on the first position, where the
 residual stream, the norms and the replicated blocks stay
 (:mod:`.parallel`). A plain stage tree and cache is a slice of one
 position (:func:`.parallel.as_slice`, at each entry point): below the
-entry points the code sees the slice form only.
+entry points the code sees the slice form only. :func:`forward` also
+takes a train state placed on a training mesh (``TRAIN_RULES``,
+:class:`.parallel.TrainShards`): there every position holds its rows of
+the residual stream and runs every layer (:func:`_forward_mesh`).
 """
 
 from __future__ import annotations
@@ -81,6 +84,7 @@ import torch.utils.checkpoint
 from ..distributed.collectives import on, reduce_max, reduce_partials
 from .attention import (
     attention_block,
+    attention_rows,
     attn_template,
     chunk_attention_block,
     last_writes,
@@ -91,16 +95,18 @@ from .attention import (
 from .common import ModelConfig, ParamSpec, tree_map
 from .layers import (
     embed_lookup_split,
+    embed_rows,
     embed_template,
     gelu_mlp,
     mlp_template,
     rmsnorm,
     swiglu_mlp,
+    unembed_rows,
     unembed_split,
 )
-from .moe import moe_ffn, moe_template, uncounted
-from .parallel import Positions, SliceParams, as_slice, slice_cache
-from .ssm import mamba_block_split, mamba_decode_split, ssm_template
+from .moe import moe_ffn, moe_rows, moe_template, uncounted
+from .parallel import Positions, SliceParams, TrainShards, as_slice, slice_cache, train_views
+from .ssm import mamba_block_split, mamba_decode_split, mamba_rows, ssm_template
 
 __all__ = [
     "lm_template",
@@ -469,7 +475,12 @@ def forward(params, batch: dict, cfg: ModelConfig):
     ``torch.utils.checkpoint`` (JAX's ``jax.checkpoint``): its activations
     are recomputed in the backward, which runs its attention kernel's
     forward a second time; the recompute adds nothing to the MoE counters.
+
+    ``params`` placed on a training mesh (:class:`.parallel.TrainShards`)
+    runs :func:`_forward_mesh`, which returns :class:`.parallel.MeshLogits`.
     """
+    if isinstance(params, TrainShards):
+        return _forward_mesh(params, batch, cfg)
     x_in = _stage_input(batch, cfg)
     sp, _ = as_slice(params, None, x_in.device)
     x = _embed(sp, x_in, cfg, batch)
@@ -503,6 +514,112 @@ def forward(params, batch: dict, cfg: ModelConfig):
                 x, lb = group(x)
             lb_total = lb_total + lb
     return _unembed(sp, x, cfg), {"lb_loss": lb_total / max(cfg.n_layers, 1)}
+
+
+def _remat(fn, *args, remat: bool):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` when ``remat``."""
+    if remat:
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _mesh_ffn(h2: list, views: list, cfg: ModelConfig, ts: TrainShards, lay):
+    """The feed-forward on a training mesh: (each position's rows, aux)."""
+    tp = ts.positions
+    if cfg.is_moe:
+        return moe_rows(h2, views, cfg, tp, lay)
+    mlp = swiglu_mlp if cfg.act == "swiglu" else gelu_mlp
+    hg = lay.seq_gather(h2)
+    partials = [mlp(h, v["mlp"], cfg.compute_dtype) for h, v in zip(hg, views)]
+    return lay.seq_reduce(partials, tp.plan.ffn), {}
+
+
+def _mesh_layer(xs: list, views: list, cfg: ModelConfig, ts: TrainShards, lay, *,
+                window=None, causal: bool = True):
+    """One layer (:func:`_layer`) on a training mesh: ``xs[p]`` are position
+    ``p``'s rows of the residual stream, ``views[p]`` its view of the
+    layer's weights (:func:`.parallel.train_views`). The norms run on each
+    position's rows; each split block gathers its batch rows over the
+    sequence and reduce-scatters its partials back (:class:`.parallel.
+    RowLayout`). Returns (rows, aux)."""
+    plan, eps = ts.positions.plan, cfg.rms_eps
+    h = [rmsnorm(x, v["ln1"], eps) for x, v in zip(xs, views)]
+    if cfg.block in ("attn", "hymba"):
+        mix = attention_rows(h, [v["attn"] for v in views], cfg, lay, plan.attn,
+                             window=window, causal=causal)
+    if cfg.block in ("mamba", "hymba"):
+        m_out = mamba_rows(h, [v["ssm"] for v in views], cfg, lay, plan.ssm)
+        if cfg.block == "mamba":
+            return [x + o for x, o in zip(xs, m_out)], {}
+        mix = [0.5 * (rmsnorm(a, v["norm_attn"], eps) * v["beta_attn"].to(a.dtype)
+                      + rmsnorm(o, v["norm_ssm"], eps) * v["beta_ssm"].to(o.dtype))
+               for a, o, v in zip(mix, m_out, views)]
+    xs = [x + a for x, a in zip(xs, mix)]
+    ff, aux = _mesh_ffn([rmsnorm(x, v["ln2"], eps) for x, v in zip(xs, views)], views, cfg,
+                        ts, lay)
+    return [x + f for x, f in zip(xs, ff)], aux
+
+
+def _mesh_embed(ts: TrainShards, tokens: torch.Tensor, cfg: ModelConfig, lay,
+                batch: dict | None = None) -> list:
+    """Each position's rows of the embedded tokens (a patches frontend's
+    projected ``patch_embeds`` in place of the first P positions')."""
+    tp, dtype = ts.positions, cfg.compute_dtype
+    xs = embed_rows(tokens, train_views(ts, ("embed", "tok")), tp, lay, dtype, cfg.vocab_size)
+    if cfg.frontend == "patches" and batch is not None and "patch_embeds" in batch:
+        proj = train_views(ts, ("vision_proj",))
+        P = batch["patch_embeds"].shape[1]
+        for p, (b0, b1, s0, s1) in enumerate(lay.regions):
+            if s0 < P:
+                pe = batch["patch_embeds"][b0:b1, s0:min(s1, P)].to(lay.devices[p], dtype)
+                xs[p] = torch.cat([pe @ proj[p].to(dtype), xs[p][:, min(s1, P) - s0:]], dim=1)
+    return xs
+
+
+def _mesh_unembed(ts: TrainShards, xs: list, cfg: ModelConfig, lay):
+    """Logits (:class:`.parallel.MeshLogits`) from each position's rows."""
+    norms = train_views(ts, ("final_norm",))
+    name = "tok" if cfg.tie_embeddings else "lm_head"
+    xs = [rmsnorm(x, w, cfg.rms_eps) for x, w in zip(xs, norms)]
+    return unembed_rows(xs, train_views(ts, ("embed", name)), ts.positions, lay,
+                        cfg.compute_dtype, cfg.tie_embeddings, cfg.vocab_size)
+
+
+def _forward_mesh(ts: TrainShards, batch: dict, cfg: ModelConfig):
+    """:func:`forward` on a training mesh (``TRAIN_RULES``): every position
+    runs every layer on its rows of the residual stream (batch rows over
+    ``(pod, data)``, sequence rows over ``model``), each layer's weights
+    gathered over ``data`` inside the step (inside each remat group, so
+    the backward gathers them again, as FSDP does). The remat groups and
+    MoE's whole-batch routing are :func:`forward`'s."""
+    tokens = batch["tokens"]
+    lay = ts.positions.layout(*tokens.shape)
+    xs = _mesh_embed(ts, tokens, cfg, lay, batch)
+    plan = layer_plan(cfg)
+    lb_total = torch.zeros((), dtype=torch.float32, device=lay.devices[0])
+    for run in plan.runs:
+        cls = plan.classes[run.class_idx]
+        for rows in _remat_groups(run, cfg):
+            runs_before = [0]
+
+            # Every name the group reads is bound here (see forward).
+            def group(*xs, rows=rows, window=cls.window, path=("classes", f"c{run.class_idx}"),
+                      runs_before=runs_before):
+                recompute = runs_before[0] > 0
+                runs_before[0] += 1
+                lb = torch.zeros((), dtype=torch.float32, device=lay.devices[0])
+                xs = list(xs)
+                with uncounted() if recompute else contextlib.nullcontext():
+                    for row in rows:
+                        xs, aux = _mesh_layer(xs, train_views(ts, path, row), cfg, ts, lay,
+                                              window=window)
+                        if "lb_loss" in aux:
+                            lb = lb + aux["lb_loss"]
+                return (*xs, lb)
+
+            *xs, lb = _remat(group, *xs, remat=cfg.remat)
+            lb_total = lb_total + lb
+    return _mesh_unembed(ts, xs, cfg, lay), {"lb_loss": lb_total / max(cfg.n_layers, 1)}
 
 
 def prefill_into(params, batch: dict, cache: dict, lanes: torch.Tensor, cfg: ModelConfig):

@@ -5,7 +5,9 @@ A batch is a pure function of ``(seed, step)``: each draws from a
 reads the same stream and a batch does not depend on the device it lands
 on. The numbers are the port's own: JAX's threefry cannot be reproduced
 without JAX, so tests that compare the two packages feed both JAX's
-batches.
+batches. On a training mesh the step takes this global batch and each
+position reads its rows of it, batch rows over ``(pod, data)``
+(:meth:`~repro_torch.models.parallel.RowLayout.rows`).
 """
 
 from __future__ import annotations

@@ -19,6 +19,7 @@ from typing import Any
 import torch
 
 from ..models.common import tree_leaves, tree_map
+from ..models.parallel import TrainShards
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "lr_schedule", "global_norm"]
 
@@ -48,16 +49,33 @@ def lr_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def adamw_init(params: Any) -> dict:
-    """Zeroed fp32 moments beside every leaf, and the update count (int32)."""
+    """Zeroed fp32 moments beside every leaf (beside every shard, in the
+    leaf's layout, on a training mesh), and the update count (int32)."""
     zeros = lambda t: torch.zeros(t.shape, dtype=torch.float32, device=t.device)  # noqa: E731
+    if isinstance(params, TrainShards):
+        return {"m": params.map(zeros), "v": params.map(zeros),
+                "count": torch.zeros((), dtype=torch.int32, device=params.positions.devices[0])}
     device = tree_leaves(params)[0].device
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "count": torch.zeros((), dtype=torch.int32, device=device)}
 
 
 def global_norm(tree: Any) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, in fp32."""
-    return torch.sqrt(sum(torch.sum(torch.square(leaf.float())) for leaf in tree_leaves(tree)))
+    """sqrt of the sum of every leaf's squares, in fp32. Of shards on a
+    training mesh: the logical tree's norm, each leaf's squares summed
+    over its pieces in position order, a piece that several positions
+    hold counted once."""
+    if not isinstance(tree, TrainShards):
+        return torch.sqrt(sum(torch.sum(torch.square(leaf.float()))
+                              for leaf in tree_leaves(tree)))
+    dev = tree.positions.devices[0]
+    total = 0
+    for shards, keys in tree.leaf_shards():
+        firsts = {}
+        for t, key in zip(shards, keys):
+            firsts.setdefault(key, t)
+        total = total + sum(torch.sum(torch.square(t.float())).to(dev) for t in firsts.values())
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
@@ -75,16 +93,16 @@ def adamw_update(grads: Any, opt_state: dict, params: Any, cfg: AdamWConfig
     b1c = 1.0 - cfg.b1 ** count.float()
     b2c = 1.0 - cfg.b2 ** count.float()
 
-    flat = zip(tree_leaves(grads), tree_leaves(opt_state["m"]), tree_leaves(opt_state["v"]),
-               tree_leaves(params))
+    leaves = (lambda t: t.all_shards()) if isinstance(params, TrainShards) else tree_leaves
+    flat = zip(leaves(grads), leaves(opt_state["m"]), leaves(opt_state["v"]), leaves(params))
     for g, m, v, p in flat:
         # JAX: g *= scale; m = b1 m + (1 - b1) g; v = b2 v + (1 - b2) g^2;
         # step = m / b1c / (sqrt(v / b2c) + eps) + wd p; p -= lr step.
-        g = g.float() * scale
+        g = g.float() * scale.to(g.device)
         m.mul_(cfg.b1).add_((1.0 - cfg.b1) * g)
         v.mul_(cfg.b2).add_(g.square_().mul_(1.0 - cfg.b2))
-        step = (m / b1c).div_((v / b2c).sqrt_().add_(cfg.eps))
+        step = (m / b1c.to(m.device)).div_((v / b2c.to(m.device)).sqrt_().add_(cfg.eps))
         step.add_(cfg.weight_decay * p.float())
-        p.copy_(p.float() - lr * step)
+        p.copy_(p.float() - lr.to(p.device) * step)
     metrics = {"grad_norm": gnorm, "lr": lr}
     return params, {"m": opt_state["m"], "v": opt_state["v"], "count": count}, metrics

@@ -28,7 +28,8 @@ to both packages as numpy.
 * The gradient guard of the kernels without a backward, the synthetic
   data, and ``launch/train.py --device cpu --smoke``: a run killed after
   its step-3 checkpoint and relaunched gives the uninterrupted run's
-  losses exactly; an encoder-decoder trains through the CLI.
+  losses exactly; an encoder-decoder trains through the CLI, and so does
+  a mesh of two CPU positions (``--mesh single --positions 2``).
 """
 
 import dataclasses
@@ -660,10 +661,21 @@ def test_cli_killed_and_relaunched_gives_the_uninterrupted_losses(tmp_path):
     assert {**first, **rest} == want
 
 
-def test_cli_refuses_what_the_port_cannot_train(capsys):
+def test_cli_trains_on_a_mesh(capsys):
+    """``--mesh single --positions 2 --device cpu --smoke``: a (data 2,
+    model 1) mesh of two CPU positions (the square-root rule), a finite
+    loss every step
+    (tests/test_torch_train_mesh.py holds the mesh's steps to the single
+    device's and to JAX's); ``--positions`` without a mesh is refused."""
+    train_cli.main(["--smoke", "--device", "cpu", "--mesh", "single", "--positions", "2",
+                    "--steps", "3", "--batch", "2", "--seq", "16"])
+    out = capsys.readouterr().out
+    assert "mesh: {'data': 2, 'model': 1} over ['cpu', 'cpu']" in out
+    losses = _losses(out)
+    assert sorted(losses) == [1, 2, 3] and all(np.isfinite(list(losses.values())))
     with pytest.raises(SystemExit):
-        train_cli.main(["--smoke", "--device", "cpu", "--mesh", "single"])
-    assert "ROADMAP" in capsys.readouterr().err
+        train_cli.main(["--smoke", "--device", "cpu", "--positions", "2"])
+    assert "--positions needs --mesh" in capsys.readouterr().err
 
 
 def test_cli_trains_an_encoder_decoder_on_the_cpu(capsys):
