@@ -86,7 +86,10 @@ Phases, in order; any failure exits non-zero:
    scan (no PyTorch call computes the recurrence), whose bound counts its
    exponentials on the special-function units. An fp32 flash case's bound
    takes its products as 3xTF32 on the tensor cores (the kernel's P V),
-   the fp32 CUDA-core figure printed beside it.
+   the fp32 CUDA-core figure printed beside it. Every bound takes its
+   FLOPs and bytes from ``repro_torch.kernels.costs`` (the count the dry
+   run's meta routes report) and the card's rates from
+   ``repro_torch.roofline.hw``.
 4. Serve dense: full-width stablelm-1.6b (24 layers, d_model 2048, vocab
    100352, bf16, random weights from a seeded ``torch.Generator``) through
    ``PipelineServer`` at G=3 x R=3, max_batch 4, max_len 128, async depth
@@ -440,9 +443,27 @@ Phases, in order; any failure exits non-zero:
    repro_torch.launch.train --mesh single --positions 4 --device
    cuda:<card>`` (stablelm's smoke config), against the uninterrupted run
    on the same mesh.
-45. A JSON line of per-kernel results (the six kernels and the two
+45. The dry run (``repro_torch.launch.dryrun``) against the card:
+   stablelm-1.6b's phase-23 step (B=4, S=256, fp32, remat) traced on one
+   ``meta`` position and on phase 42's (2, 2) mesh of them, then trained
+   3 steps for real on as many positions of the card; and one served
+   prefill (B=4, 128 tokens into a 256-row cache) and decode step of phase
+   4's stablelm (bf16, one position, ``SERVE_RULES``) traced and run. It
+   prints, with the card's name and power limit, each position's argument
+   bytes (meta against the card's placed params, moments, batch and
+   counters: they must be equal), the predicted peak (arguments plus temp
+   over the positions, and the all-position live peak) against
+   ``max_memory_allocated``, the counted FLOPs a step against
+   ``model_flops``, the measured s/step and the fp32 step's share of the
+   card (``model_flops / (s/step x PEAK_FLOPS_FP32)``), the roofline's
+   terms (compute at the peak of the step's dtype: fp32 for the train
+   step, bf16 for the served ones), and the served steps' times beside
+   the roofline's memory and compute terms. Every
+   kernel call's outputs on the meta route must have the kernel's shapes
+   and dtypes (the distinct calls of each run compared).
+46. A JSON line of per-kernel results (the six kernels and the two
    backwards; training's launches of both flash kernels from phases 23-24,
-   29-31 and 42-43 and of the scan's two kernels from phases 29-31 and 43;
+   29-31, 42-43 and 45 and of the scan's two kernels from phases 29-31 and 43;
    the
    paged-prefill kernel's launches also by route: ``paged_chunk`` from
    phases 5, 15 and 16, ``verify`` and ``dense_chunk`` from phases 9, 10
@@ -455,8 +476,8 @@ Phases, in order; any failure exits non-zero:
    wave 1); rmsnorm's counter is read over phases 4-21 and must stay 0: no
    served path launches it; the mesh runs of phases 34-39 by run, and the
    kernels' cases at the positions' shapes, serving's and training's),
-   then the script's seconds beside its time before phases 41-44 were
-   added, then the device line last.
+   then the script's seconds beside its time before phase 45 was added,
+   then the device line last.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -485,8 +506,12 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense; fp32 without tensor cores
+from repro_torch.kernels import costs  # noqa: E402  (the src path above)
+from repro_torch.roofline import hw  # noqa: E402
+
+# The card's rates (roofline.hw): dense; fp32 without tensor cores.
+HBM_BYTES_PER_S = hw.HBM_BW
+PEAK_FLOPS = {torch.bfloat16: hw.PEAK_FLOPS_BF16, torch.float32: hw.PEAK_FLOPS_FP32}
 # Special-function-unit rate for exp2: 16 results per clock per SM on
 # compute capability 9.0 (CUDA C++ Programming Guide, arithmetic
 # instruction throughput) against 128 fp32 FMA lanes of 2 flops each.
@@ -494,7 +519,7 @@ SFU_PER_S = PEAK_FLOPS[torch.float32] * 16 / 256
 # 3xTF32: three TF32 tensor-core products per product (csrc/tf32x3.cuh), at
 # the H100's dense TF32 rate: the fp32 flash forward at every head_dim and the
 # flash backward.
-TF32X3_FLOPS = 495e12 / 3
+TF32X3_FLOPS = hw.PEAK_FLOPS_TF32 / 3
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 N_TIMED = 20
 
@@ -560,12 +585,8 @@ def flash_case(B, S, H, KV, D, dtype, gen, window=None, *, Skv=None, causal=True
         band = band_mask(S, window)
         library = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qt, kt, vt, attn_mask=band, enable_gqa=H != KV)
-    item = q.element_size()
-    # (query, key) pairs scored: under a causal mask (positions compared
-    # from 0) each query sees itself and the window - 1 keys before it.
-    pairs = sum(min(i + 1, Skv, window or Skv) for i in range(S)) if causal else S * Skv
-    flops = 4 * B * H * D * pairs
-    bytes_moved = (2 * q.numel() + k.numel() + v.numel()) * item
+    flops, bytes_moved = costs.flash_fwd(B, S, Skv, H, KV, D, q.element_size(), causal, window,
+                                         lse=False)
     b_ms, b_by = bound(bytes_moved, flops, dtype)
     extra = {}
     if dtype == torch.float32:
@@ -592,12 +613,11 @@ def flash_case(B, S, H, KV, D, dtype, gen, window=None, *, Skv=None, causal=True
 
 
 def decode_bound(q, rows: int, KV: int, D: int) -> tuple[float, str]:
-    """Bound of a dense decode call over ``rows`` visible rows in all: q
-    read and the output written, each visible K/V row once, the lengths."""
+    """Bound of a dense decode call over ``rows`` visible rows in all
+    (``costs.decode``)."""
     B, _, H, _ = q.shape
-    item = q.element_size()
-    return bound(2 * q.numel() * item + 2 * rows * KV * D * item + 4 * B, 4 * H * D * rows,
-                 q.dtype)
+    flops, nbytes = costs.decode(B, H, KV, D, q.element_size(), rows)
+    return bound(nbytes, flops, q.dtype)
 
 
 def decode_case(B, S, H, KV, D, lengths, dtype, gen, window=None, label=""):
@@ -680,13 +700,23 @@ def paged_operands(B, NB, page, KV, D, dtype, int8, gen):
     return k.to(dtype), v.to(dtype), None, None, bt
 
 
-def paged_bytes(q, rows: int, KV: int, D: int, k, pages_read: int) -> float:
-    """Bytes a paged call must move: q read and the output written, each
-    visible K/V row once (plus its two fp32 scales for int8 pages), and
-    the block-table entries of the pages read."""
-    scale_bytes = 8 if k.dtype == torch.int8 else 0
-    return 2 * q.numel() * q.element_size() + rows * (2 * KV * D * k.element_size() + scale_bytes) \
-        + 4 * pages_read
+def paged_decode_bound(q, rows: int, KV: int, D: int, k, pages_read: int) -> tuple[float, str]:
+    """Bound of a paged decode call over ``rows`` visible rows of
+    ``pages_read`` pages (``costs.paged_decode``)."""
+    B, _, H, _ = q.shape
+    flops, nbytes = costs.paged_decode(B, H, KV, D, q.element_size(), k.element_size(), rows,
+                                       pages_read)
+    return bound(nbytes, flops, q.dtype)
+
+
+def paged_prefill_bound(q, rows: int, pairs: int, KV: int, D: int, k, pages_read: int
+                        ) -> tuple[float, str]:
+    """Bound of a paged prefill call scoring ``pairs`` (query, row) pairs
+    over ``rows`` rows of ``pages_read`` pages (``costs.paged_prefill``)."""
+    B, C, H, _ = q.shape
+    flops, nbytes = costs.paged_prefill(B, C, H, KV, D, q.element_size(), k.element_size(),
+                                        rows, pairs, pages_read)
+    return bound(nbytes, flops, q.dtype)
 
 
 def _label(dtype, int8) -> str:
@@ -721,8 +751,7 @@ def paged_decode_case(B, page, H, KV, D, lengths, dtype, int8, gen):
 
     rows = sum(min(n, S) for n in lengths)
     pages_read = sum(-(-min(n, S) // page) for n in lengths)
-    b_ms, b_by = bound(paged_bytes(q, rows, KV, D, k, pages_read) + 4 * B,
-                       4 * H * D * rows, dtype)
+    b_ms, b_by = paged_decode_bound(q, rows, KV, D, k, pages_read)
     deep = deep_lane_check(lens, out, want, paged_decode_attention(
         q, k, v, page_swapped(lens, bt, k.shape[0], page), lens, k_scales=ks, v_scales=vs)) \
         if max(lengths) >= DEEP_OFFSET else {}
@@ -775,8 +804,7 @@ def paged_prefill_case(B, C, page, H, KV, D, offsets, dtype, int8, gen):
     rows = sum(min(o + C, S) for o in offsets)
     pairs = sum(min(o + i + 1, S) for o in offsets for i in range(C))
     pages_read = sum(-(-min(o + C, S) // page) for o in offsets)
-    b_ms, b_by = bound(paged_bytes(q, rows, KV, D, k, pages_read) + 4 * B,
-                       4 * H * D * pairs, dtype)
+    b_ms, b_by = paged_prefill_bound(q, rows, pairs, KV, D, k, pages_read)
     return {
         "shape": f"B={B} C={C} page={page} H={H} KV={KV} D={D} offsets={offsets}",
         "dtype": _label(dtype, int8),
@@ -816,8 +844,7 @@ def dense_view_case(W, C, L, H, KV, D, offsets, dtype, gen):
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     rows = sum(min(o + C, L) for o in offsets)
     pairs = sum(min(o + i + 1, L) for o in offsets for i in range(C))
-    b_ms, b_by = bound(2 * q.numel() * q.element_size() + rows * 2 * KV * D * k.element_size()
-                       + 4 * W * 2, 4 * H * D * pairs, dtype)
+    b_ms, b_by = paged_prefill_bound(q, rows, pairs, KV, D, k, W)  # one page a lane
     return {
         "shape": f"dense view W={W} C={C} page={L} H={H} KV={KV} D={D} offsets={offsets}",
         "dtype": _label(dtype, False),
@@ -878,10 +905,9 @@ def scan_bound(B, S, Din, N, with_h0):
     Operations per (b, t, d, n): one exp on the SFUs; dt * A, a * h, + b,
     (dt x) * B, h * C and the sum over n on the fp32 lanes; plus dt * x
     per (b, t, d)."""
-    n_state = B * Din * N
-    scan_bytes = 4 * (3 * B * S * Din + 2 * B * S * N + Din * N + (2 if with_h0 else 1) * n_state)
+    flops, scan_bytes = costs.selective_scan_fwd(B, S, Din, N, with_h0)
     bytes_ms = scan_bytes / HBM_BYTES_PER_S * 1e3
-    fp32_ms = B * S * Din * (6 * N + 1) / PEAK_FLOPS[torch.float32] * 1e3
+    fp32_ms = flops / PEAK_FLOPS[torch.float32] * 1e3
     sfu_ms = B * S * Din * N / SFU_PER_S * 1e3
     b_ms, b_by = max((bytes_ms, "bytes"), (max(fp32_ms, sfu_ms), "operations"))
     return b_ms, b_by, bytes_ms, fp32_ms, sfu_ms
@@ -927,8 +953,8 @@ def rmsnorm_case(R, D, dtype, gen):
     torch.cuda.synchronize()
     err = (out.float() - rmsnorm_ref(x.float(), w.float())).abs().max().item()
     rms_norm = getattr(F, "rms_norm", None)
-    item = x.element_size()
-    b_ms, b_by = bound(2 * x.numel() * item + D * w.element_size(), 4 * R * D, dtype)
+    flops, nbytes = costs.rmsnorm(R, D, x.element_size(), w.element_size())
+    b_ms, b_by = bound(nbytes, flops, dtype)
     return {
         "shape": f"R={R} D={D}",
         "dtype": str(dtype).removeprefix("torch."),
@@ -1328,8 +1354,7 @@ def served_paged_times(served: collections.Counter, dtype, int8: bool) -> dict:
                                                             v_scales=vs))
         rows = sum(min(max(x, 0), NB * page) for x in lengths)
         pages_read = sum(-(-min(max(x, 0), NB * page) // page) for x in lengths)
-        total_bound += n * bound(paged_bytes(q, rows, KV, D, k, pages_read) + 4 * B,
-                                 4 * H * D * rows, dtype)[0]
+        total_bound += n * paged_decode_bound(q, rows, KV, D, k, pages_read)[0]
     n_calls = sum(served.values())
     print(f"  paged_decode_attention at the served lengths: {total:.3f} ms over {n_calls} calls "
           f"({len(served)} distinct), bound {total_bound:.3f} ms")
@@ -3352,13 +3377,10 @@ def flash_bwd_case(B, Sq, Skv, H, KV, D, causal, window, label, gen) -> dict:
     fault_err = _rel_err(faulted, want[1])
     library, backend, gqa = sdpa_backward(q, k, v, do, causal, window)
     efficient, eff_backend, eff_gqa = sdpa_backward(q, k, v, do, causal, window, efficient=True)
-    pairs = sum(min(i + 1, Skv, window or Skv) for i in range(Sq)) if causal else Sq * Skv
-    # Bytes: q, o, do read and dq written; k, v read and dk, dv written;
-    # lse read. Operations: the five products, 2.5 times the forward's two
-    # matmuls, each as three TF32 products; beside them the same on the
-    # CUDA cores in fp32, the first design's bound.
-    bytes_ms = (4 * q.numel() + 4 * k.numel() + lse.numel()) * 4 / HBM_BYTES_PER_S * 1e3
-    flops = 2.5 * 4 * B * H * D * pairs
+    # costs.flash_bwd; the operations each as three TF32 products, beside
+    # them the same on the CUDA cores in fp32, the first design's bound.
+    flops, n_bytes = costs.flash_bwd(B, Sq, Skv, H, KV, D, causal, window)
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     tf32x3_ms = flops / TF32X3_FLOPS * 1e3
     shape = (f"B={B} S={Sq} H={H} KV={KV} D={D}" if Sq == Skv else
              f"B={B} Sq={Sq} Skv={Skv} H={H} KV={KV} D={D}")
@@ -3435,10 +3457,8 @@ def flash_fwd_fp32_case(B, Sq, Skv, H, KV, D, causal, window, label, gen) -> dic
         qt, kt, vt, enable_gqa=H != KV, **mask)
     plain = lambda: (flash_attention_ref(q, k, v, **kw),  # noqa: E731
                      attention_lse_ref(q, k, **kw))
-    pairs = sum(min(i + 1, Skv, window or Skv) for i in range(Sq)) if causal else Sq * Skv
-    flops = 4 * B * H * D * pairs
-    # Bytes: q read and o written, k and v read, the lse written.
-    bytes_ms = (2 * q.numel() + k.numel() + v.numel() + lse.numel()) * 4 / HBM_BYTES_PER_S * 1e3
+    flops, n_bytes = costs.flash_fwd(B, Sq, Skv, H, KV, D, 4, causal, window, lse=True)
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     tf32x3_ms = flops / TF32X3_FLOPS * 1e3
     shape = (f"B={B} S={Sq} H={H} KV={KV} D={D}" if Sq == Skv else
              f"B={B} Sq={Sq} Skv={Skv} H={H} KV={KV} D={D}")
@@ -4128,10 +4148,9 @@ def scan_bwd_bound(B, S, Din, N, with_h0, with_dh):
     24 fp32 flops on the lanes (h's update, g, the dB, dC, dx, ddt and dA
     terms, the carry and the sums over d)."""
     elems = B * S * Din * N
-    n_bytes = 4 * (5 * B * S * Din + 4 * B * S * N + 2 * Din * N
-                   + (2 + int(with_h0) + int(with_dh)) * B * Din * N)
+    flops, n_bytes = costs.selective_scan_bwd(B, S, Din, N, with_h0, with_dh)
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    fp32_ms = 24 * elems / PEAK_FLOPS[torch.float32] * 1e3
+    fp32_ms = flops / PEAK_FLOPS[torch.float32] * 1e3
     sfu_ms = elems / SFU_PER_S * 1e3
     b_ms, b_by = max((bytes_ms, "bytes"), (max(fp32_ms, sfu_ms), "operations"))
     return b_ms, b_by, bytes_ms, fp32_ms, sfu_ms
@@ -5188,6 +5207,244 @@ def train_mesh_phases(cuda: torch.device, single: dict) -> tuple[dict, dict]:
     return {"launches": launches, "routes": routes}, report
 
 
+# Phase 45: the dry run (repro_torch.launch.dryrun) against the card. Phase
+# 23's one position and phase 42's (2, 2) mesh, fp32, and a served prefill
+# and decode step of phase 4's stablelm (bf16, one position, SERVE_RULES).
+DRY_LAYOUTS = ((1, 1), TRAIN_MESH_SHAPE)
+DRY_STEPS = 3
+DRY_SERVE_B, DRY_SERVE_PROMPT, DRY_SERVE_REPEATS = 4, 128, 5
+
+
+@contextlib.contextmanager
+def kernel_outputs_recorded():
+    """The distinct (entry point, output shapes and dtypes) of every kernel
+    call the block makes, into the yielded set: the wrappers the models
+    call; under grad, the forwards with what they keep for the backward
+    (flash's lse, the scan's h_final and checkpoints) and the backwards'
+    gradients. (A wrapper that reads its own counter through its module is
+    recorded where its caller calls it: the autograd Function's
+    backward.)"""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.selective_scan import ops as scan_ops
+    from repro_torch.models import attention, ssm
+
+    seen: set = set()
+    sites = [(attention, "flash_attention"), (attention, "decode_attention"),
+             (ssm, "selective_scan"), (flash_ops, "flash_attention_fwd"),
+             (flash_ops._FlashAttention, "backward"), (scan_ops, "_launch_fwd"),
+             (scan_ops._SelectiveScan, "backward")]
+    originals = [site.__dict__[name] for site, name in sites]
+
+    def recorded(name, fn):
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            outs = out if isinstance(out, tuple) else (out,)
+            seen.add((name, tuple((tuple(t.shape), str(t.dtype)) if t is not None else None
+                                  for t in outs)))
+            return out
+        return call
+
+    for (site, name), fn in zip(sites, originals):
+        if isinstance(fn, staticmethod):
+            setattr(site, name, staticmethod(recorded(f"{site.__name__}.{name}", fn.__func__)))
+        else:
+            setattr(site, name, recorded(name, fn))
+    try:
+        yield seen
+    finally:
+        for (site, name), fn in zip(sites, originals):
+            setattr(site, name, fn)
+
+
+def dry_train_layout(cfg, shape, cuda: torch.device) -> dict:
+    """Dry-run phase 23's step (B=TRAIN_BATCH, S=TRAIN_SEQ, fp32, remat) on
+    ``shape``'s meta positions, then train DRY_STEPS steps for real on that
+    many positions of the card; the meta route's kernel outputs, the
+    arguments' bytes and the counted FLOPs against the card's."""
+    from repro_torch.configs import ShapeCell
+    from repro_torch.distributed.sharding import TRAIN_RULES
+    from repro_torch.launch.dryrun import model_flops, trace_cell
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.train import train
+
+    P = int(np.prod(shape))
+    cell = ShapeCell("phase23", "train", TRAIN_SEQ, TRAIN_BATCH)
+    with kernel_outputs_recorded() as meta_calls:
+        dry = trace_cell(cfg, cell, make_production_mesh(shape=shape, devices=["meta"] * P),
+                         TRAIN_RULES)
+    mesh = None if P == 1 else make_production_mesh(shape=shape, devices=[cuda] * P)
+    placed: dict = {}
+    free_memory()
+    zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    with kernel_outputs_recorded() as card_calls:
+        history = train(cfg, steps=DRY_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR,
+                        device=cuda, mesh=mesh, report=placed)
+    measured_peak = torch.cuda.max_memory_allocated()
+    launches = read_counters()
+    free_memory()
+    mem = dry["memory_analysis"]
+    per = mem["per_position"]
+    # Each position's params and moments, placed: the meta arguments less
+    # the batch and counters that position 0 holds for all (the dry run's
+    # batch has JAX's int32 ids, the trainer's synthetic stream int64).
+    meta_placed = [b - (mem["shared_argument_bytes"] if p == 0 else 0)
+                   for p, b in enumerate(per["argument_bytes"])]
+    card_args = placed["position_bytes"]
+    predicted = sum(a + t for a, t in zip(per["argument_bytes"], per["temp_bytes"]))
+    s_step = statistics.median(h["seconds"] for h in history[1:])
+    mf = model_flops(cfg, cell)
+    out = {
+        "mesh": list(shape), "positions": P,
+        "argument_bytes_meta": per["argument_bytes"], "placed_bytes_meta": meta_placed,
+        "placed_bytes_card": card_args,
+        "shared_bytes_meta": mem["shared_argument_bytes"],
+        "shared_bytes_card": placed["batch_bytes"] + placed["counter_bytes"],
+        "temp_bytes_meta": per["temp_bytes"],
+        "predicted_peak_bytes": predicted,
+        "peak_bytes_all_positions_meta": mem["peak_bytes_all_positions"],
+        "measured_peak_bytes": measured_peak,
+        "predicted_over_measured": predicted / measured_peak,
+        "all_positions_over_measured": mem["peak_bytes_all_positions"] / measured_peak,
+        "counted_flops": dry["roofline"]["flops"], "model_flops": mf,
+        "useful_flop_ratio": mf / dry["roofline"]["flops"],
+        "kernel_flops": {k: v["flops"] for k, v in dry["kernels"].items()},
+        "hbm_bytes": dry["roofline"]["hbm_bytes"],
+        "collectives": dry["collectives"],
+        "roofline": dry["roofline"],
+        "trace_s": dry["trace_s"],
+        "s_per_step": s_step, "s_per_step_all": [h["seconds"] for h in history],
+        "fp32_share": mf / (s_step * hw.PEAK_FLOPS_FP32),
+        "counted_share": dry["roofline"]["flops"] / (s_step * hw.PEAK_FLOPS_FP32),
+        "launches": launches,
+        "kernel_calls": sorted(map(str, card_calls)),
+    }
+    print(f"  {shape} = {P} position(s), B={TRAIN_BATCH} S={TRAIN_SEQ}: params and moments per "
+          f"position, meta {meta_placed} / card {card_args}; batch and counters on position 0, "
+          f"meta {out['shared_bytes_meta']} (int32 ids) / card {out['shared_bytes_card']} (int64 "
+          f"ids); predicted peak {predicted / 1e9:.3f} GB (arguments + "
+          f"temp over the positions; all positions' live peak "
+          f"{mem['peak_bytes_all_positions'] / 1e9:.3f} GB), measured "
+          f"{measured_peak / 1e9:.3f} GB, ratio {out['predicted_over_measured']:.4f} / "
+          f"{out['all_positions_over_measured']:.4f}")
+    print(f"  counted {out['counted_flops']:.6g} FLOP a step, model_flops {mf:.6g}, ratio "
+          f"{out['useful_flop_ratio']:.4f}; {s_step:.4f} s/step (median of steps 2-"
+          f"{DRY_STEPS}), fp32 share of the card {out['fp32_share']:.4f} (model_flops / "
+          f"(s/step x {hw.PEAK_FLOPS_FP32:.3g})); roofline compute {dry['roofline']['compute_s']:.4g} "
+          f"s (at {dry['roofline']['peak_flops']:.3g} FLOP/s), memory "
+          f"{dry['roofline']['memory_s']:.4g} s; traced in {dry['trace_s']} s")
+    assert dry["roofline"]["peak_flops"] == hw.PEAK_FLOPS_FP32, dry["roofline"]
+    assert card_args == meta_placed, (card_args, meta_placed)
+    assert meta_calls == card_calls, (sorted(map(str, meta_calls ^ card_calls)))
+    return out
+
+
+def dry_serve(cuda: torch.device) -> dict:
+    """Dry-run one served prefill (B x S prompt into a S + 128 cache) and one
+    decode step of phase 4's stablelm (bf16, one position, SERVE_RULES),
+    then run both on the card; the roofline's terms beside the times."""
+    from repro_torch.configs import ShapeCell, get_config
+    from repro_torch.distributed.sharding import SERVE_RULES
+    from repro_torch.launch.dryrun import model_flops, trace_cell
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import build_model, init_from_template
+
+    cfg = dataclasses.replace(get_config("stablelm-1.6b"), remat=False)
+    model = build_model(cfg)
+    B, S = DRY_SERVE_B, DRY_SERVE_PROMPT
+    out: dict = {}
+    dry = {}
+    calls = {}
+    for kind in ("prefill", "decode"):
+        cell = ShapeCell(f"phase4_{kind}", kind, S, B)
+        with kernel_outputs_recorded() as calls[kind]:
+            dry[kind] = trace_cell(cfg, cell, make_production_mesh(shape=(1, 1), devices=["meta"]),
+                                   SERVE_RULES)
+    params = init_from_template(model.template, torch.Generator(device="cuda").manual_seed(0),
+                                cfg.param_dtype, device=cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), dtype=torch.int32, device=cuda,
+                           generator=torch.Generator(device="cuda").manual_seed(1))
+    param_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    card_calls = {}
+    with torch.no_grad():
+        def prefill():
+            return model.prefill(params, {"tokens": tokens}, S + 128)
+
+        with kernel_outputs_recorded() as card_calls["prefill"]:
+            logits, cache = prefill()
+        cache_bytes = sum(t.numel() * t.element_size() for t in _leaves(cache))
+        prefill_ms = []
+        for _ in range(DRY_SERVE_REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prefill()
+            torch.cuda.synchronize()
+            prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        token = logits.argmax(-1).to(torch.int32)
+        with kernel_outputs_recorded() as card_calls["decode"]:
+            model.decode_step(params, token, cache)
+        decode_ms = []
+        for _ in range(DRY_SERVE_REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.decode_step(params, token, cache)
+            torch.cuda.synchronize()
+            decode_ms.append((time.perf_counter() - t0) * 1e3)
+    del params, cache, logits
+    free_memory()
+    for kind, ms, card_args in (("prefill", prefill_ms, param_bytes),
+                                ("decode", decode_ms, param_bytes + cache_bytes)):
+        d, rt = dry[kind], dry[kind]["roofline"]
+        # The batch is position 0's shared argument; the card's arguments are
+        # the weights (and the cache).
+        meta_args = (d["memory_analysis"]["argument_bytes"]
+                     - d["memory_analysis"]["shared_argument_bytes"])
+        out[kind] = {"ms_median": statistics.median(ms), "ms": ms,
+                     "roofline_memory_ms": rt["memory_s"] * 1e3,
+                     "roofline_compute_ms": rt["compute_s"] * 1e3,
+                     "counted_flops": rt["flops"], "hbm_bytes": rt["hbm_bytes"],
+                     "model_flops": model_flops(cfg, ShapeCell(kind, kind, S, B)),
+                     "argument_bytes_meta": meta_args, "argument_bytes_card": card_args,
+                     "kernel_flops": {k: v["flops"] for k, v in d["kernels"].items()},
+                     "trace_s": d["trace_s"]}
+        print(f"  served {kind}, B={B} {'S=' + str(S) if kind == 'prefill' else 'over ' + str(S + 128) + ' rows'} "
+              f"bf16: measured {out[kind]['ms_median']:.3f} ms (median of {DRY_SERVE_REPEATS}); "
+              f"roofline memory {out[kind]['roofline_memory_ms']:.4f} ms, compute "
+              f"{out[kind]['roofline_compute_ms']:.4f} ms at {rt['peak_flops']:.3g} FLOP/s "
+              f"({rt['hbm_bytes'] / 1e9:.4f} GB, "
+              f"{rt['flops']:.5g} FLOP counted); arguments meta {meta_args} / card {card_args}")
+        assert meta_args == card_args, (kind, meta_args, card_args)
+        assert calls[kind] == card_calls[kind], (kind, sorted(map(str, calls[kind] ^ card_calls[kind])))
+    return out
+
+
+def dryrun_phase(cuda: torch.device) -> dict:
+    """Phase 45: the port's dry run on meta positions held against the card.
+    Fails if a position's argument bytes differ from the card's, or a kernel
+    call's meta outputs from the kernel's."""
+    from repro_torch.configs import get_config
+
+    card = card_name()
+    print(f"[45] dry run (repro_torch.launch.dryrun) vs the card ({card}): stablelm-1.6b train "
+          f"step at {' and '.join(map(str, DRY_LAYOUTS))}, fp32, and a served prefill / decode "
+          f"step, bf16; peaks {hw.PEAK_FLOPS_FP32:.3g} FLOP/s fp32, {hw.HBM_BW:.3g} B/s",
+          flush=True)
+    cfg = dataclasses.replace(get_config("stablelm-1.6b"), dtype="float32",
+                              param_dtype="float32")
+    report = {"card": card, "total_memory": torch.cuda.get_device_properties(0).total_memory,
+              "hw_HBM_BYTES": hw.HBM_BYTES}
+    t0 = time.perf_counter()
+    for shape in DRY_LAYOUTS:
+        report["x".join(map(str, shape))] = dry_train_layout(cfg, shape, cuda)
+    zero_counters()
+    report["serve"] = dry_serve(cuda)
+    report["serve"]["launches"] = read_counters()
+    report["seconds"] = time.perf_counter() - t0
+    print(f"  card total_memory {report['total_memory']} B (roofline.hw.HBM_BYTES "
+          f"{hw.HBM_BYTES}); phase {report['seconds']:.1f} s")
+    return report
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5394,6 +5651,17 @@ def main() -> int:
     bwd_entry["launches_by_route"] = dict(bwd_routes)
     bwd_entry["launches_by_run"]["training_mesh"] = tm_launches["flash_attention_bwd"]
     bwd_entry["train_mesh_cases"] = train_mesh_report["kernels"]["flash_bwd"]
+    dry = dryrun_phase(cuda)
+    dry_runs = {"dry run " + k: v["launches"] for k, v in dry.items()
+                if isinstance(v, dict) and "launches" in v}
+    for run in dry_runs.values():
+        launches["flash_attention"] += run["flash_attention"]
+        launches["decode_attention"] += run["decode_attention"]
+        bwd_entry["launches"] += run["flash_attention_bwd"]
+        routes_bwd = bwd_entry["launches_by_route"]
+        routes_bwd["full"] = routes_bwd.get("full", 0) + run["flash_attention_bwd"]
+    bwd_entry["launches_by_run"].update({k: v["flash_attention_bwd"]
+                                         for k, v in dry_runs.items()})
     scan_bwd_entry["launches_by_run"]["training_mesh"] = tm_launches["selective_scan_bwd"]
     scan_bwd_entry["train_mesh_cases"] = train_mesh_report["kernels"]["scan"]
     for name, r in scan_bwd_entry["training"].items():
@@ -5522,6 +5790,9 @@ def main() -> int:
             entry["mesh_cases"] = mesh_cases[name]
         if name == "flash_attention":
             entry["served_mesh"] = mesh_report
+            entry["dry_run"] = dry
+        if name in ("flash_attention", "decode_attention"):
+            entry["launches_by_run"].update({k: v[name] for k, v in dry_runs.items()})
         if name == "rmsnorm":
             entry["library_note"] = "torch.nn.functional.rms_norm"
             entry["launches_note"] = ("no served path launches it: the models call their plain "
@@ -5529,8 +5800,8 @@ def main() -> int:
         kernels.append(entry)
     kernels.append(bwd_entry)
     kernels.append(scan_bwd_entry)
-    print(f"[45] all phases passed in {time.perf_counter() - t_start:.1f} s, build included "
-          f"(before phases 41-44 were added: 800.1 s on this card model, PERF.md)")
+    print(f"[46] all phases passed in {time.perf_counter() - t_start:.1f} s, build included "
+          f"(before phase 45 was added: 774.1 s on this card model, PERF.md)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -11,8 +11,15 @@ patch embeddings), and the two encoder-decoders: seamless-m4t and the
 paper's Sec. V case-study block (``paper-block``, which, as in JAX, is
 reachable by name but not listed in ``ARCH_NAMES``).
 
+Shape cells (assigned to every LM arch), the JAX package's:
+  * ``train_4k``    seq 4096,   global batch 256  (train_step)
+  * ``prefill_32k`` seq 32768,  global batch 32   (serve prefill)
+  * ``decode_32k``  KV 32768,   global batch 128  (serve decode, 1 token)
+  * ``long_500k``   KV 524288,  global batch 1    (sub-quadratic archs only)
+
 :class:`ShapeCell` is the JAX package's shape-cell record, which
-:func:`repro_torch.models.inputs.input_specs` takes.
+:func:`repro_torch.models.inputs.input_specs` and the dry run
+(:mod:`repro_torch.launch.dryrun`) take.
 """
 
 from __future__ import annotations
@@ -22,7 +29,7 @@ import importlib
 
 from ..models.common import ModelConfig
 
-__all__ = ["ARCH_NAMES", "ShapeCell", "get_config", "get_smoke_config"]
+__all__ = ["ARCH_NAMES", "SHAPES", "ShapeCell", "get_config", "get_smoke_config", "cells_for"]
 
 ARCH_NAMES = (
     "stablelm-1.6b",
@@ -60,6 +67,14 @@ class ShapeCell:
     global_batch: int
 
 
+SHAPES: dict[str, ShapeCell] = {
+    "train_4k": ShapeCell("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeCell("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeCell("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeCell("long_500k", "decode", 524288, 1),
+}
+
+
 def _module(name: str):
     if name not in _MODULES:
         raise KeyError(f"unknown architecture {name!r}; known: {sorted(_MODULES)}")
@@ -72,3 +87,21 @@ def get_config(name: str) -> ModelConfig:
 
 def get_smoke_config(name: str) -> ModelConfig:
     return _module(name).smoke()
+
+
+def is_subquadratic(cfg: ModelConfig) -> bool:
+    """Can the arch serve 500k-token contexts (SSM / sliding-window)?"""
+    if cfg.block == "mamba":
+        return True
+    # hymba: the windowed layers are O(w); its few global layers hold the
+    # long KV at batch 1.
+    return cfg.attn_window is not None
+
+
+def cells_for(name: str) -> list[str]:
+    """Runnable shape cells for an arch (documented skips excluded)."""
+    cfg = get_config(name)
+    cells = ["train_4k", "prefill_32k", "decode_32k"]
+    if is_subquadratic(cfg):
+        cells.append("long_500k")
+    return cells

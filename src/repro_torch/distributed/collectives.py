@@ -16,14 +16,39 @@ all-gather of a weight; backward, the all-reduce / reduce-scatter of its
 gradient), :func:`gather_rows` (the sequence all-gather; backward, a
 reduce-scatter) and :func:`reduce_rows` (the reduce-scatter of a split
 block's partials; backward, an all-gather). Each counts its calls
-(``.calls``).
+(``.calls``); a cost tally, while one is active, sees their bytes
+(:data:`OBSERVERS`).
 """
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
-__all__ = ["on", "reduce_partials", "reduce_max", "gather_shards", "gather_rows", "reduce_rows"]
+__all__ = ["on", "reduce_partials", "reduce_max", "gather_shards", "gather_rows", "reduce_rows",
+           "KINDS", "OBSERVERS"]
+
+# The JAX walker's collective kinds (``repro/roofline/analysis.py``).
+KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all", "collective-permute")
+# What watches the collectives: a ``roofline.count.CostTally`` installs
+# itself here while it is active. Each observer's ``moved(kind, received)``
+# sees every call (``received``: the outputs that positions took from other
+# positions, None where a position had its own data), and its
+# ``place(outputs, positions)`` the positions that receive the outputs.
+# With none installed, the collectives do no bookkeeping.
+OBSERVERS: list = []
+
+
+def _moved(kind: str, received: list) -> None:
+    for observer in OBSERVERS:
+        observer.moved(kind, received)
+
+
+def _place(outputs: list, positions: list) -> None:
+    """``outputs[i]`` now lives on mesh position ``positions[i]``."""
+    for observer in OBSERVERS:
+        observer.place(outputs, positions)
 
 
 def on(t: torch.Tensor | None, device) -> torch.Tensor | None:
@@ -46,7 +71,9 @@ def reduce_partials(partials: list[torch.Tensor], device: torch.device | None = 
     acc = partials[0].to(dst, torch.float32)
     for p in partials[1:]:
         acc = acc + p.to(dst, torch.float32)
-    return acc.to(partials[0].dtype)
+    out = acc.to(partials[0].dtype)
+    _moved("all-reduce", [out])
+    return out
 
 
 def reduce_max(partials: list[torch.Tensor], device: torch.device | None = None
@@ -57,6 +84,8 @@ def reduce_max(partials: list[torch.Tensor], device: torch.device | None = None
     out = partials[0].to(dst)
     for p in partials[1:]:
         out = torch.maximum(out, p.to(dst))
+    if len(partials) > 1:
+        _moved("all-reduce", [out])
     return out
 
 
@@ -87,6 +116,8 @@ class _GatherShards(torch.autograd.Function):
                 sdim, idx = select[i]
                 out = out.index_select(sdim, torch.as_tensor(idx, device=dev))
             outs.append(out.clone() if out is shards[take[0]] else out)
+            _place(outs[-1:], [i])
+        _moved("all-gather", [o if len(take) > 1 else None for o, take in zip(outs, takes)])
         return tuple(outs)
 
     @staticmethod
@@ -106,14 +137,22 @@ class _GatherShards(torch.autograd.Function):
             pieces = [g] if len(take) == 1 else torch.split(g, ctx.widths[i], dim=dim)
             for j, piece in zip(take, pieces):
                 key = keys[j]
-                acc[key] = (piece.to(ctx.devices[j]) if key not in acc
-                            else acc[key] + piece.to(acc[key].device))
+                if key not in acc:
+                    acc[key] = piece.to(ctx.devices[j])
+                else:
+                    acc[key] = acc[key] + piece.to(acc[key].device)
+                    _place([acc[key]], [j])
         out = []
         for j, key in enumerate(keys):
             g = acc.get(key)
             if g is None:
                 g = torch.zeros(ctx.shapes[j], dtype=torch.float32, device=ctx.devices[j])
+                _place([g], [j])
             out.append(g.to(ctx.devices[j], ctx.dtypes[j]))
+        # A piece read by several consumers is summed over them.
+        readers = collections.Counter(keys[j] for i, take in enumerate(takes)
+                                      if grads[i] is not None for j in take)
+        _moved("all-reduce", [g if readers[key] > 1 else None for g, key in zip(out, keys)])
         return (None, *out)
 
 
@@ -158,11 +197,16 @@ class _GatherRows(torch.autograd.Function):
         ctx.plan, ctx.devices, ctx.dtype = plan, [x.device for x in xs], xs[0].dtype
         gather_rows.calls += 1
         outs = []
-        for region, take, dev in zip(out_regions, srcs, devices):
+        per_position = len(out_regions) == len(xs)
+        for i, (region, take, dev) in enumerate(zip(out_regions, srcs, devices)):
             out = torch.empty(_shape(region, xs[0].shape[2:]), dtype=xs[0].dtype, device=dev)
+            if per_position:
+                _place([out], [i])
             for j in take:
                 out[_rel(src_regions[j], region)] = xs[j].to(dev)
             outs.append(out)
+        _moved("all-gather", [o if tuple(take) != (i,) else None
+                              for i, (o, take) in enumerate(zip(outs, srcs))])
         return tuple(outs)
 
     @staticmethod
@@ -174,11 +218,22 @@ class _GatherRows(torch.autograd.Function):
                 continue
             for j in take:
                 piece = g[_rel(src_regions[j], region)].float().to(ctx.devices[j])
-                acc[j] = piece if acc[j] is None else acc[j] + piece
+                if acc[j] is None:
+                    acc[j] = piece
+                else:
+                    acc[j] = acc[j] + piece
+                    _place([acc[j]], [j])
         trailing = next(g.shape[2:] for g in grads if g is not None)
-        return (None, *(torch.zeros(_shape(src_regions[j], trailing), dtype=ctx.dtype,
-                                    device=ctx.devices[j]) if g is None else g.to(ctx.dtype)
-                        for j, g in enumerate(acc)))
+        out = []
+        for j, g in enumerate(acc):
+            if g is None:
+                g = torch.zeros(_shape(src_regions[j], trailing), dtype=ctx.dtype,
+                                device=ctx.devices[j])
+                _place([g], [j])
+            out.append(g.to(ctx.dtype))
+        others = {j for i, take in enumerate(srcs) if grads[i] is not None for j in take if j != i}
+        _moved("reduce-scatter", [g if j in others else None for j, g in enumerate(out)])
+        return (None, *out)
 
 
 def gather_rows(xs: list, src_regions: list, out_regions: list, srcs: list, devices: list
@@ -205,26 +260,36 @@ class _ReduceRows(torch.autograd.Function):
         ctx.dtype = partials[0].dtype
         reduce_rows.calls += 1
         outs = []
-        for region, take, dev in zip(out_regions, srcs, devices):
+        per_position = len(out_regions) == len(partials)
+        for i, (region, take, dev) in enumerate(zip(out_regions, srcs, devices)):
             acc = None
             for j in take:
                 piece = partials[j][_rel(region, src_regions[j])].to(dev, torch.float32)
                 acc = piece.clone() if acc is None else acc + piece
+                if per_position:
+                    _place([acc], [i])
             outs.append(acc.to(partials[0].dtype))
+        _moved("reduce-scatter", [o if tuple(take) != (i,) else None
+                                  for i, (o, take) in enumerate(zip(outs, srcs))])
         return tuple(outs)
 
     @staticmethod
     def backward(ctx, *grads):
         src_regions, out_regions, srcs, _ = ctx.plan
         trailing = next(g.shape[2:] for g in grads if g is not None)
-        acc = [torch.zeros(_shape(r, trailing), dtype=torch.float32, device=d)
-               for r, d in zip(src_regions, ctx.devices)]
+        acc = []
+        for j, (r, d) in enumerate(zip(src_regions, ctx.devices)):
+            acc.append(torch.zeros(_shape(r, trailing), dtype=torch.float32, device=d))
+            _place(acc[-1:], [j])
         for region, take, g in zip(out_regions, srcs, grads):
             if g is None:
                 continue
             for j in take:
                 acc[j][_rel(region, src_regions[j])] += g.float().to(ctx.devices[j])
-        return (None, *(a.to(ctx.dtype) for a in acc))
+        out = [a.to(ctx.dtype) for a in acc]
+        others = {j for i, take in enumerate(srcs) if grads[i] is not None for j in take if j != i}
+        _moved("all-gather", [g if j in others else None for j, g in enumerate(out)])
+        return (None, *out)
 
 
 def reduce_rows(partials: list, src_regions: list, out_regions: list, srcs: list,

@@ -3,7 +3,10 @@ launch shape and row split it shares with the paged decode kernel
 (``csrc/split_decode.cuh`` is both kernels' body).
 
 A CPU tensor goes through the plain version (:mod:`.ref`); a CUDA tensor
-launches ``csrc/decode_attention.cu`` or raises. ``decode_attention.launches``
+launches ``csrc/decode_attention.cu`` or raises; a ``meta`` tensor gets
+an empty output with the kernel's work, over every cache row, reported to
+an active :class:`~repro_torch.roofline.count.CostTally`.
+``decode_attention.launches``
 counts the wrapper's launches; each is one kernel launch, whose thread-block
 clusters merge their chunks' partials themselves. :func:`split_tiles` chooses
 the chunks, for this kernel and the paged one.
@@ -17,7 +20,8 @@ from typing import NamedTuple
 
 import torch
 
-from .. import _build
+from ...roofline.count import report_kernel
+from .. import _build, costs
 from ..flash_attention.ops import HEAD_DIMS, check_rows_16b_aligned
 from .ref import decode_attention_ref_model
 
@@ -110,7 +114,7 @@ def decode_attention(
     ``HEAD_DIMS``; any other raises."""
     if q.device.type == "cpu":
         return decode_attention_ref_model(q, k_cache, v_cache, lengths, window=window)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"decode_attention: unsupported device {q.device}")
     _build.refuse_grad("decode_attention", q, k_cache, v_cache)
     B, one, H, D = q.shape
@@ -134,6 +138,10 @@ def decode_attention(
         raise ValueError("decode_attention: window must be >= 1")
     # The kernel loads cache rows 16 bytes at a time.
     check_rows_16b_aligned("decode_attention", k_cache=k_cache, v_cache=v_cache)
+    if q.device.type == "meta":
+        report_kernel("decode_attention", *costs.decode(
+            B, H, KV, D, q.element_size(), B * min(S, window or S)))
+        return torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
     G = H // KV
     shape, tile_rows = _launch_shape(D, G, _DTYPE_CODES[q.dtype])
     n_gblk = -(-G // shape.heads_per_block)

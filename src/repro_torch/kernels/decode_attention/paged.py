@@ -1,7 +1,10 @@
 """Wrapper of the paged split-KV flash-decode kernel (model layout).
 
 A CPU tensor goes through the plain version (:mod:`.ref`); a CUDA tensor
-launches ``csrc/paged_decode_attention.cu`` or raises.
+launches ``csrc/paged_decode_attention.cu`` or raises; a ``meta`` tensor
+gets an empty output with the kernel's work, over every page of the block
+tables, reported to an active
+:class:`~repro_torch.roofline.count.CostTally`.
 ``paged_decode_attention.launches`` counts the wrapper's launches; each is
 one kernel launch, whose thread-block clusters merge their chunks' partials
 themselves. :func:`.ops.split_tiles` (shared with dense decode) chooses the
@@ -16,7 +19,8 @@ import functools
 
 import torch
 
-from .. import _build
+from ...roofline.count import report_kernel
+from .. import _build, costs
 from ..flash_attention.ops import check_rows_16b_aligned
 from .ops import _DTYPE_CODES, LaunchShape, _sm_count, launch_shape, split_tiles
 from .ref import paged_decode_attention_ref
@@ -93,7 +97,7 @@ def paged_decode_attention(
             q, k_pages, v_pages, block_tables, lengths,
             window=window, k_scales=k_scales, v_scales=v_scales,
         )
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"paged_decode_attention: unsupported device {q.device}")
     _build.refuse_grad("paged_decode_attention", q, k_pages, v_pages, k_scales, v_scales)
     B, one, H, D = q.shape
@@ -111,6 +115,12 @@ def paged_decode_attention(
         raise ValueError("paged_decode_attention: window must be >= 1")
     # The kernel loads pool rows 16 bytes at a time.
     check_rows_16b_aligned("paged_decode_attention", k_pages=k_pages, v_pages=v_pages)
+    if q.device.type == "meta":
+        S = NB * page
+        report_kernel("paged_decode_attention", *costs.paged_decode(
+            B, H, KV, D, q.element_size(), k_pages.element_size(), B * min(S, window or S),
+            B * NB))
+        return torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
     G = H // KV
     shape = _launch_shape(D, G, _DTYPE_CODES[q.dtype], quant)
     n_gblk = -(-G // shape.heads_per_block)

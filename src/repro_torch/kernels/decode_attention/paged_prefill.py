@@ -1,7 +1,10 @@
 """Wrapper of the paged prefill-attention kernel (model layout).
 
 A CPU tensor goes through the plain version (:mod:`.ref`); a CUDA tensor
-launches ``csrc/paged_prefill_attention.cu`` or raises.
+launches ``csrc/paged_prefill_attention.cu`` or raises; a ``meta`` tensor
+gets an empty output with the kernel's work, every query over every row of
+its block table, reported to an active
+:class:`~repro_torch.roofline.count.CostTally`.
 ``paged_prefill_attention.launches`` counts the kernel's launches. bf16
 queries run on the tensor cores, which copy rows in 16-byte chunks and
 keep the lane's block-table row in shared memory.
@@ -13,7 +16,8 @@ import ctypes
 
 import torch
 
-from .. import _build
+from ...roofline.count import report_kernel
+from .. import _build, costs
 from ..flash_attention.ops import check_rows_16b_aligned
 from .ops import _DTYPE_CODES
 from .paged import check_paged_operands
@@ -53,7 +57,7 @@ def paged_prefill_attention(
         return paged_prefill_attention_ref(
             q, k_pages, v_pages, block_tables, offsets, k_scales=k_scales, v_scales=v_scales
         )
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"paged_prefill_attention: unsupported device {q.device}")
     _build.refuse_grad("paged_prefill_attention", q, k_pages, v_pages, k_scales, v_scales)
     B, C, H, D = q.shape
@@ -71,6 +75,11 @@ def paged_prefill_attention(
             raise ValueError(f"paged_prefill_attention: block tables of {NB} pages; the bf16 "
                              f"kernel holds at most {MAX_TABLE_PAGES}")
     out = torch.empty((B, C, H, D), dtype=q.dtype, device=q.device)
+    if q.device.type == "meta":
+        rows = B * NB * page
+        report_kernel("paged_prefill_attention", *costs.paged_prefill(
+            B, C, H, KV, D, q.element_size(), k_pages.element_size(), rows, C * rows, B * NB))
+        return out
     fn = _build.kernel_function("repro_paged_prefill_attention_fwd", _ARGTYPES)
     err = fn(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),

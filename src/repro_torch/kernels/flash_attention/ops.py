@@ -5,7 +5,12 @@ A CPU tensor goes through the plain versions (:mod:`.ref`), which autograd
 differentiates; a CUDA tensor launches ``csrc/flash_attention.cu`` (and,
 under grad, ``csrc/flash_attention_bwd.cu`` in the backward, through a
 ``torch.autograd.Function``) or raises. ``flash_attention.launches`` and
-``flash_attention_bwd.launches`` count the kernels' launches. bf16 runs on
+``flash_attention_bwd.launches`` count the kernels' launches. A ``meta``
+tensor takes the CUDA route's checks and gets empty ``meta`` outputs of the
+kernels' shapes (the lse and, under grad, the backward's gradients too)
+with the kernels' work reported to an active
+:class:`~repro_torch.roofline.count.CostTally` (:mod:`..costs`); nothing
+launches and no count moves. bf16 runs on
 the tensor cores, which move rows in 16-byte chunks:
 :func:`check_rows_16b_aligned` says what that asks of the operands. The
 backward takes fp32 at a head_dim of ``BWD_HEAD_DIMS``, as training runs.
@@ -17,7 +22,8 @@ import ctypes
 
 import torch
 
-from .. import _build
+from ...roofline.count import report_kernel
+from .. import _build, costs
 from .ref import attention_lse_ref, flash_attention_bwd_ref, flash_attention_ref
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
@@ -75,8 +81,8 @@ def check_rows_16b_aligned(name: str, **tensors: torch.Tensor) -> None:
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int | None) -> None:
-    """Raise on what the CUDA kernels do not take."""
-    if q.device.type != "cuda":
+    """Raise on what the CUDA kernels do not take (on CUDA or meta)."""
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     B, Sq, H, D = q.shape
     Bk, Skv, KV, Dk = k.shape
@@ -104,6 +110,10 @@ def _launch_fwd(q, k, v, causal: bool, window: int | None, lse: torch.Tensor | N
     B, Sq, H, D = q.shape
     _, Skv, KV, _ = k.shape
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    if q.device.type == "meta":
+        report_kernel("flash_attention", *costs.flash_fwd(
+            B, Sq, Skv, H, KV, D, q.element_size(), causal, window, lse is not None))
+        return out
     fn = _build.kernel_function("repro_flash_attention_fwd", _ARGTYPES)
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -165,6 +175,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    if q.device.type == "meta":
+        report_kernel("flash_attention_bwd", *costs.flash_bwd(B, Sq, Skv, H, KV, D, causal,
+                                                              window))
+        return dq, dk, dv
     dvec = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
     G = H // KV

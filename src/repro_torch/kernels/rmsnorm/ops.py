@@ -2,8 +2,10 @@
 input of any rank.
 
 A CPU tensor goes through the plain version (:mod:`.ref`); a CUDA tensor
-launches ``csrc/rmsnorm.cu`` or raises. ``rmsnorm.launches`` counts the
-kernel's launches. The port's models call their own plain
+launches ``csrc/rmsnorm.cu`` or raises; a ``meta`` tensor gets an empty
+output with the kernel's work reported to an active
+:class:`~repro_torch.roofline.count.CostTally`. ``rmsnorm.launches`` counts
+the kernel's launches. The port's models call their own plain
 ``models/layers.py:rmsnorm``, as the JAX models call the jnp one, so no
 served path launches this kernel.
 """
@@ -14,7 +16,8 @@ import ctypes
 
 import torch
 
-from .. import _build
+from ...roofline.count import report_kernel
+from .. import _build, costs
 from .ref import rmsnorm_ref
 
 __all__ = ["rmsnorm"]
@@ -33,7 +36,7 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
     """
     if x.device.type == "cpu":
         return rmsnorm_ref(x, w, eps)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"rmsnorm: unsupported device {x.device}")
     _build.refuse_grad("rmsnorm", x, w)
     D = x.shape[-1]
@@ -48,6 +51,9 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
     R = x.numel() // max(D, 1)
     out = torch.empty_like(x)
     if R == 0 or D == 0:
+        return out
+    if x.device.type == "meta":
+        report_kernel("rmsnorm", *costs.rmsnorm(R, D, x.element_size(), w.element_size()))
         return out
     fn = _build.kernel_function("repro_rmsnorm_fwd", _ARGTYPES)
     err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), R, D, eps,

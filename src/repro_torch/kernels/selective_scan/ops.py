@@ -5,7 +5,12 @@ A CPU tensor goes through the plain versions (:mod:`.ref`), which autograd
 differentiates; a CUDA tensor launches ``csrc/selective_scan.cu`` (and,
 under grad, ``csrc/selective_scan_bwd.cu`` in the backward, through a
 ``torch.autograd.Function``) or raises. ``selective_scan.launches`` and
-``selective_scan_bwd.launches`` count the kernels' launches;
+``selective_scan_bwd.launches`` count the kernels' launches. A ``meta``
+tensor takes the CUDA route's checks and gets empty ``meta`` outputs of the
+kernels' shapes (h_final and, under grad, the checkpoints and the
+backward's gradients too) with the kernels' work reported to an active
+:class:`~repro_torch.roofline.count.CostTally`; nothing launches and no
+count moves;
 :func:`states_per_thread` picks how many of a channel's state slots each
 forward thread carries. How long a segment of the sequence each backward
 block walks is the kernel source's choice (``default_seg_steps`` in
@@ -18,13 +23,15 @@ import ctypes
 
 import torch
 
-from .. import _build
+from ...roofline.count import report_kernel
+from .. import _build, costs
 from ..decode_attention.ops import _sm_count
 from .ref import selective_scan_bwd_ref, selective_scan_ref
 
 __all__ = ["selective_scan", "selective_scan_fwd", "selective_scan_bwd", "states_per_thread"]
 
 MAX_STATE = 16  # state slots per channel in the kernel
+CKPT_STEPS = 8  # steps between the forward's checkpoints (scan::kChunk)
 _ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_longlong] + [ctypes.c_int] * 5
                  + [ctypes.c_void_p])
@@ -50,9 +57,9 @@ def states_per_thread(B: int, Din: int, n_sms: int) -> int:
 
 
 def _check(x, dt, Bmat, Cmat, A, h0, **extra) -> None:
-    """Raise on what the CUDA kernels do not take; ``extra`` names more
-    fp32 operands with their (tensor, shape)."""
-    if x.device.type != "cuda":
+    """Raise on what the CUDA kernels do not take (on CUDA or meta);
+    ``extra`` names more fp32 operands with their (tensor, shape)."""
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"selective_scan: unsupported device {x.device}")
     if x.dim() != 3 or A.dim() != 2:
         raise ValueError(f"selective_scan: bad ranks x={tuple(x.shape)} A={tuple(A.shape)}")
@@ -109,6 +116,13 @@ def _launch_fwd(x, dt, Bmat, Cmat, A, h0, ckpt: bool):
     N = A.shape[1]
     y = torch.empty_like(x)
     h_final = torch.empty((B, Din, N), dtype=torch.float32, device=x.device)
+    if x.device.type == "meta":
+        chunks = -(-S // CKPT_STEPS) if ckpt else 0
+        report_kernel("selective_scan", *costs.selective_scan_fwd(B, S, Din, N, h0 is not None,
+                                                                  chunks))
+        states = (torch.empty((B, chunks, Din, N), dtype=torch.float32, device=x.device)
+                  if ckpt else None)
+        return y, h_final, states
     states = (torch.empty((B, _sizes(B, S, Din, N)[0], Din, N), dtype=torch.float32,
                           device=x.device) if ckpt else None)
     fn = _build.kernel_function("repro_selective_scan_fwd", _ARGTYPES)
@@ -154,6 +168,14 @@ def selective_scan_bwd(x, dt, Bmat, Cmat, A, h0, ckpt, dy, dh_final=None, *, _se
                          "(selective_scan_fwd)")
     B, S, Din = x.shape
     N = A.shape[1]
+    if x.device.type == "meta":
+        _check(x, dt, Bmat, Cmat, A, h0, dy=(dy, (B, S, Din)), dh_final=(dh_final, (B, Din, N)),
+               ckpt=(ckpt, (B, -(-S // CKPT_STEPS), Din, N)))
+        report_kernel("selective_scan_bwd", *costs.selective_scan_bwd(
+            B, S, Din, N, h0 is not None, dh_final is not None))
+        return (torch.empty_like(x), torch.empty_like(x), torch.empty_like(Bmat),
+                torch.empty_like(Cmat), torch.empty_like(A),
+                torch.empty((B, Din, N), dtype=torch.float32, device=x.device))
     if _seg_steps is not None and _seg_steps < 0:
         raise ValueError(f"selective_scan_bwd: _seg_steps {_seg_steps} is negative")
     seg = -1 if _seg_steps is None else _seg_steps

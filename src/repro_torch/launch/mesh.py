@@ -7,7 +7,9 @@ device, and asking for more positions than are visible is an error.
 Passing ``devices=`` explicitly may repeat a device: that is the port's
 counterpart of JAX's ``--xla_force_host_platform_device_count``, and how
 the CPU tests and a one-card run get several positions
-(``devices=["cuda:0"] * 4``).
+(``devices=["cuda:0"] * 4``), and how the dry run lays out the (16, 16)
+and (2, 16, 16) meshes of positions that hold no memory
+(``devices=["meta"] * 256``, :mod:`.dryrun`).
 """
 
 from __future__ import annotations

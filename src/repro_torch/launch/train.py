@@ -45,7 +45,7 @@ from ..device import resolve_device
 from ..distributed.sharding import Mesh
 from ..ft.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from ..models import build_model, init_from_template
-from ..models.common import ModelConfig
+from ..models.common import ModelConfig, tree_leaves
 from ..models.parallel import place_train
 from .mesh import make_production_mesh
 from ..training import (
@@ -73,8 +73,9 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int, lr: float,
     the weights drawn on its first position's device are placed by
     ``TRAIN_RULES`` and every step runs on the mesh; ``device`` is then
     that first position's. ``report``, if given, receives
-    ``position_bytes``: per position, the bytes of its params and both
-    moments."""
+    ``position_bytes``: per position (one without a mesh), the bytes of its
+    params and both moments; ``counter_bytes``: the update count's and the
+    step's; and ``batch_bytes``: the first step's batch's."""
     cfg = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
     device = resolve_device(mesh.devices.flat[0] if mesh is not None else device)
     model = build_model(cfg)
@@ -86,10 +87,16 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int, lr: float,
     if mesh is not None:
         params = place_train(cfg, model.template, params, mesh)
     state = init_train_state(model, params)
-    if mesh is not None and report is not None:
-        report["position_bytes"] = [sum(parts) for parts in zip(
-            params.position_bytes(), state.opt["m"].position_bytes(),
-            state.opt["v"].position_bytes())]
+    if report is not None:
+        if mesh is not None:
+            report["position_bytes"] = [sum(parts) for parts in zip(
+                params.position_bytes(), state.opt["m"].position_bytes(),
+                state.opt["v"].position_bytes())]
+        else:
+            report["position_bytes"] = [sum(t.numel() * t.element_size() for tree in (
+                params, state.opt["m"], state.opt["v"]) for t in tree_leaves(tree))]
+        report["counter_bytes"] = sum(t.numel() * t.element_size()
+                                      for t in (state.opt["count"], state.step))
     start = 0
     if ckpt_dir and latest_step(ckpt_dir) is not None:
         state, start = restore_checkpoint(ckpt_dir, state)
@@ -99,7 +106,10 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int, lr: float,
     history = []
     t0 = t_step = time.perf_counter()
     for i in range(start, steps):
-        state, metrics = step_fn(state, make_batch(cfg, data, i, device=device))
+        batch = make_batch(cfg, data, i, device=device)
+        if report is not None and i == start:
+            report["batch_bytes"] = sum(t.numel() * t.element_size() for t in batch.values())
+        state, metrics = step_fn(state, batch)
         row = {"step": i + 1, **{k: float(v) for k, v in metrics.items()}}
         row["seconds"], t_step = time.perf_counter() - t_step, time.perf_counter()
         history.append(row)

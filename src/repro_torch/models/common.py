@@ -23,7 +23,9 @@ __all__ = [
     "ModelConfig",
     "ParamSpec",
     "init_from_template",
+    "abstract_params",
     "count_params",
+    "template_bytes",
     "torch_dtype",
     "tree_map",
     "tree_flatten_with_names",
@@ -260,5 +262,16 @@ def init_from_template(
     return tree_map(one, template)
 
 
+def abstract_params(template, param_dtype: str = "bfloat16"):
+    """The template's tree as ``meta`` tensors of ``param_dtype``: the dry
+    run's stand-ins (JAX's ``ShapeDtypeStruct``\\ s), which hold no memory."""
+    dtype = torch_dtype(param_dtype)
+    return tree_map(lambda s: torch.empty(s.shape, dtype=dtype, device="meta"), template)
+
+
 def count_params(template) -> int:
     return int(sum(np.prod(s.shape) for s in tree_leaves(template)))
+
+
+def template_bytes(template, param_dtype: str = "bfloat16") -> int:
+    return count_params(template) * torch_dtype(param_dtype).itemsize

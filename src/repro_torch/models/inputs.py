@@ -5,7 +5,8 @@
 for abstract tensors, as :func:`~.transformer.init_cache_shapes`);
 :func:`make_inputs` materializes them from ``np.random.default_rng(seed)``
 in the JAX package's order and with its draws, so both packages get the
-same batch from the same seed.
+same batch from the same seed; :func:`abstract_inputs` makes them as
+``meta`` tensors, the dry run's batches (JAX's ``ShapeDtypeStruct``\\ s).
 
 Modality frontends are stubs, as in JAX: the [audio] family takes
 precomputed frame embeddings (``"frames"``), the [vlm] family precomputed
@@ -21,7 +22,7 @@ from ..configs import ShapeCell
 from ..device import resolve_device
 from .common import ModelConfig
 
-__all__ = ["input_specs", "make_inputs", "ENC_LEN_DECODE"]
+__all__ = ["input_specs", "make_inputs", "abstract_inputs", "ENC_LEN_DECODE"]
 
 # Encoder length backing the cross-attention cache in encoder-decoder
 # decode cells (a ~100 s utterance at 40 Hz frames), the JAX package's.
@@ -71,3 +72,10 @@ def make_inputs(cfg: ModelConfig, cell: ShapeCell, seed: int = 0, device=None) -
             a = rng.integers(0, cfg.vocab_size, size=shape).astype(np.int32)
         out[name] = torch.from_numpy(a).to(device=device, dtype=dtype)
     return out
+
+
+def abstract_inputs(cfg: ModelConfig, cell: ShapeCell, device="meta") -> dict:
+    """:func:`input_specs` as empty tensors on ``device`` (default
+    ``meta``: no memory, no draws)."""
+    return {name: torch.empty(shape, dtype=dtype, device=device)
+            for name, (shape, dtype) in input_specs(cfg, cell).items()}

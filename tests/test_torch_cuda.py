@@ -1434,3 +1434,67 @@ def test_smoke_training_on_the_card(gen):
     assert all(np.isfinite(losses)) and len(losses) == 4
     # 2 layers: the forward twice (remat) and the backward once per layer and step.
     assert (flash_attention.launches - fwd, flash_attention_bwd.launches - bwd) == (16, 8)
+
+
+def _meta_like(t):
+    if not isinstance(t, torch.Tensor):
+        return t
+    return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype, device="meta")
+
+
+def _sig(out):
+    outs = out if isinstance(out, tuple) else (out,)
+    return [None if t is None else (tuple(t.shape), t.dtype) for t in outs]
+
+
+def _kernel_calls(gen):
+    """(name, wrapper, args, kwargs) at small shapes, one per kernel route."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
+    from repro_torch.kernels.selective_scan import selective_scan_bwd, selective_scan_fwd
+
+    r = lambda *s, dtype=torch.float32: torch.randn(*s, generator=gen, device="cuda").to(dtype)  # noqa: E731
+    q, k, v = r(2, 40, 8, 64, dtype=torch.bfloat16), r(2, 40, 2, 64, dtype=torch.bfloat16), \
+        r(2, 40, 2, 64, dtype=torch.bfloat16)
+    q32, k32, v32 = r(2, 40, 8, 64), r(2, 40, 2, 64), r(2, 40, 2, 64)
+    o32, lse = flash_attention_fwd(q32, k32, v32)
+    lens = torch.tensor([9, 40], dtype=torch.int32, device="cuda")
+    pages = r(6, 16, 2, 64, dtype=torch.bfloat16), r(6, 16, 2, 64, dtype=torch.bfloat16)
+    k8, ks = quantize_kv(r(6, 16, 2, 64))
+    v8, vs = quantize_kv(r(6, 16, 2, 64))
+    bt = torch.tensor([[3, 1, 5], [0, 4, 2]], dtype=torch.int32, device="cuda")
+    x, dt = r(2, 19, 24), torch.nn.functional.softplus(r(2, 19, 24))
+    Bm, Cm, A = r(2, 19, 16), r(2, 19, 16), -torch.exp(r(24, 16))
+    _, _, ckpt = selective_scan_fwd(x, dt, Bm, Cm, A)
+    return [
+        ("flash bf16 window", flash_attention, (q, k, v), {"window": 16}),
+        ("flash fwd fp32 with lse", flash_attention_fwd, (q32, k32, v32), {}),
+        ("flash bwd", flash_attention_bwd, (q32, k32, v32, o32, lse, r(2, 40, 8, 64)), {}),
+        ("decode", decode_attention, (q[:, :1], k, v, lens), {}),
+        ("paged decode bf16", paged_decode_attention, (q[:, :1], *pages, bt, lens), {}),
+        ("paged decode int8", paged_decode_attention, (q[:, :1], k8, v8, bt, lens),
+         {"k_scales": ks, "v_scales": vs}),
+        ("paged prefill", paged_prefill_attention, (q[:, :5], *pages, bt, lens - 5), {}),
+        ("scan", selective_scan, (x, dt, Bm, Cm, A, r(2, 24, 16)), {}),
+        ("scan fwd with checkpoints", selective_scan_fwd, (x, dt, Bm, Cm, A), {}),
+        ("scan bwd", selective_scan_bwd, (x, dt, Bm, Cm, A, None, ckpt, r(2, 19, 24)), {}),
+        ("rmsnorm", rmsnorm, (r(5, 64, dtype=torch.bfloat16), r(64, dtype=torch.bfloat16)), {}),
+    ]
+
+
+def test_meta_routes_give_the_kernels_output_shapes(gen):
+    """Every kernel wrapper's meta route returns the shapes and dtypes the
+    kernel returns on the same operands (the dry run's stand-ins), launches
+    nothing, and reports one kernel entry to a tally."""
+    from repro_torch.roofline import CostTally
+
+    for name, fn, args, kwargs in _kernel_calls(gen):
+        want = fn(*args, **kwargs)
+        before = {n: w.launches for n, w in (("flash", flash_attention),
+                                             ("decode", decode_attention))}
+        with CostTally() as tally:
+            got = fn(*map(_meta_like, args), **{k: _meta_like(t) for k, t in kwargs.items()})
+        assert _sig(got) == _sig(want), name
+        assert all(t is None or t.device.type == "meta"
+                   for t in (got if isinstance(got, tuple) else (got,))), name
+        assert sum(k["count"] for k in tally.kernels.values()) == 1, (name, tally.kernels)
+        assert before == {"flash": flash_attention.launches, "decode": decode_attention.launches}

@@ -394,8 +394,15 @@ def test_cpu_wrappers_launch_no_kernel():
     _, _, tmodel, tparams, _ = _pair()
     tmodel.prefill(tparams, {"tokens": torch.zeros((1, 4), dtype=torch.long)}, 8)
     assert (selective_scan.launches, rmsnorm.launches) == before
-    meta = torch.empty((1, 5, 8), device="meta")
+    # A meta tensor (the dry run's) gets meta outputs of the kernels' shapes
+    # and launches nothing; any device but cpu, cuda and meta still raises.
+    meta = lambda *shape: torch.empty(shape, device="meta")  # noqa: E731
+    y, h = selective_scan(meta(1, 5, 8), meta(1, 5, 8), meta(1, 5, 4), meta(1, 5, 4), meta(8, 4))
+    assert (y.shape, h.shape, y.device.type) == ((1, 5, 8), (1, 8, 4), "meta")
+    assert rmsnorm(meta(1, 5, 8), meta(8)).shape == (1, 5, 8)
+    assert (selective_scan.launches, rmsnorm.launches) == before
+    elsewhere = types.SimpleNamespace(device=torch.device("xla"))
     with pytest.raises(ValueError, match="unsupported device"):
-        selective_scan(meta, meta, meta[..., :4], meta[..., :4], meta[0, :, :4])
+        selective_scan(elsewhere, elsewhere, elsewhere, elsewhere, elsewhere)
     with pytest.raises(ValueError, match="unsupported device"):
-        rmsnorm(meta, meta[0, 0])
+        rmsnorm(elsewhere, elsewhere)
