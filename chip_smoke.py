@@ -461,7 +461,33 @@ Phases, in order; any failure exits non-zero:
    the roofline's memory and compute terms. Every
    kernel call's outputs on the meta route must have the kernel's shapes
    and dtypes (the distinct calls of each run compared).
-46. A JSON line of per-kernel results (the six kernels and the two
+46. Sequence-split serving (``PREFILL_RULES`` / ``DECODE_RULES``;
+   ``place_stage(..., PREFILL_RULES)`` on a (1, 4) mesh whose positions are
+   the card repeated, one controller driving them: it measures the
+   controller and the kernels, not an interconnect): stablelm-1.6b at full
+   width and depth, bf16, seed 0, a B=2 x 2048 prefill into a 2176-row
+   cache split four ways, the residual stream split on its sequence and
+   K/V gathered over the positions, then 16 greedy decode steps, each
+   position decoding over its 544 rows through the decode kernel's LSE
+   route and the partials merged by their log-sum-exps; prefill and decode
+   tokens/s, peak memory and each position's weights and cache beside the
+   card's name and power limit, exactly 24 x 4 flash and 16 x 24 x 4 decode
+   launches. The meta dry run of the same two steps: each position's
+   argument bytes equal to the card's, the measured peak within 0.9-1.1
+   of the larger all-position live peak of the two. Every decode call of two more steps held to its plain
+   version (``out``, ``lse``); the LSE route timed at a shard's shape
+   beside the unsplit call over the whole cache, its plain version and
+   SDPA. fp32 parity against the single-device port on the same weights:
+   at full depth every layer of the prefill and of one decode step
+   teacher-forced on the single path's input to it, its output within
+   1e-4 of scale, through the first token (equal; logits and the cache
+   shards concatenated within 5e-3); a 3-layer cut with a 1000-token
+   prompt (shards 2 and 3 empty) through 16 tokens end to end (equal,
+   logits and cache within 5e-3); every decode call held to its plain
+   version. granite-moe-1b-a400m and falcon-mamba-7b at full
+   width on 3 layers, served the same way (B=2 x 512 into 640 rows, 8
+   steps), with the same fp32 parity.
+47. A JSON line of per-kernel results (the six kernels and the two
    backwards; training's launches of both flash kernels from phases 23-24,
    29-31, 42-43 and 45 and of the scan's two kernels from phases 29-31 and 43;
    the
@@ -475,9 +501,10 @@ Phases, in order; any failure exits non-zero:
    workers' (the live workers' last pings plus the killed worker's after
    wave 1); rmsnorm's counter is read over phases 4-21 and must stay 0: no
    served path launches it; the mesh runs of phases 34-39 by run, and the
-   kernels' cases at the positions' shapes, serving's and training's),
-   then the script's seconds beside its time before phase 45 was added,
-   then the device line last.
+   kernels' cases at the positions' shapes, serving's and training's;
+   phase 46's by run, and the decode kernel's LSE route with its launches
+   there), then the script's seconds beside its time before phase 46 was
+   added, then the device line last.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -5445,6 +5472,522 @@ def dryrun_phase(cuda: torch.device) -> dict:
     return report
 
 
+# Phase 46: sequence-split serving (PREFILL_RULES / DECODE_RULES) on a (1, 4)
+# mesh of positions on one card, one controller driving them (as phases
+# 33-44): it measures the controller and the kernels, not an interconnect.
+SEQ_SHAPE = (1, 4)
+SEQ_B, SEQ_PROMPT, SEQ_MAX_LEN, SEQ_STEPS = 2, 2048, 2176, 16
+SEQ_CUT_PROMPT = 1000  # the cut's prompt ends in shard 1: shards 2 and 3 stay empty
+SEQ_CUT_LAYERS = 3
+SEQ_FAMILY_PROMPT, SEQ_FAMILY_MAX_LEN, SEQ_FAMILY_STEPS = 512, 640, 8
+# A decode call against its plain version, of the output's scale: the LSE
+# route writes its partial in fp32 whatever the cache's dtype (the merge
+# across shards rounds once), so every call is held as phase 6 holds fp32
+# calls.
+SEQ_CALL_TOL = MODEL_REL_TOL
+# fp32 logits and cache of the 3-layer cuts against the single-device port,
+# of scale. The split sums its partials in another order, and three layers
+# of a random model amplify that rounding about a thousandfold: on the CPU
+# at full width (vocabulary cut to 4096) stablelm's 17 logits part by
+# 4.0e-5 to 2.6e-4 of scale, on the card by 2.4e-4 at the first token and
+# 1.39e-3 at the worst of 17 (PERF.md). A wrong row, length or merge
+# parts them by O(1).
+SEQ_LOGITS_TOL = 5e-3
+# A full-width random-init model is chaotic under rounding: on the CPU at
+# full width the split and the unsplit prefill's K/V part by 5.7e-7, 7.6e-6
+# and 7.5e-5 of scale at layers 0, 1 and 2 (ten times a layer), and on the
+# card the 24-layer end-to-end logits by 1.06 (PERF.md). So at full
+# depth every layer is teacher-forced (ROADMAP Queue 1, "Parity on the card
+# is held per kernel call"): it runs on the single-device path's input to
+# that layer, and its output is held to that path's within SEQ_LAYER_TOL.
+SEQ_LAYER_TOL = 1e-4
+# The card's peak over the meta dry run's all-position live peak: 0.994 in
+# two runs (PERF.md); the allocator's rounding and its caching of
+# freed blocks keep it from 1.
+SEQ_PEAK_RATIO = (0.9, 1.1)
+SEQ_LSE_TOL = 1e-5  # an lse of fp32 scores (ex2.approx, log2f), of its size (at least 1)
+
+
+def seq_slice(cuda: torch.device):
+    from repro_torch.distributed.sharding import replica_submeshes
+
+    return replica_submeshes(mesh_over(cuda, *SEQ_SHAPE), 1)[0][0]
+
+
+@contextlib.contextmanager
+def decode_calls_checked(report: dict):
+    """Hold every decode kernel call of the block (the LSE route, through
+    ``models.attention.decode_attention``) against its plain version on the
+    same inputs: ``out`` within SEQ_CALL_TOL of its scale and ``lse``
+    within SEQ_LSE_TOL of its size, a lane of no valid row giving out 0 and
+    lse -inf. The checks' own work launches nothing more. Fills
+    ``report``: calls, worst errors, calls with a lane whose shard holds
+    no valid row."""
+    from repro_torch.kernels.decode_attention import decode_attention_ref_model
+    from repro_torch.models import attention
+
+    kernel = attention.decode_attention
+    report.update(calls=0, empty_lane_calls=0, out_err=0.0, lse_err=0.0)
+
+    def checked(q, k, v, lengths, **kw):
+        out, lse = kernel(q, k, v, lengths, **kw)
+        want, want_lse = decode_attention_ref_model(q.float(), k.float(), v.float(), lengths,
+                                                    return_lse=True)
+        empty = lengths == 0
+        report["calls"] += 1
+        report["empty_lane_calls"] += int(empty.any())
+        assert bool((out[empty] == 0).all()) and bool((lse[empty] == -torch.inf).all())
+        assert not torch.isnan(out.float()).any() and not torch.isnan(lse).any()
+        report["out_err"] = max(report["out_err"], _rel_err(out, want))
+        if (~empty).any():
+            size = want_lse[~empty].abs().clamp(min=1.0)
+            report["lse_err"] = max(report["lse_err"],
+                                    ((lse[~empty] - want_lse[~empty]).abs() / size).max().item())
+        assert out.dtype == torch.float32 and report["out_err"] <= SEQ_CALL_TOL, report
+        assert report["lse_err"] <= SEQ_LSE_TOL, report
+        return out, lse
+
+    attention.decode_attention = checked
+    try:
+        yield report
+    finally:
+        attention.decode_attention = kernel
+
+
+def seq_run(model, sp, tokens, max_len: int, steps: int, keep_prefill_cache: bool = False,
+            feed: torch.Tensor | None = None) -> dict:
+    """A prefill into a sequence-split cache, then ``steps`` greedy decode
+    steps (or steps fed ``feed[:, i]``, teacher-forced tokens): the logits of
+    each, the tokens, the cache (and with ``keep_prefill_cache`` a copy of
+    the prefill's, its shards concatenated), and the times."""
+    from repro_torch.models.parallel import whole_cache
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = model.prefill(sp, {"tokens": tokens}, max_len)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_cache = whole_cache(caches, sp) if keep_prefill_cache else None
+    tok = logits.argmax(-1).to(torch.int32)
+    out, toks = [logits], [tok]
+    t0 = time.perf_counter()
+    for i in range(steps):
+        logits, _ = model.decode_step(sp, tok if feed is None else feed[:, i:i + 1], caches)
+        tok = logits.argmax(-1).to(torch.int32)
+        out.append(logits)
+        toks.append(tok)
+    torch.cuda.synchronize()
+    return {"logits": out, "tokens": torch.cat(toks, dim=1), "caches": caches,
+            "prefill_cache": prefill_cache, "prefill_s": prefill_s,
+            "decode_s": time.perf_counter() - t0}
+
+
+def single_run(model, params, tokens, max_len: int, steps: int) -> dict:
+    """The same on one position, the port's unsplit path."""
+    logits, cache = model.prefill(params, {"tokens": tokens}, max_len)
+    tok = logits.argmax(-1).to(torch.int32)
+    out, toks = [logits], [tok]
+    first_cache = {k: ({n: t.clone() for n, t in v.items()} if isinstance(v, dict) else v.clone())
+                   for k, v in cache.items()}
+    for _ in range(steps):
+        logits, cache = model.decode_step(params, tok, cache)
+        tok = logits.argmax(-1).to(torch.int32)
+        out.append(logits)
+        toks.append(tok)
+    return {"logits": out, "tokens": torch.cat(toks, dim=1), "prefill_cache": first_cache}
+
+
+@contextlib.contextmanager
+def layers_recorded(record: list):
+    """Record every single-position layer call of the block
+    (``transformer._layer`` on one position): its input and output, in call
+    order."""
+    from repro_torch.models import transformer
+
+    layer = transformer._layer
+
+    def recorded(x, p_layer, cfg, **kw):
+        out = layer(x, p_layer, cfg, **kw)
+        if kw["tp"].count == 1:
+            record.append((x.clone(), out[0].clone()))
+        return out
+
+    transformer._layer = recorded
+    try:
+        yield record
+    finally:
+        transformer._layer = layer
+
+
+@contextlib.contextmanager
+def layers_forced(record: list, report: dict):
+    """Teacher-force a sequence-split prefill and its decode steps on the
+    single-device path's ``record`` (:func:`layers_recorded`, the same
+    prompt and tokens): every layer of the prefill
+    (``transformer._seq_layer``, each position given its rows) and of each
+    decode step (``transformer._layer`` on the split positions) runs on the
+    recorded input to that layer, and its output is held to the recorded
+    output within SEQ_LAYER_TOL of its scale. Fills ``report``."""
+    from repro_torch.models import transformer
+
+    seq_layer, layer = transformer._seq_layer, transformer._layer
+    calls = iter(record)
+    report.update(prefill_layers=0, decode_layers=0, prefill_worst=0.0, decode_worst=0.0)
+
+    def held(kind: str, got, want):
+        err = _rel_err(got, want)
+        report[f"{kind}_layers"] += 1
+        report[f"{kind}_worst"] = max(report[f"{kind}_worst"], err)
+        assert err <= SEQ_LAYER_TOL, (kind, report[f"{kind}_layers"], err)
+
+    def forced_prefill(xs, views, cfg, tp, lay, **kw):
+        x_in, want = next(calls)
+        out = seq_layer([lay.rows(x_in, p) for p in range(tp.count)], views, cfg, tp, lay, **kw)
+        held("prefill", lay.global_gather(out, x_in.device), want)
+        return out
+
+    def forced_decode(x, p_layer, cfg, **kw):
+        if kw["tp"].count == 1:
+            return layer(x, p_layer, cfg, **kw)
+        x_in, want = next(calls)
+        out = layer(x_in, p_layer, cfg, **kw)
+        held("decode", out[0], want)
+        return out
+
+    transformer._seq_layer, transformer._layer = forced_prefill, forced_decode
+    try:
+        yield report
+    finally:
+        transformer._seq_layer, transformer._layer = seq_layer, layer
+
+
+def seq_parity(name: str, cfg, cuda, *, prompt: int, max_len: int, steps: int,
+               forced: bool = False) -> dict:
+    """fp32 at ``cfg``'s depth: the split prefill and ``steps`` decode steps
+    against the single-device port on the same weights (seed 0): every
+    step's token equal and logits within SEQ_LOGITS_TOL of scale, the
+    shards of the prefill's cache concatenated against the single cache
+    within the same, and every decode kernel call against its plain
+    version. With ``forced`` (full depth) every layer of the split run is
+    teacher-forced on the single path's (:func:`layers_forced`), and the
+    decode steps are fed the single path's tokens."""
+    from repro_torch.distributed.sharding import PREFILL_RULES
+    from repro_torch.models import build_model, init_from_template
+    from repro_torch.models.parallel import place_stage
+
+    cfg = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    model = build_model(cfg)
+    params = init_from_template(model.template, torch.Generator(device=cuda).manual_seed(0),
+                                "float32", device=cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (SEQ_B, prompt), dtype=torch.int32, device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(1))
+    saved = read_counters()
+    checks: dict = {}
+    record: list = []
+    layers: dict = {}
+    with torch.no_grad():
+        with layers_recorded(record) if forced else contextlib.nullcontext():
+            want = single_run(model, params, tokens, max_len, steps)
+        sp = place_stage(cfg, model.template, params, seq_slice(cuda), PREFILL_RULES)
+        with decode_calls_checked(checks), \
+                layers_forced(record, layers) if forced else contextlib.nullcontext():
+            got = seq_run(model, sp, tokens, max_len, steps, keep_prefill_cache=True,
+                          feed=want["tokens"] if forced else None)
+    for fn_name, fn in kernel_wrappers().items():
+        fn.launches = saved[fn_name]  # a check: its launches do not count
+    logit_errs = [_rel_err(a, b) for a, b in zip(got["logits"], want["logits"])]
+    cache_err = max(_rel_err(got["prefill_cache"][key][n], t)
+                    for key, entry in want["prefill_cache"].items() if key != "len"
+                    for n, t in entry.items())
+    equal = torch.equal(got["tokens"], want["tokens"])
+    out = {"layers": cfg.n_layers, "prompt": prompt, "max_len": max_len, "steps": steps,
+           "teacher_forced": forced, "tokens_equal": equal, "logits_worst": max(logit_errs),
+           "logits_first": logit_errs[0], "cache_worst": cache_err, "decode_calls": checks,
+           "layer_calls": layers}
+    forcing = (f"every layer teacher-forced ({layers['prefill_layers']} prefill, "
+               f"{layers['decode_layers']} decode; worst {layers['prefill_worst']:.3g} / "
+               f"{layers['decode_worst']:.3g} of scale, tol {SEQ_LAYER_TOL}); " if forced else "")
+    print(f"  {name} fp32, {cfg.n_layers} layers, B={SEQ_B} prompt {prompt} into {max_len} rows, "
+          f"{steps} steps: {forcing}tokens equal {equal}; logits worst {max(logit_errs):.3g} of "
+          f"scale (first {logit_errs[0]:.3g}); prefill cache {cache_err:.3g}; decode kernel "
+          f"calls {checks.get('calls', 0)} (with an empty shard lane "
+          f"{checks.get('empty_lane_calls', 0)}), out {checks.get('out_err', 0):.3g}, lse "
+          f"{checks.get('lse_err', 0):.3g}")
+    assert equal, (got["tokens"], want["tokens"])
+    assert max(logit_errs) <= SEQ_LOGITS_TOL and cache_err <= SEQ_LOGITS_TOL, out
+    if forced:
+        assert layers["prefill_layers"] == layers["decode_layers"] / steps == cfg.n_layers, layers
+    if cfg.block == "attn":
+        assert checks["calls"] == (steps * cfg.n_layers * SEQ_SHAPE[1]), checks
+    del params, sp, got, want, record
+    free_memory()
+    return out
+
+
+def seq_dry_run(cfg, cuda) -> dict:
+    """The meta dry run of phase 46's (1, 4) prefill and decode steps:
+    per-position argument bytes and the peaks the card is held to."""
+    from repro_torch.configs import ShapeCell
+    from repro_torch.distributed.sharding import DECODE_RULES, PREFILL_RULES
+    from repro_torch.launch.dryrun import trace_cell
+    from repro_torch.launch.mesh import make_production_mesh
+
+    mesh = make_production_mesh(shape=SEQ_SHAPE, devices=["meta"] * SEQ_SHAPE[1])
+    out = {}
+    for kind, rules in (("prefill", PREFILL_RULES), ("decode", DECODE_RULES)):
+        # The dry run sizes its cache seq_len + 128 rows: SEQ_MAX_LEN.
+        cell = ShapeCell(f"phase46_{kind}", kind, SEQ_MAX_LEN - 128, SEQ_B)
+        out[kind] = trace_cell(cfg, cell, mesh, rules)
+    return out
+
+
+def seq_serve_phase(cuda: torch.device) -> tuple[dict, dict]:
+    """Phase 46: stablelm-1.6b at full width and depth, bf16, seed 0, served
+    under PREFILL_RULES / DECODE_RULES on a (1, 4) mesh of positions on one
+    card: a B x S prefill into a cache split on its sequence, then greedy
+    decode steps, each position decoding over its rows and the partials
+    merged by LSE. Then fp32 parity (full depth through the first token; a
+    3-layer cut through every token), granite-moe-1b-a400m and
+    falcon-mamba-7b at full width on 3 layers, the meta dry run's bytes and
+    peak against the card, and the LSE route's time at the shard shape.
+    Returns (the counted run's launches, a report)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import PREFILL_RULES
+    from repro_torch.models import build_model, init_from_template
+    from repro_torch.models.parallel import place_stage
+
+    card = card_name()
+    print(f"[46] sequence-split serving (PREFILL_RULES / DECODE_RULES) on a {SEQ_SHAPE} mesh of "
+          f"positions on one card ({card}); one controller drives them", flush=True)
+    t_phase = time.perf_counter()
+    report: dict = {"card": card}
+    cfg = dataclasses.replace(get_config("stablelm-1.6b"), remat=False)
+    model = build_model(cfg)
+    dry = seq_dry_run(cfg, cuda)
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params = init_from_template(model.template, torch.Generator(device=cuda).manual_seed(0),
+                                cfg.param_dtype, device=cuda)
+    sp = place_stage(cfg, model.template, params, seq_slice(cuda), PREFILL_RULES)
+    del params  # every position holds its own copies
+    free_memory()
+    placed = [sum(t.numel() * t.element_size() for t in _leaves(s)) for s in sp.shards]
+    tokens = torch.randint(0, cfg.vocab_size, (SEQ_B, SEQ_PROMPT), dtype=torch.int32,
+                           device=cuda, generator=torch.Generator(device=cuda).manual_seed(1))
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    with torch.no_grad():
+        run = seq_run(model, sp, tokens, SEQ_MAX_LEN, SEQ_STEPS)
+    launches = read_counters()
+    peak = torch.cuda.max_memory_allocated() - base
+    cache_bytes = [sum(t.numel() * t.element_size() for t in _leaves(c)) for c in run["caches"]]
+    n_tok = SEQ_B * SEQ_STEPS
+    served = {"prefill_s": run["prefill_s"], "decode_s": run["decode_s"],
+              "prefill_tokens_per_s": SEQ_B * SEQ_PROMPT / run["prefill_s"],
+              "decode_tokens_per_s": n_tok / run["decode_s"], "peak_bytes": peak,
+              "placed_bytes": placed, "cache_bytes": cache_bytes, "launches": launches}
+    print(f"  stablelm-1.6b bf16, {cfg.n_layers} layers: prefill B={SEQ_B} x {SEQ_PROMPT} into "
+          f"{SEQ_MAX_LEN} rows ({SEQ_MAX_LEN // SEQ_SHAPE[1]} a position) in "
+          f"{run['prefill_s'] * 1e3:.1f} ms ({served['prefill_tokens_per_s']:.0f} tokens/s), "
+          f"{SEQ_STEPS} decode steps in {run['decode_s']:.3f} s "
+          f"({served['decode_tokens_per_s']:.2f} tokens/s); peak {peak / 1e9:.3f} GB above the "
+          f"{base / 1e9:.3f} GB before; weights a position {[round(b / 1e9, 3) for b in placed]} "
+          f"GB, cache {[round(b / 1e9, 4) for b in cache_bytes]} GB; launches {launches} "
+          f"({card})")
+    assert launches["flash_attention"] == cfg.n_layers * SEQ_SHAPE[1], launches
+    assert launches["decode_attention"] == SEQ_STEPS * cfg.n_layers * SEQ_SHAPE[1], launches
+    V = cfg.vocab_size
+    assert all(torch.isfinite(x).all() for x in run["logits"])
+    assert bool(((run["tokens"] >= 0) & (run["tokens"] < V)).all())
+    # The meta dry run of the same steps against the card: each position's
+    # arguments to the byte, the peak beside the measured one.
+    for kind, args in (("prefill", placed),
+                       ("decode", [a + c for a, c in zip(placed, cache_bytes)])):
+        mem = dry[kind]["memory_analysis"]
+        per = mem["per_position"]
+        meta_args = [b - (mem["shared_argument_bytes"] if p == 0 else 0)
+                     for p, b in enumerate(per["argument_bytes"])]
+        served[f"{kind}_dry"] = {
+            "argument_bytes_meta": meta_args, "argument_bytes_card": args,
+            "peak_bytes_all_positions_meta": mem["peak_bytes_all_positions"],
+            "per_position_peak_sum_meta": sum(a + t for a, t in zip(per["argument_bytes"],
+                                                                    per["temp_bytes"])),
+            "collectives": dry[kind]["collectives"], "roofline": dry[kind]["roofline"],
+            "trace_s": dry[kind]["trace_s"]}
+        print(f"  dry run {kind}: arguments a position meta {meta_args} / card {args}; live "
+              f"peak over all positions {mem['peak_bytes_all_positions'] / 1e9:.3f} GB (meta) "
+              f"vs the run's measured {peak / 1e9:.3f} GB; collectives "
+              f"{ {k: v['count'] for k, v in dry[kind]['collectives'].items() if v['count']} }; "
+              f"roofline compute / memory {dry[kind]['roofline']['compute_s']:.3g} / "
+              f"{dry[kind]['roofline']['memory_s']:.3g} s; traced in {dry[kind]['trace_s']} s")
+        assert meta_args == args, (kind, meta_args, args)
+    # The prefill makes each position's cache inside the step: the meta run
+    # counts it on that position, so each position's outputs hold its own
+    # cache bytes on the card (the logits, on one position, besides) and its
+    # live peak holds its weights and its cache.
+    per = dry["prefill"]["memory_analysis"]["per_position"]
+    out_meta, card_pos = per["output_bytes"], [a + c for a, c in zip(placed, cache_bytes)]
+    peak_meta = [a + t for a, t in zip(per["argument_bytes"], per["temp_bytes"])]
+    served["prefill_dry"].update(output_bytes_meta=out_meta, cache_bytes_card=cache_bytes,
+                                 peak_bytes_meta=peak_meta, held_bytes_card=card_pos)
+    print(f"  dry run prefill per position: outputs meta {out_meta} / the card's cache "
+          f"{cache_bytes}; live peak meta {[round(b / 1e9, 4) for b in peak_meta]} GB / weights "
+          f"and cache on the card {[round(b / 1e9, 4) for b in card_pos]} GB")
+    assert all(o >= c for o, c in zip(out_meta, cache_bytes)), (out_meta, cache_bytes)
+    assert sum(out_meta) - sum(cache_bytes) < min(cache_bytes), (out_meta, cache_bytes)
+    assert all(p >= c for p, c in zip(peak_meta, card_pos)), (peak_meta, card_pos)
+    # The run's peak (prefill, then decode) against the larger of the two
+    # steps' all-position live peaks on meta.
+    meta_peak = max(dry[k]["memory_analysis"]["peak_bytes_all_positions"] for k in dry)
+    served["peak_over_meta"] = peak / meta_peak
+    print(f"  measured peak over the meta live peak: {served['peak_over_meta']:.4f} "
+          f"(limits {SEQ_PEAK_RATIO})")
+    assert SEQ_PEAK_RATIO[0] <= served["peak_over_meta"] <= SEQ_PEAK_RATIO[1], served
+    report["stablelm"] = served
+    # Every decode kernel call of the same bf16 run against its plain version.
+    checks: dict = {}
+    saved = read_counters()
+    with torch.no_grad(), decode_calls_checked(checks):
+        warm = seq_run(model, sp, tokens, SEQ_MAX_LEN, 2)
+    for fn_name, fn in kernel_wrappers().items():
+        fn.launches = saved[fn_name]
+    served["prefill_warm_s"] = warm["prefill_s"]
+    print(f"  the same prefill again (warm): {warm['prefill_s'] * 1e3:.1f} ms")
+    del warm
+    print(f"  bf16 decode kernel calls of 2 steps: {checks['calls']}, worst out "
+          f"{checks['out_err']:.3g} of scale (tol {SEQ_CALL_TOL:.3g}), lse "
+          f"{checks['lse_err']:.3g} of its size (tol {SEQ_LSE_TOL})")
+    assert checks["calls"] == 2 * cfg.n_layers * SEQ_SHAPE[1], checks
+    report["stablelm_bf16_calls"] = checks
+    report["lse_route"] = lse_route_case(sp, run["caches"], cfg)
+    del sp, run
+    free_memory()
+    full = get_config("stablelm-1.6b")
+    report["parity_full_depth"] = seq_parity("stablelm-1.6b", full, cuda, prompt=SEQ_PROMPT,
+                                             max_len=SEQ_MAX_LEN, steps=1, forced=True)
+    report["parity_cut"] = seq_parity(
+        "stablelm-1.6b", dataclasses.replace(full, n_layers=SEQ_CUT_LAYERS), cuda,
+        prompt=SEQ_CUT_PROMPT, max_len=SEQ_MAX_LEN, steps=SEQ_STEPS)
+    assert report["parity_cut"]["decode_calls"]["empty_lane_calls"] > 0
+    family_launches = collections.Counter()
+    for name in ("granite-moe-1b-a400m", "falcon-mamba-7b"):
+        report[name], runs = seq_family(name, cuda)
+        family_launches.update(runs)
+    for name, n in family_launches.items():
+        launches[name] += n
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 46 took {report['seconds']:.1f} s")
+    return launches, report
+
+
+def seq_family(name: str, cuda) -> tuple[dict, dict]:
+    """``name`` at full width cut to SEQ_CUT_LAYERS layers: served bf16 under
+    the sequence-split rules (tokens/s, launches), then its fp32 parity
+    against the single-device port."""
+    from repro_torch.distributed.sharding import PREFILL_RULES
+    from repro_torch.models.parallel import place_stage
+
+    model, params = mesh_model(name, SEQ_CUT_LAYERS, cuda)
+    cfg = model.cfg
+    sp = place_stage(cfg, model.template, params, seq_slice(cuda), PREFILL_RULES)
+    tokens = torch.randint(0, cfg.vocab_size, (SEQ_B, SEQ_FAMILY_PROMPT), dtype=torch.int32,
+                           device=cuda, generator=torch.Generator(device=cuda).manual_seed(1))
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    with torch.no_grad():
+        run = seq_run(model, sp, tokens, SEQ_FAMILY_MAX_LEN, SEQ_FAMILY_STEPS)
+    launches = read_counters()
+    kernel = "flash_attention" if cfg.block == "attn" else "selective_scan"
+    assert launches[kernel] == SEQ_CUT_LAYERS * SEQ_SHAPE[1], launches
+    if cfg.block == "attn":
+        assert launches["decode_attention"] == SEQ_FAMILY_STEPS * SEQ_CUT_LAYERS * SEQ_SHAPE[1]
+    assert all(torch.isfinite(x).all() for x in run["logits"])
+    out = {"prefill_s": run["prefill_s"], "decode_s": run["decode_s"],
+           "decode_tokens_per_s": SEQ_B * SEQ_FAMILY_STEPS / run["decode_s"],
+           "peak_gb": peak_gb(), "launches": launches}
+    print(f"  {name} bf16, {SEQ_CUT_LAYERS} layers: prefill {SEQ_B} x {SEQ_FAMILY_PROMPT} in "
+          f"{run['prefill_s'] * 1e3:.1f} ms, {SEQ_FAMILY_STEPS} steps at "
+          f"{out['decode_tokens_per_s']:.2f} tokens/s, peak {out['peak_gb']:.2f} GB; launches "
+          f"{launches}")
+    del params, sp, run
+    free_memory()
+    out["parity"] = seq_parity(name, cfg, cuda, prompt=SEQ_FAMILY_PROMPT,
+                               max_len=SEQ_FAMILY_MAX_LEN, steps=SEQ_FAMILY_STEPS)
+    return out, launches
+
+
+def lse_route_case(sp, caches, cfg) -> dict:
+    """The LSE route at phase 46's shard shape (the bf16 cache's last layer
+    on position 3 after the run, its lanes' lengths) beside the unsplit call
+    over the whole cache: times, the plain version's, the bound."""
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref_model
+    from repro_torch.models.parallel import whole_cache
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    m = SEQ_SHAPE[1] - 1
+    r0, r1 = caches.rows[m]
+    k, v = caches[m]["c0"]["k"][-1], caches[m]["c0"]["v"][-1]
+    lens = caches[0]["len"]
+    local = (lens - r0).clamp(0, r1 - r0).to(torch.int32)
+    B, S, KV, D = k.shape
+    H = cfg.n_heads
+    q = torch.randn(B, 1, H, D, generator=gen, device="cuda").to(k.dtype)
+    before = decode_attention.launches
+    out, lse = decode_attention(q, k, v, local, return_lse=True)
+    want, want_lse = decode_attention_ref_model(q.float(), k.float(), v.float(), local,
+                                                return_lse=True)
+    err = (out.float() - want).abs().max().item()
+    live = local > 0
+    lse_err = ((lse[live] - want_lse[live]).abs()
+               / want_lse[live].abs().clamp(min=1.0)).max().item()
+    whole = whole_cache(caches, sp)
+    wk, wv = whole["c0"]["k"][-1], whole["c0"]["v"][-1]
+    flops, nbytes = costs.decode(B, H, KV, D, q.element_size(), int(local.sum()), lse=True)
+    b_ms, b_by = bound(nbytes, flops, q.dtype)
+    # The library's call of the same function on the same inputs: PyTorch's
+    # memory-efficient attention returns the output and the lse in one call,
+    # with the local lengths as an additive mask (the K/V heads repeated for
+    # the query heads, the layout SDPA takes, outside the timed call).
+    G = H // KV
+    qt = q.transpose(1, 2)
+    kt = k.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+    vt = v.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+    visible = torch.arange(S, device="cuda")[None, :] < local[:, None]
+    bias = torch.zeros(B, H, 1, S, dtype=q.dtype, device="cuda").masked_fill(
+        ~visible[:, None, None, :], float("-inf"))
+    efficient = torch.ops.aten._scaled_dot_product_efficient_attention
+
+    def library():
+        return efficient(qt, kt, vt, bias, True)
+
+    lib_out, lib_lse = library()[:2]
+    lib_err = (lib_out.transpose(1, 2)[live].float() - want[live]).abs().max().item()
+    lib_lse_err = (lib_lse[..., 0][live] - want_lse[live]).abs().max().item()
+    case = {
+        "shape": f"B={B} S={S} (rows {r0}-{r1} of {whole['c0']['k'].shape[2]}) H={H} KV={KV} "
+                 f"D={D} local lengths={local.tolist()} bf16",
+        "max_abs_err": err, "rel_err": _rel_err(out, want), "lse_rel_err": lse_err,
+        "tol": SEQ_CALL_TOL,
+        "ms": time_ms(lambda: decode_attention(q, k, v, local, return_lse=True)),
+        "no_lse_ms": time_ms(lambda: decode_attention(q, k, v, local)),
+        "plain_ms": time_ms(lambda: decode_attention_ref_model(q, k, v, local, return_lse=True)),
+        "unsplit_ms": time_ms(lambda: decode_attention(q, wk, wv, lens)),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(library),
+        "library_call": "aten._scaled_dot_product_efficient_attention(compute_log_sumexp=True)",
+        "library_max_abs_err": lib_err, "library_lse_abs_err": lib_lse_err,
+    }
+    decode_attention.launches = before  # a check: its launches do not count
+    print(f"  LSE route at the shard shape {case['shape']}: {case['ms']:.4f} ms (without the "
+          f"lse {case['no_lse_ms']:.4f}; the unsplit call over all {whole['c0']['k'].shape[2]} "
+          f"rows {case['unsplit_ms']:.4f}; plain {case['plain_ms']:.4f}; the library's "
+          f"efficient attention with its lse {case['library_ms']:.4f}, off the plain version by "
+          f"{lib_err:.3g} / lse {lib_lse_err:.3g} on the lanes with rows); bound {b_ms:.4f} ms "
+          f"({b_by}); out err {err:.3g}, lse err {lse_err:.3g}")
+    assert _rel_err(out, want) <= SEQ_CALL_TOL and lse_err <= SEQ_LSE_TOL, case
+    return case
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5662,6 +6205,10 @@ def main() -> int:
         routes_bwd["full"] = routes_bwd.get("full", 0) + run["flash_attention_bwd"]
     bwd_entry["launches_by_run"].update({k: v["flash_attention_bwd"]
                                          for k, v in dry_runs.items()})
+    seq_launches, seq_report = seq_serve_phase(cuda)
+    for name in KERNELS:
+        launches[name] += seq_launches[name]
+    assert launches["rmsnorm"] == 0, f"a served path launched rmsnorm: {launches}"
     scan_bwd_entry["launches_by_run"]["training_mesh"] = tm_launches["selective_scan_bwd"]
     scan_bwd_entry["train_mesh_cases"] = train_mesh_report["kernels"]["scan"]
     for name, r in scan_bwd_entry["training"].items():
@@ -5793,6 +6340,10 @@ def main() -> int:
             entry["dry_run"] = dry
         if name in ("flash_attention", "decode_attention"):
             entry["launches_by_run"].update({k: v[name] for k, v in dry_runs.items()})
+        if name in ("flash_attention", "decode_attention", "selective_scan"):
+            entry["launches_by_run"]["seq_serve"] = seq_launches[name]
+        if name == "decode_attention":
+            entry["served_seq_split"] = {k: v for k, v in seq_report.items() if k != "lse_route"}
         if name == "rmsnorm":
             entry["library_note"] = "torch.nn.functional.rms_norm"
             entry["launches_note"] = ("no served path launches it: the models call their plain "
@@ -5800,8 +6351,23 @@ def main() -> int:
         kernels.append(entry)
     kernels.append(bwd_entry)
     kernels.append(scan_bwd_entry)
-    print(f"[46] all phases passed in {time.perf_counter() - t_start:.1f} s, build included "
-          f"(before phase 45 was added: 774.1 s on this card model, PERF.md)")
+    lse_case = seq_report["lse_route"]
+    kernels.append({
+        "name": "decode_attention_lse", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention/decode_attention.py:66",
+        # Every phase-46 decode launch takes the LSE route; they are in
+        # decode_attention's count too.
+        "launches": seq_launches["decode_attention"],
+        **{k: lse_case[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")},
+        "main_case": lse_case["shape"],
+        "route_note": ("decode_attention(return_lse=True): the fp32 output and lse of one shard "
+                       "of a sequence-split cache (DECODE_RULES), merged across shards"),
+        "case": lse_case,
+    })
+    print(f"[47] all phases passed in {time.perf_counter() - t_start:.1f} s, build included "
+          f"(before phase 46 was added: 631.9 s on this card model, PERF.md)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

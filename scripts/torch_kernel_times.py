@@ -29,6 +29,7 @@ device.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import inspect
 import json
 import subprocess
@@ -60,6 +61,11 @@ DENSE_CASES = [  # (B, S, H, KV, D, lengths)
 ]
 
 
+def digest(t: torch.Tensor) -> str:
+    """A digest of a tensor's bits."""
+    return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+
+
 def scan_times() -> list[dict]:
     from repro_torch.kernels.selective_scan import ops
 
@@ -87,7 +93,7 @@ def paged_times() -> list[dict]:
             run = lambda: paged_decode_attention(q, k, v, bt, lens, k_scales=ks, v_scales=vs)  # noqa: E731
             rows.append({"kernel": "paged_decode_attention", "B": B, "H": H, "KV": KV, "D": D,
                          "lengths": lengths, "pages": "int8" if int8 else "bf16",
-                         "ms": chip_smoke.time_ms(run)})
+                         "out_sha256": digest(run()), "ms": chip_smoke.time_ms(run)})
     return rows
 
 
@@ -104,6 +110,7 @@ def dense_times() -> list[dict]:
             lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
             rows.append({"kernel": "decode_attention", "B": B, "S": S, "H": H, "KV": KV, "D": D,
                          "lengths": lengths, "dtype": str(dtype).removeprefix("torch."),
+                         "out_sha256": digest(decode_attention(q, kc, vc, lens)),
                          "ms": chip_smoke.time_ms(lambda: decode_attention(q, kc, vc, lens))})
     return rows
 
@@ -235,7 +242,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_kernel_times: no CUDA device available", file=sys.stderr)
         return 1
+    # chip_smoke imported this tree's package: drop it, so that the groups'
+    # lazy imports take the package under --src.
     sys.path.insert(0, str(Path(args.src).resolve() / "src"))
+    for name in [m for m in sys.modules if m == "repro_torch" or m.startswith("repro_torch.")]:
+        del sys.modules[name]
     import repro_torch
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -9,7 +9,10 @@ several positions, and across the cards of one node, and its sums are
 deterministic.
 
 Serving sums partials with :func:`reduce_partials` (and
-:func:`reduce_max`). Training (``TRAIN_RULES``) runs under autograd, so
+:func:`reduce_max`); a decode over a sequence-split cache (``DECODE_RULES``)
+gathers the query heads to every position (:func:`gather_heads`) and hands
+each position its heads' partials from every shard (:func:`exchange_heads`),
+which it merges by their log-sum-exps. Training (``TRAIN_RULES``) runs under autograd, so
 its collectives are autograd functions whose backward is the dual
 collective with the same fixed order: :func:`gather_shards` (FSDP's
 all-gather of a weight; backward, the all-reduce / reduce-scatter of its
@@ -17,7 +20,9 @@ gradient), :func:`gather_rows` (the sequence all-gather; backward, a
 reduce-scatter) and :func:`reduce_rows` (the reduce-scatter of a split
 block's partials; backward, an all-gather). Each counts its calls
 (``.calls``); a cost tally, while one is active, sees their bytes
-(:data:`OBSERVERS`).
+(:data:`OBSERVERS`), and is told which position a slice's zeroed cache is
+made on (:func:`make_on`) and which slice of the mesh is being driven
+(:func:`drive_slice`).
 """
 
 from __future__ import annotations
@@ -26,17 +31,20 @@ import collections
 
 import torch
 
-__all__ = ["on", "reduce_partials", "reduce_max", "gather_shards", "gather_rows", "reduce_rows",
-           "KINDS", "OBSERVERS"]
+__all__ = ["on", "reduce_partials", "reduce_max", "gather_heads", "exchange_heads",
+           "gather_shards", "gather_rows", "reduce_rows", "make_on", "drive_slice", "KINDS",
+           "OBSERVERS"]
 
 # The JAX walker's collective kinds (``repro/roofline/analysis.py``).
 KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all", "collective-permute")
 # What watches the collectives: a ``roofline.count.CostTally`` installs
 # itself here while it is active. Each observer's ``moved(kind, received)``
 # sees every call (``received``: the outputs that positions took from other
-# positions, None where a position had its own data), and its
-# ``place(outputs, positions)`` the positions that receive the outputs.
-# With none installed, the collectives do no bookkeeping.
+# positions, None where a position had its own data), its
+# ``place(outputs, positions)`` the positions that receive the outputs,
+# its ``make_on(position)`` where tensors made from no input go, and its
+# ``drive_slice(first)`` the slice whose positions these name. With none
+# installed, the collectives do no bookkeeping.
 OBSERVERS: list = []
 
 
@@ -49,6 +57,22 @@ def _place(outputs: list, positions: list) -> None:
     """``outputs[i]`` now lives on mesh position ``positions[i]``."""
     for observer in OBSERVERS:
         observer.place(outputs, positions)
+
+
+def make_on(position: int) -> None:
+    """What is made next from no input (a position's zeroed cache) lives on
+    the driven slice's position ``position``."""
+    for observer in OBSERVERS:
+        observer.make_on(position)
+
+
+def drive_slice(first: int) -> None:
+    """The positions that the collectives and :func:`make_on` name from now
+    on are those of the replica slice whose first position is mesh position
+    ``first`` (a serving step runs one slice at a time; a training step's
+    collectives name mesh positions, from 0)."""
+    for observer in OBSERVERS:
+        observer.drive_slice(first)
 
 
 def on(t: torch.Tensor | None, device) -> torch.Tensor | None:
@@ -87,6 +111,40 @@ def reduce_max(partials: list[torch.Tensor], device: torch.device | None = None
     if len(partials) > 1:
         _moved("all-reduce", [out])
     return out
+
+
+def gather_heads(qs: list[torch.Tensor], devices: list) -> list[torch.Tensor]:
+    """Query heads ``[B, 1, H_m, Dh]`` of the positions that project them,
+    concatenated in position order into a fresh tensor on every device of
+    ``devices`` (an all-gather over ``model``; a lone source, a broadcast)."""
+    outs = []
+    for i, dev in enumerate(devices):
+        outs.append(torch.cat([q.to(dev) for q in qs], dim=2))
+        _place(outs[-1:], [i])
+    _moved("all-gather", outs if len(devices) > 1 else [None])
+    return outs
+
+
+def exchange_heads(parts: list[tuple], heads: list[tuple], devices: list) -> list[list]:
+    """Each consumer's heads of every position's partials (an all-to-all):
+    ``parts[j]`` is a tuple of position ``j``'s tensors whose dim 2 (``[B,
+    1, H, Dh]``) or dim 1 (``[B, H]``) is the head; ``heads[i] = (h0, h1)``
+    are consumer ``i``'s heads, taken on ``devices[i]``. Returns, per
+    consumer, its heads of each position's tuple, in position order (a
+    consumer's own pieces are views, the others' fresh copies)."""
+    outs, received = [], []
+    for i, ((h0, h1), dev) in enumerate(zip(heads, devices)):
+        got = []
+        for j, tup in enumerate(parts):
+            pieces = tuple(t.narrow(2 if t.ndim == 4 else 1, h0, h1 - h0) for t in tup)
+            if j != i:
+                pieces = tuple(t.to(dev, copy=True) for t in pieces)
+                _place(list(pieces), [i] * len(pieces))
+                received.extend(pieces)
+            got.append(pieces)
+        outs.append(got)
+    _moved("all-to-all", received)
+    return outs
 
 
 # ---------------------------------------------------------------------------

@@ -51,10 +51,13 @@ def flash_bwd(B, Sq, Skv, H, KV, D, causal, window) -> tuple[float, float]:
     return 2.5 * 4.0 * B * H * D * pairs, float(nbytes)
 
 
-def decode(B, H, KV, D, item, rows) -> tuple[float, float]:
+def decode(B, H, KV, D, item, rows, lse: bool = False) -> tuple[float, float]:
     """One token a lane over ``rows`` visible cache rows in all: q read and
-    the output written, each visible K/V row once, the lengths."""
-    nbytes = 2 * B * H * D * item + 2 * rows * KV * D * item + 4 * B
+    the output written (in fp32 with the lse), each visible K/V row once,
+    the lengths (and each head's fp32 lse written)."""
+    out_item = 4 if lse else item
+    nbytes = B * H * D * (item + out_item) + 2 * rows * KV * D * item + 4 * B + (
+        4 * B * H if lse else 0)
     return 4.0 * H * D * rows, float(nbytes)
 
 

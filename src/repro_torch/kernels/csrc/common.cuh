@@ -50,6 +50,7 @@ __device__ __forceinline__ float exp2_ftz(float x) {
 }
 
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll

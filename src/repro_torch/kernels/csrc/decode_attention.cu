@@ -29,10 +29,14 @@
 // not read; a window still counts back from the length);
 // per_chunk = tiles of kDenseTile rows per chunk, n_chunks (1..8) chunks per
 // lane with per_chunk * n_chunks >= ceil(S / kDenseTile); o [B, 1, H, D].
-// window <= 0 means no window. dtype: 0 = fp32, 1 = bf16. Returns the
-// launch's error.
+// window <= 0 means no window. dtype: 0 = fp32, 1 = bf16. lse: null, or
+// [B, H] fp32 (contiguous) for each head's log-sum-exp over its visible rows
+// (-inf for a lane with none), the partial a decode over one shard of a
+// sequence-split cache merges by; o is then fp32 whatever the dtype. Returns
+// the launch's error.
 extern "C" int repro_decode_attention_fwd(
-    const void* q, const void* k, const void* v, const void* lengths, void* o, int B, int S,
+    const void* q, const void* k, const void* v, const void* lengths, void* o, void* lse,
+    int B, int S,
     int H, int KV, int D, int per_chunk, int n_chunks, long long q_sb, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, long long o_sb, long long o_sh, int window, float scale, int dtype,
@@ -44,6 +48,7 @@ extern "C" int repro_decode_attention_fwd(
     return static_cast<int>(cudaErrorInvalidValue);
   DecodeArgs a = {};
   a.q = q, a.k = k, a.v = v, a.o = o;
+  a.lse = static_cast<float*>(lse), a.lse_sb = H;
   a.lengths = static_cast<const int*>(lengths);
   a.n_tiles = n_tiles, a.tile = kDenseTile, a.n_rows = S;
   a.G = H / KV, a.per_chunk = per_chunk;

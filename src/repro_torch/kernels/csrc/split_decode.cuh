@@ -42,8 +42,13 @@
 // A lane sees rows [length - window, length), as the TPU kernels and the
 // plain versions mask them, cut to the rows it holds (n_rows): a row past
 // them is never addressed, and a length <= 0 reads nothing (output 0, as
-// the TPU kernels give). Rows start on 16-byte boundaries (the wrappers
-// check it).
+// the TPU kernels give). Where the dense kernel is asked for it, the cluster
+// merge writes the output in fp32 and each head's log-sum-exp (m + log l,
+// fp32; -inf for a lane that reads nothing), so that a decode over one shard
+// of a cache's rows merges with the other shards' and rounds once, as JAX
+// merges fp32 partials; the paged kernel passes no lse pointer, and its only
+// cost there is one branch per output element. Rows start on 16-byte
+// boundaries (the wrappers check it).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -76,7 +81,10 @@ struct TileStrides {
 // One call's operands. q / o: T [B, 1, H, D]; k / v: KT rows; scales: int8
 // rows' fp32 scales by (tile id, row), strides sc_p / sc_r (null otherwise);
 // block_tables: [B, n_tiles] int32 tile ids, row stride bt_sb (null for a
-// dense cache); lengths [B] int32 = valid rows including the new token.
+// dense cache); lengths [B] int32 = valid rows including the new token;
+// lse: null, or [B, H] fp32 (lane stride lse_sb) for each head's log-sum-exp
+// of its scaled scores over the visible rows (-inf where none is), and then
+// o is fp32.
 struct DecodeArgs {
   const void* q;
   const void* k;
@@ -86,6 +94,8 @@ struct DecodeArgs {
   const int* block_tables;
   const int* lengths;
   void* o;
+  float* lse;
+  long long lse_sb;
   int n_tiles;    // tiles of one lane
   int tile;       // rows of a tile
   int n_rows;     // rows a lane holds: longer lengths are clamped to it
@@ -371,7 +381,17 @@ __global__ void __launch_bounds__(kThreads) split_decode_kernel(const DecodeArgs
         num = fmaf(wt, cluster.map_shared_rank(&bacc[0][0], r)[g * D + d], num);
       }
     }
-    o[b * a.os.b + (kvh * a.G + g0 + g) * a.os.h + d] = from_float<T>(num / fmaxf(den, 1e-30f));
+    const long long oi = b * a.os.b + (kvh * a.G + g0 + g) * a.os.h + d;
+    if (a.lse == nullptr) {
+      o[oi] = from_float<T>(num / fmaxf(den, 1e-30f));
+    } else {
+      // A shard's partial for the merge across shards: the output in fp32,
+      // so that the merge rounds once, and its log-sum-exp, back from base 2.
+      static_cast<float*>(a.o)[oi] = num / fmaxf(den, 1e-30f);
+      if (d == 0)
+        a.lse[b * a.lse_sb + kvh * a.G + g0 + g] =
+            den > 0.f ? (mx + log2f(den)) * LN2 : -INFINITY;
+    }
   }
   cluster.sync();  // keep this block's shared memory until every rank has read it
 }

@@ -1,4 +1,4 @@
-from .ops import decode_attention
+from .ops import decode_attention, merge_lse
 from .paged import paged_decode_attention
 from .paged_prefill import paged_prefill_attention
 from .ref import (
@@ -15,6 +15,7 @@ __all__ = [
     "decode_attention_ref",
     "decode_attention_ref_model",
     "gather_pages",
+    "merge_lse",
     "paged_decode_attention",
     "paged_decode_attention_ref",
     "paged_prefill_attention",

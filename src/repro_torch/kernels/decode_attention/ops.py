@@ -5,7 +5,11 @@ launch shape and row split it shares with the paged decode kernel
 A CPU tensor goes through the plain version (:mod:`.ref`); a CUDA tensor
 launches ``csrc/decode_attention.cu`` or raises; a ``meta`` tensor gets
 an empty output with the kernel's work, over every cache row, reported to
-an active :class:`~repro_torch.roofline.count.CostTally`.
+an active :class:`~repro_torch.roofline.count.CostTally`. With
+``return_lse`` the kernel writes its output in fp32 and each head's
+log-sum-exp, and :func:`merge_lse` merges such partials of a
+sequence-split cache's shards (``DECODE_RULES``) in plain torch and
+fp32, as JAX merges its kernel's fp32 chunks in XLA.
 ``decode_attention.launches``
 counts the wrapper's launches; each is one kernel launch, whose thread-block
 clusters merge their chunks' partials themselves. :func:`split_tiles` chooses
@@ -25,11 +29,11 @@ from .. import _build, costs
 from ..flash_attention.ops import HEAD_DIMS, check_rows_16b_aligned
 from .ref import decode_attention_ref_model
 
-__all__ = ["decode_attention", "split_tiles", "LaunchShape", "MIN_TILES_PER_WARP"]
+__all__ = ["decode_attention", "merge_lse", "split_tiles", "LaunchShape", "MIN_TILES_PER_WARP"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = (
-    [ctypes.c_void_p] * 5
+    [ctypes.c_void_p] * 6
     + [ctypes.c_int] * 7
     + [ctypes.c_longlong] * 10
     + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
@@ -106,14 +110,23 @@ def decode_attention(
     lengths: torch.Tensor,
     *,
     window: int | None = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """q: [B, 1, H, D]; caches: [B, S, KV, D] (the engine's per-layer
     view, or an encoder-decoder's cross cache, read through strides);
     lengths: [B] int32 valid rows including the new token. Returns [B, 1,
     H, D] in q's dtype. The CUDA kernel takes a head_dim of
-    ``HEAD_DIMS``; any other raises."""
+    ``HEAD_DIMS``; any other raises.
+
+    With ``return_lse`` it returns ``(out, lse)``, ``out`` in fp32 and
+    ``lse`` [B, H] fp32 each head's log-sum-exp over its visible rows: a
+    decode over one shard of a sequence-split cache (``DECODE_RULES``),
+    merged with the other shards' by :func:`merge_lse`, which then rounds
+    once. A lane with no visible row gives ``out = 0`` and ``lse =
+    -inf``."""
     if q.device.type == "cpu":
-        return decode_attention_ref_model(q, k_cache, v_cache, lengths, window=window)
+        return decode_attention_ref_model(q, k_cache, v_cache, lengths, window=window,
+                                          return_lse=return_lse)
     if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"decode_attention: unsupported device {q.device}")
     _build.refuse_grad("decode_attention", q, k_cache, v_cache)
@@ -140,8 +153,11 @@ def decode_attention(
     check_rows_16b_aligned("decode_attention", k_cache=k_cache, v_cache=v_cache)
     if q.device.type == "meta":
         report_kernel("decode_attention", *costs.decode(
-            B, H, KV, D, q.element_size(), B * min(S, window or S)))
-        return torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
+            B, H, KV, D, q.element_size(), B * min(S, window or S), lse=return_lse))
+        if not return_lse:
+            return torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
+        return (torch.empty((B, 1, H, D), dtype=torch.float32, device=q.device),
+                torch.empty((B, H), dtype=torch.float32, device=q.device))
     G = H // KV
     shape, tile_rows = _launch_shape(D, G, _DTYPE_CODES[q.dtype])
     n_gblk = -(-G // shape.heads_per_block)
@@ -149,10 +165,13 @@ def decode_attention(
     # Sized from S, not from the lanes' lengths, which stay on the device.
     per_chunk, n_chunks = split_tiles(B * KV * n_gblk, -(-S // tile_rows), resident,
                                       warps=shape.warps, max_chunks=shape.max_chunks)
-    out = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, 1, H, D), dtype=torch.float32 if return_lse else q.dtype,
+                      device=q.device)
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device) if return_lse else None
     fn = _build.kernel_function("repro_decode_attention_fwd", _ARGTYPES)
     err = fn(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         B, S, H, KV, D, per_chunk, n_chunks,
         q.stride(0), q.stride(2),
         k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
@@ -163,7 +182,24 @@ def decode_attention(
     )
     _build.check(err, "decode_attention")
     decode_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 decode_attention.launches = 0
+
+
+def merge_lse(outs: list, lses: list, dtype: torch.dtype) -> torch.Tensor:
+    """Merge decode partials over disjoint sets of a lane's rows by their
+    log-sum-exps (flash-decoding across shards; JAX's merge after its
+    ``pallas_call``): ``outs[j]`` [B, 1, H, D] fp32 normalized over shard
+    ``j``'s rows, ``lses[j]`` [B, H] fp32. The max, then exp-weighted sums,
+    in list order and fp32; a shard with ``lse = -inf`` adds nothing, and a
+    lane no shard sees gives 0. Returns [B, 1, H, D] in ``dtype``, rounded
+    once."""
+    lse = torch.stack([t.float() for t in lses])  # [J, B, H]
+    mx = lse.amax(dim=0)
+    mx = torch.where(torch.isinf(mx), 0.0, mx)
+    w = torch.exp(lse - mx)  # [J, B, H]
+    den = w.sum(dim=0)
+    num = sum(w[j][:, None, :, None] * o.float() for j, o in enumerate(outs))
+    return (num / den.clamp(min=1e-30)[:, None, :, None]).to(dtype)

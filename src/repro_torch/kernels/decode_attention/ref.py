@@ -30,9 +30,17 @@ def decode_attention_ref(
     lengths: torch.Tensor,
     *,
     window: int | None = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """q: [B, H, 1, D]; caches: [B, KV, S, D]; lengths: [B] valid rows
-    including the token being decoded. Returns [B, H, 1, D]."""
+    including the token being decoded. Returns [B, H, 1, D].
+
+    With ``return_lse`` it returns ``(out, lse)``, both fp32: ``lse`` [B,
+    H] is the log-sum-exp of the lane's scaled scores over its visible
+    rows, the partial that a decode over one shard of a cache's rows merges
+    with the other shards' (JAX's ``m + log l``). A lane with no visible
+    row then gives ``out = 0`` and ``lse = -inf``, as the kernels do;
+    without it such a lane averages V over the masked rows, as before."""
     B, H, _, D = q.shape
     _, KV, S, _ = k_cache.shape
     G = H // KV
@@ -44,18 +52,29 @@ def decode_attention_ref(
     mask = pos < lengths
     if window is not None:
         mask = mask & (pos >= lengths - window)
+    if return_lse:
+        s = s.masked_fill(~mask[:, None, None, :], -torch.inf)
+        lse = torch.logsumexp(s, dim=-1)  # [B, KV, G]; -inf where no row is visible
+        p = torch.exp(s - torch.where(torch.isinf(lse), 0.0, lse)[..., None])
+        out = torch.einsum("bkgs,bksd->bkgd", p, v_cache.float())
+        return out.reshape(B, H, 1, D), lse.reshape(B, H)
     s = s.masked_fill(~mask[:, None, None, :], NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgs,bksd->bkgd", p, v_cache.float())
     return out.reshape(B, H, 1, D).to(q.dtype)
 
 
-def decode_attention_ref_model(q, k_cache, v_cache, lengths, *, window: int | None = None):
-    """The same in the model layout: q [B, 1, H, D]; caches [B, S, KV, D]."""
-    return decode_attention_ref(
+def decode_attention_ref_model(q, k_cache, v_cache, lengths, *, window: int | None = None,
+                               return_lse: bool = False):
+    """The same in the model layout: q [B, 1, H, D]; caches [B, S, KV, D]
+    (``(out, lse [B, H])``, both fp32, with ``return_lse``)."""
+    res = decode_attention_ref(
         q.transpose(1, 2), k_cache.transpose(1, 2), v_cache.transpose(1, 2),
-        lengths, window=window,
-    ).transpose(1, 2)
+        lengths, window=window, return_lse=return_lse,
+    )
+    if return_lse:
+        return res[0].transpose(1, 2), res[1]
+    return res.transpose(1, 2)
 
 
 def quantize_kv(x: torch.Tensor, amax: torch.Tensor | None = None

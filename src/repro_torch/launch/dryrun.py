@@ -22,13 +22,21 @@ cell takes as long as its ops take to dispatch (``trace_s``).
   placed by ``place_train`` under ``TRAIN_RULES``; a mesh of one position
   runs the single-device step.
 * Prefill and decode cells take JAX's defaults, ``PREFILL_RULES`` and
-  ``DECODE_RULES``, which the port does not execute yet: the cell records
-  the error, as JAX records a cell that fails. With ``--rules serve``
-  (``SERVE_RULES``) they run the serving stage path: every ``(pod,
-  data)`` row of the mesh is a replica slice whose ``model`` positions hold
-  the stage cut by ``place_stage``, each slice prefilling its share of the
-  batch into a ``seq_len + 128`` cache, or taking one decode step over such
-  a cache (``slice_cache``; an encoder-decoder's cross cache holds
+  ``DECODE_RULES``: every ``(pod, data)`` row of the mesh is a replica
+  slice with its share of the batch, whose ``model`` positions hold the
+  stage cut by ``place_stage(..., rules)`` (the K/V projections whole, the
+  rest tensor-parallel) and a ``seq_len + 128``-row cache split on its
+  sequence (``seq_cache``). A prefill cell splits the residual stream on
+  its sequence, gathers K/V over ``model`` and writes each position's
+  rows; a decode cell takes one step, each position decoding over its own
+  rows and the partials merged by their log-sum-exps. A model whose cache
+  has no such split yet (hymba's sliding-window rings, the
+  encoder-decoders' cross caches) records the error, naming the ROADMAP
+  item, as JAX records a cell that fails. With ``--rules serve``
+  (``SERVE_RULES``) they run the serving stage path instead: each slice's
+  positions hold the stage cut by ``place_stage`` under ``SERVE_RULES``,
+  prefilling into, or taking one decode step over, a cache of whole rows
+  (``slice_cache``; an encoder-decoder's cross cache holds
   ``ENC_LEN_DECODE`` rows). An encoder-decoder has no stage path (JAX's
   fleet refuses it too): each slice runs it whole on its first position.
 
@@ -51,6 +59,7 @@ import torch
 
 from ..analysis.memory import memory_report
 from ..configs import ARCH_NAMES, SHAPES, ShapeCell, cells_for, get_config
+from ..distributed.collectives import drive_slice
 from ..distributed.sharding import (
     DECODE_RULES,
     PREFILL_RULES,
@@ -63,7 +72,14 @@ from ..models import abstract_params, build_model, count_params
 from ..models.common import ModelConfig
 from ..models.inputs import ENC_LEN_DECODE, abstract_inputs
 from ..models.moe import moe_ffn
-from ..models.parallel import place_stage, place_train, slice_cache
+from ..models.parallel import (
+    SEQ_RULES,
+    place_stage,
+    place_train,
+    seq_cache,
+    seq_split,
+    slice_cache,
+)
 from ..roofline import hw
 from ..roofline.analysis import roofline_terms
 from ..roofline.count import CostTally
@@ -124,12 +140,14 @@ def _slices(mesh: Mesh) -> list[Mesh]:
     return [Mesh(devs[r : r + 1], ("data", "model")) for r in range(devs.shape[0])]
 
 
-def _serve(cfg: ModelConfig, cell: ShapeCell, mesh: Mesh):
-    """A served prefill or decode step on every replica slice, as
-    :func:`_train` returns it (a position's arguments: its stage shards and
-    cache; the shared ones: the slices' batches). The global batch splits
-    over the slices where they divide it, else every slice serves all of
-    it (replicated, as a dim the axes do not divide)."""
+def _serve(cfg: ModelConfig, cell: ShapeCell, mesh: Mesh, rules=SERVE_RULES):
+    """A served prefill or decode step on every replica slice under
+    ``rules`` (``SERVE_RULES``, or ``PREFILL_RULES`` / ``DECODE_RULES``:
+    a cache split on its sequence), as :func:`_train` returns it (a
+    position's arguments: its stage shards and cache; the shared ones: the
+    slices' batches). The global batch splits over the slices where they
+    divide it, else every slice serves all of it (replicated, as a dim the
+    axes do not divide)."""
     model = build_model(cfg)
     params = abstract_params(model.template, cfg.param_dtype)
     slices = _slices(mesh)
@@ -149,10 +167,10 @@ def _serve(cfg: ModelConfig, cell: ShapeCell, mesh: Mesh):
             held[r * M]["cache"] = cache
             caches.append(cache)
             continue
-        sp = place_stage(cfg, model.template, params, sl)
+        sp = place_stage(cfg, model.template, params, sl, rules)
         stages.append(sp)
-        cache = slice_cache(cfg, model.cache_shapes(b, max_len), sp) \
-            if cell.kind == "decode" else None
+        place = seq_cache if sp.positions.seq else slice_cache
+        cache = place(cfg, model.cache_shapes(b, max_len), sp) if cell.kind == "decode" else None
         caches.append(cache)
         for m in range(M):
             held[r * M + m]["params"] = sp.shards[m]
@@ -168,7 +186,8 @@ def _serve(cfg: ModelConfig, cell: ShapeCell, mesh: Mesh):
     def run():
         outs = []
         with torch.no_grad():
-            for sp, batch, cache in zip(stages, batches, caches):
+            for r, (sp, batch, cache) in enumerate(zip(stages, batches, caches)):
+                drive_slice(r * M)
                 if cell.kind == "decode":
                     logits, _ = model.decode_step(sp, batch["token"], cache)
                     outs.append(logits)
@@ -190,12 +209,16 @@ def trace_step(cfg: ModelConfig, cell: ShapeCell, mesh: Mesh, rules
         raise NotImplementedError(
             f"the port trains under TRAIN_RULES only, not {_rule_name(rules)!r} "
             "(TRAIN_RULES_SEQ is ROADMAP Queue 1 item 4c)")
-    if cell.kind != "train" and rules is not SERVE_RULES:
+    if cell.kind != "train" and not any(rules is r for r in (SERVE_RULES, *SEQ_RULES)):
         raise NotImplementedError(
-            f"the port does not execute {_rule_name(rules).upper()}_RULES yet (sequence-split "
-            "serving is ROADMAP Queue 1 item 4c); --rules serve runs this cell's stage path "
-            "under SERVE_RULES")
-    run, held, shared = (_train if cell.kind == "train" else _serve)(cfg, cell, mesh)
+            f"the port serves under SERVE_RULES, PREFILL_RULES or DECODE_RULES, not "
+            f"{_rule_name(rules)!r}")
+    if cell.kind != "train":
+        seq_split(cfg, rules)  # refuses before anything is traced
+    if cell.kind == "train":
+        run, held, shared = _train(cfg, cell, mesh)
+    else:
+        run, held, shared = _serve(cfg, cell, mesh, rules)
     counters = moe_ffn.routed, moe_ffn.dropped
     t0 = time.perf_counter()
     try:

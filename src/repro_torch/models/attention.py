@@ -8,6 +8,9 @@
   over the encoder's K/V (:func:`project_kv`): a prompt through the
   flash-attention kernel, bidirectional with Sq != Skv, and a decode step
   through the flash-decode kernel over the whole cross cache;
+* a prefill and a decode step over a cache split on its sequence
+  (``PREFILL_RULES`` / ``DECODE_RULES``: :func:`attention_seq_prefill`,
+  :func:`attention_seq_decode`);
 * chunked prefill against a dense KV cache (:func:`chunk_attention_block`)
   through the paged-prefill kernel, the cache read as a pool of one page
   per lane;
@@ -24,7 +27,8 @@ from __future__ import annotations
 
 import torch
 
-from ..kernels.decode_attention.ops import decode_attention
+from ..distributed.collectives import exchange_heads, gather_heads, on, reduce_partials
+from ..kernels.decode_attention.ops import decode_attention, merge_lse
 from ..kernels.decode_attention.paged import paged_decode_attention
 from ..kernels.decode_attention.paged_prefill import paged_prefill_attention
 from ..kernels.decode_attention.ref import quantize_kv
@@ -43,6 +47,10 @@ __all__ = [
     "chunk_attention_block",
     "last_writes",
     "attention_rows",
+    "attention_seq_prefill",
+    "attention_seq_decode",
+    "project_q",
+    "project_k_v",
 ]
 
 
@@ -71,22 +79,33 @@ def _proj(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return (x @ w.to(dtype).reshape(D, n * Dh)).view(*x.shape[:-1], n, Dh)
 
 
-def project_qkv(x, p, cfg: ModelConfig, positions):
-    """x [B,S,D] -> q [B,S,H,Dh], k/v [B,S,KV,Dh] with RoPE applied."""
+def project_q(x, p, cfg: ModelConfig, positions):
+    """x [B,S,D] -> q [B,S,H,Dh] with RoPE applied."""
     dtype = cfg.compute_dtype
     q = _proj(x, p["wq"], dtype)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dtype)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.rms_eps)
+    return apply_rope(q, positions, cfg.rope_theta)
+
+
+def project_k_v(x, p, cfg: ModelConfig, positions):
+    """x [B,S,D] -> k/v [B,S,KV,Dh], RoPE applied to k."""
+    dtype = cfg.compute_dtype
     k = _proj(x, p["wk"], dtype)
     v = _proj(x, p["wv"], dtype)
     if cfg.qkv_bias:
-        q = q + p["bq"].to(dtype)
         k = k + p["bk"].to(dtype)
         v = v + p["bv"].to(dtype)
     if cfg.qk_norm:
-        q = rmsnorm(q, p["q_norm"], cfg.rms_eps)
         k = rmsnorm(k, p["k_norm"], cfg.rms_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    return apply_rope(k, positions, cfg.rope_theta), v
+
+
+def project_qkv(x, p, cfg: ModelConfig, positions):
+    """x [B,S,D] -> q [B,S,H,Dh], k/v [B,S,KV,Dh] with RoPE applied."""
+    return (project_q(x, p, cfg, positions), *project_k_v(x, p, cfg, positions))
 
 
 def _out_proj(out: torch.Tensor, wo: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -162,6 +181,74 @@ def attention_rows(hs: list, ps: list, cfg: ModelConfig, lay, split: bool, *,
             out = cross_attention_block(h, project_kv(enc[p], w, cfg), w, cfg)
         partials.append(out)
     return lay.seq_reduce(partials, split)
+
+
+def attention_seq_prefill(hs: list, ps: list, cfg: ModelConfig, lay, tp) -> tuple[list, list]:
+    """Attention of a ``PREFILL_RULES`` prefill (:class:`~.parallel.
+    RowLayout` of a slice, ``tp`` its :class:`~.parallel.Positions`):
+    ``hs[p]`` are position ``p``'s normed rows of the residual stream and
+    ``ps[p]`` its block (its query heads and ``wo`` where the heads split;
+    the K/V projections whole). Each position projects K/V for all KV heads
+    on its own rows; they are gathered over ``model`` on the sequence. Each
+    position gathers its batch rows of ``hs`` over the whole sequence, runs
+    its query heads through the flash kernel against the K/V heads they
+    read (``tp.kv_select``), and the ``wo`` partials are reduce-scattered
+    back onto the rows (each keeps its own rows where the heads do not
+    split). Returns (each position's rows, each position's K and V over the
+    whole sequence, for its cache rows)."""
+    dtype = cfg.compute_dtype
+    kvs = [project_k_v(h, w, cfg, torch.arange(r[2], r[3], device=h.device))
+           for h, w, r in zip(hs, ps, lay.regions)]
+    ks, vs = lay.seq_gather([k for k, _ in kvs]), lay.seq_gather([v for _, v in kvs])
+    hg = lay.seq_gather(hs)
+    partials = []
+    for p, (h, w) in enumerate(zip(hg, ps)):
+        q = project_q(h, w, cfg, torch.arange(lay.S, device=h.device))
+        k, v = ks[p], vs[p]
+        if tp.kv_select:
+            idx = torch.tensor(tp.kv_select[p], device=h.device)
+            k, v = k.index_select(2, idx), v.index_select(2, idx)
+        partials.append(_out_proj(flash_attention(q, k, v, causal=True), w["wo"], dtype))
+    return lay.seq_reduce(partials, tp.plan.attn), list(zip(ks, vs))
+
+
+def attention_seq_decode(h: torch.Tensor, ps: list, cfg: ModelConfig, tp, *, positions,
+                         cache: list) -> torch.Tensor:
+    """Attention of a ``DECODE_RULES`` decode step (flash-decoding across
+    positions). ``h`` [B, 1, D] is the normed token on the first position;
+    ``ps[m]`` position ``m``'s block; ``cache[m]`` its view of one layer:
+    ``"k"`` / ``"v"`` the rows of its shard ``[B, s1 - s0, KV, Dh]``,
+    ``"attn_len"`` [B] int32 each lane's valid rows in the shard
+    (``clamp(len + 1 - s0, 0, s1 - s0)``), ``"write_idx"`` / ``"write_ok"``
+    [B] where it writes the new row, and whether it is the lane's writer.
+
+    Every position projects the new token's K/V for all KV heads and writes
+    it where it holds the lane's row; the positions that compute the heads
+    project their query heads, gathered over ``model`` (``B x H x Dh``);
+    each position runs the decode kernel over its shard for every head,
+    with its log-sum-exp and its output in fp32; each computing position
+    takes its heads' partials from every shard and merges them by LSE
+    (:func:`~repro_torch.kernels.decode_attention.merge_lse`, rounding
+    once), then its ``wo``, whose partials are summed on h's device.
+    Returns [B, 1, D]."""
+    dtype = cfg.compute_dtype
+    ms = tp.split("attn")
+    for view, w, d in zip(cache, ps, tp.devices):
+        k, v = project_k_v(on(h, d), w, cfg, on(positions, d))
+        lanes = torch.arange(k.shape[0], device=d)
+        idx, ok = view["write_idx"], view["write_ok"][:, None, None]
+        for name, new in (("k", k), ("v", v)):
+            rows = view[name][lanes, idx]
+            view[name][lanes, idx] = torch.where(ok, new[:, 0].to(view[name].dtype), rows)
+    qs = gather_heads([project_q(on(h, tp.devices[m]), ps[m], cfg, on(positions, tp.devices[m]))
+                       for m in ms], list(tp.devices))
+    parts = [decode_attention(q, view["k"], view["v"], view["attn_len"], return_lse=True)
+             for q, view in zip(qs, cache)]
+    heads = tp.heads(cfg.n_heads)
+    got = exchange_heads(parts, heads, [tp.devices[m] for m in ms])
+    partials = [_out_proj(merge_lse([o for o, _ in got[i]], [lse for _, lse in got[i]], dtype),
+                          ps[m]["wo"], dtype) for i, m in enumerate(ms)]
+    return reduce_partials(partials, h.device)
 
 
 def project_kv(x: torch.Tensor, p: dict, cfg: ModelConfig):

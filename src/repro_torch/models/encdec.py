@@ -217,7 +217,7 @@ def _forward_mesh(ts: TrainShards, batch: dict, cfg: ModelConfig):
                                  enc=enc)
             xs = [x + o for x, o in zip(xs, out)]
             ff, _ = _mesh_ffn([rmsnorm(x, v["ln2"], eps) for x, v in zip(xs, views)], views,
-                              cfg, ts, lay)
+                              cfg, ts.positions, lay)
             return tuple(x + f for x, f in zip(xs, ff))
 
         xs = list(_remat(dec_layer, *xs, *enc, remat=cfg.remat))

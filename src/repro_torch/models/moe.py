@@ -147,12 +147,14 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg: ModelConfig, *, per_lane: bool = Fals
     return out.reshape(B, S, D), aux
 
 
-def moe_rows(hs: list, ps: list, cfg: ModelConfig, tp, lay) -> tuple[list, dict]:
+def moe_rows(hs: list, ps: list, cfg: ModelConfig, tp, lay, per_lane: bool = False
+             ) -> tuple[list, dict]:
     """MoE on a training mesh (:class:`~.parallel.RowLayout`): the rows of
     every position are gathered, each from its owner, in global row order
     onto the first position and routed there as one group, as
     :func:`moe_ffn` routes ``forward``'s whole batch, so capacity and
-    ``lb_loss`` are the unsplit call's. The grid of experts x capacity
+    ``lb_loss`` are the unsplit call's (with ``per_lane``, each lane alone,
+    as a served prefill routes: a ``PREFILL_RULES`` slice's rows). The grid of experts x capacity
     slots is cut into one cell per position: its model index's experts
     (every expert where they do not split) and its share of the slots.
     Each cell's partial combine is summed in position order onto every
@@ -166,7 +168,7 @@ def moe_rows(hs: list, ps: list, cfg: ModelConfig, tp, lay) -> tuple[list, dict]
     else:
         cells = [(ps[q]["moe"], lay.devices[q], (0, cfg.n_experts), (q, tp.count))
                  for q in range(tp.count)]
-    partials, aux = _moe_partials(xg, ps[0]["moe"], cfg, False, cells)
+    partials, aux = _moe_partials(xg, ps[0]["moe"], cfg, per_lane, cells)
     return lay.global_reduce([t.reshape(B, S, -1) for t in partials]), aux
 
 

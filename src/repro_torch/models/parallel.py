@@ -49,8 +49,15 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..distributed.collectives import gather_rows, gather_shards, reduce_rows
-from ..distributed.sharding import SERVE_RULES, TRAIN_RULES, Mesh, divisible_spec
+from ..distributed.collectives import gather_rows, gather_shards, make_on, reduce_rows
+from ..distributed.sharding import (
+    DECODE_RULES,
+    PREFILL_RULES,
+    SERVE_RULES,
+    TRAIN_RULES,
+    Mesh,
+    divisible_spec,
+)
 from .common import ModelConfig, tree_flatten_with_names, tree_map, tree_unflatten
 
 __all__ = [
@@ -68,6 +75,10 @@ __all__ = [
     "kv_heads_for",
     "one_position",
     "place_stage",
+    "seq_split",
+    "seq_cache",
+    "SeqCache",
+    "whole_cache",
     "slice_cache",
     "slice_pools",
 ]
@@ -88,13 +99,21 @@ class SplitPlan:
 class Positions:
     """A slice's positions: their devices, the split plan, and per
     position the K/V heads its cache holds, its vocab rows and its
-    experts."""
+    experts.
+
+    ``seq`` marks a slice placed under ``PREFILL_RULES`` / ``DECODE_RULES``:
+    every position holds every block (the split ones cut, the others whole),
+    the K/V projections whole, and a cache split on its sequence
+    (:func:`seq_cache`); ``kv_select[m]`` are then the K/V heads, of all of
+    them, that position ``m``'s query heads read (where the heads split)."""
 
     devices: tuple
     plan: SplitPlan
     kv_heads: tuple = ()
     vocab: tuple = ()
     experts: tuple = ()
+    seq: bool = False
+    kv_select: tuple = ()
 
     @property
     def count(self) -> int:
@@ -104,6 +123,31 @@ class Positions:
         """The positions that compute ``block``: all of them where it
         splits, else position 0 alone."""
         return range(self.count if getattr(self.plan, block) else 1)
+
+    def heads(self, H: int) -> list[tuple[int, int]]:
+        """The query heads ``(h0, h1)`` of each position that computes the
+        attention (all of them where it splits, else position 0)."""
+        return [_even(H, self.count, m) if self.plan.attn else (0, H)
+                for m in self.split("attn")]
+
+    def rows(self) -> "TrainPositions":
+        """The slice as a one-row training mesh's positions (``(1, M)``, no
+        mesh object), for the row-split blocks of a ``PREFILL_RULES``
+        prefill (:func:`~.moe.moe_rows`, :func:`~.layers.embed_rows`)."""
+        return TrainPositions(mesh=None, devices=self.devices,
+                              coords=tuple((0, 0, m) for m in range(self.count)), data=1,
+                              model=self.count, plan=self.plan, kv_select=self.kv_select,
+                              vocab=self.vocab, experts=self.experts)
+
+    def layout(self, B: int, S: int) -> "RowLayout":
+        """The rows of a ``[B, S, ...]`` activation each position holds under
+        ``PREFILL_RULES`` (``act_seq`` over ``model``; a length the positions
+        do not divide is replicated, as ``divisible_spec`` leaves it)."""
+        M = self.count
+        seq_split = M > 1 and S % M == 0
+        regions = tuple((0, B, *(_even(S, M, m) if seq_split else (0, S))) for m in range(M))
+        return RowLayout(B=B, S=S, devices=self.devices, regions=regions,
+                         groups=(tuple(range(M)),) * M, seq_split=seq_split)
 
 
 @dataclasses.dataclass
@@ -192,36 +236,85 @@ def _plan(cfg: ModelConfig, template: dict, mesh: Mesh, rules=SERVE_RULES) -> Sp
     return SplitPlan(**plan)
 
 
-def place_stage(cfg: ModelConfig, template: dict, params: dict, mesh: Mesh) -> SliceParams:
-    """Cut one stage's weights over a ``(1, M)`` slice under
-    ``SERVE_RULES``. ``template`` is the stage model's ``ParamSpec``
-    tree; the split dim of every leaf is its resolved spec's. A slice of
-    one position splits nothing: its leaves are moved to its device, with
-    no copy where they already are."""
+SEQ_RULES = (PREFILL_RULES, DECODE_RULES)
+
+
+def seq_split(cfg: ModelConfig, rules) -> bool:
+    """Whether ``rules`` are a sequence-split rule set (``PREFILL_RULES`` /
+    ``DECODE_RULES``: a cache split on its sequence). Raises for a model
+    whose caches they cannot split yet: a sliding-window class's ring,
+    split on its rows, needs a row offset in the decode kernel, and an
+    encoder-decoder's cross cache has no split route (ROADMAP Queue 1 item
+    4c)."""
+    from .transformer import layer_plan
+
+    if not any(rules is r for r in SEQ_RULES):
+        return False
+    if cfg.is_encdec:
+        raise NotImplementedError(
+            f"{cfg.name}: an encoder-decoder's self and cross caches under PREFILL_RULES / "
+            "DECODE_RULES are ROADMAP Queue 1 item 4c (hymba's rings and the "
+            "encoder-decoders' caches); --rules serve runs this cell's stage path under "
+            "SERVE_RULES")
+    if any(c.window is not None for c in layer_plan(cfg).classes):
+        raise NotImplementedError(
+            f"{cfg.name}: a sliding-window ring split on its rows needs a row offset in the "
+            "decode kernel: PREFILL_RULES / DECODE_RULES over rings are ROADMAP Queue 1 item "
+            "4c (hymba's rings and the encoder-decoders' caches); --rules serve runs this "
+            "cell's stage path under SERVE_RULES")
+    return True
+
+
+def place_stage(cfg: ModelConfig, template: dict, params: dict, mesh: Mesh,
+                rules=SERVE_RULES) -> SliceParams:
+    """Cut one stage's weights over a ``(1, M)`` slice under ``rules``:
+    ``SERVE_RULES``, or ``PREFILL_RULES`` / ``DECODE_RULES`` (which place
+    weights alike: the K/V projections whole on every position, every
+    block on every position, a cache split on its sequence; ``Positions.
+    seq``). ``template`` is the stage model's ``ParamSpec`` tree; the split
+    dim of every leaf is its resolved spec's. A slice of one position
+    splits nothing: its leaves are moved to its device, with no copy where
+    they already are."""
     devices = tuple(mesh.devices.reshape(-1))
     M = len(devices)
-    plan = _plan(cfg, template, mesh) if M > 1 else SplitPlan()
-    kv_heads = ()
-    if plan.attn:
-        kv_split = divisible_spec((cfg.n_kv_heads,), ("kv_heads",), mesh, SERVE_RULES)[0] is not None
+    seq = seq_split(cfg, rules)
+    plan = _plan(cfg, template, mesh, rules) if M > 1 else SplitPlan()
+    kv_heads = kv_select = ()
+    if plan.attn and seq:  # kv_heads: None; each position's query heads read a selection
+        kv_select = tuple(kv_heads_for(cfg.n_heads, cfg.n_kv_heads, M, m, False)
+                          for m in range(M))
+    elif plan.attn:
+        kv_split = divisible_spec((cfg.n_kv_heads,), ("kv_heads",), mesh, rules)[0] is not None
         kv_heads = tuple(kv_heads_for(cfg.n_heads, cfg.n_kv_heads, M, m, kv_split)
                          for m in range(M))
     vocab = tuple(_even(cfg.vocab_size, M, m) for m in range(M)) if plan.tok or plan.head else ()
     experts = tuple(_even(cfg.n_experts, M, m) for m in range(M)) if cfg.is_moe and plan.ffn else ()
-    pos = Positions(devices=devices, plan=plan, kv_heads=kv_heads, vocab=vocab, experts=experts)
+    pos = Positions(devices=devices, plan=plan, kv_heads=kv_heads, vocab=vocab, experts=experts,
+                    seq=seq, kv_select=kv_select)
     block_split = {"attn": plan.attn, "mlp": plan.ffn, "moe": plan.ffn, "ssm": plan.ssm}
+
+    def whole(m: int, t: torch.Tensor) -> torch.Tensor:
+        """A leaf position ``m`` holds whole: under the sequence-split rules
+        every position its own copy, as JAX replicates it (the dry run's
+        ``meta`` positions then count it on each, in every slice)."""
+        return t.to(devices[m], copy=seq)
 
     def leaf_for(m: int, name: str, block: str | None, spec_leaf, t: torch.Tensor):
         dev = devices[m]
-        if block == "attn" and name in ("wk", "wv", "bk", "bv"):
+        if block == "attn" and name in KV_LEAVES:
+            if seq:
+                return whole(m, t)
             idx = torch.tensor(kv_heads[m], device=t.device)
             return t.index_select(t.ndim - 2, idx).contiguous().to(dev)
-        spec = divisible_spec(spec_leaf.shape, spec_leaf.axes, mesh, SERVE_RULES)
+        spec = divisible_spec(spec_leaf.shape, spec_leaf.axes, mesh, rules)
         i = _split_dim(spec)
         if i is None:
-            return t.to(dev)
+            return whole(m, t)
         lo, hi = _even(t.shape[i], M, m)
-        return t.narrow(i, lo, hi - lo).contiguous().to(dev)
+        t = t.narrow(i, lo, hi - lo)
+        # Under the sequence-split rules a shard never shares the whole
+        # leaf's storage (its first piece would otherwise be a view of it).
+        return (t.clone(memory_format=torch.contiguous_format) if seq else t.contiguous()).to(dev)
 
     def shard(m: int) -> dict:
         out: dict = {"classes": {}}
@@ -229,28 +322,28 @@ def place_stage(cfg: ModelConfig, template: dict, params: dict, mesh: Mesh) -> S
             kept = {}
             for block, sub in layers.items():
                 split = block_split.get(block, False)
-                if m > 0 and not split:
+                if m > 0 and not split and not seq:
                     continue
                 if isinstance(sub, dict):
                     kept[block] = {
                         name: leaf_for(m, name, block, template["classes"][c][block][name], t)
-                        if split else t.to(devices[m])
+                        if split else whole(m, t)
                         for name, t in sub.items()}
                 else:
-                    kept[block] = sub.to(devices[m])
+                    kept[block] = whole(m, sub)
             out["classes"][c] = kept
         emb = {}
         for name, t in params.get("embed", {}).items():
             if plan.head if name == "lm_head" else plan.tok:
                 emb[name] = leaf_for(m, name, None, template["embed"][name], t)
-            elif m == 0:
-                emb[name] = t.to(devices[m])
+            elif m == 0 or seq:
+                emb[name] = whole(m, t)
         if emb:
             out["embed"] = emb
-        if m == 0:
+        if m == 0 or seq:
             for name in ("final_norm", "vision_proj"):
                 if name in params:
-                    out[name] = params[name].to(devices[m])
+                    out[name] = whole(m, params[name])
         return out
 
     return SliceParams(shards=[shard(m) for m in range(M)], positions=pos)
@@ -264,6 +357,7 @@ def slice_cache(cfg: ModelConfig, shapes: dict, sp: SliceParams) -> list[dict]:
     pos = sp.positions
     out = []
     for m, dev in enumerate(pos.devices):
+        make_on(m)
         cache: dict = {}
         for key, entry in shapes.items():
             if key == "len":
@@ -286,6 +380,79 @@ def slice_cache(cfg: ModelConfig, shapes: dict, sp: SliceParams) -> list[dict]:
                 sub[name] = torch.zeros(shape, dtype=dtype, device=dev)
             cache[key] = sub
         out.append(cache)
+    return out
+
+
+class SeqCache(list):
+    """A slice's dense cache split on its sequence (``cache_seq`` over
+    ``model``, :func:`seq_cache`): one tree per position, and ``rows[m] =
+    (s0, s1)``, the rows of every layer's K and V that position ``m``
+    holds."""
+
+    def __init__(self, trees, rows):
+        super().__init__(trees)
+        self.rows = tuple(rows)
+
+
+def seq_cache(cfg: ModelConfig, shapes: dict, sp: SliceParams) -> SeqCache:
+    """Zeroed per-position dense caches under ``PREFILL_RULES`` /
+    ``DECODE_RULES`` from the stage's single-device cache shapes
+    (``Model.cache_shapes``): position ``m`` holds rows ``[s0, s1) =
+    _even(max_len, M, m)`` of every layer's K and V, for all KV heads (a
+    ``max_len`` the positions do not divide stays whole on each, as
+    ``divisible_spec`` replicates it); conv / SSM state with its channels
+    on the positions that compute the SSM, as :func:`slice_cache`; lengths
+    on the first position."""
+    pos = sp.positions
+    M = pos.count
+    max_len = next((e["k"][0][2] for k, e in shapes.items() if k != "len" and "k" in e), 0)
+    rows = [_even(max_len, M, m) if max_len % M == 0 else (0, max_len) for m in range(M)]
+    out = []
+    for m, dev in enumerate(pos.devices):
+        make_on(m)
+        cache: dict = {}
+        for key, entry in shapes.items():
+            if key == "len":
+                if m == 0:
+                    cache["len"] = torch.zeros(entry[0], dtype=entry[1], device=dev)
+                continue
+            sub = {}
+            for name, (shape, dtype) in entry.items():
+                shape = list(shape)
+                if name in ("k", "v"):
+                    shape[2] = rows[m][1] - rows[m][0]
+                else:  # conv [n, W, K-1, Din], ssm [n, W, Din, N]
+                    if m not in pos.split("ssm"):
+                        continue
+                    d = -1 if name == "conv" else -2
+                    shape[d] = shape[d] // M if pos.plan.ssm else shape[d]
+                sub[name] = torch.zeros(shape, dtype=dtype, device=dev)
+            cache[key] = sub
+        out.append(cache)
+    return SeqCache(out, rows)
+
+
+def whole_cache(caches: SeqCache, sp: SliceParams) -> dict:
+    """The single-device cache (``init_cache``'s layout) of a sequence-split
+    one, on the first position's device: each position's K / V rows in row
+    order, the SSM channels in position order."""
+    pos = sp.positions
+    dev = pos.devices[0]
+    split_rows = len(set(caches.rows)) > 1
+    out: dict = {"len": caches[0]["len"].clone()}
+    for key, entry in caches[0].items():
+        if key == "len":
+            continue
+        sub = {}
+        for name in entry:
+            if name in ("k", "v"):
+                parts = [c[key][name] for c in caches] if split_rows else [entry[name]]
+                sub[name] = torch.cat([t.to(dev) for t in parts], dim=2)
+            else:
+                parts = [caches[m][key][name] for m in pos.split("ssm")]
+                sub[name] = torch.cat([t.to(dev) for t in parts], dim=-1 if name == "conv"
+                                      else -2)
+        out[key] = sub
     return out
 
 

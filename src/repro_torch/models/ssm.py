@@ -103,22 +103,25 @@ def mamba_block_split(x: torch.Tensor, ps: list, devices: list, cfg: ModelConfig
     return reduce_partials(outs, x.device), states
 
 
-def mamba_rows(hs: list, ps: list, cfg: ModelConfig, lay, split: bool) -> list:
+def mamba_rows(hs: list, ps: list, cfg: ModelConfig, lay, split: bool, states: bool = False):
     """The Mamba block on a training mesh (:class:`~.parallel.RowLayout`):
     each position's normed rows ``hs[p]`` are gathered into its batch rows
     over the whole sequence; where the block splits on ``ssm_inner`` the
     positions of each batch group scan their channels as
     :func:`mamba_block_split`'s positions do (with the sums of dt, B and C
     among them), else each position scans every channel; the output
-    partials are reduce-scattered back onto the positions' rows."""
+    partials are reduce-scattered back onto the positions' rows. With
+    ``states`` (a ``PREFILL_RULES`` prefill) it also returns each
+    position's final ``(conv_tail, h_final)`` of its channels."""
     hg = lay.seq_gather(hs)
-    partials = [None] * len(hs)
+    partials, finals = [None] * len(hs), [None] * len(hs)
     for group in dict.fromkeys(lay.groups if split else [(p,) for p in range(len(hs))]):
-        outs, _ = _mamba_partials([hg[q] for q in group], [ps[q] for q in group],
-                                  [lay.devices[q] for q in group], cfg)
-        for q, out in zip(group, outs):
-            partials[q] = out
-    return lay.seq_reduce(partials, split)
+        outs, ends = _mamba_partials([hg[q] for q in group], [ps[q] for q in group],
+                                     [lay.devices[q] for q in group], cfg)
+        for q, out, end in zip(group, outs, ends):
+            partials[q], finals[q] = out, end
+    out = lay.seq_reduce(partials, split)
+    return (out, finals) if states else out
 
 
 def _mamba_partials(xs: list, ps: list, devices: list, cfg: ModelConfig):

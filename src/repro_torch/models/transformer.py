@@ -81,10 +81,12 @@ import functools
 import torch
 import torch.utils.checkpoint
 
-from ..distributed.collectives import on, reduce_max, reduce_partials
+from ..distributed.collectives import gather_rows, on, reduce_max, reduce_partials
 from .attention import (
     attention_block,
     attention_rows,
+    attention_seq_decode,
+    attention_seq_prefill,
     attn_template,
     chunk_attention_block,
     last_writes,
@@ -105,7 +107,15 @@ from .layers import (
     unembed_split,
 )
 from .moe import moe_ffn, moe_rows, moe_template, uncounted
-from .parallel import Positions, SliceParams, TrainShards, as_slice, slice_cache, train_views
+from .parallel import (
+    Positions,
+    SliceParams,
+    TrainShards,
+    as_slice,
+    seq_cache,
+    slice_cache,
+    train_views,
+)
 from .ssm import mamba_block_split, mamba_decode_split, mamba_rows, ssm_template
 
 __all__ = [
@@ -311,11 +321,18 @@ def _layer(x, p_layer: list, cfg: ModelConfig, *, positions, window=None, cache=
     "attn_len", "write_idx"}`` and / or ``{"conv", "ssm"}``: K/V rows of
     the lanes in ``lanes`` are written in place, and the new conv / SSM
     state of every lane is returned in ``parts`` for the caller to store.
+    On a slice placed under ``DECODE_RULES`` (``tp.seq``) each position's
+    views are of its shard of the rows, with its own ``"attn_len"`` and
+    ``"write_idx"`` and a ``"write_ok"``
+    (:func:`~.attention.attention_seq_decode`).
     """
     p0 = p_layer[0]
     h = rmsnorm(x, p0["ln1"], cfg.rms_eps)
     parts: list[dict] = [{} for _ in range(tp.count)]
-    if cfg.block in ("attn", "hymba"):
+    if cfg.block in ("attn", "hymba") and tp.seq:
+        mix = attention_seq_decode(h, [p["attn"] for p in p_layer], cfg, tp,
+                                   positions=positions, cache=cache)
+    elif cfg.block in ("attn", "hymba"):
         partials = []
         for m in tp.split("attn"):
             d = tp.devices[m]
@@ -523,11 +540,11 @@ def _remat(fn, *args, remat: bool):
     return fn(*args)
 
 
-def _mesh_ffn(h2: list, views: list, cfg: ModelConfig, ts: TrainShards, lay):
-    """The feed-forward on a training mesh: (each position's rows, aux)."""
-    tp = ts.positions
+def _mesh_ffn(h2: list, views: list, cfg: ModelConfig, tp, lay, per_lane: bool = False):
+    """The feed-forward on a training mesh (``tp`` its positions), or on a
+    ``PREFILL_RULES`` slice's rows: (each position's rows, aux)."""
     if cfg.is_moe:
-        return moe_rows(h2, views, cfg, tp, lay)
+        return moe_rows(h2, views, cfg, tp, lay, per_lane)
     mlp = swiglu_mlp if cfg.act == "swiglu" else gelu_mlp
     hg = lay.seq_gather(h2)
     partials = [mlp(h, v["mlp"], cfg.compute_dtype) for h, v in zip(hg, views)]
@@ -556,7 +573,7 @@ def _mesh_layer(xs: list, views: list, cfg: ModelConfig, ts: TrainShards, lay, *
                for a, o, v in zip(mix, m_out, views)]
     xs = [x + a for x, a in zip(xs, mix)]
     ff, aux = _mesh_ffn([rmsnorm(x, v["ln2"], eps) for x, v in zip(xs, views)], views, cfg,
-                        ts, lay)
+                        ts.positions, lay)
     return [x + f for x, f in zip(xs, ff)], aux
 
 
@@ -564,10 +581,18 @@ def _mesh_embed(ts: TrainShards, tokens: torch.Tensor, cfg: ModelConfig, lay,
                 batch: dict | None = None) -> list:
     """Each position's rows of the embedded tokens (a patches frontend's
     projected ``patch_embeds`` in place of the first P positions')."""
-    tp, dtype = ts.positions, cfg.compute_dtype
-    xs = embed_rows(tokens, train_views(ts, ("embed", "tok")), tp, lay, dtype, cfg.vocab_size)
+    return _rows_embed(tokens, train_views(ts, ("embed", "tok")),
+                       lambda: train_views(ts, ("vision_proj",)), ts.positions, cfg, lay, batch)
+
+
+def _rows_embed(tokens: torch.Tensor, toks: list, projs, tp, cfg: ModelConfig, lay,
+                batch: dict | None) -> list:
+    """:func:`_mesh_embed` from each position's table ``toks[p]``;
+    ``projs()`` gives each position's ``vision_proj``."""
+    dtype = cfg.compute_dtype
+    xs = embed_rows(tokens, toks, tp, lay, dtype, cfg.vocab_size)
     if cfg.frontend == "patches" and batch is not None and "patch_embeds" in batch:
-        proj = train_views(ts, ("vision_proj",))
+        proj = projs()
         P = batch["patch_embeds"].shape[1]
         for p, (b0, b1, s0, s1) in enumerate(lay.regions):
             if s0 < P:
@@ -622,6 +647,95 @@ def _forward_mesh(ts: TrainShards, batch: dict, cfg: ModelConfig):
     return _mesh_unembed(ts, xs, cfg, lay), {"lb_loss": lb_total / max(cfg.n_layers, 1)}
 
 
+def _refuse_seq(sp: SliceParams, entry: str) -> None:
+    if sp.positions.seq:
+        raise ValueError(f"{entry} runs under SERVE_RULES: a slice placed under "
+                         "PREFILL_RULES / DECODE_RULES serves through prefill and decode_step")
+
+
+def _seq_layer(xs: list, views: list, cfg: ModelConfig, tp: Positions, lay, *, entries: list,
+               row: int, rows: tuple) -> list:
+    """One layer of :func:`_prefill_seq` on each position's rows ``xs``
+    (``views[p]`` its weights): writes the layer's row ``row`` of each
+    position's cache ``entries[p]`` (K/V rows ``rows[p]`` of the prompt, or
+    the SSM channels' final states) and returns the positions' new rows."""
+    S, eps = lay.S, cfg.rms_eps
+    h = [rmsnorm(x, v["ln1"], eps) for x, v in zip(xs, views)]
+    if cfg.block == "mamba":
+        out, finals = mamba_rows(h, [v["ssm"] for v in views], cfg, lay, tp.plan.ssm,
+                                 states=True)
+        for m in tp.split("ssm"):
+            for name, t in zip(("conv", "ssm"), finals[m]):
+                entries[m][name][row] = t.to(entries[m][name].dtype)
+        return [x + o for x, o in zip(xs, out)]
+    mix, kv = attention_seq_prefill(h, [v["attn"] for v in views], cfg, lay, tp)
+    for entry, kv_m, (r0, r1) in zip(entries, kv, rows):
+        n = max(0, min(r1, S) - r0)
+        for name, t in zip(("k", "v"), kv_m):
+            entry[name][row, :, :n] = t[:, r0:r0 + n].to(entry[name].dtype)
+    xs = [x + a for x, a in zip(xs, mix)]
+    ff, _ = _mesh_ffn([rmsnorm(x, v["ln2"], eps) for x, v in zip(xs, views)], views, cfg,
+                      tp.rows(), lay, per_lane=True)
+    return [x + f for x, f in zip(xs, ff)]
+
+
+def _prefill_seq(sp: SliceParams, batch: dict, caches, cfg: ModelConfig):
+    """:func:`prefill` on a slice placed under ``PREFILL_RULES``
+    (:class:`.parallel.Positions` ``seq``) into a cache split on its
+    sequence (:func:`.parallel.seq_cache`). The residual stream is split on
+    its sequence over the positions (``act_seq``; :meth:`.parallel.Positions.
+    layout`), as the training mesh's rows: the norms run on each position's
+    rows, and each split block gathers the whole sequence and
+    reduce-scatters its partials back. Attention
+    (:func:`~.attention.attention_seq_prefill`) hands back K and V over the
+    whole sequence, from which each position writes the prompt rows its
+    shard holds (rows past the prompt stay zero, as JAX pads them); a Mamba
+    layer's final states go to the positions of their channels. MoE routes
+    each lane alone, as :func:`prefill` does. Returns the last position's
+    logits, over the ``SERVE_RULES`` vocabulary split, or the whole hidden
+    sequence of a middle stage, on the first position."""
+    x_in = _stage_input(batch, cfg)
+    B, S = x_in.shape[:2]
+    tp, dtype = sp.positions, cfg.compute_dtype
+    lay = tp.layout(B, S)
+    if cfg.stage_embed:
+        xs = _rows_embed(x_in, [sh["embed"]["tok"] for sh in sp.shards],
+                         lambda: [sh["vision_proj"] for sh in sp.shards], tp.rows(), cfg, lay,
+                         batch)
+    else:
+        xs = [lay.rows(x_in.to(dtype), p) for p in range(tp.count)]
+    for _, _, stacks, entries, row in _runs(sp.shards, caches, cfg):
+        xs = _seq_layer(xs, _layer_rows(stacks, row), cfg, tp, lay, entries=entries, row=row,
+                        rows=caches.rows)
+    caches[0]["len"][:] = S
+    if not cfg.stage_unembed:
+        return lay.global_gather(xs, tp.devices[0])
+    # The last prompt row, from the position that holds it.
+    last = (0, B, S - 1, S)
+    owner = next(p for p, r in enumerate(lay.regions) if r[2] <= S - 1 < r[3])
+    srcs, regions = list(xs), list(lay.regions)
+    srcs[owner], regions[owner] = xs[owner][:, -1:], last
+    x_last = gather_rows(srcs, regions, [last], [(owner,)], [tp.devices[0]])[0]
+    return _unembed(sp, x_last, cfg)
+
+
+def _seq_decode_rows(caches, lengths: torch.Tensor, lanes: torch.Tensor, tp: Positions
+                     ) -> list[dict]:
+    """Per position of a sequence-split cache (``caches.rows``), its lanes'
+    valid rows in its shard (``attn_len``), where it writes the new token's
+    row, and whether it holds that row (for a lane in ``lanes``)."""
+    active = torch.zeros(lengths.shape[0], dtype=torch.bool, device=lengths.device)
+    active.index_fill_(0, lanes, True)
+    out = []
+    for (r0, r1), d in zip(caches.rows, tp.devices):
+        n = on(lengths, d)
+        w = n - r0
+        out.append({"attn_len": (n + 1 - r0).clamp(0, r1 - r0).to(torch.int32),
+                    "write_idx": w.clamp(0, max(r1 - r0 - 1, 0)).long(),
+                    "write_ok": on(active, d) & (w >= 0) & (w < r1 - r0)})
+    return out
+
+
 def prefill_into(params, batch: dict, cache: dict, lanes: torch.Tensor, cfg: ModelConfig):
     """Prefill N same-length prompts into cache lanes ``lanes`` [N].
 
@@ -638,6 +752,7 @@ def prefill_into(params, batch: dict, cache: dict, lanes: torch.Tensor, cfg: Mod
     x_in = _stage_input(batch, cfg)
     S = x_in.shape[1]
     sp, caches = as_slice(params, cache, x_in.device)
+    _refuse_seq(sp, "prefill_into")
     tp = sp.positions
     for _, cls, entry in _classes(caches[0], cfg):
         if cls.window is None and "k" in entry and S > entry["k"].shape[2]:
@@ -667,11 +782,16 @@ def prefill(params, batch: dict, cfg: ModelConfig, *, max_len: int):
     """Forward over a batch of prompts, building a fresh cache of
     ``max_len`` rows per lane (rings of ``min(max_len, window)``).
     Returns (logits [B, 1, V] | hidden [B, S, D], cache): the plain tree,
-    or for a slice's weights one tree per position."""
+    or for a slice's weights one tree per position (a
+    :class:`.parallel.SeqCache` split on its sequence for a slice placed
+    under ``PREFILL_RULES``: :func:`_prefill_seq`)."""
     x_in = _stage_input(batch, cfg)
     if max_len < x_in.shape[1]:
         raise ValueError("max_len must cover the prompt")
     sp, _ = as_slice(params, None, x_in.device)
+    if sp.positions.seq:
+        caches = seq_cache(cfg, init_cache_shapes(cfg, x_in.shape[0], max_len), sp)
+        return _prefill_seq(sp, batch, caches, cfg), caches
     caches = slice_cache(cfg, init_cache_shapes(cfg, x_in.shape[0], max_len), sp)
     lanes = torch.arange(x_in.shape[0], device=x_in.device)
     out = prefill_into(sp, batch, caches, lanes, cfg)
@@ -690,6 +810,14 @@ def decode_step(params, token: torch.Tensor, cache: dict, cfg: ModelConfig,
     (default: all) get their K/V rows (and conv / SSM state) written and
     their length bumped — in place; the other lanes compute garbage the
     caller drops (the JAX engine's masked merge).
+
+    On a slice placed under ``DECODE_RULES`` with a cache split on its
+    sequence (:class:`.parallel.SeqCache`), attention is flash-decoding
+    across the positions (:func:`~.attention.attention_seq_decode`): each
+    position decodes over its own rows, with local lengths ``clamp(len + 1
+    - s0, 0, s1 - s0)``, the position holding row ``len`` writes the new
+    K/V, and the partials are merged by their log-sum-exps; the rest is the
+    ``SERVE_RULES`` slice's.
     Returns (logits [B, 1, V] | hidden [B, 1, D], cache).
     """
     sp, caches = as_slice(params, cache, token.device)
@@ -699,19 +827,22 @@ def decode_step(params, token: torch.Tensor, cache: dict, cfg: ModelConfig,
     if lanes is None:
         lanes = torch.arange(x.shape[0], device=x.device)
     positions = lengths[:, None]
-    # Valid rows and write rows per class, the same for every layer of it.
-    rows: dict[int, dict] = {}
+    # Valid rows and write rows per class and position, the same for every
+    # layer of a class (a sequence-split cache's: each position's own).
+    rows: dict[int, list[dict]] = {}
     for i, cls, entry in _classes(caches[0], cfg):
-        if "k" in entry:
+        if "k" in entry and tp.seq:
+            rows[i] = _seq_decode_rows(caches, lengths, lanes, tp)
+        elif "k" in entry:
             Lc = entry["k"].shape[2]
             ring = cls.window is not None
-            rows[i] = {
+            rows[i] = [{
                 "attn_len": (lengths + 1).clamp(max=Lc) if ring else lengths + 1,
                 "write_idx": lengths % Lc if ring else lengths,
-            }
+            }] * tp.count
     for i, cls, stacks, entries, row in _runs(sp.shards, caches, cfg):
-        views = [{**{name: t[row] for name, t in entry.items()}, **rows.get(i, {})}
-                 for entry in entries]
+        views = [{**{name: t[row] for name, t in entry.items()}, **extra}
+                 for entry, extra in zip(entries, rows.get(i, [{}] * len(entries)))]
         x, parts, _ = _layer(x, _layer_rows(stacks, row), cfg, positions=positions,
                              window=cls.window, cache=views, lanes=lanes, tp=tp)
         for entry, part, d in zip(entries, parts, tp.devices):
@@ -746,6 +877,7 @@ def prefill_chunk(params, chunk, cache: dict, offsets, valids, cfg: ModelConfig,
     if not supports_paged(cfg):
         raise ValueError(f"{cfg.name}: chunked prefill needs uniform full attention")
     sp, caches = as_slice(params, cache, chunk.device)
+    _refuse_seq(sp, "a chunked or paged step")
     tp = sp.positions
     x = _embed(sp, chunk, cfg)
     W, C = x.shape[:2]
@@ -850,6 +982,7 @@ def decode_step_paged(params, token, pools: dict, lengths, block_tables, cfg: Mo
     if not supports_paged(cfg):
         raise ValueError(f"{cfg.name}: paged decode needs uniform full attention")
     sp, pools = as_slice(params, pools, token.device)
+    _refuse_seq(sp, "a chunked or paged step")
     x = _embed(sp, token, cfg)
     lengths = lengths.to(torch.int32)
     active = lengths >= 0
@@ -889,6 +1022,7 @@ def prefill_chunk_paged(params, chunk, pools: dict, offsets, valids, block_table
     if not supports_paged(cfg):
         raise ValueError(f"{cfg.name}: chunked prefill needs uniform full attention")
     sp, pools = as_slice(params, pools, chunk.device)
+    _refuse_seq(sp, "a chunked or paged step")
     x = _embed(sp, chunk, cfg)
     offsets = offsets.to(torch.int32)
     valids = valids.to(torch.int32)

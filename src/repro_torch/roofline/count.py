@@ -30,7 +30,11 @@ the port dispatches, on ``meta``, CPU and CUDA tensors alike, and adds up
   the position of the op before it), a built-in backward op's to the
   position where its autograd node's forward op ran (read by the node's
   sequence number), and the collectives place their
-  outputs on the positions that receive them. A storage
+  outputs on the positions that receive them; a storage made from no
+  positioned input after ``collectives.make_on(m)`` (a position's zeroed
+  cache) belongs to position ``m``. A serving step drives one replica
+  slice at a time (``collectives.drive_slice``), and the positions that
+  the collectives name are that slice's. A storage
   stops counting when it is freed. With the step's arguments registered
   (:meth:`CostTally.arguments`), :mod:`repro_torch.analysis.memory`
   reports JAX's ``memory_analysis`` keys from it.
@@ -139,6 +143,7 @@ class CostTally(TorchDispatchMode):
         self.aliased = [0] * positions  # argument bytes written in place
         self._written: set[int] = set()
         self._cur = 0
+        self._base = 0  # the mesh position of the driven slice's first position
         self._fwd: dict[int, int] = {}  # autograd node sequence number -> position
         from ..distributed.collectives import KINDS
 
@@ -173,8 +178,19 @@ class CostTally(TorchDispatchMode):
         """A collective's outputs belong to the positions that receive them:
         ``outputs[i]`` to ``positions[i]``."""
         for t, p in zip(outputs, positions):
+            p += self._base
             if isinstance(t, torch.Tensor) and p < self.positions:
                 self._place(t, p)
+
+    def make_on(self, position: int) -> None:
+        """What the step makes next from no positioned input (a position's
+        zeroed cache) lives on the driven slice's ``position``."""
+        self._cur = self._base + position
+
+    def drive_slice(self, first: int) -> None:
+        """The collectives name the positions of the slice whose first
+        position is mesh position ``first``."""
+        self._base = first
 
     @property
     def collective_bytes(self) -> float:

@@ -57,6 +57,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import (
     decode_attention,
     decode_attention_ref_model,
+    merge_lse,
     paged_decode_attention,
     paged_decode_attention_ref,
     paged_prefill_attention,
@@ -184,6 +185,91 @@ def test_decode_kernel_edge_lengths(gen, dtype, window):
     assert bool((out[empty] == 0).all())
     want = decode_attention_ref_model(q.float(), kc.float(), vc.float(), lens, window=window)
     torch.testing.assert_close(out[~empty].float(), want[~empty], atol=TOL[dtype], rtol=0)
+
+
+LSE_TOL = 1e-4  # an lse of fp32 scores, from the kernel's ex2.approx and log2f
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,S,H,KV,D,lengths",
+    [
+        # A DECODE_RULES shard of chip_smoke.py phase 46 (stablelm-1.6b, a
+        # 2176-row cache over 4 positions): a full lane, a partial one, none.
+        (2, 544, 32, 32, 64, [544, 0]),
+        (2, 544, 32, 32, 64, [0, 17]),
+        (4, 544, 32, 32, 64, [0, 0, 0, 0]),
+        (2, 64, 16, 8, 64, [64, 0]),  # granite-moe's G=2
+        (3, 1024, 40, 8, 128, [0, 1000, 1024]),  # qwen2.5's G=5
+        (2, 256, 48, 1, 128, [0, 255]),  # granite's G=48
+    ],
+)
+def test_decode_kernel_lse_route_matches_plain(gen, dtype, B, S, H, KV, D, lengths):
+    """The LSE route: ``out`` in fp32, rounded to the inputs' dtype it is
+    the output without the lse, bit for bit; it holds to the plain version
+    within fp32's TOL whatever the inputs' dtype, and ``lse`` within
+    LSE_TOL; a lane of length 0 gives out 0 and lse -inf, never NaN."""
+    q = torch.randn(B, 1, H, D, generator=gen, device="cuda").to(dtype)
+    kc = torch.randn(B, S, KV, D, generator=gen, device="cuda").to(dtype)
+    vc = torch.randn(B, S, KV, D, generator=gen, device="cuda").to(dtype)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    before = decode_attention.launches
+    out, lse = decode_attention(q, kc, vc, lens, return_lse=True)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    assert lse.shape == (B, H) and lse.dtype == out.dtype == torch.float32
+    assert torch.equal(out.to(dtype), decode_attention(q, kc, vc, lens))
+    want, want_lse = decode_attention_ref_model(q.float(), kc.float(), vc.float(), lens,
+                                                return_lse=True)
+    torch.testing.assert_close(out, want, atol=TOL[torch.float32], rtol=0)
+    empty = lens == 0
+    assert not torch.isnan(lse).any() and not torch.isnan(out.float()).any()
+    assert bool((out[empty] == 0).all()) and bool((lse[empty] == -torch.inf).all())
+    torch.testing.assert_close(lse[~empty], want_lse[~empty], atol=LSE_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_shards_merged_by_lse_match_the_unsplit_kernel(gen, dtype):
+    """A 2176-row cache over 4 shards of 544 rows (phase 46's layout), the
+    lanes ending in shard 0, on the boundary of shards 1 and 2, and in the
+    last: each shard's kernel call with its local lengths, merged, against
+    the unsplit call (the merge of the fp32 partials rounds once)."""
+    B, S, H, KV, D, M = 3, 2176, 32, 32, 64, 4
+    q = torch.randn(B, 1, H, D, generator=gen, device="cuda").to(dtype)
+    kc = torch.randn(B, S, KV, D, generator=gen, device="cuda").to(dtype)
+    vc = torch.randn(B, S, KV, D, generator=gen, device="cuda").to(dtype)
+    lens = torch.tensor([300, 1088, 2049], dtype=torch.int32, device="cuda")
+    parts = []
+    for m in range(M):
+        s0, s1 = m * S // M, (m + 1) * S // M
+        local = (lens - s0).clamp(0, s1 - s0).to(torch.int32)
+        parts.append(decode_attention(q, kc[:, s0:s1], vc[:, s0:s1], local, return_lse=True))
+    merged = merge_lse([o for o, _ in parts], [lse for _, lse in parts], dtype)
+    assert merged.dtype == dtype
+    want = decode_attention_ref_model(q.float(), kc.float(), vc.float(), lens)
+    torch.testing.assert_close(merged.float(), want, atol=TOL[dtype], rtol=0)
+    torch.testing.assert_close(merged.float(), decode_attention(q, kc, vc, lens).float(),
+                               atol=TOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_output_is_the_shared_bodys_without_the_lse(gen, dtype):
+    """The paged kernel passes no lse pointer to the body it shares with the
+    dense kernel: at phase 4's serving shape (pages of 16 rows = the dense
+    tile, one chunk a lane) its output is the dense kernel's over the same
+    rows, with and without the lse, bit for bit."""
+    B, page, H, KV, D = 8, 16, 32, 32, 64
+    lengths = [9, 40, 77, 128, 150, 200, 231, 240]
+    NB = -(-max(lengths) // page)
+    k, v, _, _, bt = _paged(gen, B, NB, page, KV, D, dtype, False)
+    q = torch.randn(B, 1, H, D, generator=gen, device="cuda").to(dtype)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    out = paged_decode_attention(q, k, v, bt, lens)
+    dense_k = k[bt.long()].reshape(B, NB * page, KV, D)
+    dense_v = v[bt.long()].reshape(B, NB * page, KV, D)
+    assert torch.equal(out, decode_attention(q, dense_k, dense_v, lens))
+    assert torch.equal(out, decode_attention(q, dense_k, dense_v, lens,
+                                             return_lse=True)[0].to(dtype))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1470,6 +1556,7 @@ def _kernel_calls(gen):
         ("flash fwd fp32 with lse", flash_attention_fwd, (q32, k32, v32), {}),
         ("flash bwd", flash_attention_bwd, (q32, k32, v32, o32, lse, r(2, 40, 8, 64)), {}),
         ("decode", decode_attention, (q[:, :1], k, v, lens), {}),
+        ("decode with lse", decode_attention, (q[:, :1], k, v, lens), {"return_lse": True}),
         ("paged decode bf16", paged_decode_attention, (q[:, :1], *pages, bt, lens), {}),
         ("paged decode int8", paged_decode_attention, (q[:, :1], k8, v8, bt, lens),
          {"k_scales": ks, "v_scales": vs}),
